@@ -1,31 +1,57 @@
-"""Drive hifidiff_tpu_torch's main path once on one NVIDIA GPU and check it.
+"""Drive hifidiff_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc; without a card it exits non-zero. Phases
-(any failure ends the run with a non-zero code):
+(a failed check is reported where it happens and ends the run with a
+non-zero code and no result line; a kernel that does not build or launch
+raises at once):
 
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from hifidiff_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version on the card at every
-     shape of the main path, batch 128, bf16 and f32 (the warp with random,
-     shear and out-of-bounds thetas), with both versions' times;
+  3. `ln_film`, the warp and the fused small-map NAF block against their
+     plain PyTorch versions on the card at every shape of the paths, batch
+     128 (the warp with random, shear and out-of-bounds thetas; the block
+     with bf16 and with int8 weights, on what it adds to its input, where
+     three controls that each leave out a part of the block must fail),
+     with both versions' times, the bound of each shape and, where one
+     PyTorch call computes the same function, that call's time;
   4. the exact refiner sampler at full width on seeded, perturbed random
-     weights: (a) batch 2 in f32 with TF32 off, on the card through the
-     kernels and on the host CPU through the plain versions, compared; two
-     control runs on the card (the FiLM left out; bf16) must fail the same
-     limits; (b) batch 128 in bf16 with uint8 I/O and 50 DDIM steps: the
-     launch counts of one call, then timed calls (faces/s as the median and
-     the spread of the calls, per-stage ms, peak memory).
+     weights, batch 2 in f32 with TF32 off, on the card through the kernels
+     and on the host CPU through the plain versions, compared; two control
+     runs on the card (the FiLM left out; bf16) must fail the same limits;
+  5. the same sampler with int8 denoiser weights (the blocks that fuse
+     amplified first, so that each of their parts shows), fused small-map
+     NAF blocks and fused GroupNorm+SiLU, batch 2: bf16 on the card through
+     the kernels against float32 on the host CPU through the plain versions,
+     on the same int8 weights, and against the same bf16 run on the card
+     through the three plain versions, to within bf16 noise on the final
+     latents and the faces; and every fused block of the first step against
+     its plain version on the input the run gave it, on what the block adds
+     to that input. Two control runs (the position mix cut to its centre
+     tap; matmul_w8's column scales left out) must fail the limits;
+  6. batch 128, bf16, uint8 I/O, 50 DDIM steps, three configurations: the
+     default path, int8 only, and int8 + fused blocks + fused GroupNorm+SiLU.
+     For each: a warm-up call that records the shapes reaching every kernel
+     wrapper, one call with the launch counts set to 0 before and read
+     after, held against the counts the module tree gives; `matmul_w8` and
+     `group_norm_silu` against their plain versions at every recorded shape;
+     then timed calls in turns (faces/s as the median and the spread of the
+     calls, per-stage ms, peak memory).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is `{"ok": true, "device": {...}}`.
+The line before the last is a JSON object with one entry per kernel (times
+are sums over the launches of one sampler call: `ln_film` and the warp on
+the default path, the other three on the int8 + fused path); the last line
+is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -33,88 +59,260 @@ import sys
 import time
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 SEED = 0
 BATCH = 128
 STEPS = 50
-TIMED_CALLS = 10
+TIMED_CALLS = 10         # the default path
+TIMED_CALLS_INT8 = 5     # each int8 configuration
 
-# main-path shapes: (C, H, W) -> launches per denoiser step (ln_film: two
+KERNELS = {
+    "ln_film": ("hifidiff_tpu_torch/csrc/ln_film.cu",
+                "hifidiff_tpu/ops/pallas/ln_film.py:113"),
+    "affine_warp": ("hifidiff_tpu_torch/csrc/warp.cu",
+                    "hifidiff_tpu/ops/pallas/warp.py:118"),
+    "matmul_w8": ("hifidiff_tpu_torch/csrc/matmul_w8.cu",
+                  "hifidiff_tpu/ops/pallas/int8_matmul.py:55"),
+    "group_norm_silu": ("hifidiff_tpu_torch/csrc/gn_silu.cu",
+                        "hifidiff_tpu/ops/pallas/groupnorm_silu.py:90"),
+    "cnaf_small": ("hifidiff_tpu_torch/csrc/cnaf_small.cu",
+                   "hifidiff_tpu/ops/pallas/naf_block.py:226"),
+}
+
+# default-path shapes: (C, H, W) -> launches per denoiser step (ln_film: two
 # per ConditionalNAFBlock; enc 16^2x128 x2, 8^2x256 x2, 4^2x512 x4,
 # 2^2x1024 x8, mid 1^2x2048 x8, dec 2^2x1024, 4^2x512, 8^2x256, 16^2x128
-# x2 each) and per CR call (the warp: one per STN)
+# x2 each) and per CR call (the warp: one per STN). Phase 6 holds the
+# recorded shapes against these tables.
 LN_FILM_SHAPES = {(128, 16, 16): 8, (256, 8, 8): 8, (512, 4, 4): 12,
                   (1024, 2, 2): 20, (2048, 1, 1): 16}
 WARP_SHAPES = {(32, 128, 128): 1, (64, 64, 64): 2, (128, 32, 32): 2,
                (256, 16, 16): 2, (512, 8, 8): 2}
+# the fused block's two shapes: (C, map side) -> blocks per step at 16x16
+# latents (mid; enc3 + dec0)
+LATENT = 16
+FUSED_SHAPES = {(2048, 1): 8, (1024, 2): 10}
 THETAS = {"random": None,
           "shear": [[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]],
           "out_of_bounds": [[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]]}
 
-# kernel vs plain on the same inputs. f32: ln_film sums over C in another
-# order (a few ulps); the warp rounds each op in the plain version's order.
-# bf16: both round one float32 value; a changed sum order can move it one
-# bf16 ulp (2^-8 relative).
+# kernel vs plain on the same inputs. f32: ln_film and GroupNorm sum in
+# another order (a few ulps); the warp rounds each op in the plain version's
+# order. bf16: both round one float32 value; a changed sum order can move it
+# one bf16 ulp (2^-8 relative).
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-2)}
-# (a): f32 end to end, card vs host CPU, TF32 off on the card. The sums of
-# convs and matmuls differ in order across ~300 layers and 50 steps: the
+# matmul_w8 and the fused block: float32 sums over K <= 2048 in another
+# order than the plain version, then one rounding to bf16: one bf16 ulp
+# (2^-8 relative) of outputs of order 1-4, plus an absolute term where a sum
+# cancels. The block chains five products, so an ulp of an intermediate
+# moves the output by a few ulps.
+GEMM_TOL = (2 ** -7, 2e-2)
+BLOCK_TOL = (2 ** -6, 6e-2)
+# BLOCK_TOL alone would pass a block that does nothing: a block's output is
+# its input plus two branches, and on the seeded weights both branches lie
+# near one bf16 ulp of the input, the first a thousandth of the second. So
+# the checks of the fused block run on blocks scaled by
+# `random_weights.amplify_naf_blocks_` (each branch a tenth of the input or
+# more) and compare what the block adds, (out - x) against (plain - x), as
+# the norm of the difference over the norm of (plain - x). Kernel and plain
+# version round to bf16 at the same places, so they differ only where a
+# float32 value lies on a rounding boundary. Controls that leave out a part
+# of the block (the off-centre taps of the position mix, the SCA gate, the
+# second branch) must fail the limit.
+BRANCH_TOL = 2e-2
+# group_norm_silu on a near-constant group with a large mean: the plain
+# version (F.group_norm) computes x * a + b with a = rstd * w of about 1e3,
+# which loses about 50 * 1e3 * 2^-24 = 3e-3 to cancellation; the kernel
+# subtracts the mean first. The JAX package bounds the same case by 2e-2.
+NEAR_CONSTANT_TOL = (1e-2, 2e-2)
+# Phase 4: f32 end to end, card vs host CPU, TF32 off on the card. The sums
+# of convs and matmuls differ in order across ~300 layers and 50 steps: the
 # final latents agree to about 1e-6 of their scale and the faces to 1 level
 # (one rounding boundary). Two controls must fail these limits: the card
 # run in bf16, and the card run with the FiLM of every block left out.
 LATENT_REL_TOL = 1e-5
 FACE_LEVEL_TOL = 1
+# Phase 5: the int8 weights are the same bytes on both sides, so what
+# separates the card's bf16 run from the host's float32 run, and from the
+# same bf16 run through the three plain versions, is bf16 rounding carried
+# through 50 steps: phase 4's bf16 control reads 3.4e-3 of the latents'
+# scale and 3 levels, and the limits leave that noise a factor of two. That
+# noise hides what a fused block does (a run whose position mix is cut to
+# its centre tap reads the same), so every fused block of the first step is
+# also held to its plain version on the very input and FiLM row the run gave
+# it, on what it adds to that input, as in phase 3 (BRANCH_TOL); for that the
+# blocks that fuse are amplified as in phase 3, and only they, so that the
+# rest of the model keeps the default path's weights and its bf16 noise.
+INT8_LIMITS = (7e-3, 6)
+
+# the card's published peaks (H100 SXM): device memory bytes/s, and
+# operations/s for bf16 tensor-core products and for plain float32 math
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16_mma": 989e12, "f32": 67e12}
+
+FAILURES = []
 
 
 def log(*a):
     print(*a, flush=True)
 
 
+def fail(what):
+    log(f"FAILED: {what}")
+    FAILURES.append(what)
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    original = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield original
+    finally:
+        setattr(module, name, original)
+
+
 def time_ms(fn, iters=20, warmup=3):
-    """(eager, graph) ms per call. Eager: `iters` calls from Python between
+    """(eager, graph) ms per call. `fn` is one function or a list that is
+    walked in turn (copies of the weights at other addresses, so that no
+    call finds its weights in L2). Eager: `iters` calls from Python between
     two CUDA events, which includes the host's enqueue time when that is
     the longer. Graph: the same calls captured once in a CUDA graph and
     replayed, the card's own time."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    calls = [fns[i % len(fns)] for i in range(max(iters, len(fns)))]
+    for f in calls[:max(warmup, len(fns))]:
+        f()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(iters):
-        fn()
+    for f in calls:
+        f()
     end.record()
     torch.cuda.synchronize()
-    eager = start.elapsed_time(end) / iters
+    eager = start.elapsed_time(end) / len(calls)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for f in calls:
+            f()
     graph.replay()
     start.record()
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return eager, start.elapsed_time(end) / iters
+    return eager, start.elapsed_time(end) / len(calls)
 
 
-def close(out, ref, dtype_name):
-    rtol, atol = TOL[dtype_name]
+def bound_ms(nbytes, ops, rate):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move `nbytes` through device memory once or to do `ops` operations at
+    the peak rate of their type, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[rate] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def close(out, ref, tol):
+    rtol, atol = TOL[tol] if isinstance(tol, str) else tol
     err = (out.float() - ref.float()).abs()
-    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+    ok = bool(torch.isfinite(out).all()) and \
+        bool((err <= atol + rtol * ref.float().abs()).all())
     return ok, float(err.max())
 
 
-def check_kernels(torch, dev):
-    from hifidiff_tpu_torch.ops import norm, warp
+class Stats:
+    """Per kernel: the worst |kernel - plain| of every comparison, and per
+    shape the bf16 per-launch times on the card (CUDA graph replay) beside
+    the shape's bound."""
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    report = {}
-    failures = []
+    def __init__(self):
+        self.err = collections.defaultdict(float)
+        self.shapes = collections.defaultdict(dict)
+
+    def compare(self, name, label, out, ref, tol):
+        ok, err = close(out, ref, tol)
+        self.err[name] = max(self.err[name], err)
+        log(f"{name} {label}: max_abs_err={err:.3e} ok={ok}")
+        if not ok:
+            fail(f"{name} {label}: kernel and plain version disagree")
+        return ok
+
+    def measure(self, name, key, label, kernel, plain, nbytes, ops, rate,
+                library=None, keep=True, iters=20):
+        with torch.inference_mode():
+            k = time_ms(kernel, iters)
+            p = time_ms(plain, iters)
+            lib = time_ms(library, iters) if library is not None else None
+        b, by = bound_ms(nbytes, ops, rate)
+        log(f"{name} {label}: kernel {k[1]:.4f} ms, plain {p[1]:.4f} ms"
+            + (f", library {lib[1]:.4f} ms" if lib else "")
+            + f" per launch on the card; bound {b:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} Gop); eager from "
+            f"Python {k[0]:.4f} / {p[0]:.4f} ms")
+        if keep:
+            self.shapes[name][key] = dict(
+                ms=k[1], plain_ms=p[1], bound_ms=b, bound_by=by,
+                library_ms=lib[1] if lib else None)
+
+    def totals(self, name, by_shape):
+        """Sums over the launches `by_shape` ({shape: count}) of one sampler
+        call, or None where a shape was not timed."""
+        rows = self.shapes[name]
+        if not by_shape or any(k not in rows for k in by_shape):
+            return None
+
+        def total(field):
+            vals = [rows[k].get(field) for k in by_shape]
+            if any(v is None for v in vals):
+                return None
+            return sum(n * v for n, v in zip(by_shape.values(), vals))
+
+        by = collections.Counter()
+        for k, n in by_shape.items():
+            by[rows[k]["bound_by"]] += n * rows[k]["bound_ms"]
+        return {"launches": sum(by_shape.values()), "ms": total("ms"),
+                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": by.most_common(1)[0][0],
+                "library_ms": total("library_ms"),
+                "pair_ms": total("pair_ms")}
+
+    def entry(self, name, path, launches, shapes):
+        """One kernel's entry of the result line: the sums over one sampler
+        call of `path`, and under "paths" the same sums for every path that
+        launched the kernel. launches: {path: {kernel: count}}, shapes:
+        {path: {kernel: {shape: count}}}."""
+        paths = {p: self.totals(name, shapes[p][name]) for p in shapes
+                 if launches[p][name]}
+        main = paths.get(path)
+        if main is None or main["launches"] != launches[path][name]:
+            fail(f"{name}: the shapes {dict(shapes[path][name])} of the "
+                 f"{path} path were not all compared and timed")
+            return None
+        source, replaces = KERNELS[name]
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[path][name],
+               "max_abs_err": self.err[name],
+               **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+               "path": path, "paths": paths}
+        if main["pair_ms"] is not None:
+            # no single PyTorch call computes it: the nearest library route
+            out["bf16_pair_ms"] = main["pair_ms"]
+        return out
+
+
+def dtype_name(dtype):
+    return str(dtype).split(".")[1]
+
+
+def check_ln_film(dev, g, stats):
+    from hifidiff_tpu_torch.ops import norm
+
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[1]
-        ms = plain_ms = 0.0
-        worst = 0.0
-        for (c, h, w), per_step in LN_FILM_SHAPES.items():
+        dn = dtype_name(dtype)
+        for c, h, w in LN_FILM_SHAPES:
             x = torch.randn(BATCH, c, h, w, generator=g, device=dev).to(dtype)
             wt, bs = (torch.randn(c, generator=g, device=dev).to(dtype)
                       for _ in range(2))
@@ -122,30 +320,28 @@ def check_kernels(torch, dev):
                 s, t = (0.1 * torch.randn(fb, c, generator=g, device=dev)
                         .to(dtype) for _ in range(2))
                 with torch.inference_mode():
-                    ok, err = close(norm.ln_film(x, wt, bs, s, t),
-                                    norm.ln_film_plain(x, wt, bs, s, t), dn)
-                worst = max(worst, err)
-                log(f"ln_film {dn} {BATCH}x{c}x{h}x{w} film_batch={fb}: "
-                    f"max_abs_err={err:.3e} ok={ok}")
-                if not ok:
-                    failures.append(f"ln_film {dn} {c}x{h}x{w} fb={fb}")
-            with torch.inference_mode():
-                k = time_ms(lambda: norm.ln_film(x, wt, bs, s[:1], t[:1]))
-                p = time_ms(lambda: norm.ln_film_plain(x, wt, bs, s[:1],
-                                                       t[:1]))
-            log(f"ln_film {dn} {BATCH}x{c}x{h}x{w}: kernel {k[1]:.4f} ms, "
-                f"plain {p[1]:.4f} ms per launch on the card (eager from "
-                f"Python: {k[0]:.4f} / {p[0]:.4f} ms)")
-            ms += k[1] * per_step
-            plain_ms += p[1] * per_step
-        report[("ln_film", dn)] = (ms, plain_ms, worst)
+                    stats.compare(
+                        "ln_film", f"{dn} {BATCH}x{c}x{h}x{w} film_batch={fb}",
+                        norm.ln_film(x, wt, bs, s, t),
+                        norm.ln_film_plain(x, wt, bs, s, t), dn)
+            # one read and one write of the map, the four (C,) rows; about
+            # ten float32 operations per element
+            stats.measure(
+                "ln_film", (c, h, w), f"{dn} {BATCH}x{c}x{h}x{w}",
+                lambda: norm.ln_film(x, wt, bs, s[:1], t[:1]),
+                lambda: norm.ln_film_plain(x, wt, bs, s[:1], t[:1]),
+                (2 * x.numel() + 4 * c) * x.element_size(), 10 * x.numel(),
+                "f32", keep=dtype == torch.bfloat16)
 
-        ms = plain_ms = 0.0
-        worst = 0.0
-        for (c, h, w), per_call in WARP_SHAPES.items():
+
+def check_warp(dev, g, stats):
+    from hifidiff_tpu_torch.ops import warp
+
+    ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = dtype_name(dtype)
+        for c, h, w in WARP_SHAPES:
             x = torch.randn(BATCH, c, h, w, generator=g, device=dev).to(dtype)
-            ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
-                                 device=dev)
             for kind, fixed in THETAS.items():
                 base = ident if fixed is None else torch.tensor(fixed,
                                                                 device=dev)
@@ -154,30 +350,219 @@ def check_kernels(torch, dev):
                 coef = warp.pixel_coef(theta, h, w)
                 with torch.inference_mode():
                     out = warp.warp(x, coef)
-                    ok, err = close(out, warp.warp_plain(x, coef), dn)
+                    ok = stats.compare(
+                        "affine_warp", f"{dn} {BATCH}x{c}x{h}x{w} {kind}",
+                        out, warp.warp_plain(x, coef), dn)
                 zeros = int((out == 0).sum())
-                worst = max(worst, err)
-                log(f"affine_warp {dn} {BATCH}x{c}x{h}x{w} {kind}: "
-                    f"max_abs_err={err:.3e} zeros={zeros} ok={ok}")
-                if not ok or (kind == "out_of_bounds" and zeros == 0):
-                    failures.append(f"affine_warp {dn} {c}x{h}x{w} {kind}")
-                if kind == "random":
-                    with torch.inference_mode():
-                        k = time_ms(lambda: warp.warp(x, coef))
-                        p = time_ms(lambda: warp.warp_plain(x, coef))
-                    log(f"affine_warp {dn} {BATCH}x{c}x{h}x{w}: kernel "
-                        f"{k[1]:.4f} ms, plain {p[1]:.4f} ms per launch on "
-                        f"the card (eager from Python: {k[0]:.4f} / "
-                        f"{p[0]:.4f} ms)")
-                    ms += k[1] * per_call
-                    plain_ms += p[1] * per_call
-        report[("affine_warp", dn)] = (ms, plain_ms, worst)
-    if failures:
-        raise AssertionError(f"kernel vs plain mismatch: {failures}")
-    return report
+                if ok and kind == "out_of_bounds" and zeros == 0:
+                    fail(f"affine_warp {dn} {c}x{h}x{w}: no zero padding")
+                if kind != "random":
+                    continue
+
+                def library():
+                    # the library's route: a normalised grid in x's dtype
+                    grid = F.affine_grid(theta, list(x.shape),
+                                         align_corners=False).to(dtype)
+                    return F.grid_sample(x, grid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=False)
+
+                # one read and one write of the map and the coefficients;
+                # about a dozen float32 operations per output element
+                stats.measure(
+                    "affine_warp", (c, h, w), f"{dn} {BATCH}x{c}x{h}x{w}",
+                    lambda: warp.warp(x, coef),
+                    lambda: warp.warp_plain(x, coef),
+                    2 * x.numel() * x.element_size() + coef.numel() * 4,
+                    12 * x.numel(), "f32", library=library,
+                    keep=dtype == torch.bfloat16)
 
 
-def build_models(torch):
+def branch_error(out, ref, x):
+    """How far `out` is from `ref` in what a block adds to its input `x`:
+    the norm of (out - ref) over the norm of (ref - x)."""
+    ref, x = ref.float(), x.float()
+    return float((out.float() - ref).norm() / (ref - x).norm())
+
+
+def centre_tap_only(pack):
+    """The pack with the off-centre taps of its position mix set to 0 (on a
+    1x1 map there are none)."""
+    sp = pack.hw * pack.hw
+    keep = torch.zeros_like(pack.vec_dw)
+    centre = [p * sp + p for p in range(sp)]
+    keep[centre] = pack.vec_dw[centre]
+    return pack._replace(vec_dw=keep)
+
+
+def block_controls(pack):
+    """{what is left out: the pack without it}: blocks that a check of the
+    fused block must tell from the block itself."""
+    w = pack.weights
+    gate_one, no_gamma = pack.vec_c.clone(), pack.vec_c.clone()
+    gate_one[3] = 1.0   # vec_c rows: beta, gamma, s_sca, b_sca, ...
+    no_gamma[1] = 0.0
+    controls = {
+        "the SCA gate": pack._replace(
+            vec_c=gate_one, weights=(w[0], torch.zeros_like(w[1]), *w[2:])),
+        "the second branch": pack._replace(vec_c=no_gamma)}
+    if pack.hw > 1:
+        controls["the off-centre taps"] = centre_tap_only(pack)
+    return controls
+
+
+def check_fused_block(dev, g, stats):
+    """The fused block at the path's two shapes, bf16 maps, with bf16 and
+    with int8 weights, on perturbed and amplified weights: the outputs
+    element by element, and what the block adds to its input, where the
+    controls must fail."""
+    from hifidiff_tpu_torch.nn.layers import quantize_module_
+    from hifidiff_tpu_torch.nn.naf import ConditionalNAFBlock
+    from hifidiff_tpu_torch.ops import naf_block
+    from hifidiff_tpu_torch.random_weights import (amplify_naf_blocks_,
+                                                   perturb_)
+
+    for c, hw in FUSED_SHAPES:
+        for wname in ("bf16", "int8"):
+            torch.manual_seed(SEED)
+            blk = ConditionalNAFBlock(c, 512)
+            amplify_naf_blocks_(perturb_(
+                blk, torch.Generator().manual_seed(SEED)))
+            if wname == "int8" and quantize_module_(blk) != 6:
+                fail(f"cnaf_small C={c}: expected the five 1x1 convolutions "
+                     "and mlp.1 to take int8 weights")
+            blk = blk.to(dev, torch.bfloat16).eval()
+            x = torch.randn(BATCH, c, hw, hw, generator=g,
+                            device=dev).bfloat16()
+            film = (0.2 * torch.randn(1, 4 * c, generator=g,
+                                      device=dev)).bfloat16()
+            pack = blk.fused_pack(hw, torch.bfloat16)
+            label = f"bfloat16 {BATCH}x{c}x{hw}x{hw} {wname} weights"
+            with torch.inference_mode():
+                out = naf_block.fused_cnaf_block_small(x, film, pack)
+                ref = naf_block.fused_cnaf_block_small_plain(x, film, pack)
+                std = blk(x, None, film)
+                wrong = {what: naf_block.fused_cnaf_block_small(x, film, p)
+                         for what, p in block_controls(pack).items()}
+            stats.compare("cnaf_small", label, out, ref, BLOCK_TOL)
+            acts = float((ref.float() - x.float()).norm() / x.float().norm())
+            err = branch_error(out, ref, x)
+            log(f"cnaf_small {label}: the block adds {acts:.3f} of its "
+                f"input's norm; kernel vs plain on what it adds: {err:.3e} "
+                f"of that norm (limit {BRANCH_TOL:.1e}); the standard path "
+                f"of the same block: {branch_error(std, ref, x):.3e}")
+            if acts < 0.1:
+                fail(f"cnaf_small {label}: the block is nearly an identity")
+            if not err <= BRANCH_TOL:
+                fail(f"cnaf_small {label}: kernel and plain version disagree "
+                     "on what the block adds")
+            for what, bad in wrong.items():
+                err = branch_error(bad, ref, x)
+                log(f"cnaf_small {label}: control without {what}: {err:.3e}")
+                if not err > BRANCH_TOL:
+                    fail(f"cnaf_small {label}: the check passes a block "
+                         f"without {what}")
+            del wrong
+            # a sampler's blocks each stream their own weights from device
+            # memory: walk copies of the pack that together exceed L2
+            wbytes = sum(w.numel() * w.element_size() for w in pack.weights)
+            packs = [pack] + [
+                pack._replace(weights=tuple(w.clone() for w in pack.weights))
+                for _ in range(min(15, math.ceil(120e6 / wbytes)))]
+            m, b = BATCH * hw * hw, BATCH
+            vec_bytes = sum(t.numel() * t.element_size() for t in
+                            (pack.ln, pack.vec_c, pack.vec_2c, pack.vec_dw,
+                             film))
+            stats.measure(
+                "cnaf_small", (c, hw, wname), label,
+                [lambda p=p: naf_block.fused_cnaf_block_small(x, film, p)
+                 for p in packs],
+                [lambda p=p: naf_block.fused_cnaf_block_small_plain(
+                    x, film, p) for p in packs],
+                2 * x.numel() * 2 + wbytes + vec_bytes,
+                2 * c * c * (6 * m + b), "bf16_mma",
+                iters=max(20, len(packs)))
+            with torch.inference_mode():
+                e, gr = time_ms(lambda: blk(x, None, film))
+            log(f"cnaf_small {label}: the standard path of the same block "
+                f"(ln_film, cuDNN/cuBLAS or matmul_w8) {gr:.4f} ms on the "
+                f"card, {e:.4f} ms eagerly from Python")
+            del packs
+
+
+def check_matmul_w8(dev, g, stats, shapes):
+    from hifidiff_tpu_torch.ops import quant
+
+    for m, k, n in sorted(shapes):
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        wq, scale = quant.quantize_weight_per_cout(
+            torch.randn(n, k, generator=g, device=dev))
+        label = f"bfloat16 ({m}, {k}) @ int8 ({n}, {k})"
+        with torch.inference_mode():
+            stats.compare("matmul_w8", label, quant.matmul_w8(x, wq, scale),
+                          quant.matmul_w8_plain(x, wq, scale), GEMM_TOL)
+        wqs = [wq] + [wq.clone()
+                      for _ in range(min(15, math.ceil(100e6 / wq.numel())))]
+        stats.measure(
+            "matmul_w8", (m, k, n), label,
+            [lambda w=w: quant.matmul_w8(x, w, scale) for w in wqs],
+            [lambda w=w: quant.matmul_w8_plain(x, w, scale) for w in wqs],
+            m * k * 2 + n * k + n * 4 + m * n * 2, 2 * m * k * n, "bf16_mma",
+            iters=max(20, len(wqs)))
+    x = torch.randn(64, 128, device=dev)
+    wq, scale = quant.quantize_weight_per_cout(torch.randn(128, 128,
+                                                           device=dev))
+    try:
+        with torch.inference_mode():
+            quant.matmul_w8(x, wq, scale)
+        fail("matmul_w8 took float32 activations on the card")
+    except TypeError as e:
+        log(f"matmul_w8 float32 activations on the card are refused: {e}")
+
+
+def check_group_norm_silu(dev, g, stats, shapes):
+    from hifidiff_tpu_torch.ops import norm
+
+    for c, h, w in sorted(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dtype_name(dtype)
+            x = torch.randn(BATCH, c, h, w, generator=g, device=dev)
+            x = x.mul_(2.0).add_(0.5).to(dtype)
+            wt, bs = (torch.randn(c, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            label = f"{dn} {BATCH}x{c}x{h}x{w}"
+            with torch.inference_mode():
+                stats.compare("group_norm_silu", label,
+                              norm.group_norm_silu(x, wt, bs, fused=True),
+                              norm.group_norm_silu_plain(x, wt, bs), dn)
+            if dtype == torch.bfloat16:
+                # one read and one write of the map; about 14 float32
+                # operations per element. No single PyTorch call computes
+                # GroupNorm + SiLU: the pair below is the nearest route.
+                stats.measure(
+                    "group_norm_silu", (c, h, w), label,
+                    lambda: norm.group_norm_silu(x, wt, bs, fused=True),
+                    lambda: norm.group_norm_silu_plain(x, wt, bs),
+                    (2 * x.numel() + 2 * c) * x.element_size(),
+                    14 * x.numel(), "f32", iters=10)
+                with torch.inference_mode():
+                    pair = time_ms(lambda: F.silu(F.group_norm(
+                        x, 32, wt, bs, 1e-6)), 10)
+                log(f"group_norm_silu {label}: the bf16 pair "
+                    f"F.silu(F.group_norm(x)) {pair[1]:.4f} ms on the card")
+                stats.shapes["group_norm_silu"][(c, h, w)]["pair_ms"] = pair[1]
+            del x
+        torch.cuda.empty_cache()
+    x = 50.0 + 1e-3 * torch.randn(BATCH, 128, 32, 32, generator=g, device=dev)
+    wt, bs = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    with torch.inference_mode():
+        stats.compare("group_norm_silu",
+                      "float32 near-constant group, mean 50",
+                      norm.group_norm_silu(x, wt, bs, fused=True),
+                      norm.group_norm_silu_plain(x, wt, bs), NEAR_CONSTANT_TOL)
+
+
+def build_models():
     from hifidiff_tpu_torch.models.cr import CoarseRestoration
     from hifidiff_tpu_torch.models.refiner import FacialRefiner
     from hifidiff_tpu_torch.random_weights import perturb_
@@ -192,30 +577,167 @@ def build_models(torch):
     return models
 
 
-def make_sampler(models, steps):
+def make_sampler(models, device, **options):
+    """The sampler's entry point on `device` (it moves the models there)."""
     from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
                                              build_refiner_sampler_split)
 
     return build_refiner_sampler_split(
-        *models, RefinerPipelineConfig(num_inference_steps=steps))
+        *models, RefinerPipelineConfig(num_inference_steps=STEPS, **options),
+        device=device)
 
 
-def run_stages(torch, sample, lr, post, lat):
+def run_stages(sample, lr, post, lat, denoiser=None):
+    """(final latents, faces, [(block, x, film, out) of every block of
+    `denoiser` that runs as one fused call, at the first denoiser step])."""
+    st, seen, hooks = sample.stages, {}, []
+    for blk in (denoiser.blocks() if denoiser is not None else ()):
+        def keep(blk, args, out):
+            if args[0] is not None and blk not in seen \
+                    and blk._fused_small_ok(args[0], args[2]):
+                seen[blk] = (blk, args[0], args[2], out)
+
+        hooks.append(blk.register_forward_hook(keep))
+    try:
+        with torch.inference_mode():
+            final = st["scan"](*st["prep"](lr, post, lat))
+            return final, st["decode"](final), list(seen.values())
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def disagreement(name, run, ref, rel_tol, level_tol, branch_tol=None):
+    """True when `run` (final latents, faces, fused blocks seen) is not
+    finite or further from `ref` than the limits: the latents' largest
+    difference over their largest value, and the faces' in uint8 levels.
+    With `branch_tol`, also when a fused block that the run saw is further
+    than that from its plain version on the same input, FiLM row and (newly
+    packed) weights, in what it adds to its input (`branch_error`)."""
+    from hifidiff_tpu_torch.ops import naf_block
+
+    (final, faces, seen), (ref_final, ref_faces, _) = run, ref
+    blocks_ok = True
+    if branch_tol is not None:
+        errs = collections.defaultdict(list)
+        for blk, x, film, out in seen:
+            blk.clear_fused_packs()
+            with torch.inference_mode():
+                plain = naf_block.fused_cnaf_block_small_plain(
+                    x, film, blk.fused_pack(x.shape[2], x.dtype))
+            errs[f"{x.shape[1]} ch {x.shape[2]}x{x.shape[3]}"].append(
+                branch_error(out, plain, x))
+        for shape, e in errs.items():
+            log(f"{name}: the {len(e)} fused blocks at {shape}, first step, "
+                f"vs their plain version on what they add: "
+                f"{min(e):.3e} to {max(e):.3e} (limit {branch_tol:.1e})")
+            blocks_ok = blocks_ok and all(v <= branch_tol for v in e)
+        blocks_ok = blocks_ok and bool(errs)
+    scale = max(1.0, float(ref_final.abs().max()))
+    lat_err = float((final.float().cpu() - ref_final.float().cpu())
+                    .abs().max())
+    face_err = int((faces.cpu().int() - ref_faces.cpu().int()).abs().max())
+    log(f"{name}: final latents max_abs_diff={lat_err:.3e} (scale "
+        f"{scale:.3f}, rel {lat_err / scale:.3e}; limit {rel_tol:.1e}), "
+        f"uint8 faces max diff={face_err} levels (limit {level_tol})")
+    return not (bool(torch.isfinite(final).all()) and blocks_ok
+                and lat_err <= rel_tol * scale and face_err <= level_tol)
+
+
+@contextlib.contextmanager
+def recording():
+    """Count, by shape, the calls that reach each kernel's wrapper while the
+    block runs: {kernel: Counter({shape: calls})}. The wrappers and their
+    launch counts are untouched; the callers' references are wrapped."""
+    from hifidiff_tpu_torch.nn import layers, naf
+    from hifidiff_tpu_torch.ops import quant, warp
+    from hifidiff_tpu_torch.vae import model as vae_model
+
+    def weights(pack):
+        return "int8" if pack.weights[0].dtype == torch.int8 else "bf16"
+
+    points = (
+        ("ln_film", layers, "ln_film",
+         lambda x, *a, **k: tuple(x.shape[1:])),
+        ("affine_warp", warp, "warp", lambda x, *a, **k: tuple(x.shape[1:])),
+        ("matmul_w8", quant, "matmul_w8",
+         lambda x, wq, *a: (x.shape[0], x.shape[1], wq.shape[0])),
+        ("group_norm_silu", vae_model, "group_norm_silu",
+         lambda x, *a, fused=False, **k: tuple(x.shape[1:]) if fused
+         else None),
+        ("cnaf_small", naf, "fused_cnaf_block_small",
+         lambda x, film, pack, *a: (x.shape[1], x.shape[2], weights(pack))))
+    seen = {name: collections.Counter() for name in KERNELS}
+    with contextlib.ExitStack() as stack:
+        for kernel, module, attr, key in points:
+            def shim(*a, _orig=getattr(module, attr), _key=key,
+                     _seen=seen[kernel], **k):
+                shape = _key(*a, **k)
+                if shape is not None:
+                    _seen[shape] += 1
+                return _orig(*a, **k)
+
+            stack.enter_context(patched(module, attr, shim))
+        yield seen
+
+
+def fusable_blocks(den):
+    """The blocks of the denoiser that `fuse_small_naf` runs as one fused
+    call each at LATENT x LATENT latents. The side of a block's map is
+    halved after every encoder stage and doubled before every decoder
+    stage."""
+    n = len(den.encoders)
+    sides = [LATENT >> i for i, e in enumerate(den.encoders) for _ in e] \
+        + [LATENT >> n] * len(den.middle_blks) \
+        + [LATENT >> (n - 1 - i) for i, d in enumerate(den.decoders)
+           for _ in d]
+    return [blk for blk, side in zip(den.blocks(), sides)
+            if blk.will_fuse(side)]
+
+
+def expected_launches(refiner, cr, vae, fuse_small_naf=False,
+                      fused_gn_silu=False):
+    """The launches of one sampler call that the module tree gives; None
+    where only `> 0` is asked."""
+    blocks = refiner.denoiser.blocks()
+    n_fused = len(fusable_blocks(refiner.denoiser)) if fuse_small_naf else 0
+    return {"ln_film": 2 * (len(blocks) - n_fused) * STEPS,
+            "affine_warp": sum(hasattr(m, "fc_loc") for m in cr.modules()),
+            "cnaf_small": n_fused * STEPS,
+            "group_norm_silu": sum(vae.gn_silu_sites()) if fused_gn_silu
+            else 0,
+            "matmul_w8": None}
+
+
+def timed_call(sample, lr, post, lat):
     st = sample.stages
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with torch.inference_mode():
-        final = st["scan"](*st["prep"](lr, post, lat))
-        return final, st["decode"](final)
+        ev[0].record()
+        prep = st["prep"](lr, post, lat)
+        ev[1].record()
+        final = st["scan"](*prep)
+        ev[2].record()
+        st["decode"](final)
+        ev[3].record()
+    torch.cuda.synchronize()
+    return {name: ev[a].elapsed_time(ev[b])
+            for name, (a, b) in zip(("prep", "scan", "decode", "total"),
+                                    ((0, 1), (1, 2), (2, 3), (0, 3)))}
 
 
 def main() -> int:
-    import torch
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
-    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.models.refiner import quantize_denoiser_
+    from hifidiff_tpu_torch.nn import layers, naf
+    from hifidiff_tpu_torch.ops import kernels, naf_block, norm, quant
+    from hifidiff_tpu_torch.random_weights import amplify_naf_blocks_
+    from hifidiff_tpu_torch.vae import model as vae_model
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -233,137 +755,230 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
 
-    # -- 3. kernels vs plain at the main path's shapes ----------------------
-    report = check_kernels(torch, dev)
+    # -- 3. kernels vs plain at the paths' fixed shapes ---------------------
+    stats = Stats()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    check_ln_film(dev, g, stats)
+    check_warp(dev, g, stats)
+    check_fused_block(dev, g, stats)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] kernel checks done")
 
-    # -- 4a. full width, f32, card vs host CPU ------------------------------
+    # -- 4. full width, f32, card vs host CPU -------------------------------
     t0 = time.perf_counter()
-    cpu_models = build_models(torch)
+    cpu_models = build_models()
     log(f"models built and perturbed on the CPU: "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
-    lr = torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3),
-                                       dtype=np.uint8))
-    post = torch.from_numpy(rng.standard_normal((2, 16, 16, 4)).astype(
-        np.float32))
-    lat = torch.from_numpy(rng.standard_normal((2, 16, 16, 4)).astype(
-        np.float32))
+    inputs = (torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3),
+                                            dtype=np.uint8)),
+              *(torch.from_numpy(rng.standard_normal((2, 16, 16, 4)).astype(
+                  np.float32)) for _ in range(2)))
+    on_card = tuple(t.to(dev) for t in inputs)
+
+    def card_run(models, dtype=torch.float32, **options):
+        models = [copy.deepcopy(m).to(dtype) for m in models]
+        run = run_stages(make_sampler(models, dev, **options), *on_card,
+                         denoiser=models[0].denoiser
+                         if options.get("fuse_small_naf") else None)
+        torch.cuda.synchronize()
+        return run
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gpu_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
-    final_g, faces_g = run_stages(torch, make_sampler(gpu_models, STEPS),
-                                  lr.to(dev), post.to(dev), lat.to(dev))
-    torch.cuda.synchronize()
-    del gpu_models
+    run_g = card_run(cpu_models)
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
-    final_c, faces_c = run_stages(torch, make_sampler(cpu_models, STEPS),
-                                  lr, post, lat)
+    ref_c = run_stages(make_sampler(cpu_models, "cpu"), *inputs)
     log(f"host CPU plain run (batch 2, f32, {STEPS} steps): "
         f"{time.perf_counter() - t0:.1f} s")
-
-    def disagreement(name, final, faces):
-        scale = max(1.0, float(final_c.abs().max()))
-        lat_err = float((final.cpu() - final_c).abs().max())
-        face_err = int((faces.cpu().int() - faces_c.int()).abs().max())
-        log(f"{name}: final latents max_abs_diff={lat_err:.3e} (scale "
-            f"{scale:.3f}, rel {lat_err / scale:.3e}), uint8 faces max diff="
-            f"{face_err} levels")
-        return not (bool(torch.isfinite(final).all())
-                    and lat_err <= LATENT_REL_TOL * scale
-                    and face_err <= FACE_LEVEL_TOL)
-
-    if disagreement("e2e f32 card vs CPU", final_g, faces_g):
-        raise AssertionError("card and CPU runs disagree")
+    limits = (LATENT_REL_TOL, FACE_LEVEL_TOL)
+    if disagreement("e2e f32 card vs CPU", run_g, ref_c, *limits):
+        fail("default path: card and CPU runs disagree")
 
     # controls: paths that are wrong in the FiLM or in precision must fail
-    from hifidiff_tpu_torch.nn import layers
-    from hifidiff_tpu_torch.ops import norm
-
     def film_ignored(x, w, b, scale, shift, eps):
         return norm.ln_film(x, w, b, torch.zeros_like(scale),
                             torch.zeros_like(shift), eps)
 
-    gpu_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
-    layers.ln_film = film_ignored
-    try:
-        control = run_stages(torch, make_sampler(gpu_models, STEPS),
-                             lr.to(dev), post.to(dev), lat.to(dev))
-    finally:
-        layers.ln_film = norm.ln_film
-    if not disagreement("control, f32 card with the FiLM left out", *control):
-        raise AssertionError("the e2e check passes a path without FiLM")
-    gpu_models = [m.to(torch.bfloat16) for m in gpu_models]
-    control = run_stages(torch, make_sampler(gpu_models, STEPS),
-                         lr.to(dev), post.to(dev), lat.to(dev))
-    if not disagreement("control, bf16 on the card", *control):
-        raise AssertionError("the e2e check passes a bf16 path")
-    del gpu_models, control
+    with patched(layers, "ln_film", film_ignored):
+        control = card_run(cpu_models)
+    if not disagreement("control, f32 card with the FiLM left out",
+                        control, ref_c, *limits):
+        fail("the e2e check passes a path without FiLM")
+    control = card_run(cpu_models, torch.bfloat16)
+    if not disagreement("control, bf16 on the card", control, ref_c,
+                        *limits):
+        fail("the e2e check passes a bf16 path")
+    del control, run_g
+    log(f"[{time.perf_counter() - t_start:.0f} s] default path checked")
+
+    # -- 5. int8 + fused blocks + fused GN+SiLU, batch 2 --------------------
+    both = dict(fuse_small_naf=True, fused_gn_silu=True)
+    cpu_q = copy.deepcopy(cpu_models)
+    for blk in fusable_blocks(cpu_q[0].denoiser):   # the blocks under test
+        amplify_naf_blocks_(blk)
+    n_q = quantize_denoiser_(cpu_q[0])
+    log(f"quantize_denoiser_: {n_q} layers of the denoiser hold int8 weights")
+    t0 = time.perf_counter()
+    ref_q = run_stages(make_sampler(cpu_q, "cpu", **both), *inputs)
+    log(f"host CPU plain run, int8 + fused configuration (batch 2, f32, "
+        f"{STEPS} steps): {time.perf_counter() - t0:.1f} s")
+    kernels.reset_launches()
+    run_q = card_run(cpu_q, torch.bfloat16, **both)
+    log(f"launches of the batch-2 call: {dict(kernels.LAUNCHES)}")
+    if disagreement("e2e int8 + fused: bf16 card (kernels) vs f32 CPU "
+                    "(plain)", run_q, ref_q, *INT8_LIMITS, BRANCH_TOL):
+        fail("int8 + fused path: card and CPU runs disagree, or a fused "
+             "block and its plain version")
+
+    def gn_plain(x, w, b, groups, eps, fused=False):
+        return norm.group_norm_silu_plain(x, w, b, groups, eps)
+
+    with patched(naf, "fused_cnaf_block_small",
+                 naf_block.fused_cnaf_block_small_plain), \
+            patched(quant, "matmul_w8", quant.matmul_w8_plain), \
+            patched(vae_model, "group_norm_silu", gn_plain):
+        kernels.reset_launches()
+        plain_q = card_run(cpu_q, torch.bfloat16, **both)
+    if any(kernels.LAUNCHES[k] for k in ("cnaf_small", "matmul_w8",
+                                         "group_norm_silu")):
+        fail("the plain-version run launched a kernel it should have "
+             "replaced")
+    disagreement("for the record: bf16 card (plain) vs f32 CPU (plain)",
+                 plain_q, ref_q, *INT8_LIMITS)
+    if disagreement("e2e int8 + fused: bf16 card, kernels vs plain versions",
+                    run_q, plain_q, *INT8_LIMITS):
+        fail("int8 + fused path: the kernels and their plain versions "
+             "disagree on the card")
+
+    def packed_centre_tap_only(**kw):
+        return centre_tap_only(naf_block.pack_cnaf_block(**kw))
+
+    with patched(naf, "pack_cnaf_block", packed_centre_tap_only):
+        control = card_run(cpu_q, torch.bfloat16, **both)
+    if not disagreement("control, position mix cut to its centre tap, vs "
+                        "plain versions", control, plain_q, *INT8_LIMITS,
+                        BRANCH_TOL):
+        fail("the int8 + fused check passes a block without its "
+             "off-centre taps")
+
+    def no_scale(x, wq, scale, kernel=quant.matmul_w8):
+        return kernel(x, wq, torch.ones_like(scale))
+
+    with patched(quant, "matmul_w8", no_scale):
+        control = card_run(cpu_q, torch.bfloat16, **both)
+    if not disagreement("control, matmul_w8's column scales left out, vs "
+                        "plain versions", control, plain_q, *INT8_LIMITS,
+                        BRANCH_TOL):
+        fail("the int8 + fused check passes a matmul_w8 without its "
+             "column scales")
+    del control, run_q, plain_q
+    log(f"[{time.perf_counter() - t_start:.0f} s] int8 + fused path checked")
+
+    # -- 6. batch 128, bf16, uint8 I/O, 50 steps, three configurations ------
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-
-    # -- 4b. batch 128, bf16, uint8 I/O, 50 steps ---------------------------
-    models = [m.to(dev, torch.bfloat16) for m in cpu_models]
+    del cpu_q   # its beta and gamma are not the default path's
+    int8_models = copy.deepcopy(cpu_models)
+    quantize_denoiser_(int8_models[0])
+    float_models = [m.to(dev, torch.bfloat16) for m in cpu_models]
+    int8_models = [m.to(dev, torch.bfloat16) for m in int8_models]
     del cpu_models
-    sample = make_sampler(models, STEPS)
+    configs = {
+        "default": (float_models, {}, TIMED_CALLS),
+        "int8": (int8_models, {}, TIMED_CALLS_INT8),
+        "int8+fused": (int8_models, both, TIMED_CALLS_INT8)}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     lr = torch.randint(0, 256, (BATCH, 128, 128, 3), generator=gen,
                        device=dev, dtype=torch.uint8)
     post = torch.randn(BATCH, 16, 16, 4, generator=gen, device=dev)
     lat = torch.randn(BATCH, 16, 16, 4, generator=gen, device=dev)
+    noise = dict(posterior_noise=post, latents_noise=lat)
 
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    out = sample(lr, posterior_noise=post, latents_noise=lat)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    log(f"launches in one sampler call: {launches}")
-    expected = {"ln_film": 64 * STEPS, "affine_warp": 9}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
-    if out.dtype != torch.uint8 or tuple(out.shape) != (BATCH, 128, 128, 3) \
-            or int(out.min()) == int(out.max()):
-        raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+    samplers, launches, shapes = {}, {}, {}
+    for name, (models, options, _) in configs.items():
+        sample = samplers[name] = make_sampler(models, dev, **options)
+        with recording() as seen:      # the warm-up call
+            sample(lr, **noise)
+        torch.cuda.synchronize()
+        shapes[name] = seen
+        kernels.reset_launches()
+        out = sample(lr, **noise)
+        torch.cuda.synchronize()
+        launches[name] = dict(kernels.LAUNCHES)
+        log(f"{name}: launches in one sampler call: {launches[name]}")
+        expected = expected_launches(*models, **options)
+        for kernel, n in launches[name].items():
+            want = expected[kernel]
+            if n != sum(shapes[name][kernel].values()) \
+                    or (want is not None and n != want) \
+                    or (want is None and (n > 0) != (name != "default")):
+                fail(f"{name}: {kernel} launched {n} times, the module tree "
+                     f"gives {want}, the recorded calls "
+                     f"{sum(shapes[name][kernel].values())}")
+        if out.dtype != torch.uint8 \
+                or tuple(out.shape) != (BATCH, 128, 128, 3) \
+                or int(out.min()) == int(out.max()):
+            fail(f"{name}: bad output {out.dtype} {tuple(out.shape)}")
+    per_step = {k: n * STEPS for k, n in LN_FILM_SHAPES.items()}
+    if dict(shapes["default"]["ln_film"]) != per_step \
+            or dict(shapes["default"]["affine_warp"]) != WARP_SHAPES:
+        fail(f"default path: recorded shapes {shapes['default']} differ from "
+             "the tables")
+    if dict(shapes["int8+fused"]["cnaf_small"]) != {
+            (c, hw, "int8"): n * STEPS for (c, hw), n in FUSED_SHAPES.items()}:
+        fail(f"int8 + fused path: fused blocks ran at "
+             f"{shapes['int8+fused']['cnaf_small']}")
+    log(f"[{time.perf_counter() - t_start:.0f} s] launch counts read")
 
-    st = sample.stages
+    mm_shapes = shapes["int8"]["matmul_w8"] + shapes["int8+fused"]["matmul_w8"]
+    log(f"matmul_w8 shapes (M, K, N) -> launches per call: int8 only "
+        f"{dict(shapes['int8']['matmul_w8'])}, int8 + fused "
+        f"{dict(shapes['int8+fused']['matmul_w8'])}")
+    check_matmul_w8(dev, g, stats, mm_shapes)
+    log(f"group_norm_silu shapes (C, H, W) -> launches per call: "
+        f"{dict(shapes['int8+fused']['group_norm_silu'])}")
+    check_group_norm_silu(dev, g, stats,
+                          shapes["int8+fused"]["group_norm_silu"])
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] recorded shapes checked")
+
     torch.cuda.reset_peak_memory_stats()
-    per_call = {"prep": [], "scan": [], "decode": [], "total": []}
-    with torch.inference_mode():
-        for _ in range(TIMED_CALLS):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            prep = st["prep"](lr, post, lat)
-            ev[1].record()
-            final = st["scan"](*prep)
-            ev[2].record()
-            st["decode"](final)
-            ev[3].record()
-            torch.cuda.synchronize()
-            for name, (a, b) in zip(("prep", "scan", "decode", "total"),
-                                    ((0, 1), (1, 2), (2, 3), (0, 3))):
-                per_call[name].append(ev[a].elapsed_time(ev[b]))
+    per_call = {name: collections.defaultdict(list) for name in configs}
+    for i in range(max(n for _, _, n in configs.values())):
+        for name, (_, _, n) in configs.items():      # in turns
+            if i < n:
+                for stage, ms in timed_call(samplers[name], lr, post,
+                                            lat).items():
+                    per_call[name][stage].append(ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    med = {k: statistics.median(v) for k, v in per_call.items()}
-    tot = per_call["total"]
-    log(f"bf16 batch {BATCH}, {STEPS} DDIM steps, uint8 I/O, "
-        f"{TIMED_CALLS} timed calls: faces/s={BATCH / med['total'] * 1e3:.2f} "
-        f"median ({BATCH / max(tot) * 1e3:.2f}-{BATCH / min(tot) * 1e3:.2f} "
-        f"over the calls); median total {med['total']:.1f} ms, prep "
-        f"{med['prep']:.1f}, scan {med['scan']:.1f}, decode "
-        f"{med['decode']:.1f} ms; peak memory {peak_gb:.2f} GB [{smi}]")
-    for name, v in per_call.items():
-        log(f"  {name} ms per call: {[round(x, 1) for x in v]}")
+    for name, calls in per_call.items():
+        med = {k: statistics.median(v) for k, v in calls.items()}
+        tot = calls["total"]
+        log(f"{name}: bf16 batch {BATCH}, {STEPS} DDIM steps, uint8 I/O, "
+            f"{len(tot)} timed calls: faces/s="
+            f"{BATCH / med['total'] * 1e3:.2f} median "
+            f"({BATCH / max(tot) * 1e3:.2f}-{BATCH / min(tot) * 1e3:.2f} "
+            f"over the calls); median total {med['total']:.1f} ms, prep "
+            f"{med['prep']:.1f}, scan {med['scan']:.1f}, decode "
+            f"{med['decode']:.1f} ms [{smi}]")
+        for stage, v in calls.items():
+            log(f"  {name} {stage} ms per call: {[round(x, 1) for x in v]}")
+    log(f"peak memory over the timed calls, the three configurations "
+        f"resident: {peak_gb:.2f} GB")
 
-    sources = {"ln_film": ("hifidiff_tpu_torch/csrc/ln_film.cu",
-                           "hifidiff_tpu/ops/pallas/ln_film.py:113"),
-               "affine_warp": ("hifidiff_tpu_torch/csrc/warp.cu",
-                               "hifidiff_tpu/ops/pallas/warp.py:118")}
-    entries = []
-    for name, (src, replaces) in sources.items():
-        ms, plain_ms, err = report[(name, "bfloat16")]
-        entries.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    entries = [
+        stats.entry(k, path, launches, shapes)
+        for k, path in (("ln_film", "default"), ("affine_warp", "default"),
+                        ("matmul_w8", "int8+fused"),
+                        ("group_norm_silu", "int8+fused"),
+                        ("cnaf_small", "int8+fused"))]
+    log(f"[{time.perf_counter() - t_start:.0f} s] done")
+    if FAILURES:
+        print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,15 @@ block counts are read from the trees, so no model config is needed.
 
 Each result loads into the matching port model with
 `load_state_dict(sd, strict=True)`.
+
+A quantized tree (`quantize_variables` of the JAX package: `kernel_q` int8
+and `kernel_scale` in place of `kernel`) gives `weight_q` / `weight_scale`
+in place of `weight`, the same int8 bytes, and loads into a model whose
+layers `quantize_module_` has replaced. The way back goes through the JAX
+package's float importers twice: `split_quantized_state_dict` gives two
+float-named state dicts (the int8 values, and the scales broadcast over
+each weight), and `merge_quantized_trees` joins the two imported trees
+into the quantized one.
 """
 
 from __future__ import annotations
@@ -34,18 +43,26 @@ def _count(tree: Tree, prefix: str, suffix: str = "") -> int:
     return sum(1 for k in tree if pat.match(k))
 
 
-def _conv(sd: StateDict, p: str, leaf: Tree) -> None:
-    """A conv leaf {"kernel" (HWIO), ["bias"]} -> p.weight (OIHW), p.bias."""
-    sd[f"{p}.weight"] = _t(np.transpose(np.asarray(leaf["kernel"]),
-                                        (3, 2, 0, 1)))
+def _weight(sd: StateDict, p: str, leaf: Tree, to_torch) -> None:
+    """`to_torch` maps the JAX kernel layout to the port's; a quantized leaf
+    ({"kernel_q", "kernel_scale"}) keeps its int8 values."""
+    if "kernel_q" in leaf:
+        sd[f"{p}.weight_q"] = torch.from_numpy(np.array(  # a writable copy
+            to_torch(np.asarray(leaf["kernel_q"])), dtype=np.int8, order="C"))
+        sd[f"{p}.weight_scale"] = _t(leaf["kernel_scale"])
+    else:
+        sd[f"{p}.weight"] = _t(to_torch(np.asarray(leaf["kernel"])))
     if "bias" in leaf:
         sd[f"{p}.bias"] = _t(leaf["bias"])
+
+
+def _conv(sd: StateDict, p: str, leaf: Tree) -> None:
+    """A conv leaf {"kernel" (HWIO), ["bias"]} -> p.weight (OIHW), p.bias."""
+    _weight(sd, p, leaf, lambda k: np.transpose(k, (3, 2, 0, 1)))
 
 
 def _dense(sd: StateDict, p: str, leaf: Tree) -> None:
-    sd[f"{p}.weight"] = _t(np.asarray(leaf["kernel"]).T)
-    if "bias" in leaf:
-        sd[f"{p}.bias"] = _t(leaf["bias"])
+    _weight(sd, p, leaf, lambda k: k.T)
 
 
 def _ln(sd: StateDict, p: str, leaf: Tree) -> None:
@@ -184,9 +201,8 @@ def fused_denoiser_state_dict(params: Tree, stats: Tree) -> StateDict:
     for i in range(_count(params, "up")):
         _conv(sd, f"ups.{i}.0", params[f"up{i}"]["conv"])
         blocks(f"decoders.{i}", f"dec{i}")
-    dense = params["idc_proj"]["dense"]
-    sd["idc_conv.weight"] = _t(np.asarray(dense["kernel"]).T[:, :, None, None])
-    sd["idc_conv.bias"] = _t(dense["bias"])
+    _weight(sd, "idc_conv", params["idc_proj"]["dense"],
+            lambda k: k.T[:, :, None, None])
     for i in range(_count(params, "hca")):
         sd.update(_prefixed(f"hcas.{i}", hca_state_dict(params[f"hca{i}"],
                                                         stats[f"hca{i}"])))
@@ -244,3 +260,44 @@ def vae_state_dict(params: Tree) -> StateDict:
     _conv(sd, "quant_conv", params["quant_conv"])
     _conv(sd, "post_quant_conv", params["post_quant_conv"])
     return sd
+
+
+def split_quantized_state_dict(sd: Mapping[str, torch.Tensor]
+                               ) -> tuple[StateDict, StateDict]:
+    """A port state dict with int8 layers -> (values, scales), two state
+    dicts under the float names that the JAX package's importers read:
+    `values` holds each int8 weight as float32 (float layers unchanged),
+    `scales` each layer's scale broadcast over its weight's shape, and zeros
+    for a float layer's weight."""
+    values: StateDict = {}
+    scales: StateDict = {}
+    for k, v in sd.items():
+        if k.endswith(".weight_scale"):
+            continue
+        if k.endswith(".weight_q"):
+            name = k[:-len("_q")]
+            scale = sd[f"{name}_scale"].float()
+            values[name] = v.float()
+            scales[name] = scale.reshape(-1, *([1] * (v.dim() - 1))) \
+                .expand(v.shape).clone()
+        else:
+            values[k] = v
+            scales[k] = torch.zeros_like(v) if k.endswith(".weight") else v
+    return values, scales
+
+
+def merge_quantized_trees(values: Tree, scales: Tree) -> Dict:
+    """The JAX trees imported from `split_quantized_state_dict`'s two state
+    dicts -> one tree with {"kernel_q", "kernel_scale"} wherever the scales
+    tree holds a non-zero kernel (a scale is at least 1e-8 / 127)."""
+    out = {}
+    for k, v in values.items():
+        if isinstance(v, Mapping):
+            out[k] = merge_quantized_trees(v, scales[k])
+        elif k == "kernel" and np.any(np.asarray(scales[k])):
+            s = np.asarray(scales[k], np.float32)
+            out["kernel_q"] = np.asarray(v).astype(np.int8)
+            out["kernel_scale"] = s.reshape(-1, s.shape[-1])[0].copy()
+        else:
+            out[k] = v
+    return out

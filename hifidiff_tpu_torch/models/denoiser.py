@@ -17,6 +17,10 @@ the FiLM tables of every block for all the sampler's timesteps, the identity
 injection and the HCA gates. `forward(films=..., idc_pre=..., hca_gates=...)`
 then runs one step without them. Only the exact sampler's modes are ported
 here (full and precompute).
+
+`fuse_small_naf` (off by default) runs the blocks on 1x1 and 2x2 maps (at
+16x16 latents: enc3, the middle blocks and dec0) through the fused
+small-map block (each block decides: `ConditionalNAFBlock.will_fuse`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from hifidiff_tpu_torch.nn.hca import HybridCrossAttention
+from hifidiff_tpu_torch.nn.layers import compute_dtype
 from hifidiff_tpu_torch.nn.naf import ConditionalNAFBlock
 from hifidiff_tpu_torch.ops.embedding import SinusoidalPosEmb
 from hifidiff_tpu_torch.ops.gates import SimpleGate
@@ -44,7 +49,7 @@ class TimeMLP(nn.Sequential):
                          nn.Linear(time_dim, time_dim))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        emb = self[0](t).to(self[1].weight.dtype)
+        emb = self[0](t).to(compute_dtype(self[1]))
         return self[3](self[2](self[1](emb)))
 
 
@@ -93,7 +98,7 @@ class FusedDenoiser(nn.Module):
 
     def idc_injection(self, identity_embedding: torch.Tensor) -> torch.Tensor:
         """(B, 2048) -> (B, ch, bh, bw), the reference's NCHW view."""
-        e = identity_embedding.to(self.idc_conv.weight.dtype)
+        e = identity_embedding.to(compute_dtype(self.idc_conv))
         return self.idc_conv(e[:, :, None, None]).reshape(
             e.shape[0], *self._bottleneck)
 
@@ -115,33 +120,40 @@ class FusedDenoiser(nn.Module):
                 identity_embedding: Optional[torch.Tensor],
                 films: Optional[Sequence[torch.Tensor]] = None,
                 idc_pre: Optional[torch.Tensor] = None,
-                hca_gates: Optional[Sequence] = None) -> torch.Tensor:
+                hca_gates: Optional[Sequence] = None,
+                fuse_small_naf: bool = False) -> torch.Tensor:
         """latents (B, 4, h, w), timesteps (B,), priors from the FPG, the
         (B, 2048) IDC embedding -> predicted epsilon (B, 4, h, w).
         `films` (one per block, batch B or 1), `idc_pre` and `hca_gates` are
-        `precompute`'s outputs; with `films` the timesteps are unused."""
+        `precompute`'s outputs; with `films` the timesteps are unused.
+        `fuse_small_naf` sends the blocks that pass their gate through the
+        fused small-map block."""
         h, w = latents.shape[2], latents.shape[3]
         t = self.time_mlp(timesteps) if films is None else None
         films = iter(films if films is not None else
                      [None] * len(self.blocks()))
+
+        def run(blk, x):
+            return blk(x, t, next(films), fuse_small_naf)
+
         gates = hca_gates if hca_gates is not None else \
             [None] * len(self.hcas)
 
-        x = self.intro(latents.to(self.intro.weight.dtype))
+        x = self.intro(latents.to(compute_dtype(self.intro)))
         skips = []
         for enc, down in zip(self.encoders, self.downs):
             for blk in enc:
-                x = blk(x, t, next(films))
+                x = run(blk, x)
             skips.append(x)  # pre-downsample skip (reference convention)
             x = down(x)
         for blk in self.middle_blks:
-            x = blk(x, t, next(films))
+            x = run(blk, x)
         x = x + (self.idc_injection(identity_embedding) if idc_pre is None
                  else idc_pre)
         x = self.hcas[0](facial_priors[0], x, gates[0])
         for i, (up, dec) in enumerate(zip(self.ups, self.decoders)):
             x = up(x) + skips[-1 - i]
             for blk in dec:
-                x = blk(x, t, next(films))
+                x = run(blk, x)
             x = self.hcas[i + 1](facial_priors[i + 1], x, gates[i + 1])
         return self.ending(x)[:, :, :h, :w]

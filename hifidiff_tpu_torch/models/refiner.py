@@ -13,6 +13,7 @@ from torch import nn
 from hifidiff_tpu_torch.models.denoiser import FusedDenoiser
 from hifidiff_tpu_torch.models.fpg import FacialPriorGuidance
 from hifidiff_tpu_torch.models.idc import IDCEncoder
+from hifidiff_tpu_torch.nn.layers import quantize_module_
 
 
 class FacialRefiner(nn.Module):
@@ -28,9 +29,17 @@ class FacialRefiner(nn.Module):
         self.fpg = FacialPriorGuidance(width=width, enc_nums=enc_nums)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                cr_face: torch.Tensor, cr_latent: torch.Tensor
-                ) -> torch.Tensor:
+                cr_face: torch.Tensor, cr_latent: torch.Tensor,
+                fuse_small_naf: bool = False) -> torch.Tensor:
         """Noisy latents (B, 4, h, w), timesteps (B,), the CR face
         (B, 3, 128, 128) in [0, 1] and its VAE latent -> epsilon."""
         return self.denoiser(latents, timesteps, self.fpg(cr_latent),
-                             self.idc(cr_face))
+                             self.idc(cr_face),
+                             fuse_small_naf=fuse_small_naf)
+
+
+def quantize_denoiser_(refiner: FacialRefiner) -> int:
+    """Int8 weights for the denoiser, in place: the weights the sampler's
+    loop streams every step. The once-per-batch trunks (IDC, FPG) stay
+    float. Returns the number of layers replaced."""
+    return quantize_module_(refiner.denoiser)

@@ -4,8 +4,9 @@ The kernels live in `hifidiff_tpu_torch/csrc/*.cu`. They are compiled with
 nvcc for `sm_90a` into one shared library with a plain C interface and bound
 with ctypes; no PyTorch header is included, so the build takes seconds. The
 build runs at the first launch, from the package's own sources, into
-`hifidiff_tpu_torch/_build/` (listed in .gitignore). The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt.
+`hifidiff_tpu_torch/_build/` (listed in .gitignore): one nvcc per source, all
+started together, then one link. The library's name carries a hash of the
+sources and flags, so an edited source is rebuilt.
 
 `LAUNCHES` counts launches per kernel. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its path went
@@ -27,12 +28,14 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("ln_film.cu", "warp.cu")
-_HEADERS = ("common.cuh",)
+_SOURCES = ("ln_film.cu", "warp.cu", "matmul_w8.cu", "gn_silu.cu",
+            "cnaf_small.cu")
+_HEADERS = ("common.cuh", "gemm_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"ln_film": 0, "affine_warp": 0}
+LAUNCHES = {"ln_film": 0, "affine_warp": 0, "matmul_w8": 0,
+            "group_norm_silu": 0, "cnaf_small": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +56,35 @@ def _nvcc() -> str:
     return found
 
 
+def _build(path: pathlib.Path) -> str:
+    """Compile every source to an object file, all nvcc processes started
+    together, link them into `path`, and return nvcc's stderr (ptxas -v)."""
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s}.o" for s in _SOURCES]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = [(c, p.communicate()[1], p.returncode)
+               for c, p in zip(cmds, procs)]
+    try:
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(code == 0 for _, _, code in results):
+            res = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, res.stderr, res.returncode))
+        for cmd, err, code in results:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed with code {code}:\n"
+                                   f"{' '.join(cmd)}\n{err}")
+        os.replace(tmp, path)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(err for _, err, _ in results)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed. Its `build_log`
@@ -65,15 +97,7 @@ def library() -> ctypes.CDLL:
     log = "cached"
     if not path.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in _SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, path)
-        log = res.stderr
+        log = _build(path)
     lib = ctypes.CDLL(str(path))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
@@ -81,6 +105,12 @@ def library() -> ctypes.CDLL:
     lib.hifidiff_ln_film.restype = i
     lib.hifidiff_affine_warp.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.hifidiff_affine_warp.restype = i
+    lib.hifidiff_matmul_w8.argtypes = [p, p, p, p, i, i, i, p]
+    lib.hifidiff_matmul_w8.restype = i
+    lib.hifidiff_gn_silu.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+    lib.hifidiff_gn_silu.restype = i
+    lib.hifidiff_cnaf_small.argtypes = [*([p] * 13), i, i, i, i, f, p]
+    lib.hifidiff_cnaf_small.restype = i
     lib.build_log = log
     return lib
 
@@ -117,3 +147,12 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
         return 0
     raise TypeError(f"{name}: dtype {t.dtype} not supported "
                     "(float32 or bfloat16)")
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The vector loads of the kernels need 16-byte aligned base pointers
+    (every tensor PyTorch allocates is; a view at an odd offset is not)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
+                             "not 16-byte aligned")

@@ -100,10 +100,53 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return _group_norm_f32(x, weight, bias, num_groups, eps).to(x.dtype)
 
 
-def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+def group_norm_silu_plain(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor, num_groups: int = 32,
+                          eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm (float32 statistics) + per-channel affine + SiLU, the
-    SD-VAE block prologue. Plain PyTorch: the TPU's one-pass kernel for it is
-    opt-in and off the main path."""
+    SD-VAE block prologue, in plain PyTorch: the default path, and the
+    fused kernel's plain version."""
     y = _group_norm_f32(x, weight, bias, num_groups, eps)
     return F.silu(y).to(x.dtype)
+
+
+def _group_norm_silu_cuda(x, weight, bias, num_groups, eps):
+    name = "group_norm_silu"
+    kernels.check_launchable(name, x, weight, bias)
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous NCHW tensor, got "
+                         f"shape {tuple(x.shape)}")
+    b, c, h, w = x.shape
+    is_bf16 = kernels.dtype_code(x, name)
+    if weight.dtype != x.dtype or bias.dtype != x.dtype:
+        raise TypeError(f"{name}: weight and bias must have x's dtype "
+                        f"{x.dtype}, got {weight.dtype} / {bias.dtype}")
+    if weight.shape != (c,) or bias.shape != (c,) \
+            or not weight.is_contiguous() or not bias.is_contiguous():
+        raise ValueError(f"{name}: weight and bias must be contiguous ({c},)")
+    if num_groups < 1 or c % num_groups or b == 0:
+        raise ValueError(f"{name}: {c} channels do not split into "
+                         f"{num_groups} groups, or the batch is empty")
+    kernels.check_aligned(name, x)
+    out = torch.empty_like(x)
+    lib = kernels.library()
+    kernels.check(lib.hifidiff_gn_silu(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+        c, h * w, num_groups, float(eps), is_bf16,
+        kernels.stream_ptr(x.device)), name)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int = 32, eps: float = 1e-6,
+                    fused: bool = False) -> torch.Tensor:
+    """GroupNorm + per-channel affine + SiLU. `fused=False` (the default) is
+    the plain version on any device. `fused=True` is the one-pass kernel
+    (csrc/gn_silu.cu) for a CUDA tensor, which raises where it cannot run; a
+    CPU tensor takes the plain version."""
+    if not fused or x.device.type == "cpu":
+        return group_norm_silu_plain(x, weight, bias, num_groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+    return _group_norm_silu_cuda(x, weight, bias, num_groups, eps)

@@ -8,6 +8,10 @@ single-head self-attention mid block (matmul + softmax), the asymmetric
 Module names are diffusers' (`encoder.down_blocks.0.resnets.0.norm1`,
 `decoder.mid_block.attentions.0.to_q`, ...), so a diffusers checkpoint
 loads with `load_state_dict`.
+
+`fused_gn_silu` (an argument of `encode` / `moments` / `decode`, off by
+default) sends every GroupNorm + SiLU site through the fused kernel
+(`ops.norm.group_norm_silu(..., fused=True)`).
 """
 
 from __future__ import annotations
@@ -27,9 +31,10 @@ def _gn(ch: int) -> nn.GroupNorm:
     return nn.GroupNorm(32, ch, eps=1e-6)
 
 
-def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+def _gn_silu(norm: nn.GroupNorm, x: torch.Tensor,
+             fused: bool = False) -> torch.Tensor:
     return group_norm_silu(x, norm.weight, norm.bias, norm.num_groups,
-                           norm.eps)
+                           norm.eps, fused=fused)
 
 
 class ResnetBlock2D(nn.Module):
@@ -42,9 +47,9 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(_gn_silu(self.norm1, x))
-        h = self.conv2(_gn_silu(self.norm2, h))
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        h = self.conv1(_gn_silu(self.norm1, x, fused))
+        h = self.conv2(_gn_silu(self.norm2, h, fused))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -79,9 +84,9 @@ class MidBlock(nn.Module):
                                       ResnetBlock2D(ch, ch)])
         self.attentions = nn.ModuleList([Attention(ch)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.resnets[0](x)
-        return self.resnets[1](self.attentions[0](x))
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        x = self.resnets[0](x, fused)
+        return self.resnets[1](self.attentions[0](x), fused)
 
 
 class Downsample(nn.Module):
@@ -117,9 +122,9 @@ class _Block(nn.Module):
         if resample:
             self.add_module(sampler, nn.ModuleList([cls(out_ch)]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
         for r in self.resnets:
-            x = r(x)
+            x = r(x, fused)
         if self._sampler is not None:
             x = getattr(self, self._sampler)[0](x)
         return x
@@ -140,12 +145,12 @@ class Encoder(nn.Module):
         self.conv_out = nn.Conv2d(block_out[-1], 2 * latent_channels, 3,
                                   padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
         x = self.conv_in(x)
         for blk in self.down_blocks:
-            x = blk(x)
-        x = self.mid_block(x)
-        return self.conv_out(_gn_silu(self.conv_norm_out, x))
+            x = blk(x, fused)
+        x = self.mid_block(x, fused)
+        return self.conv_out(_gn_silu(self.conv_norm_out, x, fused))
 
 
 class Decoder(nn.Module):
@@ -163,11 +168,11 @@ class Decoder(nn.Module):
         self.conv_norm_out = _gn(rev[-1])
         self.conv_out = nn.Conv2d(rev[-1], out_channels, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block(self.conv_in(z))
+    def forward(self, z: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        x = self.mid_block(self.conv_in(z), fused)
         for blk in self.up_blocks:
-            x = blk(x)
-        return self.conv_out(_gn_silu(self.conv_norm_out, x))
+            x = blk(x, fused)
+        return self.conv_out(_gn_silu(self.conv_norm_out, x, fused))
 
 
 class AutoencoderKL(nn.Module):
@@ -180,26 +185,38 @@ class AutoencoderKL(nn.Module):
                                     2 * latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
 
-    def moments(self, images: torch.Tensor
+    def moments(self, images: torch.Tensor, fused_gn_silu: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Images in [-1, 1] (B, 3, H, W) -> (mean, logvar) of the latent
         posterior, logvar clipped to [-30, 20]."""
-        m = self.quant_conv(self.encoder(images.to(self.quant_conv.weight.dtype)))
+        m = self.quant_conv(self.encoder(
+            images.to(self.quant_conv.weight.dtype), fused_gn_silu))
         mean, logvar = m.chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, images: torch.Tensor,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
+               noise: torch.Tensor | None = None,
+               fused_gn_silu: bool = False) -> torch.Tensor:
         """A posterior sample `mean + exp(logvar / 2) * noise` for a given
         standard-normal `noise` tensor shaped like the latent, or the mean
         when `noise` is None. Unscaled: multiply by SD_VAE_SCALING at the
         call site."""
-        mean, logvar = self.moments(images)
+        mean, logvar = self.moments(images, fused_gn_silu)
         if noise is None:
             return mean
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
 
-    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor,
+               fused_gn_silu: bool = False) -> torch.Tensor:
         """Unscaled latents -> images in [-1, 1]."""
         z = latents.to(self.post_quant_conv.weight.dtype)
-        return self.decoder(self.post_quant_conv(z))
+        return self.decoder(self.post_quant_conv(z), fused_gn_silu)
+
+    def gn_silu_sites(self) -> Tuple[int, int]:
+        """(encode, decode): how many GroupNorm + SiLU sites each runs: two
+        per ResNet block and the output norm."""
+        def count(part: nn.Module) -> int:
+            return 1 + 2 * sum(isinstance(m, ResnetBlock2D)
+                               for m in part.modules())
+
+        return count(self.encoder), count(self.decoder)

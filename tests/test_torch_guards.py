@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports without jax, chip_smoke.py
-refuses to run without CUDA, and a CUDA tensor reaching a kernel wrapper
-whose library cannot be built raises rather than falling back."""
+refuses to run without CUDA, the sampler targets the card unless asked for
+the CPU, and a CUDA tensor reaching a kernel wrapper whose library cannot be
+built raises rather than falling back."""
 
 import os
 import pathlib
@@ -51,6 +52,50 @@ def test_chip_smoke_alone_fails(tmp_path):
                {"PYTHONPATH": "", "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+TINY = dict(
+    cr=dict(width=8, resolution=32, enc_nums=(1,), mid_num=1, dec_nums=(1,)),
+    refiner=dict(latent_size=8, width=16, enc_nums=(1,), mid_num=1,
+                 dec_nums=(1,), idc_stage_sizes=(1, 1, 1, 1)),
+    vae=dict(block_out=(32, 32, 32), layers_per_block=1))
+
+
+def _tiny_models():
+    from hifidiff_tpu_torch.models.cr import CoarseRestoration
+    from hifidiff_tpu_torch.models.refiner import FacialRefiner
+    from hifidiff_tpu_torch.vae.model import AutoencoderKL
+
+    torch.manual_seed(0)
+    return (FacialRefiner(**TINY["refiner"]), CoarseRestoration(**TINY["cr"]),
+            AutoencoderKL(**TINY["vae"]))
+
+
+def test_sampler_default_device_is_the_card(monkeypatch):
+    """No `device` argument means CUDA: without a card the function raises
+    and does not carry on on the CPU, whatever device the models are on."""
+    from hifidiff_tpu_torch.pipeline import build_refiner_sampler_split
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_refiner_sampler_split(*_tiny_models())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_refiner_sampler_split(*_tiny_models(), device="cuda")
+
+
+def test_sampler_runs_on_the_cpu_when_asked():
+    from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
+                                             build_refiner_sampler_split)
+
+    torch.set_num_threads(1)
+    sample = build_refiner_sampler_split(
+        *_tiny_models(),
+        RefinerPipelineConfig(num_inference_steps=1, latent_size=8),
+        device="cpu")
+    faces = sample(torch.zeros((1, 32, 32, 3), dtype=torch.uint8),
+                   generator=torch.Generator().manual_seed(0))
+    assert faces.device.type == "cpu" and faces.dtype == torch.uint8
+    assert faces.shape == (1, 32, 32, 3)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,11 @@ makes the same comparison at the main path's full shapes."""
 import pytest
 import torch
 
-from hifidiff_tpu_torch.ops import kernels, norm, warp
+from hifidiff_tpu_torch.nn.layers import quantize_module_
+from hifidiff_tpu_torch.nn.naf import ConditionalNAFBlock
+from hifidiff_tpu_torch.ops import kernels, naf_block, norm, quant, warp
+from hifidiff_tpu_torch.random_weights import (amplify_naf_blocks_,
+                                               perturb_)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +93,221 @@ def test_kernels_refuse_bad_input(cuda):
             norm.ln_film(x.bfloat16(), w, w, s, s)
         with pytest.raises(ValueError):
             warp.warp(x, torch.zeros(2, 8, device=cuda))
+
+
+# matmul_w8 and the fused block round to bf16 after float32 sums over K up
+# to 2048 in another order than the plain version: one bf16 ulp of the
+# output (2^-8 relative), plus an absolute term for sums that cancel. A
+# block chains five such products, so an ulp of an intermediate can move the
+# output by a few ulps of its own scale (inputs of order 1, outputs of
+# order 1-4).
+GEMM_TOL = dict(rtol=2 ** -7, atol=2e-2)
+BLOCK_TOL = dict(rtol=2 ** -6, atol=6e-2)
+# BLOCK_TOL alone would pass a block that does nothing: on the seeded
+# weights both branches of a block lie near one bf16 ulp of its input, the
+# first a thousandth of the second. The block tests run on blocks scaled by
+# `amplify_naf_blocks_` (each branch a tenth of the input or more) and compare
+# what the block adds, (out - x) against (plain - x), as the norm of the
+# difference over the norm of (plain - x). Kernel and plain version round to
+# bf16 at the same places and differ only where a float32 value lies on a
+# rounding boundary; a block with a part left out must fail the limit.
+BRANCH_TOL = 2e-2
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 256), (50, 256, 1024),
+                                   (8, 1024, 1536), (300, 128, 128),
+                                   (512, 1024, 2048), (70, 96, 128),
+                                   (3, 32, 256)])
+def test_matmul_w8_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    w = torch.randn(n, k, generator=g, device=cuda)
+    wq, scale = quant.quantize_weight_per_cout(w)
+    before = kernels.LAUNCHES["matmul_w8"]
+    with torch.inference_mode():
+        out = quant.matmul_w8(x, wq, scale)
+        ref = quant.matmul_w8_plain(x, wq, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["matmul_w8"] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    torch.testing.assert_close(out.float(), ref.float(), **GEMM_TOL)
+
+
+def test_conv_w8_routes(cuda):
+    """A 1x1 conv on a 2x2 map goes through the kernel on (B*4, C) rows and
+    comes back NCHW; a 3x3 conv takes the dequantized plain convolution."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(6, 128, 2, 2, generator=g, device=cuda).bfloat16()
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(256, 128, 1, 1, generator=g, device=cuda))
+    before = kernels.LAUNCHES["matmul_w8"]
+    with torch.inference_mode():
+        out = quant.conv_w8(x, wq, scale)
+        ref = torch.nn.functional.conv2d(
+            x.float(), quant.dequantize(wq, scale, torch.float32))
+        w3, s3 = quant.quantize_weight_per_cout(
+            torch.randn(128, 128, 3, 3, generator=g, device=cuda))
+        out3 = quant.conv_w8(x, w3, s3, padding=(1, 1))
+    assert kernels.LAUNCHES["matmul_w8"] == before + 1
+    assert out.is_contiguous() and out.shape == (6, 256, 2, 2)
+    torch.testing.assert_close(out.float(), ref, **GEMM_TOL)
+    assert out3.shape == x.shape and bool(torch.isfinite(out3).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 128, 32, 32), 32), ((4, 512, 16, 16), 32), ((2, 256, 64, 64), 32),
+    ((3, 32, 5, 3), 8), ((2, 64, 1, 1), 32)])
+def test_group_norm_silu_kernel_matches_plain(cuda, dtype, shape, groups):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    c = shape[1]
+    x = (2.0 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    w, b = (torch.randn(c, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = kernels.LAUNCHES["group_norm_silu"]
+    with torch.inference_mode():
+        out = norm.group_norm_silu(x, w, b, groups, fused=True)
+        ref = norm.group_norm_silu_plain(x, w, b, groups)
+        unfused = norm.group_norm_silu(x, w, b, groups)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["group_norm_silu"] == before + 1
+    assert torch.equal(unfused, ref)  # fused=False never launches
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_group_norm_silu_near_constant_group(cuda):
+    """A near-constant group with a large mean: the one-pass variance would
+    go negative. The plain version computes `x * a + b` with a = rstd * w of
+    about 1e3, which loses about 50 * 1e3 * 2^-24 = 3e-3 to cancellation, so
+    the bound is the JAX package's for the same case (2e-2)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = 50.0 + 1e-3 * torch.randn(1, 128, 32, 32, generator=g, device=cuda)
+    w, b = torch.ones(128, device=cuda), torch.zeros(128, device=cuda)
+    with torch.inference_mode():
+        out = norm.group_norm_silu(x, w, b, fused=True)
+        ref = norm.group_norm_silu_plain(x, w, b)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=1e-2, atol=2e-2)
+
+
+def _block(c, int8, cuda, seed=6):
+    torch.manual_seed(seed)
+    blk = ConditionalNAFBlock(c, 512)
+    amplify_naf_blocks_(perturb_(blk, torch.Generator().manual_seed(seed)))
+    if int8:
+        for conv in (blk.conv1, blk.sca[1], blk.conv3, blk.conv4, blk.conv5):
+            assert conv.weight.numel() >= 128 * 128
+        old, quant.W8_MIN_WEIGHT_PARAMS = quant.W8_MIN_WEIGHT_PARAMS, 128 * 128
+        try:
+            assert quantize_module_(blk) == 6  # the five 1x1 + mlp.1
+        finally:
+            quant.W8_MIN_WEIGHT_PARAMS = old
+    return blk.to(cuda, torch.bfloat16).eval()
+
+
+def _branch_error(out, ref, x):
+    ref, x = ref.float(), x.float()
+    return float((out.float() - ref).norm() / (ref - x).norm())
+
+
+def _controls(pack):
+    """{what is left out: the pack without it}."""
+    w, sp = pack.weights, pack.hw * pack.hw
+    gate_one, no_gamma = pack.vec_c.clone(), pack.vec_c.clone()
+    gate_one[3] = 1.0   # vec_c rows: beta, gamma, s_sca, b_sca, ...
+    no_gamma[1] = 0.0
+    controls = {
+        "the SCA gate": pack._replace(
+            vec_c=gate_one, weights=(w[0], torch.zeros_like(w[1]), *w[2:])),
+        "the second branch": pack._replace(vec_c=no_gamma)}
+    if sp > 1:
+        centre = [p * sp + p for p in range(sp)]
+        taps = torch.zeros_like(pack.vec_dw)
+        taps[centre] = pack.vec_dw[centre]
+        controls["the off-centre taps"] = pack._replace(vec_dw=taps)
+    return controls
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("batch,c,hw", [(5, 128, 1), (3, 256, 2),
+                                        (128, 512, 1), (33, 128, 2)])
+def test_fused_block_kernel_matches_plain(cuda, batch, c, hw, int8):
+    blk = _block(c, int8, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(batch, c, hw, hw, generator=g, device=cuda).bfloat16()
+    film = (0.2 * torch.randn(1, 4 * c, generator=g, device=cuda)).bfloat16()
+    pack = blk.fused_pack(hw, torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        out = blk(x, None, film, fuse_small=True)
+        ref = naf_block.fused_cnaf_block_small_plain(x, film, pack)
+        std = blk(x, None, film)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cnaf_small"] == before["cnaf_small"] + 1
+    assert kernels.LAUNCHES["ln_film"] == before["ln_film"] + 2  # `std` only
+    assert out.shape == x.shape and out.is_contiguous()
+    # the block acts: it adds a good part of its input's norm
+    assert float((ref.float() - x.float()).norm() / x.float().norm()) > 0.1
+    torch.testing.assert_close(out.float(), ref.float(), **BLOCK_TOL)
+    assert _branch_error(out, ref, x) <= BRANCH_TOL
+    # the standard path rounds at other places: a looser bound
+    assert _branch_error(std, ref, x) <= 5 * BRANCH_TOL
+    for what, wrong in _controls(pack).items():
+        with torch.inference_mode():
+            bad = naf_block.fused_cnaf_block_small(x, film, wrong)
+        assert _branch_error(bad, ref, x) > 10 * BRANCH_TOL, what
+
+
+def test_fused_block_per_sample_film_takes_standard_path(cuda):
+    blk = _block(128, False, cuda)
+    x = torch.randn(3, 128, 1, 1, device=cuda).bfloat16()
+    film = torch.zeros(3, 512, device=cuda).bfloat16()
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        blk(x, None, film, fuse_small=True)
+    assert kernels.LAUNCHES["cnaf_small"] == before["cnaf_small"]
+    assert kernels.LAUNCHES["ln_film"] == before["ln_film"] + 2
+
+
+def test_new_kernels_refuse_bad_input(cuda):
+    """A CUDA tensor the kernel cannot take raises; it never reaches the
+    plain version."""
+    x = torch.randn(64, 128, device=cuda)
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(128, 128, device=cuda))
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):              # f32 activations
+            quant.matmul_w8(x, wq, scale)
+        with pytest.raises(TypeError):
+            quant.matmul_w8(x.half(), wq, scale)
+        with pytest.raises(ValueError):             # N % 128
+            quant.matmul_w8(x.bfloat16(), wq[:64].contiguous(), scale[:64])
+        with pytest.raises(ValueError):             # K % 32
+            quant.matmul_w8(x.bfloat16()[:, :16].contiguous(),
+                            wq[:, :16].contiguous(), scale)
+        with pytest.raises(ValueError):             # not contiguous
+            quant.matmul_w8(x.bfloat16().t(), wq, scale)
+        xm = torch.randn(2, 64, 4, 4, device=cuda)
+        w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+        with pytest.raises(TypeError):
+            norm.group_norm_silu(xm.half(), w.half(), b.half(), fused=True)
+        with pytest.raises(TypeError):              # params in x's dtype
+            norm.group_norm_silu(xm.bfloat16(), w, b, fused=True)
+        with pytest.raises(ValueError):
+            norm.group_norm_silu(xm, w, b, num_groups=48, fused=True)
+        with pytest.raises(ValueError):
+            norm.group_norm_silu(xm.transpose(2, 3), w, b, fused=True)
+        blk = _block(128, False, cuda)
+        pack = blk.fused_pack(1, torch.bfloat16)
+        film = torch.zeros(1, 512, device=cuda).bfloat16()
+        xb = torch.randn(2, 128, 1, 1, device=cuda)
+        with pytest.raises(TypeError):              # f32 map
+            naf_block.fused_cnaf_block_small(xb, film.float(), pack)
+        with pytest.raises(TypeError):  # nor does the block step aside
+            _block(128, False, cuda).float()(xb, None, film.float(),
+                                             fuse_small=True)
+        with pytest.raises(ValueError):             # 2x2 map, 1x1 pack
+            naf_block.fused_cnaf_block_small(
+                torch.randn(2, 128, 2, 2, device=cuda).bfloat16(), film, pack)
+    assert dict(kernels.LAUNCHES) == before
