@@ -10,8 +10,11 @@ raises at once):
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from hifidiff_tpu_torch/csrc;
   3. `ln_film`, the warp and the fused small-map NAF block against their
-     plain PyTorch versions on the card at every shape of the paths, batch
-     128 (the warp with random, shear and out-of-bounds thetas; the block
+     plain PyTorch versions on the card at every shape of the paths: the
+     samplers' batch 128, and for `ln_film` and the warp the train steps'
+     float32 maps at batch 32 and 8, `ln_film` with per-sample FiLM rows 4C
+     apart as a training block gives them (the warp with random, shear and
+     out-of-bounds thetas; the block
      with bf16 and with int8 weights, on what it adds to its input, where
      three controls that each leave out a part of the block must fail),
      with both versions' times, the bound of each shape and, where one
@@ -37,12 +40,42 @@ raises at once):
      after, held against the counts the module tree gives; `matmul_w8` and
      `group_norm_silu` against their plain versions at every recorded shape;
      then timed calls in turns (faces/s as the median and the spread of the
-     calls, per-stage ms, peak memory).
+     calls, per-stage ms, peak memory);
+  7. (run after 3) the two backward kernels, `ln_film_bwd` and
+     `affine_warp_bwd`, against their plain PyTorch versions on the card at
+     every shape of the training paths: the five refiner shapes at batch 32
+     with a per-sample FiLM and with a (1, C) FiLM, f32 and bf16 maps, with
+     and without dw and db (a frozen block wants none); the CR's nine STN
+     maps at batch 8 with identity, random, shear and out-of-bounds thetas,
+     and dx alone and dcoef alone; with both versions' times, each shape's
+     bound and, for the warp, the library's `grid_sampler_2d_backward`;
+  8. (run after 5) one CR train step and one refiner train step at full
+     width, f32 with TF32 off, batch 4, on the same seeded weights, inputs
+     and noise: on the card through the kernels and on the host CPU through
+     the plain versions. Compared: the loss, the gradient of every trainable
+     parameter, and the parameters and BatchNorm statistics after two
+     further steps. Two controls must fail the same limits: dcoef zeroed in
+     the CR step; dscale and dshift zeroed in the refiner step;
+  9. timed train steps on the card in f32 with TF32 (the steps compute in
+     the module's dtype): refiner steps at batch 32 and CR steps at batch 8.
+     After a warm-up step, one step with the launch counts set to 0 before
+     and read after, in which the shapes reaching every kernel wrapper are
+     recorded: the counts are held to the module tree and to the recorded
+     calls, and every recorded shape must have been compared and timed in
+     phases 3 and 7. Then the timed steps (images/s as the median and the
+     spread of the steps, peak memory), one step under `torch.profiler` for
+     the share of the step in which the card is busy, and one step each of
+     the IDC, denoiser, cached-denoiser and VAE steps at full width for a
+     finite loss.
 
 The line before the last is a JSON object with one entry per kernel (times
-are sums over the launches of one sampler call: `ln_film` and the warp on
-the default path, the other three on the int8 + fused path); the last line
-is `{"ok": true, "device": {...}}`.
+are sums over the launches of one call of the kernel's path: `ln_film` and
+the warp on the sampler's default path, `matmul_w8`, `group_norm_silu` and
+the fused block on its int8 + fused path, `ln_film_bwd` on a refiner train
+step and `affine_warp_bwd` on a CR train step; under "paths" the same sums
+for every path that launched the kernel, the train steps included); the last
+line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -79,6 +112,11 @@ KERNELS = {
                         "hifidiff_tpu/ops/pallas/groupnorm_silu.py:90"),
     "cnaf_small": ("hifidiff_tpu_torch/csrc/cnaf_small.cu",
                    "hifidiff_tpu/ops/pallas/naf_block.py:226"),
+    "ln_film_bwd": ("hifidiff_tpu_torch/csrc/ln_film_bwd.cu",
+                    "hifidiff_tpu/ops/pallas/ln_film.py:139"),
+    # the TPU takes jax.vjp of the gather form here, no pallas_call
+    "affine_warp_bwd": ("hifidiff_tpu_torch/csrc/warp_bwd.cu",
+                        "hifidiff_tpu/ops/warp.py:225"),
 }
 
 # default-path shapes: (C, H, W) -> launches per denoiser step (ln_film: two
@@ -146,6 +184,45 @@ FACE_LEVEL_TOL = 1
 # blocks that fuse are amplified as in phase 3, and only they, so that the
 # rest of the model keeps the default path's weights and its bf16 noise.
 INT8_LIMITS = (7e-3, 6)
+
+# Training (phases 7-9). The CLIs' default batches, and the check's batch.
+REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
+TIMED_STEPS = 8
+THETAS_BWD = {"identity": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.0),
+              "random": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.05),
+              "shear": (THETAS["shear"], 0.02),
+              "out_of_bounds": (THETAS["out_of_bounds"], 0.02)}
+# Backward kernel vs plain, as the largest difference over the tensor's
+# largest value. f32: sums over up to 2048 channels or 16384 pixels of
+# order-1 terms in another order, with atomics in an order that changes from
+# run to run. bf16 dx: one rounding of a float32 value (2^-8), and the
+# cancellation in `gw - y * mean - mean`. The sums stay float32. dcoef sums
+# C*H*W terms times pixel coordinates up to 127.
+BWD_REL = {"float32": 2e-5, "bfloat16": 2 ** -6}
+SUM_REL = 2e-5
+DCOEF_REL = 1e-4
+# Phase 8: f32 with TF32 off, card (kernels) vs host CPU (plain versions).
+# The loss passes some 300 layers whose sums differ in order. A parameter's
+# gradient is compared as |g_card - g_cpu| / max(|g_cpu|, floor) in the
+# 2-norm, the floor being a thousandth of the largest gradient norm of the
+# model (a bias in front of a BatchNorm has a true gradient of zero and
+# holds rounding noise only). After three Adam steps: Adam's first updates
+# are sign-like, so an entry whose gradient is rounding noise may move the
+# other way; at most 3e-3 of the trained entries may differ by more than a
+# twentieth of a learning rate per step (readings: 2.3e-4 of the CR's,
+# 1.1e-3 of the refiner's), none by more than 1.5 learning rates per step
+# (readings 0.69 and 1.11; two opposite full steps would read 2);
+# BatchNorm statistics, which follow the parameters, to 1e-3 of the tensor's
+# largest value (reading: 3.6e-4). The controls (a backward with dcoef, or
+# dscale and dshift, zeroed) must fail these limits on the first step's
+# gradients.
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-2
+TRAIN_GRAD_FLOOR = 1e-3
+TRAIN_PARAM_LR = 5e-2
+TRAIN_PARAM_SHARE = 3e-3
+TRAIN_PARAM_FAR = 1.5
+TRAIN_STATS_REL = 1e-3
 
 # the card's published peaks (H100 SXM): device memory bytes/s, and
 # operations/s for bf16 tensor-core products and for plain float32 math
@@ -224,8 +301,9 @@ def close(out, ref, tol):
 
 class Stats:
     """Per kernel: the worst |kernel - plain| of every comparison, and per
-    shape the bf16 per-launch times on the card (CUDA graph replay) beside
-    the shape's bound."""
+    shape the per-launch times on the card (CUDA graph replay) beside the
+    shape's bound: under (C, H, W) the samplers' bf16 maps at batch 128,
+    under (dtype, B, C, H, W) the train steps' maps."""
 
     def __init__(self):
         self.err = collections.defaultdict(float)
@@ -235,6 +313,22 @@ class Stats:
         ok, err = close(out, ref, tol)
         self.err[name] = max(self.err[name], err)
         log(f"{name} {label}: max_abs_err={err:.3e} ok={ok}")
+        if not ok:
+            fail(f"{name} {label}: kernel and plain version disagree")
+        return ok
+
+    def compare_rel(self, name, label, outs, refs, limits):
+        """Each of `outs` against its `refs` entry: the largest difference
+        over the reference's largest value, held to its `limits` entry."""
+        worst, ok = [], True
+        for out, ref, limit in zip(outs, refs, limits):
+            diff = float((out.float() - ref.float()).abs().max())
+            rel = diff / max(float(ref.float().abs().max()), 1e-30)
+            self.err[name] = max(self.err[name], diff)
+            worst.append(rel)
+            ok = ok and bool(torch.isfinite(out).all()) and rel <= limit
+        log(f"{name} {label}: rel_err=" + ", ".join(f"{r:.2e}" for r in worst)
+            + f" ok={ok}")
         if not ok:
             fail(f"{name} {label}: kernel and plain version disagree")
         return ok
@@ -285,10 +379,12 @@ class Stats:
         {path: {kernel: {shape: count}}}."""
         paths = {p: self.totals(name, shapes[p][name]) for p in shapes
                  if launches[p][name]}
+        for p, t in paths.items():
+            if t is None or t["launches"] != launches[p][name]:
+                fail(f"{name}: the shapes {dict(shapes[p][name])} of the "
+                     f"{p} path were not all compared and timed")
         main = paths.get(path)
-        if main is None or main["launches"] != launches[path][name]:
-            fail(f"{name}: the shapes {dict(shapes[path][name])} of the "
-                 f"{path} path were not all compared and timed")
+        if main is None or None in paths.values():
             return None
         source, replaces = KERNELS[name]
         out = {"name": name, "route": "cuda", "source": source,
@@ -332,50 +428,193 @@ def check_ln_film(dev, g, stats):
                 lambda: norm.ln_film_plain(x, wt, bs, s[:1], t[:1]),
                 (2 * x.numel() + 4 * c) * x.element_size(), 10 * x.numel(),
                 "f32", keep=dtype == torch.bfloat16)
+    # a train step's calls: per-sample FiLM rows 4C apart with unit channel
+    # stride, as a block's `film.chunk(4, dim=1)` gives them, batch 32
+    b = REFINER_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        for c, h, w in LN_FILM_SHAPES:
+            x = torch.randn(b, c, h, w, generator=g, device=dev).to(dtype)
+            wt, bs = (torch.randn(c, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            film = (0.3 * torch.randn(b, 4 * c, generator=g,
+                                      device=dev)).to(dtype)
+            shift, scale = film.chunk(4, dim=1)[:2]
+            with torch.inference_mode():
+                stats.compare(
+                    "ln_film", f"{dn} {b}x{c}x{h}x{w} film rows 4C apart",
+                    norm.ln_film(x, wt, bs, scale, shift),
+                    norm.ln_film_plain(x, wt, bs, scale, shift), dn)
+            stats.measure(
+                "ln_film", (dn, b, c, h, w), f"{dn} {b}x{c}x{h}x{w}",
+                lambda: norm.ln_film(x, wt, bs, scale, shift),
+                lambda: norm.ln_film_plain(x, wt, bs, scale, shift),
+                (2 * x.numel() + 2 * c + 2 * b * c) * x.element_size(),
+                10 * x.numel(), "f32")
 
 
 def check_warp(dev, g, stats):
+    """The warp at the samplers' batch (bf16 and f32; the bf16 times are
+    kept under (C, H, W)) and at the train steps' batches, 8 for the CR
+    under training and 32 for the refiner step's frozen CR (kept under
+    (dtype, B, C, H, W))."""
     from hifidiff_tpu_torch.ops import warp
 
     ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
-    for dtype in (torch.bfloat16, torch.float32):
+    for b in (BATCH, CR_BATCH, REFINER_BATCH):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dtype_name(dtype)
+            for c, h, w in WARP_SHAPES:
+                check_warp_shape(dev, g, stats, warp, ident, dtype, dn,
+                                 (b, c, h, w))
+
+
+def check_warp_shape(dev, g, stats, warp, ident, dtype, dn, shape):
+    b, c, h, w = shape
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    for kind, fixed in THETAS.items():
+        base = ident if fixed is None else torch.tensor(fixed, device=dev)
+        theta = base + (0.05 if fixed is None else 0.02) * torch.randn(
+            b, 2, 3, generator=g, device=dev)
+        coef = warp.pixel_coef(theta, h, w)
+        with torch.inference_mode():
+            out = warp.warp(x, coef)
+            ok = stats.compare(
+                "affine_warp", f"{dn} {b}x{c}x{h}x{w} {kind}",
+                out, warp.warp_plain(x, coef), dn)
+        zeros = int((out == 0).sum())
+        if ok and kind == "out_of_bounds" and zeros == 0:
+            fail(f"affine_warp {dn} {b}x{c}x{h}x{w}: no zero padding")
+        if kind != "random":
+            continue
+
+        def library():
+            # the library's route: a normalised grid in x's dtype
+            grid = F.affine_grid(theta, list(x.shape),
+                                 align_corners=False).to(dtype)
+            return F.grid_sample(x, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=False)
+
+        # one read and one write of the map and the coefficients; about a
+        # dozen float32 operations per output element
+        sampler = b == BATCH
+        stats.measure(
+            "affine_warp", (c, h, w) if sampler else (dn, b, c, h, w),
+            f"{dn} {b}x{c}x{h}x{w}",
+            lambda: warp.warp(x, coef), lambda: warp.warp_plain(x, coef),
+            2 * x.numel() * x.element_size() + coef.numel() * 4,
+            12 * x.numel(), "f32", library=library,
+            keep=not sampler or dtype == torch.bfloat16)
+
+
+def check_ln_film_bwd(dev, g, stats):
+    """`ln_film_bwd` at the refiner step's shapes, batch 32: f32 and bf16
+    maps with tables of their dtype, FiLM rows per sample (4C apart, as
+    `film.chunk(4, dim=1)` gives them) and shared (1, C)."""
+    from hifidiff_tpu_torch.ops import norm
+
+    b = REFINER_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        limits = [BWD_REL[dn]] + [SUM_REL] * 4
+        for c, h, w in LN_FILM_SHAPES:
+            x, gr = (torch.randn(b, c, h, w, generator=g, device=dev)
+                     .to(dtype) for _ in range(2))
+            wt, bs = (torch.randn(c, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            for fb in (b, 1):
+                film = (0.3 * torch.randn(fb, 4 * c, generator=g,
+                                          device=dev)).to(dtype)
+                scale = film.chunk(4, dim=1)[1]
+                stats.compare_rel(
+                    "ln_film_bwd", f"{dn} {b}x{c}x{h}x{w} film_batch={fb}",
+                    norm.ln_film_bwd(gr, x, wt, bs, scale),
+                    norm.ln_film_bwd_plain(gr, x, wt, bs, scale), limits)
+                # a frozen block under a trainable time MLP: no dw, db
+                got = norm.ln_film_bwd(gr, x, wt, bs, scale, need_wb=False)
+                ref = norm.ln_film_bwd_plain(gr, x, wt, bs, scale,
+                                             need_wb=False)
+                if got[1] is not None or got[2] is not None:
+                    fail(f"ln_film_bwd {dn} {c}x{h}x{w}: dw, db without "
+                         "need_wb")
+                stats.compare_rel(
+                    "ln_film_bwd",
+                    f"{dn} {b}x{c}x{h}x{w} film_batch={fb} without dw, db",
+                    (got[0], *got[3:]), (ref[0], *ref[3:]),
+                    [limits[0], SUM_REL, SUM_REL])
+            scale = (0.3 * torch.randn(b, 4 * c, generator=g, device=dev)
+                     ).to(dtype).chunk(4, dim=1)[1]
+            # x and g read, dx written, the three tables read and the four
+            # float32 (B, C) sums written; about 30 float32 operations per
+            # element
+            stats.measure(
+                "ln_film_bwd", (dn, b, c, h, w), f"{dn} {b}x{c}x{h}x{w}",
+                lambda: norm.ln_film_bwd(gr, x, wt, bs, scale),
+                lambda: norm.ln_film_bwd_plain(gr, x, wt, bs, scale),
+                (3 * x.numel() + 2 * c + b * c) * x.element_size()
+                + 4 * b * c * 4, 30 * x.numel(), "f32")
+
+
+def check_warp_bwd(dev, g, stats):
+    """`affine_warp_bwd` at the CR step's nine STN maps, batch 8."""
+    from hifidiff_tpu_torch.ops import warp
+
+    b = CR_BATCH
+    for dtype in (torch.float32, torch.bfloat16):
         dn = dtype_name(dtype)
         for c, h, w in WARP_SHAPES:
-            x = torch.randn(BATCH, c, h, w, generator=g, device=dev).to(dtype)
-            for kind, fixed in THETAS.items():
-                base = ident if fixed is None else torch.tensor(fixed,
-                                                                device=dev)
-                theta = base + (0.05 if fixed is None else 0.02) * torch.randn(
-                    BATCH, 2, 3, generator=g, device=dev)
+            x, gr = (torch.randn(b, c, h, w, generator=g, device=dev)
+                     .to(dtype) for _ in range(2))
+            for kind, (base, spread) in THETAS_BWD.items():
+                theta = torch.tensor(base, device=dev) + spread * torch.randn(
+                    b, 2, 3, generator=g, device=dev)
                 coef = warp.pixel_coef(theta, h, w)
-                with torch.inference_mode():
-                    out = warp.warp(x, coef)
-                    ok = stats.compare(
-                        "affine_warp", f"{dn} {BATCH}x{c}x{h}x{w} {kind}",
-                        out, warp.warp_plain(x, coef), dn)
-                zeros = int((out == 0).sum())
-                if ok and kind == "out_of_bounds" and zeros == 0:
-                    fail(f"affine_warp {dn} {c}x{h}x{w}: no zero padding")
+                dx, dcoef = warp.warp_bwd(gr, x, coef)
+                ok = stats.compare_rel(
+                    "affine_warp_bwd", f"{dn} {b}x{c}x{h}x{w} {kind}",
+                    (dx, dcoef), warp.warp_bwd_plain(gr, x, coef),
+                    (BWD_REL[dn], DCOEF_REL))
+                if ok and kind == "out_of_bounds" and \
+                        float((dx == 0).float().mean()) < 0.2:
+                    fail(f"affine_warp_bwd {dn} {c}x{h}x{w}: corners outside "
+                         "the image got a gradient")
+                if ok and kind == "identity" and \
+                        not float(dcoef.abs().max()) > 0:
+                    fail(f"affine_warp_bwd {dn} {c}x{h}x{w}: no slope at "
+                         "the identity")
                 if kind != "random":
                     continue
+                # what autograd asks for where only one input wants a gradient
+                only_dx = warp.warp_bwd(gr, x, coef, need_dcoef=False)
+                only_dcoef = warp.warp_bwd(gr, x, coef, need_dx=False)
+                if only_dx[1] is not None or only_dcoef[0] is not None:
+                    fail(f"affine_warp_bwd {dn} {c}x{h}x{w}: a gradient "
+                         "that was not asked for")
+                ref = warp.warp_bwd_plain(gr, x, coef)
+                stats.compare_rel(
+                    "affine_warp_bwd",
+                    f"{dn} {b}x{c}x{h}x{w} dx alone, dcoef alone",
+                    (only_dx[0], only_dcoef[1]), ref,
+                    (BWD_REL[dn], DCOEF_REL))
+                grid = F.affine_grid(theta, list(x.shape),
+                                     align_corners=False).to(dtype)
 
                 def library():
-                    # the library's route: a normalised grid in x's dtype
-                    grid = F.affine_grid(theta, list(x.shape),
-                                         align_corners=False).to(dtype)
-                    return F.grid_sample(x, grid, mode="bilinear",
-                                         padding_mode="zeros",
-                                         align_corners=False)
+                    # the library's backward of F.grid_sample (bilinear,
+                    # zeros, align_corners=False): dx and d(grid); the small
+                    # product that takes d(grid) to dtheta is left out
+                    return torch.ops.aten.grid_sampler_2d_backward(
+                        gr, x, grid, 0, 0, False, [True, True])
 
-                # one read and one write of the map and the coefficients;
-                # about a dozen float32 operations per output element
+                # g and x read, dx written, the coefficients; about 40
+                # float32 operations per element
                 stats.measure(
-                    "affine_warp", (c, h, w), f"{dn} {BATCH}x{c}x{h}x{w}",
-                    lambda: warp.warp(x, coef),
-                    lambda: warp.warp_plain(x, coef),
-                    2 * x.numel() * x.element_size() + coef.numel() * 4,
-                    12 * x.numel(), "f32", library=library,
-                    keep=dtype == torch.bfloat16)
+                    "affine_warp_bwd", (dn, b, c, h, w),
+                    f"{dn} {b}x{c}x{h}x{w}",
+                    lambda: warp.warp_bwd(gr, x, coef),
+                    lambda: warp.warp_bwd_plain(gr, x, coef),
+                    3 * x.numel() * x.element_size() + 2 * coef.numel() * 4,
+                    40 * x.numel(), "f32", library=library)
 
 
 def branch_error(out, ref, x):
@@ -645,21 +884,28 @@ def disagreement(name, run, ref, rel_tol, level_tol, branch_tol=None):
 
 
 @contextlib.contextmanager
-def recording():
+def recording(training=False):
     """Count, by shape, the calls that reach each kernel's wrapper while the
     block runs: {kernel: Counter({shape: calls})}. The wrappers and their
-    launch counts are untouched; the callers' references are wrapped."""
+    launch counts are untouched; the callers' references are wrapped. A map's
+    key is (C, H, W) on the sampler's paths (batch 128, bf16) and
+    (dtype, B, C, H, W) with `training`."""
     from hifidiff_tpu_torch.nn import layers, naf
-    from hifidiff_tpu_torch.ops import quant, warp
+    from hifidiff_tpu_torch.ops import norm, quant, warp
     from hifidiff_tpu_torch.vae import model as vae_model
 
     def weights(pack):
         return "int8" if pack.weights[0].dtype == torch.int8 else "bf16"
 
+    def map_key(x, *a, **k):
+        return (dtype_name(x.dtype), *x.shape) if training \
+            else tuple(x.shape[1:])
+
     points = (
-        ("ln_film", layers, "ln_film",
-         lambda x, *a, **k: tuple(x.shape[1:])),
-        ("affine_warp", warp, "warp", lambda x, *a, **k: tuple(x.shape[1:])),
+        ("ln_film", layers, "ln_film", map_key),
+        ("affine_warp", warp, "warp", map_key),
+        ("ln_film_bwd", norm, "ln_film_bwd", map_key),
+        ("affine_warp_bwd", warp, "warp_bwd", map_key),
         ("matmul_w8", quant, "matmul_w8",
          lambda x, wq, *a: (x.shape[0], x.shape[1], wq.shape[0])),
         ("group_norm_silu", vae_model, "group_norm_silu",
@@ -706,7 +952,7 @@ def expected_launches(refiner, cr, vae, fuse_small_naf=False,
             "cnaf_small": n_fused * STEPS,
             "group_norm_silu": sum(vae.gn_silu_sites()) if fused_gn_silu
             else 0,
-            "matmul_w8": None}
+            "matmul_w8": None, "ln_film_bwd": 0, "affine_warp_bwd": 0}
 
 
 def timed_call(sample, lr, post, lat):
@@ -724,6 +970,306 @@ def timed_call(sample, lr, post, lat):
     return {name: ev[a].elapsed_time(ev[b])
             for name, (a, b) in zip(("prep", "scan", "decode", "total"),
                                     ((0, 1), (1, 2), (2, 3), (0, 3)))}
+
+
+def spy_gradients(state):
+    """Keep a CPU copy of the gradients that each `apply_gradients` call of
+    `state` finds."""
+    seen, apply = {}, state.apply_gradients
+
+    def wrapped():
+        seen.clear()
+        seen.update({n: p.grad.detach().float().cpu()
+                     for n, p in state.module.named_parameters()
+                     if p.grad is not None})
+        apply()
+
+    state.apply_gradients = wrapped
+    return seen
+
+
+def train_inputs(rng, batch, latent=LATENT):
+    """Seeded inputs of one train step, on the CPU: LR and target faces with
+    four facial-component patch images, and the refiner step's draws."""
+    lr, gt = (torch.from_numpy(rng.uniform(0, 1, (batch, 3, 128, 128))
+                               .astype(np.float32)) for _ in range(2))
+    patches = torch.zeros(batch, 4, 3, 128, 128)
+    for b in range(batch):
+        for k in range(4):
+            t0, l0 = rng.integers(0, 96, 2)
+            patches[b, k, :, t0:t0 + 32, l0:l0 + 32] = \
+                gt[b, :, t0:t0 + 32, l0:l0 + 32]
+    normal = [torch.from_numpy(rng.standard_normal(
+        (batch, 4, latent, latent)).astype(np.float32)) for _ in range(3)]
+    t = torch.from_numpy(rng.integers(0, 1000, batch))
+    return {"lr": lr, "gt": gt, "patches": patches}, (*normal, t)
+
+
+def make_train_state(kind, models, device):
+    """(state, step, cr) of the CR or the refiner step on float32 copies of
+    `models` (refiner, cr, vae), through the entry points a trainer calls;
+    `cr` is the CR under training, or the refiner step's frozen one."""
+    from hifidiff_tpu_torch.train import optim, steps
+
+    refiner, cr, vae = (copy.deepcopy(m).float() for m in models)
+    if kind == "cr":
+        state = steps.TrainState.create(cr, optim.adam, device=device)
+        return state, steps.make_cr_train_step(device=device), cr
+    optim.apply_freeze_mask_(refiner, optim.refiner_freeze_mask(refiner))
+
+    def make(params):  # no warm-up: the first steps must move the weights
+        return optim.adamw_cosine(params, warmup_steps=0, total_steps=1000)
+
+    state = steps.TrainState.create(refiner, make, device=device)
+    return state, steps.make_refiner_train_step(cr, vae, device=device), cr
+
+
+def run_train(kind, models, device, inputs, n_steps):
+    """Take `n_steps` steps of the CR or the refiner step on `device` and
+    return {loss, grads} of the first step and {params, stats} after the
+    last, all on the CPU."""
+    state, step, _ = make_train_state(kind, models, device)
+    grads = spy_gradients(state)
+    out = {}
+    for i, (batch, draws) in enumerate(inputs[:n_steps]):
+        _, metrics = step(state, batch, *(draws if kind == "refiner" else ()))
+        if i == 0:
+            out["loss"] = float(metrics["loss"])
+            out["grads"] = dict(grads)
+    out["params"] = {n: p.detach().float().cpu()
+                     for n, p in state.module.named_parameters()}
+    out["stats"] = {n: b.detach().float().cpu()
+                    for n, b in state.batch_stats.items()}
+    out["lr"] = state.optimizer.defaults["lr"]
+    return out
+
+
+def train_disagreement(name, run, ref, n_steps):
+    """True when `run` is further from `ref` (both from `run_train`) than
+    the limits of phase 8. With `n_steps` 1 only the first step's loss and
+    gradients are compared."""
+    loss_rel = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+    top = max(float(g.norm()) for g in ref["grads"].values())
+    worst, worst_name = 0.0, ""
+    for n, g in ref["grads"].items():
+        err = float((run["grads"][n] - g).norm()) / max(
+            float(g.norm()), TRAIN_GRAD_FLOOR * top)
+        if not err <= worst:
+            worst, worst_name = err, n
+    log(f"{name}: loss {run['loss']:.6f} vs {ref['loss']:.6f} (rel "
+        f"{loss_rel:.2e}, limit {TRAIN_LOSS_REL:.0e}); "
+        f"{len(ref['grads'])} gradients, worst relative difference "
+        f"{worst:.2e} at {worst_name} (limit {TRAIN_GRAD_REL:.0e})")
+    bad = not (math.isfinite(run["loss"]) and loss_rel <= TRAIN_LOSS_REL
+               and worst <= TRAIN_GRAD_REL)
+    if n_steps > 1:
+        one = ref["lr"] * n_steps
+        over = total = 0
+        far = 0.0
+        for n in ref["grads"]:      # the trained parameters
+            diff = (run["params"][n] - ref["params"][n]).abs()
+            over += int((diff > TRAIN_PARAM_LR * one).sum())
+            total += diff.numel()
+            far = max(far, float(diff.max()))
+        stats = max((float((run["stats"][n] - b).abs().max()
+                           / b.abs().max().clamp_min(1e-30))
+                     for n, b in ref["stats"].items()), default=0.0)
+        frozen = max((float((run["params"][n] - p).abs().max())
+                      for n, p in ref["params"].items()
+                      if n not in ref["grads"]), default=0.0)
+        log(f"{name}: after {n_steps} steps {over} of {total} trained "
+            f"entries differ by more than {TRAIN_PARAM_LR} learning rates "
+            f"per step (limit {TRAIN_PARAM_SHARE:.0e} of them), the "
+            f"farthest by {far / one:.3f} (limit {TRAIN_PARAM_FAR}), frozen "
+            f"parameters "
+            f"differ by {frozen:.1e} (limit 0); BatchNorm statistics "
+            f"rel {stats:.2e} (limit {TRAIN_STATS_REL:.0e}, "
+            f"{len(ref['stats'])} tensors)")
+        bad = bad or over > TRAIN_PARAM_SHARE * total \
+            or far > TRAIN_PARAM_FAR * one \
+            or frozen > 0 or not stats <= TRAIN_STATS_REL
+    return bad
+
+
+def expected_train_launches(module, cr):
+    """The launches of one train step of `module` that the module tree
+    gives; `cr` is the CR under training (then `module` itself) or the
+    refiner step's frozen one. One warp per STN of the CR, each with a
+    backward launch while the STN has trainable parameters (none in a frozen
+    CR). A refiner's blocks run two `ln_film` each, each with a backward
+    launch while the `time_mlp` that feeds every block's FiLM is trainable
+    (else only in blocks with trainable parameters)."""
+    stns = [m for m in cr.modules() if hasattr(m, "fc_loc")]
+    expected = {"affine_warp": len(stns), "affine_warp_bwd": sum(
+        any(p.requires_grad for p in m.parameters()) for m in stns)}
+    if module is not cr:
+        den = module.denoiser
+        blocks = den.blocks()
+        films = any(p.requires_grad for p in den.time_mlp.parameters())
+        trained = len(blocks) if films else sum(
+            any(p.requires_grad for p in blk.parameters()) for blk in blocks)
+        expected.update(ln_film=2 * len(blocks), ln_film_bwd=2 * trained)
+    return expected
+
+
+def device_busy_ms(one):
+    """(ms the card spends in kernels and copies during one call of `one`,
+    the call's wall ms under the profiler, the six kernels with the most
+    device time as (name, ms, launches)), from `torch.profiler`: the sum over
+    the device's own events (one stream, so they do not overlap). The rows of
+    the host's operators and of annotations such as `Optimizer.step` repeat
+    the times of the kernels under them and are left out. The first is None
+    where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation),
+                  key=device_us, reverse=True)
+    total_us = sum(device_us(e) for e in rows)
+    top = [(e.key[:48], round(device_us(e) / 1e3, 2), e.count)
+           for e in rows[:6]]
+    return (total_us / 1e3 if total_us > 0 else None), wall, top
+
+
+def timed_train(kind, models, dev, batch, stats_out):
+    """Warm up; take one step with the launch counts set to 0 before and
+    read after, in which the shapes reaching the wrappers are recorded; then
+    time TIMED_STEPS steps (host clock around a synchronised step) and
+    profile one. Returns (launches, recorded shapes)."""
+    from hifidiff_tpu_torch.ops import kernels
+
+    state, step, cr = make_train_state(kind, models, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = {k: torch.rand(batch, 3, 128, 128, generator=gen, device=dev)
+            for k in ("lr", "gt")}
+    data["patches"] = data["gt"][:, None] * (torch.rand(
+        batch, 4, 1, 128, 128, generator=gen, device=dev) > 0.9)
+    kw = {} if kind == "cr" else {"generator": gen}
+
+    def one():
+        _, m = step(state, data, **kw)
+        torch.cuda.synchronize()
+        return float(m["loss"])
+
+    one()                                      # the warm-up step
+    kernels.reset_launches()
+    with recording(training=True) as seen:     # counted and recorded at once
+        loss = one()
+    launches = dict(kernels.LAUNCHES)
+    expected = expected_train_launches(state.module, cr)
+    label = f"{kind} train step, batch {batch}, float32"
+    log(f"{label}: launches in one step: {launches}; the module tree gives "
+        f"{expected}")
+    for kernel, n in launches.items():
+        if n != expected.get(kernel, 0) or n != sum(seen[kernel].values()):
+            fail(f"{label}: {kernel} launched {n} times, the module tree "
+                 f"gives {expected.get(kernel, 0)}, the recorded calls "
+                 f"{sum(seen[kernel].values())}")
+    if not math.isfinite(loss):
+        fail(f"{label}: loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        one()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy, profiled_ms, top = device_busy_ms(one)
+    if busy is not None and busy > med:     # no share can come of that
+        log(f"  {label}: the profiler counts {busy:.1f} ms of device time, "
+            f"more than the median step: left out")
+        busy = None
+    stats_out[label] = dict(
+        ms=med, images_per_s=batch / med * 1e3, peak_gb=peak_gb,
+        device_busy_ms=busy, profiled_step_ms=profiled_ms,
+        device_idle_share=None if busy is None else 1.0 - busy / med)
+    log(f"{label}: {batch / med * 1e3:.2f} images/s median "
+        f"({batch / max(times) * 1e3:.2f}-{batch / min(times) * 1e3:.2f} "
+        f"over {len(times)} steps), {med:.1f} ms per step, peak memory "
+        f"{peak_gb:.2f} GB, loss {loss:.4f}")
+    log(f"  {label} ms per step: {[round(t, 1) for t in times]}")
+    log(f"  {label}: the card's kernels take "
+        + ("not measured" if busy is None
+           else f"{busy:.1f} ms of one profiled step ({profiled_ms:.1f} ms "
+           f"on the host's clock): idle {1.0 - busy / med:.3f} of the "
+           f"median step; most device time: {top}"))
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, seen
+
+
+def other_steps_once(models, dev):
+    """One step each of the IDC, denoiser, cached-denoiser and VAE steps at
+    full width on the card: a finite loss and a parameter that moved."""
+    from hifidiff_tpu_torch.models.denoiser import Denoiser
+    from hifidiff_tpu_torch.train import optim, steps
+
+    refiner, cr, vae = (copy.deepcopy(m).float() for m in models)
+    vae_trained = copy.deepcopy(vae)   # `vae` is frozen by the steps below
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    faces = [torch.rand(8, 3, 128, 128, generator=gen, device=dev)
+             for _ in range(3)]
+    kw = dict(device=dev)
+    torch.manual_seed(SEED)
+    denoiser = Denoiser()
+
+    def adamw(params):
+        return optim.adamw_cosine(params, warmup_steps=0)
+
+    def cached():
+        with torch.no_grad():
+            mean, logvar = vae.to(dev).moments(faces[0] * 2.0 - 1.0)
+        return {"mean": mean, "logvar": logvar}
+
+    runs = {
+        "idc": lambda: (steps.TrainState.create(refiner.idc, optim.adam,
+                                                device=dev),
+                        steps.make_idc_train_step(cr, **kw),
+                        ({"lr": faces[0], "gt": faces[1],
+                          "other": faces[2]},), {}),
+        "denoiser": lambda: (steps.TrainState.create(denoiser, adamw,
+                                                     device=dev),
+                             steps.make_denoiser_train_step(vae, **kw),
+                             (faces[0],), {"generator": gen}),
+        "cached denoiser": lambda: (
+            steps.TrainState.create(denoiser, adamw, device=dev),
+            steps.make_denoiser_train_step_cached(**kw), (cached(),),
+            {"generator": gen}),
+        "vae": lambda: (steps.TrainState.create(vae_trained, optim.adam,
+                                                device=dev),
+                        steps.make_vae_train_step(**kw),
+                        ({"image": faces[0][:4]},), {"generator": gen})}
+    for name, make in runs.items():
+        state, step, args, kwargs = make()
+        before = [p.detach().clone() for p in state.module.parameters()
+                  if p.requires_grad]
+        t0 = time.perf_counter()
+        _, metrics = step(state, *args, **kwargs)
+        torch.cuda.synchronize()
+        loss = float(metrics["loss"])
+        moved = max(float((p.detach() - b).abs().max()) for p, b in zip(
+            (p for p in state.module.parameters() if p.requires_grad),
+            before))
+        log(f"{name} train step at full width, float32: loss {loss:.4f}, "
+            f"a parameter "
+            f"moved by {moved:.2e}, {time.perf_counter() - t0:.2f} s "
+            "(first call)")
+        if not (math.isfinite(loss) and moved > 0):
+            fail(f"{name} train step: loss {loss}, largest move {moved}")
+        del state, step, before
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -763,6 +1309,13 @@ def main() -> int:
     check_fused_block(dev, g, stats)
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel checks done")
+
+    # -- 7. the backward kernels vs plain at the training paths' shapes -----
+    check_ln_film_bwd(dev, g, stats)
+    check_warp_bwd(dev, g, stats)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] backward kernel checks "
+        "done")
 
     # -- 4. full width, f32, card vs host CPU -------------------------------
     t0 = time.perf_counter()
@@ -876,6 +1429,48 @@ def main() -> int:
     del control, run_q, plain_q
     log(f"[{time.perf_counter() - t_start:.0f} s] int8 + fused path checked")
 
+    # -- 8. full-width CR and refiner train steps, f32, card vs host CPU ----
+    from hifidiff_tpu_torch.ops import warp as warp_ops
+    rng_t = np.random.default_rng(SEED + 1)
+    train_in = [train_inputs(rng_t, CHECK_BATCH) for _ in range(3)]
+
+    def no_dcoef(g, x, coef, need_dx=True, need_dcoef=True,
+                 real=warp_ops.warp_bwd):
+        dx, dcoef = real(g, x, coef, need_dx, need_dcoef)
+        return dx, None if dcoef is None else torch.zeros_like(dcoef)
+
+    def no_dfilm(g, x, w, b, scale, eps=1e-6, need_wb=True,
+                 real=norm.ln_film_bwd):
+        dx, dw, db, dscale, dshift = real(g, x, w, b, scale, eps, need_wb)
+        return dx, dw, db, torch.zeros_like(dscale), torch.zeros_like(dshift)
+
+    for kind, module, attr, wrong, what in (
+            ("cr", warp_ops, "warp_bwd", no_dcoef, "dcoef zeroed"),
+            ("refiner", norm, "ln_film_bwd", no_dfilm,
+             "dscale and dshift zeroed")):
+        kernels.reset_launches()
+        card = run_train(kind, cpu_models, dev, train_in, 3)
+        torch.cuda.synchronize()
+        log(f"{kind} train steps on the card, batch {CHECK_BATCH}, f32: "
+            f"launches of three steps: {dict(kernels.LAUNCHES)}")
+        t0 = time.perf_counter()
+        host = run_train(kind, cpu_models, "cpu", train_in, 3)
+        log(f"host CPU plain run, three {kind} train steps (batch "
+            f"{CHECK_BATCH}, f32): {time.perf_counter() - t0:.1f} s")
+        if train_disagreement(f"{kind} train step, f32 card (kernels) vs "
+                              "CPU (plain)", card, host, 3):
+            fail(f"{kind} train step: card and CPU runs disagree")
+        with patched(module, attr, wrong):
+            control = run_train(kind, cpu_models, dev, train_in, 1)
+        if not train_disagreement(f"control, {kind} train step with {what}",
+                                  control, host, 1):
+            fail(f"the {kind} train-step check passes a backward with "
+                 f"{what}")
+        del card, host, control
+        torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] train steps checked")
+    train_models = copy.deepcopy(cpu_models)   # float32, on the CPU
+
     # -- 6. batch 128, bf16, uint8 I/O, 50 steps, three configurations ------
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
@@ -968,12 +1563,29 @@ def main() -> int:
     log(f"peak memory over the timed calls, the three configurations "
         f"resident: {peak_gb:.2f} GB")
 
+    # -- 9. timed train steps, then one step of each other stage -----------
+    del samplers, configs, float_models, int8_models
+    torch.cuda.empty_cache()
+    train_stats = {}
+    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
+        launches[f"{kind} train"], shapes[f"{kind} train"] = timed_train(
+            kind, train_models, dev, batch, train_stats)
+    log(f"ln_film_bwd maps (dtype, B, C, H, W) -> launches per refiner "
+        f"step: {dict(shapes['refiner train']['ln_film_bwd'])}")
+    log(f"affine_warp_bwd maps -> launches per CR step: "
+        f"{dict(shapes['cr train']['affine_warp_bwd'])}")
+    log("train steps [" + smi + "]: " + json.dumps(train_stats))
+    other_steps_once(train_models, dev)
+    log(f"[{time.perf_counter() - t_start:.0f} s] train steps timed")
+
     entries = [
         stats.entry(k, path, launches, shapes)
         for k, path in (("ln_film", "default"), ("affine_warp", "default"),
                         ("matmul_w8", "int8+fused"),
                         ("group_norm_silu", "int8+fused"),
-                        ("cnaf_small", "int8+fused"))]
+                        ("cnaf_small", "int8+fused"),
+                        ("ln_film_bwd", "refiner train"),
+                        ("affine_warp_bwd", "cr train"))]
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
     if FAILURES:
         print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),

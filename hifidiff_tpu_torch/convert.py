@@ -10,7 +10,10 @@ of numpy arrays (`jax.device_get` of a flax tree); no jax is imported. The
 block counts are read from the trees, so no model config is needed.
 
 Each result loads into the matching port model with
-`load_state_dict(sd, strict=True)`.
+`load_state_dict(sd, strict=True)`. The maps are linear and keyed by name,
+so a tree of gradients (the same structure as the params) converts to
+gradients under the port's parameter names, and a `batch_stats` tree to the
+`running_mean` / `running_var` buffers.
 
 A quantized tree (`quantize_variables` of the JAX package: `kernel_q` int8
 and `kernel_scale` in place of `kernel`) gives `weight_q` / `weight_scale`
@@ -181,8 +184,8 @@ def fpg_state_dict(params: Tree) -> StateDict:
     return sd
 
 
-def fused_denoiser_state_dict(params: Tree, stats: Tree) -> StateDict:
-    """FusedDenoiser; `stats` holds the HCA BatchNorm statistics."""
+def denoiser_state_dict(params: Tree) -> StateDict:
+    """The unconditional Denoiser, and the FusedDenoiser's backbone."""
     sd: StateDict = {}
     _dense(sd, "time_mlp.1", params["time_mlp"]["fc1"]["dense"])
     _dense(sd, "time_mlp.3", params["time_mlp"]["fc2"]["dense"])
@@ -201,6 +204,12 @@ def fused_denoiser_state_dict(params: Tree, stats: Tree) -> StateDict:
     for i in range(_count(params, "up")):
         _conv(sd, f"ups.{i}.0", params[f"up{i}"]["conv"])
         blocks(f"decoders.{i}", f"dec{i}")
+    return sd
+
+
+def fused_denoiser_state_dict(params: Tree, stats: Tree) -> StateDict:
+    """FusedDenoiser; `stats` holds the HCA BatchNorm statistics."""
+    sd = denoiser_state_dict(params)
     _weight(sd, "idc_conv", params["idc_proj"]["dense"],
             lambda k: k.T[:, :, None, None])
     for i in range(_count(params, "hca")):

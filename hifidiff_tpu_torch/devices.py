@@ -1,0 +1,21 @@
+"""Where the port's entry points run: on the card unless the caller asks for
+the CPU."""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+
+def resolve_device(device: Union[None, str, torch.device],
+                   who: str) -> torch.device:
+    """`None` means `torch.device("cuda")`. Raises when a CUDA device is
+    wanted and there is none: the CPU is used only when asked for with
+    `device="cpu"`."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device; it runs on the card unless "
+            "device=\"cpu\" is passed")
+    return device

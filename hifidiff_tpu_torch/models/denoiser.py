@@ -12,6 +12,9 @@ reference `models/denoiser/model.py:137-266`).
     (B, 2048, 1, 1) IDC embedding, viewed as (B, ch, bh, bw); then HCA
     fuses the FPG priors at the bottleneck and after each decoder stage.
 
+`Denoiser` is the unconditional backbone (stage-3 pretraining);
+`FusedDenoiser` adds the conditioning. Both share `_UNetCore`.
+
 `precompute` hoists everything that does not depend on the noisy latent:
 the FiLM tables of every block for all the sampler's timesteps, the identity
 injection and the HCA gates. `forward(films=..., idc_pre=..., hca_gates=...)`
@@ -53,11 +56,14 @@ class TimeMLP(nn.Sequential):
         return self[3](self[2](self[1](emb)))
 
 
-class FusedDenoiser(nn.Module):
-    def __init__(self, width: int = 128, in_channels: int = 4,
-                 latent_size: int = 16,
-                 enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
-                 dec_nums: Sequence[int] = (2, 2, 2, 2), id_dim: int = 2048):
+class _UNetCore(nn.Module):
+    """The encoder / middle / decoder machinery both denoisers share. With
+    `id_dim` it also builds the conditional parts (`idc_conv`, `hcas`), in
+    the reference's order of construction."""
+
+    def __init__(self, width: int, in_channels: int, latent_size: int,
+                 enc_nums: Sequence[int], mid_num: int,
+                 dec_nums: Sequence[int], id_dim: Optional[int] = None):
         super().__init__()
         time_dim = width * 4
 
@@ -76,25 +82,92 @@ class FusedDenoiser(nn.Module):
         self.encoders = nn.ModuleList(encoders)
         self.downs = nn.ModuleList(downs)
         self.middle_blks = stage(ch, mid_num)
-        bh = latent_size // 2 ** len(enc_nums)
-        self._bottleneck = (ch, bh, bh)
-        self.idc_conv = nn.Conv2d(id_dim, ch * bh * bh, 1)
-        hcas, ups, decoders = [HybridCrossAttention(ch)], [], []
+        hcas, ups, decoders = [], [], []
+        if id_dim is not None:
+            bh = latent_size // 2 ** len(enc_nums)
+            self._bottleneck = (ch, bh, bh)
+            self.idc_conv = nn.Conv2d(id_dim, ch * bh * bh, 1)
+            hcas.append(HybridCrossAttention(ch))
         for n in dec_nums:
             ups.append(nn.Sequential(nn.Conv2d(ch, ch * 2, 1, bias=False),
                                      nn.PixelShuffle(2)))
             ch //= 2
             decoders.append(stage(ch, n))
-            hcas.append(HybridCrossAttention(ch))
+            if id_dim is not None:
+                hcas.append(HybridCrossAttention(ch))
         self.ups = nn.ModuleList(ups)
         self.decoders = nn.ModuleList(decoders)
-        self.hcas = nn.ModuleList(hcas)
+        if id_dim is not None:
+            self.hcas = nn.ModuleList(hcas)
         self.ending = nn.Conv2d(width, in_channels, 3, padding=1)
 
     def blocks(self) -> List[ConditionalNAFBlock]:
         """Every ConditionalNAFBlock in forward order: enc, mid, dec."""
         return [*itertools.chain(*self.encoders), *self.middle_blks,
                 *itertools.chain(*self.decoders)]
+
+    def _runner(self, timesteps, films, fuse_small_naf=False):
+        """`run(blk, x)` for one forward: each block gets the time embedding,
+        or the next of the given `films` (one per block)."""
+        t = self.time_mlp(timesteps) if films is None else None
+        films = iter(films if films is not None else
+                     [None] * len(self.blocks()))
+
+        def run(blk, x):
+            return blk(x, t, next(films), fuse_small_naf)
+
+        return run
+
+    def _encode(self, latents, run):
+        """intro, encoder stages and middle blocks -> (bottleneck, skips)."""
+        x = self.intro(latents.to(compute_dtype(self.intro)))
+        skips = []
+        for enc, down in zip(self.encoders, self.downs):
+            for blk in enc:
+                x = run(blk, x)
+            skips.append(x)  # pre-downsample skip (reference convention)
+            x = down(x)
+        for blk in self.middle_blks:
+            x = run(blk, x)
+        return x, skips
+
+    def _decode_stage(self, i, x, skips, run):
+        x = self.ups[i](x) + skips[-1 - i]
+        for blk in self.decoders[i]:
+            x = run(blk, x)
+        return x
+
+
+class Denoiser(_UNetCore):
+    """Unconditional latent epsilon-predictor (stage-3 pretraining;
+    counterpart of hifidiff_tpu's `Denoiser`). Its state-dict names are the
+    FusedDenoiser's backbone names, so a trained Denoiser overlays a refiner
+    (`train.checkpoint.compose_refiner`)."""
+
+    def __init__(self, width: int = 128, in_channels: int = 4,
+                 enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
+                 dec_nums: Sequence[int] = (2, 2, 2, 2)):
+        super().__init__(width, in_channels, 0, enc_nums, mid_num, dec_nums)
+
+    def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
+                films: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """latents (B, 4, h, w), timesteps (B,) float -> epsilon."""
+        h, w = latents.shape[2], latents.shape[3]
+        run = self._runner(timesteps, films)
+        x, skips = self._encode(latents, run)
+        for i in range(len(self.decoders)):
+            x = self._decode_stage(i, x, skips, run)
+        return self.ending(x)[:, :, :h, :w]
+
+
+class FusedDenoiser(_UNetCore):
+    def __init__(self, width: int = 128, in_channels: int = 4,
+                 latent_size: int = 16,
+                 enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
+                 dec_nums: Sequence[int] = (2, 2, 2, 2), id_dim: int = 2048):
+        super().__init__(width, in_channels, latent_size, enc_nums, mid_num,
+                         dec_nums, id_dim)
 
     def idc_injection(self, identity_embedding: torch.Tensor) -> torch.Tensor:
         """(B, 2048) -> (B, ch, bh, bw), the reference's NCHW view."""
@@ -106,7 +179,8 @@ class FusedDenoiser(nn.Module):
                    facial_priors: Sequence[torch.Tensor],
                    identity_embedding: torch.Tensor) -> Dict:
         """The loop invariants for the timesteps (S,) of a sampler: per-block
-        FiLM tables (S, 4c), the identity injection, and the HCA gates."""
+        FiLM tables (S, 4c), the identity injection, and the HCA gates (eval
+        mode: the gates' BatchNorm on running statistics)."""
         t = self.time_mlp(timesteps)
         return {
             "films": [blk(None, t) for blk in self.blocks()],
@@ -127,33 +201,20 @@ class FusedDenoiser(nn.Module):
         `films` (one per block, batch B or 1), `idc_pre` and `hca_gates` are
         `precompute`'s outputs; with `films` the timesteps are unused.
         `fuse_small_naf` sends the blocks that pass their gate through the
-        fused small-map block."""
+        fused small-map block.
+
+        A training forward is this call in `.train()` mode with per-sample
+        timesteps and nothing hoisted: every block projects its own FiLM
+        rows and the HCA BatchNorms run on batch statistics."""
         h, w = latents.shape[2], latents.shape[3]
-        t = self.time_mlp(timesteps) if films is None else None
-        films = iter(films if films is not None else
-                     [None] * len(self.blocks()))
-
-        def run(blk, x):
-            return blk(x, t, next(films), fuse_small_naf)
-
+        run = self._runner(timesteps, films, fuse_small_naf)
         gates = hca_gates if hca_gates is not None else \
             [None] * len(self.hcas)
-
-        x = self.intro(latents.to(compute_dtype(self.intro)))
-        skips = []
-        for enc, down in zip(self.encoders, self.downs):
-            for blk in enc:
-                x = run(blk, x)
-            skips.append(x)  # pre-downsample skip (reference convention)
-            x = down(x)
-        for blk in self.middle_blks:
-            x = run(blk, x)
+        x, skips = self._encode(latents, run)
         x = x + (self.idc_injection(identity_embedding) if idc_pre is None
                  else idc_pre)
         x = self.hcas[0](facial_priors[0], x, gates[0])
-        for i, (up, dec) in enumerate(zip(self.ups, self.decoders)):
-            x = up(x) + skips[-1 - i]
-            for blk in dec:
-                x = run(blk, x)
+        for i in range(len(self.decoders)):
+            x = self._decode_stage(i, x, skips, run)
             x = self.hcas[i + 1](facial_priors[i + 1], x, gates[i + 1])
         return self.ending(x)[:, :, :h, :w]

@@ -28,6 +28,14 @@ class FacialRefiner(nn.Module):
                                       dec_nums=dec_nums)
         self.fpg = FacialPriorGuidance(width=width, enc_nums=enc_nums)
 
+    def train(self, mode: bool = True) -> "FacialRefiner":
+        """The IDC stays in eval mode whatever `mode` says: it is frozen in
+        refiner training and its BatchNorm keeps its running statistics
+        (reference `models/refiner.py:20`)."""
+        super().train(mode)
+        self.idc.eval()
+        return self
+
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                 cr_face: torch.Tensor, cr_latent: torch.Tensor,
                 fuse_small_naf: bool = False) -> torch.Tensor:

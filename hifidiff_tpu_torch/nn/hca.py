@@ -8,7 +8,10 @@ denoiser features `f_d`:
     (C/2 -> 1) -> BatchNorm -> sigmoid -> one-channel map w_s;
   * f_o = f_d + w_c * f_d + w_s * f_d, then 3x3 conv + BatchNorm + ReLU.
 
-BatchNorm is torch's (eps 1e-5), in eval mode with running statistics.
+BatchNorm is `nn.layers.BatchNorm2d` (eps 1e-5): running statistics in eval
+mode; in training mode batch statistics, with the running variance updated
+as the JAX package updates it. The sampler's hoisted `gates` are for eval
+mode; a training forward computes them from `f_g` on batch statistics.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from hifidiff_tpu_torch.nn.layers import BatchNorm2d
+
 
 class HybridCrossAttention(nn.Module):
     def __init__(self, dim: int):
@@ -25,10 +30,10 @@ class HybridCrossAttention(nn.Module):
         self.channel_mlp = nn.Sequential(nn.Linear(dim, dim), nn.ReLU(),
                                          nn.Linear(dim, dim), nn.Sigmoid())
         self.spatial_mlp = nn.Sequential(
-            nn.Conv2d(dim, dim // 2, 1), nn.BatchNorm2d(dim // 2), nn.ReLU(),
-            nn.Conv2d(dim // 2, 1, 1), nn.BatchNorm2d(1), nn.Sigmoid())
+            nn.Conv2d(dim, dim // 2, 1), BatchNorm2d(dim // 2), nn.ReLU(),
+            nn.Conv2d(dim // 2, 1, 1), BatchNorm2d(1), nn.Sigmoid())
         self.fused_mlp = nn.Sequential(nn.Conv2d(dim, dim, 3, padding=1),
-                                       nn.BatchNorm2d(dim), nn.ReLU())
+                                       BatchNorm2d(dim), nn.ReLU())
 
     def gates(self, f_g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_c (B, C, 1, 1), w_s (B, 1, H, W)): functions of the guidance

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hifidiff_tpu_torch.ops import quant
@@ -37,6 +38,29 @@ class LayerNorm2d(nn.Module):
         if scale is not None:
             return ln_film(x, self.weight, self.bias, scale, shift, self.eps)
         return layer_norm_2d(x, self.weight, self.bias, self.eps)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-5, momentum 0.1) whose training mode follows
+    the JAX package's flax BatchNorm (momentum 0.9): the running variance is
+    updated with the *biased* batch variance, where torch's own uses the
+    unbiased one (the two differ by n / (n - 1), much at a 1x1 bottleneck
+    with a small batch). Normalisation, the running mean and eval mode are
+    torch's. State-dict names are `nn.BatchNorm2d`'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class _W8Module(nn.Module):

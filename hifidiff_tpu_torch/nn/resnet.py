@@ -3,8 +3,9 @@
 `models/idc/model.py:102-166`). 7x7/s2 stem conv without bias + BN + ReLU +
 3x3/s2 max-pool (padding 1); bottleneck stages [3,4,6,3] at planes
 64/128/256/512 whose 1x1/3x3/1x1 convs carry biases; no classifier; the
-global average pool gives the (B, 2048) identity embedding. BatchNorm runs
-in eval mode (eps 1e-5)."""
+global average pool gives the (B, 2048) identity embedding. BatchNorm is
+`nn.layers.BatchNorm2d` (eps 1e-5): running statistics in eval mode, batch
+statistics in training mode (IDC pretraining)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from hifidiff_tpu_torch.nn.layers import BatchNorm2d
 
 
 class Bottleneck(nn.Module):
@@ -22,14 +25,14 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = nn.Conv2d(in_ch, planes, 1)
-        self.batch_norm1 = nn.BatchNorm2d(planes)
+        self.batch_norm1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1)
-        self.batch_norm2 = nn.BatchNorm2d(planes)
+        self.batch_norm2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, out_ch, 1)
-        self.batch_norm3 = nn.BatchNorm2d(out_ch)
+        self.batch_norm3 = BatchNorm2d(out_ch)
         self.i_downsample = (
             nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride=stride),
-                          nn.BatchNorm2d(out_ch))
+                          BatchNorm2d(out_ch))
             if project_identity else None)
         self.relu = nn.ReLU()
 
@@ -45,7 +48,7 @@ class ResNet50(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.batch_norm1 = nn.BatchNorm2d(64)
+        self.batch_norm1 = BatchNorm2d(64)
         self.relu = nn.ReLU()
         self.max_pool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = 64

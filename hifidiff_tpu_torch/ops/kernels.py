@@ -28,14 +28,15 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("ln_film.cu", "warp.cu", "matmul_w8.cu", "gn_silu.cu",
-            "cnaf_small.cu")
+_SOURCES = ("ln_film.cu", "ln_film_bwd.cu", "warp.cu", "warp_bwd.cu",
+            "matmul_w8.cu", "gn_silu.cu", "cnaf_small.cu")
 _HEADERS = ("common.cuh", "gemm_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"ln_film": 0, "affine_warp": 0, "matmul_w8": 0,
-            "group_norm_silu": 0, "cnaf_small": 0}
+LAUNCHES = {"ln_film": 0, "ln_film_bwd": 0, "affine_warp": 0,
+            "affine_warp_bwd": 0, "matmul_w8": 0, "group_norm_silu": 0,
+            "cnaf_small": 0}
 
 
 def reset_launches() -> None:
@@ -103,8 +104,14 @@ def library() -> ctypes.CDLL:
         ctypes.c_longlong
     lib.hifidiff_ln_film.argtypes = [p, p, p, p, p, p, i, i, i, ll, f, i, p]
     lib.hifidiff_ln_film.restype = i
+    lib.hifidiff_ln_film_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, f,
+                                         i, i, p]
+    lib.hifidiff_ln_film_bwd.restype = i
     lib.hifidiff_affine_warp.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.hifidiff_affine_warp.restype = i
+    lib.hifidiff_affine_warp_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                             i, p]
+    lib.hifidiff_affine_warp_bwd.restype = i
     lib.hifidiff_matmul_w8.argtypes = [p, p, p, p, i, i, i, p]
     lib.hifidiff_matmul_w8.restype = i
     lib.hifidiff_gn_silu.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
@@ -121,18 +128,37 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
 
 
-def check_launchable(name: str, *tensors: torch.Tensor) -> None:
+def check_same_device(name: str, *tensors: torch.Tensor) -> None:
     """What every kernel wrapper requires of a CUDA call: all tensors on one
-    CUDA device, and no gradient wanted (the backward kernels come with
-    training)."""
+    CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+
+
+def on_cpu(name: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version's turn), False for a CUDA
+    tensor (the kernel's); any other device is refused."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type == "cpu"
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_launchable(name: str, *tensors: torch.Tensor) -> None:
+    """The requirements of an inference-only kernel (`matmul_w8`,
+    `group_norm_silu(fused=True)`, the fused small-map block): all tensors on
+    one CUDA device, and no gradient wanted. `ln_film` and the warp have
+    backward kernels and go through `torch.autograd.Function`s instead."""
+    check_same_device(name, *tensors)
+    if wants_grad(*tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet; call it under "
-            "torch.inference_mode() or torch.no_grad()")
+            f"{name}: the CUDA kernel has no backward (inference only); call "
+            "it under torch.inference_mode() or torch.no_grad()")
 
 
 def stream_ptr(device: torch.device) -> int:

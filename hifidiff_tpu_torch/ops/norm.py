@@ -1,5 +1,6 @@
-"""Channel LayerNorm for NCHW maps, the fused LayerNorm+FiLM kernel's
-dispatch, and GroupNorm+SiLU (counterpart of hifidiff_tpu/ops/norm.py).
+"""Channel LayerNorm for NCHW maps, the fused LayerNorm+FiLM kernels'
+dispatch (forward and backward), and GroupNorm+SiLU (counterpart of
+hifidiff_tpu/ops/norm.py).
 
 LayerNorm2d semantics follow the reference's hand-rolled op: per pixel,
 normalise over the channel axis with the biased variance,
@@ -43,28 +44,77 @@ def ln_film_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * (1.0 + _chan(scale)) + _chan(shift)).to(x.dtype)
 
 
-def _ln_film_cuda(x, weight, bias, scale, shift, eps):
-    name = "ln_film"
-    kernels.check_launchable(name, x, weight, bias, scale, shift)
+def ln_film_bwd_plain(g: torch.Tensor, x: torch.Tensor,
+                      weight: torch.Tensor, bias: torch.Tensor,
+                      scale: torch.Tensor, eps: float = 1e-6,
+                      need_wb: bool = True):
+    """The backward kernel's plain PyTorch version, the closed form (not
+    autograd of `ln_film_plain`): from x and the output's gradient g,
+    recomputing mean, rstd and y,
+
+        gw = g * (1 + scale) * w
+        dx = rstd * (gw - y * mean_C(gw * y) - mean_C(gw))
+
+    and the float32 sums over the pixels `dw = sum g1 * y`, `db = sum g1`
+    (g1 = g * (1 + scale); also summed over the batch),
+    `dscale = sum g * (y * w + b)`, `dshift = sum g` (per sample, or summed
+    over the batch for a (1, C) FiLM). Returns (dx in x's dtype, dw, db,
+    dscale, dshift in float32); dw and db are None without `need_wb`."""
+    xf, gf = x.float(), g.float()
+    mu = xf.mean(dim=1, keepdim=True)
+    var = (xf - mu).square().mean(dim=1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mu) * rstd
+    w, b = _chan(weight), _chan(bias)
+    g1 = gf * (1.0 + _chan(scale))
+    gw = g1 * w
+    dx = rstd * (gw - y * (gw * y).mean(dim=1, keepdim=True)
+                 - gw.mean(dim=1, keepdim=True))
+    dscale = (gf * (y * w + b)).sum(dim=(2, 3))
+    dshift = gf.sum(dim=(2, 3))
+    if scale.shape[0] == 1 and x.shape[0] > 1:
+        dscale = dscale.sum(dim=0, keepdim=True)
+        dshift = dshift.sum(dim=0, keepdim=True)
+    dw = (g1 * y).sum(dim=(0, 2, 3)) if need_wb else None
+    db = g1.sum(dim=(0, 2, 3)) if need_wb else None
+    return dx.to(x.dtype), dw, db, dscale, dshift
+
+
+def _check_ln_film_args(name, x, weight, bias, film_rows):
+    """Shapes, dtypes and strides the two ln_film kernels take; returns
+    (is_bf16, film_stride)."""
+    kernels.check_same_device(name, x, weight, bias, *film_rows)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous NCHW tensor, got "
                          f"shape {tuple(x.shape)}")
-    b, c, h, w = x.shape
+    b, c = x.shape[0], x.shape[1]
     is_bf16 = kernels.dtype_code(x, name)
-    for t in (weight, bias, scale, shift):
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name}: weight, bias, scale and shift must "
-                            f"have x's dtype {x.dtype}, got {t.dtype}")
+    tables = (weight, bias, *film_rows)
+    if any(t.dtype != x.dtype for t in tables):
+        raise TypeError(f"{name}: weight, bias, scale and shift must have "
+                        f"x's dtype {x.dtype}, got "
+                        f"{[t.dtype for t in tables]}")
     if weight.shape != (c,) or bias.shape != (c,) \
             or not weight.is_contiguous() or not bias.is_contiguous():
         raise ValueError(f"{name}: weight and bias must be contiguous ({c},)")
-    if scale.dim() != 2 or scale.shape[1] != c or scale.shape != shift.shape \
-            or scale.shape[0] not in (1, b) or scale.stride(1) != 1 \
-            or shift.stride(1) != 1 or scale.stride(0) != shift.stride(0):
-        raise ValueError(f"{name}: scale and shift must be ({b} or 1, {c}) "
-                         "rows with unit channel stride and one row stride, "
-                         f"got {tuple(scale.shape)} / {tuple(shift.shape)}")
-    film_stride = scale.stride(0) if scale.shape[0] == b and b > 1 else 0
+    first = film_rows[0]
+    for t in film_rows:
+        if t.dim() != 2 or t.shape[1] != c or t.shape[0] not in (1, b) \
+                or t.stride(1) != 1 or t.shape != first.shape \
+                or t.stride(0) != first.stride(0):
+            raise ValueError(
+                f"{name}: scale and shift must be ({b} or 1, {c}) rows with "
+                "unit channel stride and one row stride, got "
+                f"{[tuple(r.shape) for r in film_rows]}")
+    film_stride = first.stride(0) if first.shape[0] == b and b > 1 else 0
+    return is_bf16, film_stride
+
+
+def _ln_film_cuda(x, weight, bias, scale, shift, eps):
+    name = "ln_film"
+    is_bf16, film_stride = _check_ln_film_args(
+        name, x, weight, bias, (scale, shift))
+    b, c, h, w = x.shape
     out = torch.empty_like(x)
     lib = kernels.library()
     kernels.check(lib.hifidiff_ln_film(
@@ -75,18 +125,96 @@ def _ln_film_cuda(x, weight, bias, scale, shift, eps):
     return out
 
 
+def _ln_film_bwd_cuda(g, x, weight, bias, scale, eps, need_wb):
+    name = "ln_film_bwd"
+    is_bf16, film_stride = _check_ln_film_args(
+        name, x, weight, bias, (scale,))
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"{name}: g must match x, got {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device}")
+    g = g.contiguous()
+    b, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    partials = torch.zeros((4, b, c), dtype=torch.float32, device=x.device)
+    lib = kernels.library()
+    kernels.check(lib.hifidiff_ln_film_bwd(
+        x.data_ptr(), g.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        scale.data_ptr(), dx.data_ptr(), partials.data_ptr(), b, c, h * w,
+        film_stride, float(eps), is_bf16, int(need_wb),
+        kernels.stream_ptr(x.device)), name)
+    kernels.LAUNCHES[name] += 1
+    dw, db, dscale, dshift = partials.unbind(0)
+    if scale.shape[0] == 1 and b > 1:
+        dscale = dscale.sum(dim=0, keepdim=True)
+        dshift = dshift.sum(dim=0, keepdim=True)
+    if not need_wb:
+        return dx, None, None, dscale, dshift
+    return dx, dw.sum(dim=0), db.sum(dim=0), dscale, dshift
+
+
+def _ln_film_forward(x, weight, bias, scale, shift, eps):
+    if kernels.on_cpu("ln_film", x):
+        return ln_film_plain(x, weight, bias, scale, shift, eps)
+    return _ln_film_cuda(x, weight, bias, scale, shift, eps)
+
+
+def ln_film_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                need_wb: bool = True):
+    """`ln_film`'s backward from x and the output's gradient g; returns what
+    `ln_film_bwd_plain` returns. A CPU tensor takes that plain version; a
+    CUDA tensor the hand-written kernel (csrc/ln_film_bwd.cu), which raises
+    where it cannot run. g may arrive non-contiguous from autograd and is
+    made contiguous. The per-sample sums are float32 atomics across the
+    blocks of a sample's map: not bit-reproducible where H*W > 32."""
+    if kernels.on_cpu("ln_film_bwd", x):
+        return ln_film_bwd_plain(g, x, weight, bias, scale, eps, need_wb)
+    return _ln_film_bwd_cuda(g, x, weight, bias, scale, eps, need_wb)
+
+
+class _LnFilm(torch.autograd.Function):
+    """`ln_film` with its hand-written backward. Saves x, weight, bias and
+    scale and nothing else: the backward recomputes the statistics from x,
+    as the TPU kernel does. A CPU tensor takes the plain versions, forward
+    and backward; a CUDA tensor the two kernels."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, scale, shift, eps):
+        ctx.save_for_backward(x, weight, bias, scale)
+        ctx.eps = eps
+        return _ln_film_forward(x, weight, bias, scale, shift, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, scale = ctx.saved_tensors
+        need_wb = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, dw, db, dscale, dshift = ln_film_bwd(g, x, weight, bias, scale,
+                                                 ctx.eps, need_wb)
+        # float32 sums, cast to the primals' dtypes last
+        if need_wb:
+            dw, db = dw.to(weight.dtype), db.to(bias.dtype)
+        return (dx, dw, db, dscale.to(scale.dtype), dshift.to(scale.dtype),
+                None)
+
+
 def ln_film(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             scale: torch.Tensor, shift: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """Fused LayerNorm2d + FiLM with a per-sample (B, C) or shared (1, C)
     scale/shift. A CPU tensor takes the plain version; a CUDA tensor the
     hand-written kernel (csrc/ln_film.cu), which raises where it cannot
-    run."""
-    if x.device.type == "cpu":
-        return ln_film_plain(x, weight, bias, scale, shift, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"ln_film: unsupported device {x.device}")
-    return _ln_film_cuda(x, weight, bias, scale, shift, eps)
+    run. Where a gradient is wanted the call is recorded for autograd with
+    a hand-written backward (csrc/ln_film_bwd.cu on the card,
+    `ln_film_bwd_plain` on the CPU).
+
+    Dtypes: on the card weight, bias, scale and shift have x's dtype, all
+    float32 or all bf16 (a module cast as a whole), else the kernels raise.
+    Training runs in float32: float32 master weights beside bf16 maps are
+    not taken. The backward's sums are float32 and are cast to each table's
+    dtype last."""
+    if kernels.wants_grad(x, weight, bias, scale, shift):
+        return _LnFilm.apply(x, weight, bias, scale, shift, eps)
+    return _ln_film_forward(x, weight, bias, scale, shift, eps)
 
 
 def _group_norm_f32(x, weight, bias, num_groups, eps):

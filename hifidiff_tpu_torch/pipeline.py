@@ -33,6 +33,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.diffusion.sampling import ddim_timesteps, sample_ddim
 from hifidiff_tpu_torch.models.cr import CoarseRestoration
 from hifidiff_tpu_torch.models.refiner import FacialRefiner
@@ -71,11 +72,7 @@ def build_refiner_sampler_split(
 
     The three stages are exposed as `sample.stages` ("prep", "scan",
     "decode") for per-stage timing; they take tensors on the device."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_refiner_sampler_split: no CUDA device; the sampler runs "
-            "on the card unless device=\"cpu\" is passed")
+    device = resolve_device(device, "build_refiner_sampler_split")
     for m in (refiner, cr_model, vae):
         m.to(device).eval()
     ts = ddim_timesteps(config.num_inference_steps)

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports without jax, chip_smoke.py
-refuses to run without CUDA, the sampler targets the card unless asked for
-the CPU, and a CUDA tensor reaching a kernel wrapper whose library cannot be
+refuses to run without CUDA, the sampler and the train steps target the card
+unless asked for the CPU, the inference-only kernels raise where a gradient
+is wanted, and a CUDA tensor reaching a kernel wrapper whose library cannot be
 built raises rather than falling back."""
 
 import os
@@ -27,6 +28,15 @@ print(len(names))
 """
 
 
+def _port_modules():
+    import pkgutil
+
+    import hifidiff_tpu_torch
+
+    return {m.name for m in pkgutil.walk_packages(
+        hifidiff_tpu_torch.__path__, "hifidiff_tpu_torch.")}
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, **(env_extra or {}))
     return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
@@ -36,7 +46,8 @@ def _run(args, cwd, env_extra=None):
 def test_port_imports_with_jax_blocked():
     res = _run([sys.executable, "-c", BLOCKED_IMPORT], REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 20
+    assert "hifidiff_tpu_torch.train.steps" in _port_modules()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -96,6 +107,65 @@ def test_sampler_runs_on_the_cpu_when_asked():
                    generator=torch.Generator().manual_seed(0))
     assert faces.device.type == "cpu" and faces.dtype == torch.uint8
     assert faces.shape == (1, 32, 32, 3)
+
+
+STEP_FACTORIES = ["make_cr_train_step", "make_cr_eval_step",
+                  "make_idc_train_step", "make_denoiser_train_step",
+                  "make_denoiser_train_step_cached", "make_vae_train_step",
+                  "make_refiner_train_step"]
+
+
+@pytest.mark.parametrize("factory", STEP_FACTORIES)
+def test_train_steps_default_device_is_the_card(monkeypatch, factory):
+    """No `device` argument means CUDA: without a card every step factory
+    raises, and builds its step on the CPU only when asked to."""
+    from hifidiff_tpu_torch.train import steps
+
+    refiner, cr, vae = _tiny_models()
+    frozen = {"make_idc_train_step": (cr,), "make_denoiser_train_step": (vae,),
+              "make_refiner_train_step": (cr, vae)}.get(factory, ())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(steps, factory)(*frozen)
+    assert callable(getattr(steps, factory)(*frozen, device="cpu"))
+
+
+def test_train_state_default_device_is_the_card(monkeypatch):
+    from hifidiff_tpu_torch.train import optim, steps
+
+    _, cr, _ = _tiny_models()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.TrainState.create(cr, optim.adam)
+    state = steps.TrainState.create(cr, optim.adam, device="cpu")
+    assert state.device.type == "cpu" and state.step == 0
+
+
+def test_inference_only_kernels_raise_under_grad():
+    """`matmul_w8`, fused GroupNorm+SiLU and the fused small-map block have
+    no backward: where a gradient is wanted they raise and do not fall back
+    (`ln_film` and the warp have backward kernels and record themselves for
+    autograd instead)."""
+    from hifidiff_tpu_torch.nn.naf import ConditionalNAFBlock
+    from hifidiff_tpu_torch.ops import kernels, norm, warp
+
+    x = torch.randn(2, 128, 1, 1, requires_grad=True)
+    for name in ("matmul_w8", "group_norm_silu", "cnaf_small"):
+        with pytest.raises(RuntimeError, match="no backward"):
+            kernels.check_launchable(name, x)
+        with torch.no_grad():
+            kernels.check_launchable(name, x)
+    blk = ConditionalNAFBlock(128, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        blk(x, None, torch.zeros(1, 512), fuse_small=True)
+    w = torch.ones(128, requires_grad=True)
+    s = torch.zeros(2, 128, requires_grad=True)
+    out = norm.ln_film(x, w, w, s, s)
+    assert out.grad_fn.name() == "_LnFilmBackward"
+    theta = torch.tensor([[[1.0, 0, 0], [0, 1.0, 0]]]).repeat(2, 1, 1)
+    assert warp.affine_warp(x, theta).grad_fn.name() == "_AffineWarpBackward"
+    with torch.no_grad():
+        assert norm.ln_film(x, w, w, s, s).grad_fn is None
 
 
 @pytest.mark.cuda

@@ -73,12 +73,156 @@ def test_warp_kernel_matches_plain(cuda, dtype, shape, spread):
 
 
 def test_kernels_refuse_gradients(cuda):
-    x = torch.randn(2, 8, 4, 4, device=cuda, requires_grad=True)
-    w, s = torch.ones(8, device=cuda), torch.zeros(1, 8, device=cuda)
+    """The inference-only kernels raise where a gradient is wanted and do
+    not fall back; `ln_film` and the warp have backward kernels and run."""
+    x = torch.randn(2, 64, 4, 4, device=cuda, requires_grad=True)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
     with pytest.raises(RuntimeError, match="backward"):
-        norm.ln_film(x, w, w, s, s)
+        norm.group_norm_silu(x, w, b, fused=True)
+    xb = torch.randn(64, 128, device=cuda).bfloat16().requires_grad_()
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(128, 128, device=cuda))
     with pytest.raises(RuntimeError, match="backward"):
-        warp.warp(x, torch.zeros(2, 6, device=cuda))
+        quant.matmul_w8(xb, wq, scale)
+    blk = _block(128, False, cuda)
+    film = torch.zeros(1, 512, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="backward"):
+        blk(torch.randn(2, 128, 1, 1, device=cuda).bfloat16(), None, film,
+            fuse_small=True)
+    before = dict(kernels.LAUNCHES)
+    s = torch.zeros(1, 64, device=cuda)
+    norm.ln_film(x, w, b, s, s).sum().backward()
+    warp.warp(x, warp.pixel_coef(torch.tensor(
+        [[[1.0, 0, 0], [0, 1.0, 0]]], device=cuda).repeat(2, 1, 1), 4, 4)
+    ).sum().backward()
+    torch.cuda.synchronize()
+    for name in ("ln_film", "ln_film_bwd", "affine_warp", "affine_warp_bwd"):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
+
+
+# The backward kernels against their plain versions (the closed forms). f32:
+# the sums over channels, pixels and the batch are taken in another order,
+# and with atomics in an order that changes from run to run; every sum has
+# up to 2048 (channels) or 16384 (pixels) terms of order 1, so a few 1e-6 of
+# the largest term per element, held relative to the gradient's largest
+# value. bf16: dx is one rounding of a float32 value (2^-8 relative, plus the
+# cancellation in `gw - y * mean - mean`); the float32 partials see the same
+# bf16 inputs and differ as in f32.
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+SUM_REL = 2e-5
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,film_batch", [
+    ((32, 128, 16, 16), 32), ((32, 256, 8, 8), 32), ((32, 512, 4, 4), 32),
+    ((32, 1024, 2, 2), 32), ((32, 2048, 1, 1), 32), ((32, 128, 16, 16), 1),
+    ((3, 48, 5, 3), 3)])
+def test_ln_film_bwd_kernel_matches_plain(cuda, dtype, shape, film_batch):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, c = shape[0], shape[1]
+    x, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    w, bb = (torch.randn(c, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    # rows 4C apart with unit channel stride, as `film.chunk(4, dim=1)` gives
+    film = (0.3 * torch.randn(film_batch, 4 * c, generator=gen,
+                              device=cuda)).to(dtype)
+    scale = film.chunk(4, dim=1)[1]
+    before = kernels.LAUNCHES["ln_film_bwd"]
+    out = norm.ln_film_bwd(g.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), x, w, bb, scale, 1e-6)
+    ref = norm.ln_film_bwd_plain(g, x, w, bb, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ln_film_bwd"] == before + 1
+    assert out[0].dtype == dtype and out[3].shape == (film_batch, c)
+    assert _rel(out[0], ref[0]) <= BWD_REL[dtype]
+    for a, r in zip(out[1:], ref[1:]):
+        assert a.dtype == torch.float32 and _rel(a, r) <= SUM_REL
+    skipped = norm.ln_film_bwd(g, x, w, bb, scale, 1e-6, need_wb=False)
+    assert skipped[1] is None and skipped[2] is None
+    assert _rel(skipped[3], ref[3]) <= SUM_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_film_autograd_on_the_card(cuda, dtype):
+    """Through `ln_film` under autograd with per-sample FiLM rows 4C apart,
+    as a training block calls it: the forward output and the gradients, each
+    in its primal's dtype, against the plain version and its autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(4, 256, 8, 8, generator=gen, device=cuda).to(dtype) \
+        .requires_grad_()
+    w, b = (torch.randn(256, generator=gen, device=cuda).to(dtype)
+            .requires_grad_() for _ in range(2))
+    film = (0.3 * torch.randn(4, 1024, generator=gen, device=cuda)) \
+        .to(dtype).requires_grad_()
+    _, sc, _, sh = film.chunk(4, dim=1)
+    g = torch.randn(4, 256, 8, 8, generator=gen, device=cuda).to(dtype)
+    out, plain = norm.ln_film(x, w, b, sc, sh), \
+        norm.ln_film_plain(x, w, b, sc, sh)
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+    got = torch.autograd.grad(out, (x, w, b, film), g)
+    ref = torch.autograd.grad(plain, (x, w, b, film), g)
+    for a, r, p in zip(got, ref, (x, w, b, film)):
+        assert a.dtype == p.dtype and a.shape == p.shape
+        assert _rel(a, r) <= BWD_REL[dtype]
+
+
+WARP_THETAS = {
+    "identity": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.0),
+    "random": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.05),
+    "shear": ([[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]], 0.02),
+    "out_of_bounds": ([[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]], 0.02)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 128, 128), (8, 64, 64, 64),
+                                   (8, 128, 32, 32), (8, 256, 16, 16),
+                                   (8, 512, 8, 8), (2, 5, 7, 9)])
+@pytest.mark.parametrize("kind", list(WARP_THETAS))
+def test_warp_bwd_kernel_matches_plain(cuda, dtype, shape, kind):
+    """dx: at most four atomics of order-1 terms land on an element near
+    the identity, many under a strong minification. dcoef sums
+    C * H * W terms times pixel coordinates up to 127: relative to its
+    largest entry."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    base, spread = WARP_THETAS[kind]
+    theta = torch.tensor(base, device=cuda) + spread * torch.randn(
+        shape[0], 2, 3, generator=gen, device=cuda)
+    x, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    coef = warp.pixel_coef(theta, shape[2], shape[3])
+    before = kernels.LAUNCHES["affine_warp_bwd"]
+    dx, dcoef = warp.warp_bwd(g, x, coef)
+    rdx, rdcoef = warp.warp_bwd_plain(g, x, coef)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["affine_warp_bwd"] == before + 1
+    assert dx.dtype == dtype and dcoef.dtype == torch.float32
+    assert _rel(dx, rdx) <= BWD_REL[dtype]
+    assert _rel(dcoef, rdcoef) <= 1e-4
+    only_dx = warp.warp_bwd(g, x, coef, need_dcoef=False)
+    assert only_dx[1] is None and _rel(only_dx[0], rdx) <= BWD_REL[dtype]
+
+
+def test_warp_autograd_matches_grid_sample_at_identity(cuda):
+    """At the identity every coordinate is an integer (fx = 0): the kernel
+    takes the slope of the cell right of `floor`, as F.grid_sample does."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 16, 32, 32, generator=gen, device=cuda).requires_grad_()
+    theta = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], device=cuda) \
+        .repeat(2, 1, 1).requires_grad_()
+    g = torch.randn(2, 16, 32, 32, generator=gen, device=cuda)
+    got = torch.autograd.grad(warp.affine_warp(x, theta), (x, theta), g)
+    grid = torch.nn.functional.affine_grid(theta, list(x.shape),
+                                           align_corners=False)
+    ref = torch.autograd.grad(torch.nn.functional.grid_sample(
+        x, grid, align_corners=False), (x, theta), g)
+    assert _rel(got[0], ref[0]) <= 1e-5 and _rel(got[1], ref[1]) <= 1e-4
+    assert float(got[1].abs().max()) > 0
 
 
 def test_kernels_refuse_bad_input(cuda):
@@ -89,8 +233,12 @@ def test_kernels_refuse_bad_input(cuda):
             norm.ln_film(x.transpose(2, 3), w, w, s, s)
         with pytest.raises(TypeError):
             norm.ln_film(x.half(), w, w, s, s)
-        with pytest.raises(TypeError):  # params must have x's dtype
+        with pytest.raises(TypeError):  # float64 maps
+            norm.ln_film(x.double(), w, w, s, s)
+        with pytest.raises(TypeError):  # float32 tables beside bf16 maps
             norm.ln_film(x.bfloat16(), w, w, s, s)
+        with pytest.raises(TypeError):
+            norm.ln_film_bwd(x.bfloat16(), x.bfloat16(), w, w, s)
         with pytest.raises(ValueError):
             warp.warp(x, torch.zeros(2, 8, device=cuda))
 
