@@ -18,7 +18,10 @@ raises at once):
      with bf16 and with int8 weights, on what it adds to its input, where
      three controls that each leave out a part of the block must fail),
      with both versions' times, the bound of each shape and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; for the
+     block also the same call twice, bit for bit, the time each of the
+     chain's seven kernels adds (`torch.profiler`), and as a yardstick the
+     time of its five products as `torch.matmul` on bf16 weights;
   4. the exact refiner sampler at full width on seeded, perturbed random
      weights, batch 2 in f32 with TF32 off, on the card through the kernels
      and on the host CPU through the plain versions, compared; two control
@@ -38,9 +41,13 @@ raises at once):
      For each: a warm-up call that records the shapes reaching every kernel
      wrapper, one call with the launch counts set to 0 before and read
      after, held against the counts the module tree gives; `matmul_w8` and
-     `group_norm_silu` against their plain versions at every recorded shape;
+     `group_norm_silu` against their plain versions at every recorded shape
+     (`matmul_w8` also twice, bit for bit, and beside `torch.matmul` on
+     pre-dequantized bf16 weights, printed as `cublas_bf16_ms`: twice the
+     weight bytes and not the same function, so no `library_ms`);
      then timed calls in turns (faces/s as the median and the spread of the
-     calls, per-stage ms, peak memory);
+     calls, per-stage ms, peak memory) and one scan of each configuration
+     under `torch.profiler` for the card's own time in it;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -83,6 +90,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import ctypes
 import json
 import math
 import os
@@ -370,7 +378,8 @@ class Stats:
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 "bound_by": by.most_common(1)[0][0],
                 "library_ms": total("library_ms"),
-                "pair_ms": total("pair_ms")}
+                "pair_ms": total("pair_ms"),
+                "cublas_bf16_ms": total("cublas_bf16_ms")}
 
     def entry(self, name, path, launches, shapes):
         """One kernel's entry of the result line: the sums over one sampler
@@ -396,7 +405,61 @@ class Stats:
         if main["pair_ms"] is not None:
             # no single PyTorch call computes it: the nearest library route
             out["bf16_pair_ms"] = main["pair_ms"]
+        if main["cublas_bf16_ms"] is not None:
+            # torch.matmul on bf16 weights: not the same function
+            out["cublas_bf16_ms"] = main["cublas_bf16_ms"]
         return out
+
+
+def report_build(build_log):
+    """Print what `-Xptxas -v` says of every kernel (registers, static shared
+    memory, spills); a spill in a kernel of the GEMM tile fails the run, and
+    so does the assembler's notice that it made the `wgmma`s of a stage wait
+    for one another."""
+    entry = ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line)
+        if "wgmma.mma_async instructions are serialized" in line:
+            fail(f"the assembler serialized the tile's MMAs: {line}")
+        if "spill" in line and "gemm_kernel" in entry \
+                and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            fail(f"the GEMM tile spills registers in {entry}: {line}")
+
+
+def chain_split(calls, n_kernels, repeats=3):
+    """The time each kernel of a chain of `n_kernels` dependent launches
+    adds, in us: how long it runs after the kernel before it has ended
+    (under programmatic dependent launch a kernel starts while the one
+    before it drains), as the median over the calls of `calls` walked
+    `repeats` times under `torch.profiler`. None where the profiler did not
+    see `n_kernels` kernels per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            for f in calls:
+                f()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and ("gemm_kernel" in e.name or "ln_rows" in e.name))
+    if len(spans) != n_kernels * repeats * len(calls):
+        return None
+    added = [[] for _ in range(n_kernels)]
+    for i, (start, end) in enumerate(spans):
+        before = spans[i - 1][1] if i % n_kernels else start
+        added[i % n_kernels].append(end - max(start, before))
+    return [statistics.median(v) for v in added]
 
 
 def dtype_name(dtype):
@@ -650,6 +713,22 @@ def block_controls(pack):
     return controls
 
 
+# the kernels of the fused block's chain, in launch order
+CHAIN = ("ln1", "w1", "sca", "w3", "ln2", "w4", "w5")
+
+
+def _rows_like(x, m):
+    return torch.randn(m, x.shape[1], device=x.device).to(x.dtype)
+
+
+def five_products(rows, pooled, ws):
+    """The shapes of the fused block's five products: (M, C) rows through
+    W1, W3, W4, W5 and (B, C) pooled rows through Wsca; `ws` are the five
+    (cin, cout) matrices."""
+    w1, wsca, w3, w4, w5 = ws
+    return rows @ w1, pooled @ wsca, rows @ w3, rows @ w4, rows @ w5
+
+
 def check_fused_block(dev, g, stats):
     """The fused block at the path's two shapes, bf16 maps, with bf16 and
     with int8 weights, on perturbed and amplified weights: the outputs
@@ -679,11 +758,14 @@ def check_fused_block(dev, g, stats):
             label = f"bfloat16 {BATCH}x{c}x{hw}x{hw} {wname} weights"
             with torch.inference_mode():
                 out = naf_block.fused_cnaf_block_small(x, film, pack)
+                again = naf_block.fused_cnaf_block_small(x, film, pack)
                 ref = naf_block.fused_cnaf_block_small_plain(x, film, pack)
                 std = blk(x, None, film)
                 wrong = {what: naf_block.fused_cnaf_block_small(x, film, p)
                          for what, p in block_controls(pack).items()}
             stats.compare("cnaf_small", label, out, ref, BLOCK_TOL)
+            if not torch.equal(out, again):
+                fail(f"cnaf_small {label}: two runs on the same inputs differ")
             acts = float((ref.float() - x.float()).norm() / x.float().norm())
             err = branch_error(out, ref, x)
             log(f"cnaf_small {label}: the block adds {acts:.3f} of its "
@@ -723,23 +805,53 @@ def check_fused_block(dev, g, stats):
                 iters=max(20, len(packs)))
             with torch.inference_mode():
                 e, gr = time_ms(lambda: blk(x, None, film))
+                split = chain_split(
+                    [lambda p=p: naf_block.fused_cnaf_block_small(x, film, p)
+                     for p in packs], len(CHAIN))
             log(f"cnaf_small {label}: the standard path of the same block "
                 f"(ln_film, cuDNN/cuBLAS or matmul_w8) {gr:.4f} ms on the "
                 f"card, {e:.4f} ms eagerly from Python")
-            del packs
+            log(f"cnaf_small {label}: us each kernel of the chain adds after "
+                "the one before it ended (profiler, eager launches): "
+                + ("not measured" if split is None else ", ".join(
+                    f"{k} {t:.1f}" for k, t in zip(CHAIN, split))
+                    + f"; sum {sum(split):.1f}"))
+            # the yardstick: the block's five products as torch.matmul on
+            # bf16 weights (int8 packs cast once, outside the timing)
+            rows = _rows_like(x, m), _rows_like(x, b)
+            mats = [[w.to(torch.bfloat16).t() for w in p.weights]
+                    for p in packs]
+            with torch.inference_mode():
+                cublas = time_ms([lambda ws=ws: five_products(*rows, ws)
+                                  for ws in mats], max(20, len(packs)))[1]
+            log(f"cnaf_small {label}: cublas_bf16_ms {cublas:.4f} (its five "
+                "products as torch.matmul on bf16 weights: no LayerNorm, "
+                "mix, gates or residuals, and twice the bytes of int8 "
+                "weights; a yardstick, not the same function)")
+            stats.shapes["cnaf_small"][(c, hw, wname)].update(
+                cublas_bf16_ms=cublas, chain_us=split)
+            del packs, mats
 
 
 def check_matmul_w8(dev, g, stats, shapes):
-    from hifidiff_tpu_torch.ops import quant
+    from hifidiff_tpu_torch.ops import kernels, quant
 
     for m, k, n in sorted(shapes):
         x = torch.randn(m, k, generator=g, device=dev).bfloat16()
         wq, scale = quant.quantize_weight_per_cout(
             torch.randn(n, k, generator=g, device=dev))
         label = f"bfloat16 ({m}, {k}) @ int8 ({n}, {k})"
+        plan = (ctypes.c_int * 4)()
+        kernels.library().hifidiff_matmul_w8_plan(m, k, n, plan)
+        log(f"matmul_w8 {label}: grid of {plan[0]} column tiles x {plan[1]} "
+            f"row tiles x {plan[2]} K ranges (the card holds {plan[3]} "
+            f"clusters of {plan[2]} at once)")
         with torch.inference_mode():
-            stats.compare("matmul_w8", label, quant.matmul_w8(x, wq, scale),
+            out = quant.matmul_w8(x, wq, scale)
+            stats.compare("matmul_w8", label, out,
                           quant.matmul_w8_plain(x, wq, scale), GEMM_TOL)
+            if not torch.equal(out, quant.matmul_w8(x, wq, scale)):
+                fail(f"matmul_w8 {label}: two runs on the same inputs differ")
         wqs = [wq] + [wq.clone()
                       for _ in range(min(15, math.ceil(100e6 / wq.numel())))]
         stats.measure(
@@ -748,6 +860,16 @@ def check_matmul_w8(dev, g, stats, shapes):
             [lambda w=w: quant.matmul_w8_plain(x, w, scale) for w in wqs],
             m * k * 2 + n * k + n * 4 + m * n * 2, 2 * m * k * n, "bf16_mma",
             iters=max(20, len(wqs)))
+        # the yardstick: torch.matmul on pre-dequantized bf16 weights
+        wds = [quant.dequantize(w, scale, torch.bfloat16).t() for w in wqs]
+        with torch.inference_mode():
+            cublas = time_ms([lambda w=w: x @ w for w in wds],
+                             max(20, len(wds)))[1]
+        log(f"matmul_w8 {label}: cublas_bf16_ms {cublas:.4f} (torch.matmul "
+            "on pre-dequantized bf16 weights: twice the weight bytes, no "
+            "column scale; a yardstick, not the same function)")
+        stats.shapes["matmul_w8"][(m, k, n)]["cublas_bf16_ms"] = cublas
+        del wqs, wds
     x = torch.randn(64, 128, device=dev)
     wq, scale = quant.quantize_weight_per_cout(torch.randn(128, 128,
                                                            device=dev))
@@ -1297,9 +1419,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernels.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    report_build(lib.build_log)
 
     # -- 3. kernels vs plain at the paths' fixed shapes ---------------------
     stats = Stats()
@@ -1562,6 +1682,24 @@ def main() -> int:
             log(f"  {name} {stage} ms per call: {[round(x, 1) for x in v]}")
     log(f"peak memory over the timed calls, the three configurations "
         f"resident: {peak_gb:.2f} GB")
+    # the card's own time in one scan of each configuration: what is left of
+    # the scan is the host's
+    for name in configs:
+        st = samplers[name].stages
+        with torch.inference_mode():
+            prep = st["prep"](lr, post, lat)
+            torch.cuda.synchronize()
+            busy, wall, top = device_busy_ms(
+                lambda: (st["scan"](*prep), torch.cuda.synchronize()))
+        scan = statistics.median(per_call[name]["scan"])
+        log(f"{name}: the card's kernels take "
+            + ("not measured" if busy is None else f"{busy:.1f} ms")
+            + f" of one profiled scan ({wall:.1f} ms on the host's clock)"
+            + ("" if busy is None else
+               f": idle {max(0.0, 1 - busy / scan):.3f} of the median scan "
+               f"of {scan:.1f} ms")
+            + f"; most device time: {top}")
+        del prep
 
     # -- 9. timed train steps, then one step of each other stage -----------
     del samplers, configs, float_models, int8_models

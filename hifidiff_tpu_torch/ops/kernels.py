@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
     lib.hifidiff_affine_warp_bwd.restype = i
     lib.hifidiff_matmul_w8.argtypes = [p, p, p, p, i, i, i, p]
     lib.hifidiff_matmul_w8.restype = i
+    lib.hifidiff_matmul_w8_plan.argtypes = [i, i, i, ctypes.POINTER(i * 4)]
+    lib.hifidiff_matmul_w8_plan.restype = None
     lib.hifidiff_gn_silu.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
     lib.hifidiff_gn_silu.restype = i
     lib.hifidiff_cnaf_small.argtypes = [*([p] * 13), i, i, i, i, f, p]

@@ -152,6 +152,15 @@ def fused_cnaf_block_small_plain(x: torch.Tensor, film: torch.Tensor,
     return _nchw(out.to(dt), x)
 
 
+def scratch_floats(m: int, b: int, c: int) -> int:
+    """The float32 words of scratch the kernel chain needs for (m, c) rows of
+    b samples: u and y1 (m, c) in float32, the normed rows and the gated rows
+    (m, c) in bf16 (each buffer serves both halves of the block), and the
+    pooled rows (b, c) in bf16. Every buffer starts 16-byte aligned while
+    c % 8 == 0 (the wrapper asks for c % 128 == 0)."""
+    return 3 * m * c + b * c // 2
+
+
 def _fused_cuda(x, film, pack, eps):
     name = "cnaf_small"
     kernels.check_launchable(name, x, film, pack.ln, pack.vec_c, pack.vec_2c,
@@ -192,7 +201,7 @@ def _fused_cuda(x, film, pack, eps):
                           pack.vec_dw, *pack.weights)
     m = b * sp
     out = torch.empty_like(rows)
-    scratch = torch.empty((5 * m * c + 3 * b * c) // 2, dtype=torch.float32,
+    scratch = torch.empty(scratch_floats(m, b, c), dtype=torch.float32,
                           device=x.device)
     lib = kernels.library()
     kernels.check(lib.hifidiff_cnaf_small(

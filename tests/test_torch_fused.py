@@ -265,3 +265,18 @@ def test_pack_layout():
     one = blk.fused_pack(1, torch.float32)
     assert one.vec_dw.shape == (1, 2 * C)
     assert torch.equal(one.vec_dw[0], dw[:, 1, 1])
+
+
+@pytest.mark.parametrize("c,hw,batch", [(2048, 1, 128), (1024, 2, 128),
+                                        (128, 1, 1), (384, 2, 3)])
+def test_scratch_holds_the_chain_s_buffers(c, hw, batch):
+    """The wrapper sizes the CUDA chain's scratch: u and y1 (M, C) in
+    float32, the normed and the gated rows (M, C) in bf16, the pooled rows
+    (B, C) in bf16, in that order, each starting on a 16-byte boundary; at
+    the path's shapes it stays well inside the card's 50 MB L2."""
+    m = batch * hw * hw
+    sizes = [4 * m * c, 4 * m * c, 2 * m * c, 2 * m * c, 2 * batch * c]
+    offsets = np.cumsum([0] + sizes)
+    assert all(o % 16 == 0 for o in offsets)
+    assert 4 * naf_block.scratch_floats(m, batch, c) == offsets[-1]
+    assert offsets[-1] < 8e6

@@ -5,6 +5,8 @@ on a GPU machine with
 (`--noconftest` because tests/conftest.py configures jax). chip_smoke.py
 makes the same comparison at the main path's full shapes."""
 
+import ctypes
+
 import pytest
 import torch
 
@@ -281,6 +283,75 @@ def test_matmul_w8_kernel_matches_plain(cuda, m, k, n):
     torch.testing.assert_close(out.float(), ref.float(), **GEMM_TOL)
 
 
+@pytest.mark.parametrize("n", [128, 384, 8192])
+@pytest.mark.parametrize("k", [32, 96, 1024, 8192])
+@pytest.mark.parametrize("m", [1, 50, 63, 64, 65, 128, 512])
+def test_matmul_w8_kernel_edge_shapes(cuda, m, k, n):
+    """Ragged rows (the tile takes 128 at a time and reads the rest as
+    zero), K that ends inside a ring stage (64 deep) or leaves a K range of
+    the cluster short or empty, one column tile and many; and the same call
+    twice gives the same bits (the partial sums are reduced in a fixed
+    order, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(n, k, generator=g, device=cuda))
+    with torch.inference_mode():
+        out = quant.matmul_w8(x, wq, scale)
+        again = quant.matmul_w8(x, wq, scale)
+        ref = quant.matmul_w8_plain(x, wq, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n)
+    torch.testing.assert_close(out.float(), ref.float(), **GEMM_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 2048), (128, 2048, 2304),
+                                   (128, 2048, 2560), (128, 2048, 4096),
+                                   (512, 1024, 1024), (128, 1984, 3072)])
+def test_matmul_w8_kernel_every_cluster_size(cuda, m, k, n):
+    """Column-tile counts from 16 to 32 with 16 to 32 K steps: the K range
+    is split over clusters of 3 to 8 blocks (as many as the card holds at
+    once), whose row slices are uneven where the size does not divide 128
+    and whose last rank may have fewer K steps or none; the same bits
+    twice."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(n, k, generator=g, device=cuda))
+    plan = (ctypes.c_int * 4)()
+    kernels.library().hifidiff_matmul_w8_plan(m, k, n, plan)
+    assert plan[0] * 128 == n and 1 <= plan[2] <= 8
+    assert plan[0] * plan[1] <= plan[3]   # the clusters fit the card at once
+    with torch.inference_mode():
+        out = quant.matmul_w8(x, wq, scale)
+        again = quant.matmul_w8(x, wq, scale)
+        ref = quant.matmul_w8_plain(x, wq, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **GEMM_TOL)
+    assert torch.equal(out, again)
+
+
+def test_matmul_w8_leaves_its_neighbours_alone(cuda):
+    """Rows beyond M are computed as zeros inside the tile and must not be
+    stored: the output of an M = 50 call lies inside a larger buffer whose
+    other bytes keep their values."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(50, 256, generator=g, device=cuda).bfloat16()
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(256, 256, generator=g, device=cuda))
+    lib = kernels.library()
+    buf = torch.full((3, 50, 256), 7.0, device=cuda, dtype=torch.bfloat16)
+    kernels.check(lib.hifidiff_matmul_w8(
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), buf[1].data_ptr(),
+        50, 256, 256, kernels.stream_ptr(cuda)), "matmul_w8")
+    torch.cuda.synchronize()
+    assert bool((buf[0] == 7.0).all()) and bool((buf[2] == 7.0).all())
+    torch.testing.assert_close(
+        buf[1].float(), quant.matmul_w8_plain(x, wq, scale).float(),
+        **GEMM_TOL)
+
+
 def test_conv_w8_routes(cuda):
     """A 1x1 conv on a 2x2 map goes through the kernel on (B*4, C) rows and
     comes back NCHW; a 3x3 conv takes the dequantized plain convolution."""
@@ -343,11 +414,13 @@ def _block(c, int8, cuda, seed=6):
     blk = ConditionalNAFBlock(c, 512)
     amplify_naf_blocks_(perturb_(blk, torch.Generator().manual_seed(seed)))
     if int8:
+        # the five 1x1 convolutions (C^2 or 2 C^2 weights), not the depthwise
+        # 3x3 (18 C); mlp.1 (1024 C) up to C = 1024
         for conv in (blk.conv1, blk.sca[1], blk.conv3, blk.conv4, blk.conv5):
-            assert conv.weight.numel() >= 128 * 128
-        old, quant.W8_MIN_WEIGHT_PARAMS = quant.W8_MIN_WEIGHT_PARAMS, 128 * 128
+            assert conv.weight.numel() >= c * c
+        old, quant.W8_MIN_WEIGHT_PARAMS = quant.W8_MIN_WEIGHT_PARAMS, c * c
         try:
-            assert quantize_module_(blk) == 6  # the five 1x1 + mlp.1
+            assert quantize_module_(blk) == 5 + (c <= 1024)
         finally:
             quant.W8_MIN_WEIGHT_PARAMS = old
     return blk.to(cuda, torch.bfloat16).eval()
@@ -404,6 +477,30 @@ def test_fused_block_kernel_matches_plain(cuda, batch, c, hw, int8):
         with torch.inference_mode():
             bad = naf_block.fused_cnaf_block_small(x, film, wrong)
         assert _branch_error(bad, ref, x) > 10 * BRANCH_TOL, what
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("hw", [1, 2])
+@pytest.mark.parametrize("c", [128, 384, 1024, 2048])
+def test_fused_block_kernel_edge_shapes(cuda, c, hw, batch, int8):
+    """The narrowest and widest blocks the wrapper admits, a width that is
+    no power of two (three paired column tiles, six K steps), one sample and
+    three (a tile of 1 to 12 rows); and the same call twice gives the same
+    bits."""
+    blk = _block(c, int8, cuda)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(batch, c, hw, hw, generator=g, device=cuda).bfloat16()
+    film = (0.2 * torch.randn(1, 4 * c, generator=g, device=cuda)).bfloat16()
+    pack = blk.fused_pack(hw, torch.bfloat16)
+    with torch.inference_mode():
+        out = naf_block.fused_cnaf_block_small(x, film, pack)
+        again = naf_block.fused_cnaf_block_small(x, film, pack)
+        ref = naf_block.fused_cnaf_block_small_plain(x, film, pack)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **BLOCK_TOL)
+    assert _branch_error(out, ref, x) <= BRANCH_TOL
+    assert torch.equal(out, again)
 
 
 def test_fused_block_per_sample_film_takes_standard_path(cuda):

@@ -73,6 +73,39 @@ def test_matmul_w8_plain_matches_pallas_interpret(m, k, n):
     assert torch.equal(out, quant.matmul_w8_plain(torch.from_numpy(x), q, s))
 
 
+def test_int8_to_bf16_by_bit_placement_is_exact():
+    """The CUDA tile (csrc/gemm_tile.cuh, `int8x2_to_bf16x2`) turns an int8
+    weight into bf16 without the conversion unit: a byte q is l - 128 s with
+    l its low seven bits and s its sign bit; beside the exponent byte 0x43,
+    l is the bf16 128 + l and the bit s the bf16 128 (1 + s), and their bf16
+    difference is q. The same arithmetic on the CPU, for every byte: exact."""
+    q = np.arange(-128, 128, dtype=np.int8)
+    byte = q.view(np.uint8).astype(np.int32)
+
+    def bf16(bits):
+        return torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+
+    low, sign = bf16(0x4300 | (byte & 0x7F)), bf16(0x4300 | (byte & 0x80))
+    assert torch.equal(low.float(),
+                       torch.from_numpy(128.0 + (byte & 0x7F)).float())
+    assert torch.equal(sign.float(),
+                       torch.from_numpy(128.0 * (1 + (byte >> 7))).float())
+    assert torch.equal((low - sign).float(), torch.from_numpy(q).float())
+
+
+def test_converted_weight_tile_fills_the_swizzled_rows():
+    """The CUDA tile keeps bf16 rows of 64 k as eight 16-byte chunks, chunk
+    c of row r at position c ^ (r & 7) (the 128-byte swizzle `wgmma` reads).
+    An int8 chunk c (16 weights) of a row becomes the bf16 chunks 2c and
+    2c + 1: every position of every row is written once."""
+    for r in range(16):
+        written = sorted(pos ^ (r & 7) for c in range(4)
+                         for pos in (2 * c, 2 * c + 1))
+        assert written == list(range(8))
+        assert sorted(c ^ (r & 7) for c in range(8)) == list(range(8))
+
+
 def test_matmul_w8_plain_bf16_rounds_once():
     """bf16 activations: a float32 product and scale, one rounding at the
     end, as the kernel's accumulator does."""
