@@ -19,9 +19,9 @@ raises at once):
      three controls that each leave out a part of the block must fail),
      with both versions' times, the bound of each shape and, where one
      PyTorch call computes the same function, that call's time; for the
-     block also the same call twice, bit for bit, the time each of the
-     chain's seven kernels adds (`torch.profiler`), and as a yardstick the
-     time of its five products as `torch.matmul` on bf16 weights;
+     block also the same call twice, bit for bit, as a yardstick the time
+     of its five products as `torch.matmul` on bf16 weights, and (at the
+     end of the run) the time each of the chain's seven kernels adds;
   4. the exact refiner sampler at full width on seeded, perturbed random
      weights, batch 2 in f32 with TF32 off, on the card through the kernels
      and on the host CPU through the plain versions, compared; two control
@@ -46,8 +46,9 @@ raises at once):
      pre-dequantized bf16 weights, printed as `cublas_bf16_ms`: twice the
      weight bytes and not the same function, so no `library_ms`);
      then timed calls in turns (faces/s as the median and the spread of the
-     calls, per-stage ms, peak memory) and one scan of each configuration
-     under `torch.profiler` for the card's own time in it;
+     calls, per-stage ms, peak memory) and (at the end of the run) one scan
+     of each configuration under `torch.profiler` for the card's own time
+     in it;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -70,10 +71,13 @@ raises at once):
      recorded: the counts are held to the module tree and to the recorded
      calls, and every recorded shape must have been compared and timed in
      phases 3 and 7. Then the timed steps (images/s as the median and the
-     spread of the steps, peak memory), one step under `torch.profiler` for
-     the share of the step in which the card is busy, and one step each of
-     the IDC, denoiser, cached-denoiser and VAE steps at full width for a
-     finite loss.
+     spread of the steps, peak memory), (at the end of the run) one step
+     under `torch.profiler` for the share of the step in which the card is
+     busy, and one step each of the IDC, denoiser, cached-denoiser and VAE
+     steps at full width for a finite loss.
+
+Whatever runs under `torch.profiler` runs after every timing of the run is
+taken: no timed launch follows a profiler trace in the same process.
 
 The line before the last is a JSON object with one entry per kernel (times
 are sums over the launches of one call of the kernel's path: `ln_film` and
@@ -430,13 +434,15 @@ def report_build(build_log):
             fail(f"the GEMM tile spills registers in {entry}: {line}")
 
 
-def chain_split(calls, n_kernels, repeats=3):
-    """The time each kernel of a chain of `n_kernels` dependent launches
-    adds, in us: how long it runs after the kernel before it has ended
-    (under programmatic dependent launch a kernel starts while the one
-    before it drains), as the median over the calls of `calls` walked
-    `repeats` times under `torch.profiler`. None where the profiler did not
-    see `n_kernels` kernels per call."""
+def chain_split(calls, chain, repeats):
+    """The time each kernel of a chain of dependent launches adds, in us:
+    how long it runs after the kernel before it has ended (under
+    programmatic dependent launch a kernel starts while the one before it
+    drains), as the median over the calls of `calls` walked `repeats` times
+    under `torch.profiler`. `chain` names the kernel of each launch of one
+    call, in order. Returns (times, chains seen); the profiler may drop
+    events at the ends of a trace, so only whole chains are read, and
+    the times are None where it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,17 +455,21 @@ def chain_split(calls, n_kernels, repeats=3):
             for f in calls:
                 f()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and ("gemm_kernel" in e.name or "ln_rows" in e.name))
-    if len(spans) != n_kernels * repeats * len(calls):
-        return None
-    added = [[] for _ in range(n_kernels)]
-    for i, (start, end) in enumerate(spans):
-        before = spans[i - 1][1] if i % n_kernels else start
-        added[i % n_kernels].append(end - max(start, before))
-    return [statistics.median(v) for v in added]
+    kinds = sorted(set(chain))
+    spans = sorted((e.time_range.start, e.time_range.end, kind)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   for kind in kinds if kind in e.name)
+    added, seen, i = [[] for _ in chain], 0, 0
+    while i + len(chain) <= len(spans):
+        if any(spans[i + j][2] != kind for j, kind in enumerate(chain)):
+            i += 1
+            continue
+        for j in range(len(chain)):
+            start, end, _ = spans[i + j]
+            added[j].append(end - max(start, spans[i + j - 1][1] if j else
+                                      start))
+        seen, i = seen + 1, i + len(chain)
+    return ([statistics.median(v) for v in added] if seen else None), seen
 
 
 def dtype_name(dtype):
@@ -715,6 +725,9 @@ def block_controls(pack):
 
 # the kernels of the fused block's chain, in launch order
 CHAIN = ("ln1", "w1", "sca", "w3", "ln2", "w4", "w5")
+# the kernel each launch of the chain runs, as the profiler names it
+CHAIN_KERNELS = tuple("ln_rows_kernel" if k.startswith("ln") else "gemm_kernel"
+                      for k in CHAIN)
 
 
 def _rows_like(x, m):
@@ -733,13 +746,15 @@ def check_fused_block(dev, g, stats):
     """The fused block at the path's two shapes, bf16 maps, with bf16 and
     with int8 weights, on perturbed and amplified weights: the outputs
     element by element, and what the block adds to its input, where the
-    controls must fail."""
+    controls must fail. Returns, per shape, (key, label, calls) for
+    `report_chain_splits`: the profiler runs once every timing is taken."""
     from hifidiff_tpu_torch.nn.layers import quantize_module_
     from hifidiff_tpu_torch.nn.naf import ConditionalNAFBlock
     from hifidiff_tpu_torch.ops import naf_block
     from hifidiff_tpu_torch.random_weights import (amplify_naf_blocks_,
                                                    perturb_)
 
+    chains = []
     for c, hw in FUSED_SHAPES:
         for wname in ("bf16", "int8"):
             torch.manual_seed(SEED)
@@ -805,17 +820,12 @@ def check_fused_block(dev, g, stats):
                 iters=max(20, len(packs)))
             with torch.inference_mode():
                 e, gr = time_ms(lambda: blk(x, None, film))
-                split = chain_split(
-                    [lambda p=p: naf_block.fused_cnaf_block_small(x, film, p)
-                     for p in packs], len(CHAIN))
             log(f"cnaf_small {label}: the standard path of the same block "
                 f"(ln_film, cuDNN/cuBLAS or matmul_w8) {gr:.4f} ms on the "
                 f"card, {e:.4f} ms eagerly from Python")
-            log(f"cnaf_small {label}: us each kernel of the chain adds after "
-                "the one before it ended (profiler, eager launches): "
-                + ("not measured" if split is None else ", ".join(
-                    f"{k} {t:.1f}" for k, t in zip(CHAIN, split))
-                    + f"; sum {sum(split):.1f}"))
+            chains.append(((c, hw, wname), label, [
+                lambda x=x, film=film, p=p:
+                naf_block.fused_cnaf_block_small(x, film, p) for p in packs]))
             # the yardstick: the block's five products as torch.matmul on
             # bf16 weights (int8 packs cast once, outside the timing)
             rows = _rows_like(x, m), _rows_like(x, b)
@@ -828,9 +838,27 @@ def check_fused_block(dev, g, stats):
                 "products as torch.matmul on bf16 weights: no LayerNorm, "
                 "mix, gates or residuals, and twice the bytes of int8 "
                 "weights; a yardstick, not the same function)")
-            stats.shapes["cnaf_small"][(c, hw, wname)].update(
-                cublas_bf16_ms=cublas, chain_us=split)
+            stats.shapes["cnaf_small"][(c, hw, wname)]["cublas_bf16_ms"] = \
+                cublas
             del packs, mats
+    return chains
+
+
+def report_chain_splits(stats, chains):
+    """Print, for each fused-block shape of `check_fused_block`, what each
+    kernel of its chain adds (`chain_split`)."""
+    repeats = 3
+    for key, label, calls in chains:
+        with torch.inference_mode():
+            split, seen = chain_split(calls, CHAIN_KERNELS, repeats)
+        log(f"cnaf_small {label}: us each kernel of the chain adds after "
+            "the one before it ended (profiler, eager launches): "
+            + ("not measured" if split is None else ", ".join(
+                f"{k} {t:.1f}" for k, t in zip(CHAIN, split))
+                + f"; sum {sum(split):.1f}")
+            + f" ({seen} whole chains read, {repeats * len(calls)} launched "
+            "under the profiler)")
+        stats.shapes["cnaf_small"][key]["chain_us"] = split
 
 
 def check_matmul_w8(dev, g, stats, shapes):
@@ -1241,7 +1269,9 @@ def device_busy_ms(one):
     the device's own events (one stream, so they do not overlap). The rows of
     the host's operators and of annotations such as `Optimizer.step` repeat
     the times of the kernels under them and are left out. The first is None
-    where the profiler saw no device time."""
+    where the profiler saw no device time. The host's operators are not
+    traced: a scan has some 40,000 launches, and the profiler spends far
+    longer on their operators' rows than the scan takes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1249,8 +1279,7 @@ def device_busy_ms(one):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one()
         wall = (time.perf_counter() - t0) * 1e3
@@ -1267,10 +1296,14 @@ def device_busy_ms(one):
 def timed_train(kind, models, dev, batch, stats_out):
     """Warm up; take one step with the launch counts set to 0 before and
     read after, in which the shapes reaching the wrappers are recorded; then
-    time TIMED_STEPS steps (host clock around a synchronised step) and
-    profile one. Returns (launches, recorded shapes)."""
+    time TIMED_STEPS steps (host clock around a synchronised step). Returns
+    (launches, recorded shapes, profile): `profile()` takes one more step
+    under the profiler for the card's idle share, writes the step's entry of
+    `stats_out` and frees the state; it is called once every timing of the
+    run is taken. Peak memory is what the step adds to what was resident."""
     from hifidiff_tpu_torch.ops import kernels
 
+    resident = torch.cuda.memory_allocated()
     state, step, cr = make_train_state(kind, models, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     data = {k: torch.rand(batch, 3, 128, 128, generator=gen, device=dev)
@@ -1307,29 +1340,33 @@ def timed_train(kind, models, dev, batch, stats_out):
         one()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    busy, profiled_ms, top = device_busy_ms(one)
-    if busy is not None and busy > med:     # no share can come of that
-        log(f"  {label}: the profiler counts {busy:.1f} ms of device time, "
-            f"more than the median step: left out")
-        busy = None
-    stats_out[label] = dict(
-        ms=med, images_per_s=batch / med * 1e3, peak_gb=peak_gb,
-        device_busy_ms=busy, profiled_step_ms=profiled_ms,
-        device_idle_share=None if busy is None else 1.0 - busy / med)
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
     log(f"{label}: {batch / med * 1e3:.2f} images/s median "
         f"({batch / max(times) * 1e3:.2f}-{batch / min(times) * 1e3:.2f} "
         f"over {len(times)} steps), {med:.1f} ms per step, peak memory "
         f"{peak_gb:.2f} GB, loss {loss:.4f}")
     log(f"  {label} ms per step: {[round(t, 1) for t in times]}")
-    log(f"  {label}: the card's kernels take "
-        + ("not measured" if busy is None
-           else f"{busy:.1f} ms of one profiled step ({profiled_ms:.1f} ms "
-           f"on the host's clock): idle {1.0 - busy / med:.3f} of the "
-           f"median step; most device time: {top}"))
-    del state, step
-    torch.cuda.empty_cache()
-    return launches, seen
+
+    def profile():
+        nonlocal state, step
+        busy, profiled_ms, top = device_busy_ms(one)
+        if busy is not None and busy > med:     # no share can come of that
+            log(f"  {label}: the profiler counts {busy:.1f} ms of device "
+                f"time, more than the median step: left out")
+            busy = None
+        stats_out[label] = dict(
+            ms=med, images_per_s=batch / med * 1e3, peak_gb=peak_gb,
+            device_busy_ms=busy, profiled_step_ms=profiled_ms,
+            device_idle_share=None if busy is None else 1.0 - busy / med)
+        log(f"  {label}: the card's kernels take "
+            + ("not measured" if busy is None
+               else f"{busy:.1f} ms of one profiled step ({profiled_ms:.1f} "
+               f"ms on the host's clock): idle {1.0 - busy / med:.3f} of the "
+               f"median step; most device time: {top}"))
+        state = step = None
+        torch.cuda.empty_cache()
+
+    return launches, seen, profile
 
 
 def other_steps_once(models, dev):
@@ -1426,7 +1463,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(SEED)
     check_ln_film(dev, g, stats)
     check_warp(dev, g, stats)
-    check_fused_block(dev, g, stats)
+    chains = check_fused_block(dev, g, stats)
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.0f} s] kernel checks done")
 
@@ -1682,8 +1719,23 @@ def main() -> int:
             log(f"  {name} {stage} ms per call: {[round(x, 1) for x in v]}")
     log(f"peak memory over the timed calls, the three configurations "
         f"resident: {peak_gb:.2f} GB")
-    # the card's own time in one scan of each configuration: what is left of
-    # the scan is the host's
+
+    # -- 9. timed train steps ------------------------------------------------
+    train_stats, train_profiles = {}, []
+    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
+        launches[f"{kind} train"], shapes[f"{kind} train"], profile = \
+            timed_train(kind, train_models, dev, batch, train_stats)
+        train_profiles.append(profile)
+    log(f"[{time.perf_counter() - t_start:.0f} s] samplers and train steps "
+        "timed")
+
+    # -- every timing is taken: now what runs under `torch.profiler`, so that
+    # -- no timed launch follows a profiler trace in this process. The
+    # -- card's own time in one train step of each kind and in one scan of
+    # -- each configuration (what is left of them is the host's), then the
+    # -- fused block's chain kernel by kernel --------------------------------
+    for profile in train_profiles:
+        profile()
     for name in configs:
         st = samplers[name].stages
         with torch.inference_mode():
@@ -1700,21 +1752,20 @@ def main() -> int:
                f"of {scan:.1f} ms")
             + f"; most device time: {top}")
         del prep
-
-    # -- 9. timed train steps, then one step of each other stage -----------
     del samplers, configs, float_models, int8_models
+    report_chain_splits(stats, chains)
+    del chains
     torch.cuda.empty_cache()
-    train_stats = {}
-    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
-        launches[f"{kind} train"], shapes[f"{kind} train"] = timed_train(
-            kind, train_models, dev, batch, train_stats)
+    log(f"[{time.perf_counter() - t_start:.0f} s] profiled")
+
+    # -- one step of each other training stage -----------------------------
     log(f"ln_film_bwd maps (dtype, B, C, H, W) -> launches per refiner "
         f"step: {dict(shapes['refiner train']['ln_film_bwd'])}")
     log(f"affine_warp_bwd maps -> launches per CR step: "
         f"{dict(shapes['cr train']['affine_warp_bwd'])}")
     log("train steps [" + smi + "]: " + json.dumps(train_stats))
     other_steps_once(train_models, dev)
-    log(f"[{time.perf_counter() - t_start:.0f} s] train steps timed")
+    log(f"[{time.perf_counter() - t_start:.0f} s] other train steps taken")
 
     entries = [
         stats.entry(k, path, launches, shapes)

@@ -594,7 +594,7 @@ cudaLaunchConfig_t gemm_config(dim3 grid, cudaLaunchAttribute* attrs,
 }
 
 // How many clusters of 1 .. kMaxSplit blocks of this kernel the card holds
-// at once (index: the size); asked of the driver once. Also opts the kernel
+// at once (index: the size); asked of the runtime once. Also opts the kernel
 // into its dynamic shared memory.
 template <typename WT, class EP>
 const int* resident_clusters() {
