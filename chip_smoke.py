@@ -18,10 +18,13 @@ raises at once):
      with bf16 and with int8 weights, on what it adds to its input, where
      three controls that each leave out a part of the block must fail),
      with both versions' times, the bound of each shape and, where one
-     PyTorch call computes the same function, that call's time; for the
-     block also the same call twice, bit for bit, as a yardstick the time
-     of its five products as `torch.matmul` on bf16 weights, and (at the
-     end of the run) the time each of the chain's seven kernels adds;
+     PyTorch call computes the same function, that call's time; `ln_film`
+     and the block also the same call twice, bit for bit; `ln_film` timed
+     on copies of its map beyond the 50 MB L2, beside the nearest library
+     route (`F.layer_norm` over a channels-last view and the FiLM's
+     multiply-add, `layer_norm_route_ms`); for the block as a yardstick the
+     time of its five products as `torch.matmul` on bf16 weights, and (at
+     the end of the run) the time each of the chain's seven kernels adds;
   4. the exact refiner sampler at full width on seeded, perturbed random
      weights, batch 2 in f32 with TF32 off, on the card through the kernels
      and on the host CPU through the plain versions, compared; two control
@@ -53,10 +56,13 @@ raises at once):
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
      with a per-sample FiLM and with a (1, C) FiLM, f32 and bf16 maps, with
-     and without dw and db (a frozen block wants none); the CR's nine STN
-     maps at batch 8 with identity, random, shear and out-of-bounds thetas,
-     and dx alone and dcoef alone; with both versions' times, each shape's
-     bound and, for the warp, the library's `grid_sampler_2d_backward`;
+     and without dw and db (a frozen block wants none), each call also twice
+     for equal bits; the CR's nine STN maps at batch 8 with identity,
+     random, shear and out-of-bounds thetas, and dx alone and dcoef alone;
+     with both versions' times, each shape's bound and, for the warp, the
+     library's `grid_sampler_2d_backward`; `ln_film_bwd` timed on copies of
+     x and g beyond L2, beside `torch.autograd.grad` of phase 3's library
+     route;
   8. (run after 5) one CR train step and one refiner train step at full
      width, f32 with TF32 off, batch 4, on the same seeded weights, inputs
      and noise: on the card through the kernels and on the host CPU through
@@ -73,8 +79,10 @@ raises at once):
      phases 3 and 7. Then the timed steps (images/s as the median and the
      spread of the steps, peak memory), (at the end of the run) one step
      under `torch.profiler` for the share of the step in which the card is
-     busy, and one step each of the IDC, denoiser, cached-denoiser and VAE
-     steps at full width for a finite loss.
+     busy, for the refiner one more with the host's operators traced, for
+     the device launches (kernels and memsets) of each `ln_film_bwd` call
+     (at most two), and one step each of the IDC, denoiser, cached-denoiser
+     and VAE steps at full width for a finite loss.
 
 Whatever runs under `torch.profiler` runs after every timing of the run is
 taken: no timed launch follows a profiler trace in the same process.
@@ -206,10 +214,10 @@ THETAS_BWD = {"identity": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.0),
               "out_of_bounds": (THETAS["out_of_bounds"], 0.02)}
 # Backward kernel vs plain, as the largest difference over the tensor's
 # largest value. f32: sums over up to 2048 channels or 16384 pixels of
-# order-1 terms in another order, with atomics in an order that changes from
-# run to run. bf16 dx: one rounding of a float32 value (2^-8), and the
-# cancellation in `gw - y * mean - mean`. The sums stay float32. dcoef sums
-# C*H*W terms times pixel coordinates up to 127.
+# order-1 terms in another order (the warp's with atomics, in an order that
+# changes from run to run). bf16 dx: one rounding of a float32 value (2^-8),
+# and the cancellation in `gw - y * mean - mean`. The sums stay float32.
+# dcoef sums C*H*W terms times pixel coordinates up to 127.
 BWD_REL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 SUM_REL = 2e-5
 DCOEF_REL = 1e-4
@@ -291,6 +299,34 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return eager, start.elapsed_time(end) / len(calls)
+
+
+def l2_copies(*tensors):
+    """The tensors and copies of them at other addresses, as many sets as
+    make a walk over them read 100 MB (twice the 50 MB L2) before a set is
+    read again, at most 256: what time_ms walks so that no call finds its
+    inputs in L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = min(256, max(1, math.ceil(100e6 / nbytes)))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def ln_film_route(x, w, b, scale, shift, eps=1e-6):
+    """The nearest library route to `ln_film` (a yardstick; the port never
+    calls it): `F.layer_norm` over a channels-last view of the NCHW map, then
+    the FiLM's multiply-add, returned as an NCHW view."""
+    y = F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],), w, b, eps)
+    return (y * (1.0 + scale[:, None, None, :])
+            + shift[:, None, None, :]).permute(0, 3, 1, 2)
+
+
+def ln_film_route_bwd(g, x, w, b, scale, shift, eps=1e-6):
+    """The backward of the same route: `torch.autograd.grad` of
+    `ln_film_route` for (dx, dw, db, dscale, dshift). The inputs are leaves
+    that require a gradient."""
+    return torch.autograd.grad(ln_film_route(x, w, b, scale, shift, eps),
+                               (x, w, b, scale, shift), g)
 
 
 def bound_ms(nbytes, ops, rate):
@@ -383,6 +419,7 @@ class Stats:
                 "bound_by": by.most_common(1)[0][0],
                 "library_ms": total("library_ms"),
                 "pair_ms": total("pair_ms"),
+                "route_ms": total("route_ms"),
                 "cublas_bf16_ms": total("cublas_bf16_ms")}
 
     def entry(self, name, path, launches, shapes):
@@ -409,6 +446,10 @@ class Stats:
         if main["pair_ms"] is not None:
             # no single PyTorch call computes it: the nearest library route
             out["bf16_pair_ms"] = main["pair_ms"]
+        if main["route_ms"] is not None:
+            # F.layer_norm and the FiLM's multiply-add (forward), or its
+            # autograd (backward): the nearest library route
+            out["layer_norm_route_ms"] = main["route_ms"]
         if main["cublas_bf16_ms"] is not None:
             # torch.matmul on bf16 weights: not the same function
             out["cublas_bf16_ms"] = main["cublas_bf16_ms"]
@@ -476,7 +517,47 @@ def dtype_name(dtype):
     return str(dtype).split(".")[1]
 
 
+def same_bits(name, label, fn):
+    """Call `fn` twice on the same inputs; fail unless every output of the
+    two calls is equal bit for bit."""
+    with torch.inference_mode():
+        one, two = fn(), fn()
+    if isinstance(one, torch.Tensor):
+        one, two = (one,), (two,)
+    if not all(u is v or torch.equal(u, v) for u, v in zip(one, two)):
+        fail(f"{name} {label}: two runs on the same inputs differ")
+
+
+def time_ln_film(stats, key, label, x, w, b, scale, shift, keep=True):
+    """`ln_film`, its plain version and the library route timed on copies of
+    x beyond L2. Bound: one read and one write of the map, the two (C,)
+    rows and the FiLM's rows; about ten float32 operations per element."""
+    from hifidiff_tpu_torch.ops import norm
+
+    xs = [xc for xc, in l2_copies(x)]
+    iters = max(20, len(xs))
+    stats.measure(
+        "ln_film", key, label,
+        [lambda xc=xc: norm.ln_film(xc, w, b, scale, shift) for xc in xs],
+        [lambda xc=xc: norm.ln_film_plain(xc, w, b, scale, shift)
+         for xc in xs],
+        (2 * x.numel() + 2 * w.numel() + 2 * scale.numel())
+        * x.element_size(), 10 * x.numel(), "f32", keep=keep, iters=iters)
+    with torch.inference_mode():
+        route = time_ms([lambda xc=xc: ln_film_route(xc, w, b, scale, shift)
+                         for xc in xs], iters)[1]
+    log(f"ln_film {label}: layer_norm_route_ms {route:.4f} (F.layer_norm "
+        "over a channels-last view and the FiLM's multiply-add; a "
+        "yardstick the port does not call)")
+    if keep:
+        stats.shapes["ln_film"][key]["route_ms"] = route
+
+
 def check_ln_film(dev, g, stats):
+    """`ln_film` against its plain version, twice for equal bits, and timed
+    (`time_ln_film`): at the samplers' batch with a shared and a per-sample
+    FiLM (the bf16 times are the default path's), and at the refiner step's
+    batch with per-sample FiLM rows 4C apart."""
     from hifidiff_tpu_torch.ops import norm
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -488,19 +569,16 @@ def check_ln_film(dev, g, stats):
             for fb in (1, BATCH):  # the path's shared film, and per-sample
                 s, t = (0.1 * torch.randn(fb, c, generator=g, device=dev)
                         .to(dtype) for _ in range(2))
+                label = f"{dn} {BATCH}x{c}x{h}x{w} film_batch={fb}"
                 with torch.inference_mode():
                     stats.compare(
-                        "ln_film", f"{dn} {BATCH}x{c}x{h}x{w} film_batch={fb}",
-                        norm.ln_film(x, wt, bs, s, t),
+                        "ln_film", label, norm.ln_film(x, wt, bs, s, t),
                         norm.ln_film_plain(x, wt, bs, s, t), dn)
-            # one read and one write of the map, the four (C,) rows; about
-            # ten float32 operations per element
-            stats.measure(
-                "ln_film", (c, h, w), f"{dn} {BATCH}x{c}x{h}x{w}",
-                lambda: norm.ln_film(x, wt, bs, s[:1], t[:1]),
-                lambda: norm.ln_film_plain(x, wt, bs, s[:1], t[:1]),
-                (2 * x.numel() + 4 * c) * x.element_size(), 10 * x.numel(),
-                "f32", keep=dtype == torch.bfloat16)
+                same_bits("ln_film", label,
+                          lambda: norm.ln_film(x, wt, bs, s, t))
+            time_ln_film(stats, (c, h, w), f"{dn} {BATCH}x{c}x{h}x{w}", x,
+                         wt, bs, s[:1], t[:1], keep=dtype == torch.bfloat16)
+            del x
     # a train step's calls: per-sample FiLM rows 4C apart with unit channel
     # stride, as a block's `film.chunk(4, dim=1)` gives them, batch 32
     b = REFINER_BATCH
@@ -513,17 +591,17 @@ def check_ln_film(dev, g, stats):
             film = (0.3 * torch.randn(b, 4 * c, generator=g,
                                       device=dev)).to(dtype)
             shift, scale = film.chunk(4, dim=1)[:2]
+            label = f"{dn} {b}x{c}x{h}x{w}"
             with torch.inference_mode():
                 stats.compare(
-                    "ln_film", f"{dn} {b}x{c}x{h}x{w} film rows 4C apart",
+                    "ln_film", f"{label} film rows 4C apart",
                     norm.ln_film(x, wt, bs, scale, shift),
                     norm.ln_film_plain(x, wt, bs, scale, shift), dn)
-            stats.measure(
-                "ln_film", (dn, b, c, h, w), f"{dn} {b}x{c}x{h}x{w}",
-                lambda: norm.ln_film(x, wt, bs, scale, shift),
-                lambda: norm.ln_film_plain(x, wt, bs, scale, shift),
-                (2 * x.numel() + 2 * c + 2 * b * c) * x.element_size(),
-                10 * x.numel(), "f32")
+            same_bits("ln_film", f"{label} film rows 4C apart",
+                      lambda: norm.ln_film(x, wt, bs, scale, shift))
+            time_ln_film(stats, (dn, b, c, h, w), label, x, wt, bs, scale,
+                         shift)
+    torch.cuda.empty_cache()
 
 
 def check_warp(dev, g, stats):
@@ -583,7 +661,9 @@ def check_warp_shape(dev, g, stats, warp, ident, dtype, dn, shape):
 def check_ln_film_bwd(dev, g, stats):
     """`ln_film_bwd` at the refiner step's shapes, batch 32: f32 and bf16
     maps with tables of their dtype, FiLM rows per sample (4C apart, as
-    `film.chunk(4, dim=1)` gives them) and shared (1, C)."""
+    `film.chunk(4, dim=1)` gives them) and shared (1, C), with and without
+    dw and db; each call also twice for equal bits. Timed on copies of x
+    and g beyond L2, beside the library route's autograd."""
     from hifidiff_tpu_torch.ops import norm
 
     b = REFINER_BATCH
@@ -599,10 +679,13 @@ def check_ln_film_bwd(dev, g, stats):
                 film = (0.3 * torch.randn(fb, 4 * c, generator=g,
                                           device=dev)).to(dtype)
                 scale = film.chunk(4, dim=1)[1]
+                label = f"{dn} {b}x{c}x{h}x{w} film_batch={fb}"
                 stats.compare_rel(
-                    "ln_film_bwd", f"{dn} {b}x{c}x{h}x{w} film_batch={fb}",
+                    "ln_film_bwd", label,
                     norm.ln_film_bwd(gr, x, wt, bs, scale),
                     norm.ln_film_bwd_plain(gr, x, wt, bs, scale), limits)
+                same_bits("ln_film_bwd", label,
+                          lambda: norm.ln_film_bwd(gr, x, wt, bs, scale))
                 # a frozen block under a trainable time MLP: no dw, db
                 got = norm.ln_film_bwd(gr, x, wt, bs, scale, need_wb=False)
                 ref = norm.ln_film_bwd_plain(gr, x, wt, bs, scale,
@@ -611,21 +694,42 @@ def check_ln_film_bwd(dev, g, stats):
                     fail(f"ln_film_bwd {dn} {c}x{h}x{w}: dw, db without "
                          "need_wb")
                 stats.compare_rel(
-                    "ln_film_bwd",
-                    f"{dn} {b}x{c}x{h}x{w} film_batch={fb} without dw, db",
+                    "ln_film_bwd", f"{label} without dw, db",
                     (got[0], *got[3:]), (ref[0], *ref[3:]),
                     [limits[0], SUM_REL, SUM_REL])
+                same_bits("ln_film_bwd", f"{label} without dw, db",
+                          lambda: norm.ln_film_bwd(gr, x, wt, bs, scale,
+                                                   need_wb=False))
             scale = (0.3 * torch.randn(b, 4 * c, generator=g, device=dev)
                      ).to(dtype).chunk(4, dim=1)[1]
+            copies = l2_copies(gr, x)
+            iters = max(20, len(copies))
             # x and g read, dx written, the three tables read and the four
             # float32 (B, C) sums written; about 30 float32 operations per
             # element
             stats.measure(
                 "ln_film_bwd", (dn, b, c, h, w), f"{dn} {b}x{c}x{h}x{w}",
-                lambda: norm.ln_film_bwd(gr, x, wt, bs, scale),
-                lambda: norm.ln_film_bwd_plain(gr, x, wt, bs, scale),
+                [lambda gc=gc, xc=xc: norm.ln_film_bwd(gc, xc, wt, bs, scale)
+                 for gc, xc in copies],
+                [lambda gc=gc, xc=xc: norm.ln_film_bwd_plain(gc, xc, wt, bs,
+                                                             scale)
+                 for gc, xc in copies],
                 (3 * x.numel() + 2 * c + b * c) * x.element_size()
-                + 4 * b * c * 4, 30 * x.numel(), "f32")
+                + 4 * b * c * 4, 30 * x.numel(), "f32", iters=iters)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (wt, bs, scale, scale.roll(1, dims=1))]
+            with torch.enable_grad():
+                route = time_ms(
+                    [lambda gc=gc, xc=xc.detach().requires_grad_():
+                     ln_film_route_bwd(gc, xc, *leaves)
+                     for gc, xc in copies], iters)[1]
+            log(f"ln_film_bwd {dn} {b}x{c}x{h}x{w}: layer_norm_route_ms "
+                f"{route:.4f} (torch.autograd.grad of F.layer_norm over a "
+                "channels-last view and the FiLM's multiply-add; a "
+                "yardstick the port does not call)")
+            stats.shapes["ln_film_bwd"][(dn, b, c, h, w)]["route_ms"] = route
+            del copies
+        torch.cuda.empty_cache()
 
 
 def check_warp_bwd(dev, g, stats):
@@ -1293,6 +1397,27 @@ def device_busy_ms(one):
     return (total_us / 1e3 if total_us > 0 else None), wall, top
 
 
+def ln_film_bwd_launches(one):
+    """The device launches (kernels and memsets) of each `ln_film` backward
+    in one call of `one`, in call order, from `torch.profiler` with the
+    host's operators traced: the device events linked to the range of the
+    autograd node's own call (`_LnFilmBackward`) and to the ranges under it.
+    The engine's range around it (`evaluate_function: _LnFilmBackward`)
+    also holds autograd's sums of dx into the gradients of x's other uses,
+    which are not the backward's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one()
+
+    def launches(e):
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    return [launches(e) for e in prof.events()
+            if e.name == "_LnFilmBackward"]
+
+
 def timed_train(kind, models, dev, batch, stats_out):
     """Warm up; take one step with the launch counts set to 0 before and
     read after, in which the shapes reaching the wrappers are recorded; then
@@ -1350,6 +1475,13 @@ def timed_train(kind, models, dev, batch, stats_out):
     def profile():
         nonlocal state, step
         busy, profiled_ms, top = device_busy_ms(one)
+        if kind == "refiner":
+            per_call = ln_film_bwd_launches(one)
+            log(f"  {label}: device launches of each ln_film_bwd call "
+                f"(profiled step, kernels and memsets): {per_call}")
+            if not per_call or max(per_call) > 2:
+                fail(f"{label}: an ln_film_bwd call took more than two "
+                     f"device launches, or none was seen: {per_call}")
         if busy is not None and busy > med:     # no share can come of that
             log(f"  {label}: the profiler counts {busy:.1f} ms of device "
                 f"time, more than the median step: left out")

@@ -126,17 +126,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Programmatic dependent launch: `wait` returns once the grid before this one
-// in the stream has completed and its writes are visible (at once where the
-// launch carried no such dependency); `launch_dependents` lets the grid
-// after this one start its own prologue.
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // ---- warpgroup MMA (`wgmma`): four warps multiply a 64-row tile of A by a
 // 128-column tile of W, both read by the tensor cores straight from shared
 // memory through 64-bit descriptors, the f32 sums in 64 registers a thread.

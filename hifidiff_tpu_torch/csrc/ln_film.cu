@@ -6,105 +6,118 @@
 //   y   = (x[n, :, p] - mean_C) * rsqrt(var_C + eps)      (f32 statistics)
 //   out = (y * w + b) * (1 + scale[n]) + shift[n]
 //
-// with a per-sample (B, C) FiLM, or a (1, C) FiLM broadcast over the batch
+// with the centred variance (mean first, as `_fwd_kernel` computes it), and
+// a per-sample (B, C) FiLM or a (1, C) FiLM broadcast over the batch
 // (film_stride == 0) without materialising it.
 //
 // What bounds it on the card: bytes. Every element is read and written once
-// from device memory; the arithmetic is a few flops per element. Two
-// shapes stress it: 16x16 maps with 128 channels (many pixels, few
-// channels) and 1x1 maps with 2048 channels (one pixel per sample, so a
-// thread-per-pixel design would start only B threads). The design covers
-// both with one layout: a block of 256 threads takes a tile of P pixels
-// (P = the largest power of two <= min(H*W, 32)) and 256/P channel lanes.
-// Neighbouring threads read neighbouring pixels of one channel, or for
-// small maps the next channel, which in NCHW is the next address, so each
-// warp reads contiguous memory. The sums over C are taken by each lane and
-// then by a tree reduction in shared memory. The mean and the centred
-// variance take two passes, as the TPU kernel's jnp math does; the second
-// and third reads of the tile come from L1/L2, not device memory.
-#include "common.cuh"
+// from device memory; the arithmetic is a few flops per element. On the
+// default path the maps run from 16x16 x 128 channels (16.8 MB a call at
+// batch 128 in bf16, 5.0 us at 3.35 TB/s) to 1x1 x 2048 (1.05 MB, 0.31 us),
+// so the deep maps are set by a launch and one trip to device memory, and
+// what counts is the bytes in flight: the whole 1x1 map is.
+//
+// The design (ln_tile.cuh): each thread loads its 4 16-byte vectors of the
+// tile, and the (C,) tables' and FiLM rows' entries of their channels, before
+// the first sum and keeps them in registers, so the tables' latency hides
+// behind the map's; the mean, the centred variance and the output are
+// passes over registers, each sum over C a butterfly of warp shuffles and,
+// where a pixel group spans several warps, one shared-memory step with one
+// or two barriers; the output goes out 16 bytes a thread. Blocks of at most
+// 256 threads take up to 8 pixel groups of one sample: the 16x16 maps start
+// 4 blocks a sample in bf16 and 8 in f32, the 8x8 maps 2 and 4, and every
+// map at least one.
+#include "ln_tile.cuh"
 
 namespace hifidiff {
 namespace {
 
-constexpr int kThreads = 256;
+template <typename T, int V, int PPV>
+__global__ void __launch_bounds__(ln::kMaxThreads)
+    ln_film_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ b, const T* __restrict__ scale,
+                   const T* __restrict__ shift, T* __restrict__ out,
+                   ln::Layout L, long long film_stride, float eps,
+                   int tab_vec) {
+  __shared__ __align__(16) float red[2 * ln::kRedSlot];
+  const long long film = blockIdx.y * film_stride;
+  const ln::Tile<T, V, PPV, 1, 4> t(
+      L, {x}, {w, b, scale + film, shift + film}, tab_vec);
 
-// Sum of `v` over the channel lanes of each pixel column; every thread gets
-// its column's sum. All threads of the block must call it.
-__device__ __forceinline__ float column_sum(float* red, float v, int tx,
-                                            int ty, int P, int lanes) {
-  red[ty * P + tx] = v;
-  __syncthreads();
-  for (int s = lanes / 2; s > 0; s >>= 1) {
-    if (ty < s) red[ty * P + tx] += red[(ty + s) * P + tx];
-    __syncthreads();
-  }
-  const float r = red[tx];
-  __syncthreads();  // the next call overwrites `red`
-  return r;
+  float mean[PPV] = {}, rstd[PPV] = {};
+  t.each([&](const auto& v, const auto&, int, long long, bool ok) {
+    if (!ok) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) mean[j % PPV] += v[0][j];
+  });
+  ln::column_sum(mean, red, L);
+#pragma unroll
+  for (int i = 0; i < PPV; ++i) mean[i] /= L.C;
+  t.each([&](const auto& v, const auto&, int, long long, bool ok) {
+    if (!ok) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = v[0][j] - mean[j % PPV];
+      rstd[j % PPV] += d * d;
+    }
+  });
+  ln::column_sum(rstd, red + ln::kRedSlot, L);
+#pragma unroll
+  for (int i = 0; i < PPV; ++i) rstd[i] = rsqrtf(rstd[i] / L.C + eps);
+
+  // t: w, b, scale, shift of the vector's channels
+  t.each([&](const auto& v, const auto& tb, int, long long off, bool ok) {
+    if (!ok) return;
+    float o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int i = j % PPV, c = j / PPV;
+      const float y = (v[0][j] - mean[i]) * rstd[i];
+      o[j] = (y * tb[0][c] + tb[1][c]) * (1.f + tb[2][c]) + tb[3][c];
+    }
+    ln::Pack<T, V>::store(out + off, o);
+  });
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_film_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ b, const T* __restrict__ scale,
-                   const T* __restrict__ shift, T* __restrict__ out, int C,
-                   int HW, int P, long long film_stride, float eps) {
-  __shared__ float red[kThreads];
-  const int lanes = kThreads / P;
-  const int tx = threadIdx.x % P;
-  const int ty = threadIdx.x / P;
-  const int n = blockIdx.y;
-  const int p = blockIdx.x * P + tx;
-  const bool valid = p < HW;
-  const long long base = (long long)n * C * HW + p;
+struct Forward {
+  const ln::Plan& p;
+  const void *x, *w, *b, *scale, *shift;
+  void* out;
+  int B;
+  long long film_stride;
+  float eps;
+  cudaStream_t stream;
 
-  float s = 0.f;
-  if (valid)
-    for (int c = ty; c < C; c += lanes) s += to_f32(x[base + (long long)c * HW]);
-  const float mean = column_sum(red, s, tx, ty, P, lanes) / C;
-
-  float v = 0.f;
-  if (valid)
-    for (int c = ty; c < C; c += lanes) {
-      const float d = to_f32(x[base + (long long)c * HW]) - mean;
-      v += d * d;
-    }
-  const float rstd = rsqrtf(column_sum(red, v, tx, ty, P, lanes) / C + eps);
-  if (!valid) return;
-
-  const T* sc = scale + n * film_stride;
-  const T* sh = shift + n * film_stride;
-  for (int c = ty; c < C; c += lanes) {
-    const long long i = base + (long long)c * HW;
-    const float y = (to_f32(x[i]) - mean) * rstd;
-    const float o = (y * to_f32(w[c]) + to_f32(b[c])) * (1.f + to_f32(sc[c])) +
-                    to_f32(sh[c]);
-    out[i] = from_f32<T>(o);
+  template <int V, int PPV>
+  void run() const {
+    const int tab_vec = ln::rows_aligned(V / PPV, sizeof(T), film_stride,
+                                         {w, b, scale, shift});
+    ln_film_kernel<T, V, PPV>
+        <<<dim3(p.L.J, B), p.threads(), 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(w),
+            static_cast<const T*>(b), static_cast<const T*>(scale),
+            static_cast<const T*>(shift), static_cast<T*>(out), p.L,
+            film_stride, eps, tab_vec);
   }
-}
+};
 
 template <typename T>
 void launch(const void* x, const void* w, const void* b, const void* scale,
             const void* shift, void* out, int B, int C, int HW,
             long long film_stride, float eps, cudaStream_t stream) {
-  int P = 1;
-  while (P * 2 <= HW && P * 2 <= 32) P *= 2;
-  const dim3 grid((HW + P - 1) / P, B);
-  ln_film_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<const T*>(scale),
-      static_cast<const T*>(shift), static_cast<T*>(out), C, HW, P,
-      film_stride, eps);
+  const ln::Plan p = ln::make_plan(C, HW, 16 / sizeof(T));
+  ln::dispatch<T>(p, Forward<T>{p, x, w, b, scale, shift, out, B,
+                                film_stride, eps, stream});
 }
 
 }  // namespace
 }  // namespace hifidiff
 
-// x, out: (B, C, H, W) contiguous; w, b: (C,); scale, shift: rows of C
-// contiguous values, `film_stride` elements apart (0 broadcasts one row over
-// the batch). All six share one dtype: bf16 (is_bf16) or f32.
-// Returns cudaGetLastError() after the launch.
+// x, out: (B, C, H, W) contiguous, 16-byte aligned; w, b: (C,); scale,
+// shift: rows of C contiguous values, `film_stride` elements apart (0
+// broadcasts one row over the batch). All six share one dtype: bf16
+// (is_bf16) or f32. Returns cudaGetLastError() after the launch.
 extern "C" int hifidiff_ln_film(const void* x, const void* w, const void* b,
                                 const void* scale, const void* shift,
                                 void* out, int B, int C, int HW,

@@ -8,188 +8,316 @@
 //   g1  = g * (1 + scale[n]),  gw = g1 * w
 //   dx  = rstd * (gw - y * mean_C(gw * y) - mean_C(gw))
 //
-// and, summed over the pixels of sample n, the float32 partials
+// and the float32 sums over the pixels
 //
-//   dw[n] += g1 * y,  db[n] += g1,  dscale[n] += g * (y * w + b),
-//   dshift[n] += g
-//
-// (dw and db are summed over the batch outside, as the TPU kernel's caller
-// does; a FiLM shared by the batch sums dscale and dshift there too).
+//   dw += g1 * y,  db += g1      (also over the batch)
+//   dscale[n] += g * (y * w + b),  dshift[n] += g
+//                                (also over the batch for a (1, C) FiLM).
 //
 // What bounds it on the card: bytes (x and g read, dx written; a few dozen
-// flops per element). The layout is the forward's (ln_film.cu): a block of
-// 256 threads takes P pixels x 256/P channel lanes, so that both the 16x16
-// maps with 128 channels and the 1x1 maps with 2048 channels fill a block
-// and every warp reads contiguous memory. Four passes over the tile: mean,
-// centred variance, the two column sums of dx, then dx and the partials;
-// all but the first read of x and g come from L1/L2.
+// flops per element), and at the refiner step's batch of 32 a launch and
+// one trip to device memory: the five maps move 2.1 to 12.6 MB in f32,
+// 0.6 to 3.8 us at 3.35 TB/s.
 //
-// The TPU kernel carries the per-sample partials across its sequential grid
-// in a revisited (B, C) block. Blocks of a GPU grid run in no order, so here
-// the P pixels of a channel are summed by warp shuffles (the P threads of a
-// channel lane are neighbours in a warp) and each block adds its sums to
-// the zeroed (B, C) buffers with one float32 atomicAdd per channel and
-// partial. A sample's map spans up to HW/P blocks, whose atomics land in an
-// order that changes from run to run: the partials are not bit-reproducible
-// where HW > P.
-#include "common.cuh"
+// The design: the forward's layout (ln_tile.cuh). Each thread loads its
+// vectors of x and g, and the table entries of their channels, before the
+// first sum and keeps them in registers; the mean, then in one sum over C
+// the centred variance and the two sums of dx (of gw and of gw * (x - mean),
+// which is rstd^-1 times the sum of gw * y), then dx are passes over
+// registers, each sum over C warp shuffles and at most one shared-memory
+// step. The sums over the pixels are taken in registers over a vector's
+// pixels, then by shuffles over the block's pixel groups (lanes of one
+// warp), and each block writes one row of partial sums per quantity: no
+// atomics. A second kernel, launched with programmatic dependent launch so
+// that it waits on the device and not on the host, sums those rows in a
+// fixed order, over a sample's blocks and over the batch. Where a sample is
+// one block and the FiLM is per sample (the three deepest maps of the
+// refiner step), dscale and dshift are written in place by the first
+// kernel. A call is one or two launches and no memset, and gives the same
+// bits run to run.
+#include "ln_tile.cuh"
 
 namespace hifidiff {
 namespace {
 
-constexpr int kThreads = 256;
-
-// Sums of `a` and `b` over the channel lanes of each pixel column; every
-// thread gets its column's sums. All threads of the block must call it.
-__device__ __forceinline__ void column_sum2(float* red, float& a, float& b,
-                                            int tx, int ty, int P,
-                                            int lanes) {
-  float* ra = red;
-  float* rb = red + kThreads;
-  ra[ty * P + tx] = a;
-  rb[ty * P + tx] = b;
-  __syncthreads();
-  for (int s = lanes / 2; s > 0; s >>= 1) {
-    if (ty < s) {
-      ra[ty * P + tx] += ra[(ty + s) * P + tx];
-      rb[ty * P + tx] += rb[(ty + s) * P + tx];
-    }
-    __syncthreads();
-  }
-  a = ra[tx];
-  b = rb[tx];
-  __syncthreads();  // the next call overwrites `red`
-}
-
-// Sum over the P pixel threads of one channel lane: they are P neighbouring
-// lanes of a warp (threadIdx.x = ty * P + tx, P a power of two <= 32).
-__device__ __forceinline__ float pixel_sum(float v, int P) {
-  for (int s = P / 2; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// rows of partial sums: a block's row is blockIdx.y * J + blockIdx.x
+template <typename T, int V, int PPV>
+__global__ void __launch_bounds__(ln::kMaxThreads)
     ln_film_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                        const T* __restrict__ w, const T* __restrict__ b,
                        const T* __restrict__ scale, T* __restrict__ dx,
-                       float* __restrict__ dw, float* __restrict__ db,
-                       float* __restrict__ dscale, float* __restrict__ dshift,
-                       int C, int HW, int P, long long film_stride, float eps,
-                       int need_wb) {
-  __shared__ float red[2 * kThreads];
-  const int lanes = kThreads / P;
-  const int tx = threadIdx.x % P;
-  const int ty = threadIdx.x / P;
-  const int n = blockIdx.y;
-  const int p = blockIdx.x * P + tx;
-  const bool valid = p < HW;
-  const long long base = (long long)n * C * HW + p;
-  const T* sc = scale + n * film_stride;
+                       float* __restrict__ pw, float* __restrict__ pb,
+                       float* __restrict__ ps, float* __restrict__ pt,
+                       ln::Layout L, long long film_stride, float eps,
+                       int tab_vec, int need_wb) {
+  griddep_launch_dependents();  // the sums may start their prologue
+  constexpr int CPV = V / PPV;
+  __shared__ __align__(16) float red[2 * ln::kRedSlot];
+  const ln::Tile<T, V, PPV, 2, 3> t(
+      L, {x, g}, {w, b, scale + blockIdx.y * film_stride}, tab_vec);
 
-  float s = 0.f, unused = 0.f;
-  if (valid)
-    for (int c = ty; c < C; c += lanes) s += to_f32(x[base + (long long)c * HW]);
-  column_sum2(red, s, unused, tx, ty, P, lanes);
-  const float mean = s / C;
+  float mean[PPV] = {};
+  t.each([&](const auto& v, const auto&, int, long long, bool ok) {
+    if (!ok) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) mean[j % PPV] += v[0][j];
+  });
+  ln::column_sum(mean, red, L);
+#pragma unroll
+  for (int i = 0; i < PPV; ++i) mean[i] /= L.C;
+  // one sum over C of the centred variance (first PPV), of gw (next PPV)
+  // and of gw * (x - mean) (last PPV); t: w, b, scale of the channels
+  float m[3 * PPV] = {};
+  t.each([&](const auto& v, const auto& tb, int, long long, bool ok) {
+    if (!ok) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int i = j % PPV, c = j / PPV;
+      const float d = v[0][j] - mean[i];
+      const float gw = v[1][j] * (1.f + tb[2][c]) * tb[0][c];
+      m[i] += d * d;
+      m[PPV + i] += gw;
+      m[2 * PPV + i] += gw * d;
+    }
+  });
+  ln::column_sum(m, red + ln::kRedSlot, L);
+  // rstd, then the means over C of gw and of gw * y
+  float rstd[PPV];
+#pragma unroll
+  for (int i = 0; i < PPV; ++i) {
+    rstd[i] = rsqrtf(m[i] / L.C + eps);
+    m[PPV + i] /= L.C;
+    m[2 * PPV + i] *= rstd[i] / L.C;
+  }
 
-  float v = 0.f;
-  if (valid)
-    for (int c = ty; c < C; c += lanes) {
-      const float d = to_f32(x[base + (long long)c * HW]) - mean;
-      v += d * d;
-    }
-  column_sum2(red, v, unused, tx, ty, P, lanes);
-  const float rstd = rsqrtf(v / C + eps);
-
-  float sum_gw = 0.f, sum_gwy = 0.f;
-  if (valid)
-    for (int c = ty; c < C; c += lanes) {
-      const long long i = base + (long long)c * HW;
-      const float y = (to_f32(x[i]) - mean) * rstd;
-      const float gw = to_f32(g[i]) * (1.f + to_f32(sc[c])) * to_f32(w[c]);
-      sum_gw += gw;
-      sum_gwy += gw * y;
-    }
-  column_sum2(red, sum_gw, sum_gwy, tx, ty, P, lanes);
-  const float mean_g = sum_gw / C;
-  const float mean_gy = sum_gwy / C;
-
-  // every thread walks the same channels, so the shuffles meet whole warps;
-  // a pixel beyond the map adds zeros
-  float* dwn = dw + (long long)n * C;
-  float* dbn = db + (long long)n * C;
-  float* dsn = dscale + (long long)n * C;
-  float* dtn = dshift + (long long)n * C;
-  for (int c0 = 0; c0 < C; c0 += lanes) {
-    const int c = c0 + ty;
-    float g1y = 0.f, g1 = 0.f, ga = 0.f, gv = 0.f;
-    if (valid && c < C) {
-      const long long i = base + (long long)c * HW;
-      const float wc = to_f32(w[c]);
-      const float y = (to_f32(x[i]) - mean) * rstd;
-      gv = to_f32(g[i]);
-      g1 = gv * (1.f + to_f32(sc[c]));
-      g1y = g1 * y;
-      ga = gv * (y * wc + to_f32(b[c]));
-      dx[i] = from_f32<T>(rstd * (g1 * wc - y * mean_gy - mean_g));
-    }
-    ga = pixel_sum(ga, P);
-    gv = pixel_sum(gv, P);
-    if (need_wb) {
-      g1y = pixel_sum(g1y, P);
-      g1 = pixel_sum(g1, P);
-    }
-    if (tx == 0 && c < C) {
-      atomicAdd(dsn + c, ga);
-      atomicAdd(dtn + c, gv);
-      if (need_wb) {
-        atomicAdd(dwn + c, g1y);
-        atomicAdd(dbn + c, g1);
+  const long long row =
+      ((long long)blockIdx.y * L.J + blockIdx.x) * L.C;
+  const int gb = 1 << L.gb_log;
+  t.each([&](const auto& v, const auto& tb, int k, long long off, bool ok) {
+    float part[4][CPV] = {};  // g1 * y, g1, g * (y * w + b), g
+    if (ok) {
+      float d[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int i = j % PPV, c = j / PPV;
+        const float y = (v[0][j] - mean[i]) * rstd[i];
+        const float gv = v[1][j];
+        const float g1 = gv * (1.f + tb[2][c]);
+        d[j] = rstd[i] * (g1 * tb[0][c] - y * m[2 * PPV + i] - m[PPV + i]);
+        part[0][c] += g1 * y;
+        part[1][c] += g1;
+        part[2][c] += gv * (y * tb[0][c] + tb[1][c]);
+        part[3][c] += gv;
       }
+      ln::Pack<T, V>::store(dx + off, d);
     }
+    // the block's pixel groups of one channel are neighbouring lanes
+    for (int o = 1; o < gb; o <<= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < CPV; ++c)
+          part[q][c] += __shfl_xor_sync(0xffffffffu, part[q][c], o);
+    if (ok && t.gl == 0) {
+      const long long at = row + k * CPV;
+      if (need_wb) {
+        ln::store_f32<CPV>(pw + at, part[0]);
+        ln::store_f32<CPV>(pb + at, part[1]);
+      }
+      ln::store_f32<CPV>(ps + at, part[2]);
+      ln::store_f32<CPV>(pt + at, part[3]);
+    }
+  });
+}
+
+constexpr int kSumThreads = 512;
+constexpr int kSumLanes = 16;  // row lanes of a long sum, 32 channels each
+constexpr int kShortRows = 16;
+
+// out[o][c] = the sum of in[o * rows + r][c] over r < rows, for o < outs.
+// A long task (rows > kShortRows: dw and db over the batch) takes blocks of
+// 32 channels of one output row, its rows split over 16 lanes; a short one
+// (a sample's J rows) one thread an output entry.
+struct SumTask {
+  const float* in;
+  float* out;
+  int rows, outs;
+};
+// up to four tasks; task i takes the blocks [first[i], first[i + 1])
+struct SumTasks {
+  SumTask t[4];
+  int first[5];
+};
+
+inline int sum_blocks(const SumTask& t, int C) {
+  return t.rows > kShortRows ? t.outs * ((C + 31) / 32)
+                             : (int)(((long long)t.outs * C + kSumThreads - 1)
+                                     / kSumThreads);
+}
+
+// The fixed-order sums of the partial rows.
+__global__ void __launch_bounds__(kSumThreads)
+    ln_film_bwd_sums(SumTasks tasks, int C) {
+  __shared__ float red[kSumLanes][33];
+  int i = 0;
+  while ((int)blockIdx.x >= tasks.first[i + 1]) ++i;
+  const SumTask t = tasks.t[i];
+  const int blk = blockIdx.x - tasks.first[i];
+  griddep_wait();  // the partial rows are written
+  if (t.rows <= kShortRows) {
+    const long long e = (long long)blk * kSumThreads + threadIdx.x;
+    if (e >= (long long)t.outs * C) return;
+    const long long o = e / C, c = e % C;
+    const float* in = t.in + o * t.rows * C + c;
+    float s = 0.f;
+    for (int r = 0; r < t.rows; ++r) s += in[(long long)r * C];
+    t.out[e] = s;
+    return;
+  }
+  const int chunks = (C + 31) / 32;
+  const int lane = threadIdx.x & 31, y = threadIdx.x >> 5;
+  const int o = blk / chunks, c = (blk % chunks) * 32 + lane;
+  const float* in = t.in + (long long)o * t.rows * C + c;
+  float s = 0.f;
+  if (c < C)
+#pragma unroll 4
+    for (int r = y; r < t.rows; r += kSumLanes) s += in[(long long)r * C];
+  red[y][lane] = s;
+  __syncthreads();
+  if (y == 0 && c < C) {
+    float a = 0.f;
+#pragma unroll
+    for (int l = 0; l < kSumLanes; ++l) a += red[l][lane];
+    t.out[(long long)o * C + c] = a;
   }
 }
 
+// Where the partial rows go: dscale and dshift in place where a sample is
+// one block and the FiLM is per sample, else rows of the scratch buffer;
+// and the floats of scratch that takes.
+struct Rows {
+  long long rows;   // B * J
+  bool in_place;
+  long long scratch_floats(int C, int need_wb) const {
+    return ((need_wb ? 2 : 0) + (in_place ? 0 : 2)) * rows * C;
+  }
+};
+
+Rows rows_of(const ln::Plan& p, int B, int film_rows) {
+  return Rows{(long long)B * p.L.J, p.L.J == 1 && film_rows == B};
+}
+
+template <typename T>
+struct Backward {
+  const ln::Plan& p;
+  const void *x, *g, *w, *b, *scale;
+  void* dx;
+  float *pw, *pb, *ps, *pt;
+  int B;
+  long long film_stride;
+  float eps;
+  int need_wb;
+  cudaStream_t stream;
+
+  template <int V, int PPV>
+  void run() const {
+    const int tab_vec =
+        ln::rows_aligned(V / PPV, sizeof(T), film_stride, {w, b, scale});
+    ln_film_bwd_kernel<T, V, PPV>
+        <<<dim3(p.L.J, B), p.threads(), 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(g),
+            static_cast<const T*>(w), static_cast<const T*>(b),
+            static_cast<const T*>(scale), static_cast<T*>(dx), pw, pb, ps,
+            pt, p.L, film_stride, eps, tab_vec, need_wb);
+  }
+};
+
 template <typename T>
 void launch(const void* x, const void* g, const void* w, const void* b,
-            const void* scale, void* dx, float* partials, int B, int C,
-            int HW, long long film_stride, float eps, int need_wb,
+            const void* scale, void* dx, float* dw, float* db, float* dscale,
+            float* dshift, float* scratch, int B, int C, int HW,
+            long long film_stride, int film_rows, float eps, int need_wb,
             cudaStream_t stream) {
-  int P = 1;
-  while (P * 2 <= HW && P * 2 <= 32) P *= 2;
-  const dim3 grid((HW + P - 1) / P, B);
-  const long long bc = (long long)B * C;
-  ln_film_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<const T*>(scale), static_cast<T*>(dx), partials,
-      partials + bc, partials + 2 * bc, partials + 3 * bc, C, HW, P,
-      film_stride, eps, need_wb);
+  const ln::Plan p = ln::make_plan(C, HW, 16 / sizeof(T));
+  const Rows r = rows_of(p, B, film_rows);
+  const long long n = r.rows * C;
+  float* pw = scratch;
+  float* pb = scratch + n;
+  float* ps = r.in_place ? dscale : scratch + (need_wb ? 2 : 0) * n;
+  float* pt = r.in_place ? dshift : ps + n;
+  ln::dispatch<T>(p, Backward<T>{p, x, g, w, b, scale, dx, pw, pb, ps, pt,
+                                 B, film_stride, eps, need_wb, stream});
+  SumTasks tasks = {};
+  int count = 0;
+  if (need_wb) {
+    tasks.t[count++] = {pw, dw, (int)r.rows, 1};
+    tasks.t[count++] = {pb, db, (int)r.rows, 1};
+  }
+  if (!r.in_place) {
+    const int per = (int)(r.rows / film_rows);
+    tasks.t[count++] = {ps, dscale, per, film_rows};
+    tasks.t[count++] = {pt, dshift, per, film_rows};
+  }
+  if (count == 0) return;
+  for (int i = 0; i < 4; ++i)
+    tasks.first[i + 1] =
+        tasks.first[i] + (i < count ? sum_blocks(tasks.t[i], C) : 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tasks.first[count]);
+  cfg.blockDim = dim3(kSumThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, ln_film_bwd_sums, tasks, C);
+}
+
+template <typename T>
+long long scratch_floats(int B, int C, int HW, int need_wb, int film_rows) {
+  const ln::Plan p = ln::make_plan(C, HW, 16 / sizeof(T));
+  return rows_of(p, B, film_rows).scratch_floats(C, need_wb);
 }
 
 }  // namespace
 }  // namespace hifidiff
 
-// x, g, dx: (B, C, H, W) contiguous; w, b: (C,); scale: rows of C contiguous
-// values `film_stride` elements apart (0: one row for the whole batch); all
-// bf16 (is_bf16) or all f32. partials: zeroed float32 (4, B, C): dw, db,
-// dscale, dshift per sample; dw and db are left untouched when need_wb is 0.
-// Returns cudaGetLastError() after the launch.
+// The float32 scratch `hifidiff_ln_film_bwd` takes for these arguments (0
+// where it needs none).
+extern "C" long long hifidiff_ln_film_bwd_scratch(int B, int C, int HW,
+                                                  int is_bf16, int need_wb,
+                                                  int film_rows) {
+  using hifidiff::scratch_floats;
+  return is_bf16 ? scratch_floats<__nv_bfloat16>(B, C, HW, need_wb, film_rows)
+                 : scratch_floats<float>(B, C, HW, need_wb, film_rows);
+}
+
+// x, g, dx: (B, C, H, W) contiguous, 16-byte aligned; w, b: (C,); scale:
+// `film_rows` (B or 1) rows of C contiguous values `film_stride` elements
+// apart (0: one row for the whole batch); all bf16 (is_bf16) or all f32.
+// Outputs, float32: dw, db (C,) (unused without need_wb), dscale, dshift
+// (film_rows, C); scratch: float32 of the size hifidiff_ln_film_bwd_scratch
+// gives. One or two launches on `stream`, no memset. Returns
+// cudaGetLastError() after the launches.
 extern "C" int hifidiff_ln_film_bwd(const void* x, const void* g,
                                     const void* w, const void* b,
-                                    const void* scale, void* dx,
-                                    void* partials, int B, int C, int HW,
-                                    long long film_stride, float eps,
-                                    int is_bf16, int need_wb, void* stream) {
+                                    const void* scale, void* dx, void* dw,
+                                    void* db, void* dscale, void* dshift,
+                                    void* scratch, int B, int C, int HW,
+                                    long long film_stride, int film_rows,
+                                    float eps, int is_bf16, int need_wb,
+                                    void* stream) {
   using hifidiff::launch;
   auto st = static_cast<cudaStream_t>(stream);
-  auto* part = static_cast<float*>(partials);
+  auto f = [](void* p) { return static_cast<float*>(p); };
   if (is_bf16)
-    launch<__nv_bfloat16>(x, g, w, b, scale, dx, part, B, C, HW, film_stride,
-                          eps, need_wb, st);
+    launch<__nv_bfloat16>(x, g, w, b, scale, dx, f(dw), f(db), f(dscale),
+                          f(dshift), f(scratch), B, C, HW, film_stride,
+                          film_rows, eps, need_wb, st);
   else
-    launch<float>(x, g, w, b, scale, dx, part, B, C, HW, film_stride, eps,
-                  need_wb, st);
+    launch<float>(x, g, w, b, scale, dx, f(dw), f(db), f(dscale), f(dshift),
+                  f(scratch), B, C, HW, film_stride, film_rows, eps, need_wb,
+                  st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = ("ln_film.cu", "ln_film_bwd.cu", "warp.cu", "warp_bwd.cu",
             "matmul_w8.cu", "gn_silu.cu", "cnaf_small.cu")
-_HEADERS = ("common.cuh", "gemm_tile.cuh")
+_HEADERS = ("common.cuh", "gemm_tile.cuh", "ln_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,9 +104,11 @@ def library() -> ctypes.CDLL:
         ctypes.c_longlong
     lib.hifidiff_ln_film.argtypes = [p, p, p, p, p, p, i, i, i, ll, f, i, p]
     lib.hifidiff_ln_film.restype = i
-    lib.hifidiff_ln_film_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, ll, f,
-                                         i, i, p]
+    lib.hifidiff_ln_film_bwd.argtypes = [*([p] * 11), i, i, i, ll, i, f, i,
+                                         i, p]
     lib.hifidiff_ln_film_bwd.restype = i
+    lib.hifidiff_ln_film_bwd_scratch.argtypes = [i, i, i, i, i, i]
+    lib.hifidiff_ln_film_bwd_scratch.restype = ll
     lib.hifidiff_affine_warp.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.hifidiff_affine_warp.restype = i
     lib.hifidiff_affine_warp_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,

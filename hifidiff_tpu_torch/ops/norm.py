@@ -116,6 +116,7 @@ def _ln_film_cuda(x, weight, bias, scale, shift, eps):
         name, x, weight, bias, (scale, shift))
     b, c, h, w = x.shape
     out = torch.empty_like(x)
+    kernels.check_aligned(name, x, out)
     lib = kernels.library()
     kernels.check(lib.hifidiff_ln_film(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(),
@@ -134,22 +135,27 @@ def _ln_film_bwd_cuda(g, x, weight, bias, scale, eps, need_wb):
                          f"{g.dtype} on {g.device}")
     g = g.contiguous()
     b, c, h, w = x.shape
+    rows = scale.shape[0]
     dx = torch.empty_like(x)
-    partials = torch.zeros((4, b, c), dtype=torch.float32, device=x.device)
+    kernels.check_aligned(name, x, g, dx)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw, db = (torch.empty(c, **f32) for _ in range(2)) if need_wb \
+        else (None, None)
+    dscale, dshift = (torch.empty(rows, c, **f32) for _ in range(2))
     lib = kernels.library()
+    # the partial sums' rows, where the kernel needs them (not zeroed: every
+    # row is written before it is read)
+    scratch = torch.empty(lib.hifidiff_ln_film_bwd_scratch(
+        b, c, h * w, is_bf16, int(need_wb), rows), **f32)
     kernels.check(lib.hifidiff_ln_film_bwd(
         x.data_ptr(), g.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        scale.data_ptr(), dx.data_ptr(), partials.data_ptr(), b, c, h * w,
-        film_stride, float(eps), is_bf16, int(need_wb),
+        scale.data_ptr(), dx.data_ptr(), *(
+            0 if t is None else t.data_ptr()
+            for t in (dw, db, dscale, dshift, scratch)),
+        b, c, h * w, film_stride, rows, float(eps), is_bf16, int(need_wb),
         kernels.stream_ptr(x.device)), name)
     kernels.LAUNCHES[name] += 1
-    dw, db, dscale, dshift = partials.unbind(0)
-    if scale.shape[0] == 1 and b > 1:
-        dscale = dscale.sum(dim=0, keepdim=True)
-        dshift = dshift.sum(dim=0, keepdim=True)
-    if not need_wb:
-        return dx, None, None, dscale, dshift
-    return dx, dw.sum(dim=0), db.sum(dim=0), dscale, dshift
+    return dx, dw, db, dscale, dshift
 
 
 def _ln_film_forward(x, weight, bias, scale, shift, eps):
@@ -165,8 +171,9 @@ def ln_film_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     `ln_film_bwd_plain` returns. A CPU tensor takes that plain version; a
     CUDA tensor the hand-written kernel (csrc/ln_film_bwd.cu), which raises
     where it cannot run. g may arrive non-contiguous from autograd and is
-    made contiguous. The per-sample sums are float32 atomics across the
-    blocks of a sample's map: not bit-reproducible where H*W > 32."""
+    made contiguous. The sums over the pixels and the batch are taken in a
+    fixed order, without atomics, in at most two device launches and no
+    memset: two calls on the same inputs give the same bits."""
     if kernels.on_cpu("ln_film_bwd", x):
         return ln_film_bwd_plain(g, x, weight, bias, scale, eps, need_wb)
     return _ln_film_bwd_cuda(g, x, weight, bias, scale, eps, need_wb)
@@ -176,7 +183,8 @@ class _LnFilm(torch.autograd.Function):
     """`ln_film` with its hand-written backward. Saves x, weight, bias and
     scale and nothing else: the backward recomputes the statistics from x,
     as the TPU kernel does. A CPU tensor takes the plain versions, forward
-    and backward; a CUDA tensor the two kernels."""
+    and backward; a CUDA tensor the two kernels, whose outputs and gradients
+    are deterministic (the backward's sums in a fixed order, no atomics)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, scale, shift, eps):

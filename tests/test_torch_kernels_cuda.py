@@ -33,25 +33,48 @@ def cuda():
     return torch.device("cuda")
 
 
+# The five maps of the denoiser's blocks (C, H, W) at the batches the paths
+# and the tests take, and ragged maps: C of 48 and 200 at H*W of 15, 9 and 3
+# (the kernels' element-wise variant), C*H*W not a whole number of 16-byte
+# vectors, and C beyond what a block holds in registers.
+LN_MAPS = ((128, 16, 16), (256, 8, 8), (512, 4, 4), (1024, 2, 2),
+           (2048, 1, 1))
+LN_SHAPES = [(b, *m) for b in (1, 3, 32, 128) for m in LN_MAPS] + [
+    (3, c, h, w) for c in (48, 200) for h, w in ((5, 3), (3, 3), (3, 1))
+] + [(2, 45, 2, 1), (4, 200, 2, 2), (2, 20000, 1, 1), (2, 2500, 3, 1),
+     (4, 128, 16, 16), (4, 1024, 2, 2), (3, 48, 5, 3)]
+
+
+def _film(gen, rows, c, dtype, cuda):
+    """scale, shift: rows 4C apart with unit channel stride, as a training
+    block's `film.chunk(4, dim=1)` gives them."""
+    film = (0.3 * torch.randn(rows, 4 * c, generator=gen, device=cuda)) \
+        .to(dtype)
+    _, scale, _, shift = film.chunk(4, dim=1)
+    return scale, shift
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,film_batch", [
-    ((4, 128, 16, 16), 1), ((4, 1024, 2, 2), 4), ((4, 2048, 1, 1), 1),
-    ((3, 48, 5, 3), 3)])
-def test_ln_film_kernel_matches_plain(cuda, dtype, shape, film_batch):
+@pytest.mark.parametrize("film", ["shared", "per_sample"])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_ln_film_kernel_matches_plain(cuda, dtype, shape, film):
+    """Against the plain version, and twice on the same inputs for equal
+    bits, with a shared (1, C) FiLM and per-sample rows 4C apart."""
     g = torch.Generator(device=cuda).manual_seed(0)
     b, c = shape[0], shape[1]
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     w, bb = (torch.randn(c, generator=g, device=cuda).to(dtype)
              for _ in range(2))
-    s, t = (0.1 * torch.randn(film_batch, c, generator=g, device=cuda)
-            .to(dtype) for _ in range(2))
+    s, t = _film(g, 1 if film == "shared" else b, c, dtype, cuda)
     before = kernels.LAUNCHES["ln_film"]
     with torch.inference_mode():
         out = norm.ln_film(x, w, bb, s, t)
+        again = norm.ln_film(x, w, bb, s, t)
         ref = norm.ln_film_plain(x, w, bb, s, t)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ln_film"] == before + 1
+    assert kernels.LAUNCHES["ln_film"] == before + 2
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -103,13 +126,13 @@ def test_kernels_refuse_gradients(cuda):
 
 
 # The backward kernels against their plain versions (the closed forms). f32:
-# the sums over channels, pixels and the batch are taken in another order,
-# and with atomics in an order that changes from run to run; every sum has
-# up to 2048 (channels) or 16384 (pixels) terms of order 1, so a few 1e-6 of
-# the largest term per element, held relative to the gradient's largest
-# value. bf16: dx is one rounding of a float32 value (2^-8 relative, plus the
-# cancellation in `gw - y * mean - mean`); the float32 partials see the same
-# bf16 inputs and differ as in f32.
+# the sums over channels, pixels and the batch are taken in another order
+# (the warp's with atomics, in an order that changes from run to run); every
+# sum has up to 2048 (channels) or 32768 (pixels) terms of order 1, so a few
+# 1e-6 of the largest term per element, held relative to the gradient's
+# largest value. bf16: dx is one rounding of a float32 value (2^-8 relative,
+# plus the cancellation in `gw - y * mean - mean`); the float32 partials see
+# the same bf16 inputs and differ as in f32.
 BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
 SUM_REL = 2e-5
 
@@ -120,34 +143,79 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,film_batch", [
-    ((32, 128, 16, 16), 32), ((32, 256, 8, 8), 32), ((32, 512, 4, 4), 32),
-    ((32, 1024, 2, 2), 32), ((32, 2048, 1, 1), 32), ((32, 128, 16, 16), 1),
-    ((3, 48, 5, 3), 3)])
-def test_ln_film_bwd_kernel_matches_plain(cuda, dtype, shape, film_batch):
+@pytest.mark.parametrize("need_wb", [True, False])
+@pytest.mark.parametrize("film", ["per_sample", "shared"])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_ln_film_bwd_kernel_matches_plain(cuda, dtype, shape, film, need_wb):
+    """Against the closed form, with g made non-contiguous as autograd may
+    hand it over, and twice on the same inputs for equal bits."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     b, c = shape[0], shape[1]
     x, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     w, bb = (torch.randn(c, generator=gen, device=cuda).to(dtype)
              for _ in range(2))
-    # rows 4C apart with unit channel stride, as `film.chunk(4, dim=1)` gives
-    film = (0.3 * torch.randn(film_batch, 4 * c, generator=gen,
-                              device=cuda)).to(dtype)
-    scale = film.chunk(4, dim=1)[1]
+    scale, _ = _film(gen, 1 if film == "shared" else b, c, dtype, cuda)
     before = kernels.LAUNCHES["ln_film_bwd"]
-    out = norm.ln_film_bwd(g.transpose(2, 3).contiguous()
-                                 .transpose(2, 3), x, w, bb, scale, 1e-6)
-    ref = norm.ln_film_bwd_plain(g, x, w, bb, scale, 1e-6)
+    out = norm.ln_film_bwd(g.transpose(2, 3).contiguous().transpose(2, 3),
+                           x, w, bb, scale, 1e-6, need_wb)
+    again = norm.ln_film_bwd(g, x, w, bb, scale, 1e-6, need_wb)
+    ref = norm.ln_film_bwd_plain(g, x, w, bb, scale, 1e-6, need_wb)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ln_film_bwd"] == before + 1
-    assert out[0].dtype == dtype and out[3].shape == (film_batch, c)
+    assert kernels.LAUNCHES["ln_film_bwd"] == before + 2
+    assert out[0].dtype == dtype and out[3].shape == scale.shape
     assert _rel(out[0], ref[0]) <= BWD_REL[dtype]
+    assert (out[1] is None) == (out[2] is None) == (not need_wb)
     for a, r in zip(out[1:], ref[1:]):
-        assert a.dtype == torch.float32 and _rel(a, r) <= SUM_REL
-    skipped = norm.ln_film_bwd(g, x, w, bb, scale, 1e-6, need_wb=False)
-    assert skipped[1] is None and skipped[2] is None
-    assert _rel(skipped[3], ref[3]) <= SUM_REL
+        if r is not None:
+            assert a.dtype == torch.float32 and _rel(a, r) <= SUM_REL
+    for a, r in zip(out, again):
+        assert a is r is None or torch.equal(a, r)
+
+
+def test_ln_film_kernels_refuse_misaligned_maps(cuda):
+    """The kernels read 16 bytes a thread: a map at an odd element offset
+    raises and is not computed another way."""
+    shape = (2, 128, 4, 4)
+    n = 2 * 128 * 16
+    x = torch.randn(n + 1, device=cuda)[1:].view(shape)
+    w, s = torch.ones(128, device=cuda), torch.zeros(1, 128, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="aligned"):
+            norm.ln_film(x, w, w, s, s)
+        with pytest.raises(ValueError, match="aligned"):
+            norm.ln_film_bwd(x.clone(), x, w, w, s)
+        with pytest.raises(ValueError, match="aligned"):
+            norm.ln_film_bwd(x, x.clone(), w, w, s)
+    assert dict(kernels.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("need_wb", [True, False])
+@pytest.mark.parametrize("film", ["per_sample", "shared"])
+@pytest.mark.parametrize("shape", [(32, 128, 16, 16), (32, 512, 4, 4),
+                                   (32, 2048, 1, 1), (3, 48, 5, 3)])
+def test_ln_film_bwd_device_launches(cuda, shape, film, need_wb):
+    """One backward call is at most two launches on the device, memsets
+    included: every device event under `torch.profiler` over five calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, g = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    c = shape[1]
+    w, b = torch.randn(c, device=cuda), torch.randn(c, device=cuda)
+    scale, _ = _film(gen, 1 if film == "shared" else shape[0], c,
+                     torch.float32, cuda)
+    norm.ln_film_bwd(g, x, w, b, scale, need_wb=need_wb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            norm.ln_film_bwd(g, x, w, b, scale, need_wb=need_wb)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    assert 0 < len(events) <= 2 * 5, [e.name for e in events]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,8 +1,12 @@
 """Port ops against the JAX package: gates, time embedding, pixel shuffle,
 LayerNorm2d, the ln_film kernel's plain version (against the Pallas kernel in
-interpret mode and the jnp path), GroupNorm+SiLU, and the affine warp's
-plain version (against the row-window Pallas kernel, the dense-mask path and
-the gather formulation). All in float32 on the CPU."""
+interpret mode and the jnp path; and chip_smoke.py's library yardsticks
+against the plain versions), GroupNorm+SiLU, and the affine warp's plain
+version (against the row-window Pallas kernel, the dense-mask path and the
+gather formulation). All in float32 on the CPU."""
+
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +90,39 @@ def test_ln_film_cpu_takes_plain_version_uncounted():
                                norm.ln_film_plain(x, w, b, s, t),
                                rtol=0, atol=0)
     assert kernels.LAUNCHES == before
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports numpy and torch)."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("film_batch", [3, 1])
+def test_chip_smoke_layer_norm_routes_match_plain(film_batch):
+    """chip_smoke.py times `ln_film` and its backward beside the nearest
+    library route (F.layer_norm over a channels-last view and the FiLM's
+    multiply-add; its autograd): the two routes compute what
+    `ln_film_plain` and `ln_film_bwd_plain` compute, per-sample or shared
+    FiLM."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(6)
+    x, g = (torch.from_numpy(normal(rng, 3, 16, 4, 5, scale=2.0))
+            for _ in range(2))
+    w, b = (torch.from_numpy(normal(rng, 16)) for _ in range(2))
+    s, t = (torch.from_numpy(normal(rng, film_batch, 16, scale=0.3))
+            for _ in range(2))
+    torch.testing.assert_close(cs.ln_film_route(x, w, b, s, t),
+                               norm.ln_film_plain(x, w, b, s, t), **TOL)
+    leaves = [u.clone().requires_grad_() for u in (x, w, b, s, t)]
+    got = cs.ln_film_route_bwd(g, *leaves)
+    ref = norm.ln_film_bwd_plain(g, x, w, b, s)
+    assert [tuple(a.shape) for a in got] == [tuple(r.shape) for r in ref]
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, **TOL)
 
 
 def test_group_norm_silu_matches_jax():
