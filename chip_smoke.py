@@ -22,7 +22,8 @@ raises at once):
      and the block also the same call twice, bit for bit; `ln_film` timed
      on copies of its map beyond the 50 MB L2, beside the nearest library
      route (`F.layer_norm` over a channels-last view and the FiLM's
-     multiply-add, `layer_norm_route_ms`); for the block as a yardstick the
+     multiply-add, `layer_norm_route_ms`) and a streaming pass over the
+     same bytes (`x.mul(1.5)`); for the block as a yardstick the
      time of its five products as `torch.matmul` on bf16 weights, and (at
      the end of the run) the time each of the chain's seven kernels adds;
   4. the exact refiner sampler at full width on seeded, perturbed random
@@ -546,9 +547,11 @@ def time_ln_film(stats, key, label, x, w, b, scale, shift, keep=True):
     with torch.inference_mode():
         route = time_ms([lambda xc=xc: ln_film_route(xc, w, b, scale, shift)
                          for xc in xs], iters)[1]
+        stream = time_ms([lambda xc=xc: xc.mul(1.5) for xc in xs], iters)[1]
     log(f"ln_film {label}: layer_norm_route_ms {route:.4f} (F.layer_norm "
         "over a channels-last view and the FiLM's multiply-add; a "
-        "yardstick the port does not call)")
+        f"yardstick the port does not call); x.mul(1.5) {stream:.4f} ms "
+        "(one streaming pass over the map's bytes)")
     if keep:
         stats.shapes["ln_film"][key]["route_ms"] = route
 
@@ -704,9 +707,9 @@ def check_ln_film_bwd(dev, g, stats):
                      ).to(dtype).chunk(4, dim=1)[1]
             copies = l2_copies(gr, x)
             iters = max(20, len(copies))
-            # x and g read, dx written, the three tables read and the four
-            # float32 (B, C) sums written; about 30 float32 operations per
-            # element
+            # x and g read, dx written, the three tables read, dw and db
+            # written as float32 (C,) sums and dscale and dshift as float32
+            # rows of scale's shape; about 30 float32 operations per element
             stats.measure(
                 "ln_film_bwd", (dn, b, c, h, w), f"{dn} {b}x{c}x{h}x{w}",
                 [lambda gc=gc, xc=xc: norm.ln_film_bwd(gc, xc, wt, bs, scale)
@@ -714,8 +717,9 @@ def check_ln_film_bwd(dev, g, stats):
                 [lambda gc=gc, xc=xc: norm.ln_film_bwd_plain(gc, xc, wt, bs,
                                                              scale)
                  for gc, xc in copies],
-                (3 * x.numel() + 2 * c + b * c) * x.element_size()
-                + 4 * b * c * 4, 30 * x.numel(), "f32", iters=iters)
+                (3 * x.numel() + 2 * c + scale.numel()) * x.element_size()
+                + (2 * c + 2 * scale.numel()) * 4, 30 * x.numel(), "f32",
+                iters=iters)
             leaves = [t.detach().clone().requires_grad_()
                       for t in (wt, bs, scale, scale.roll(1, dims=1))]
             with torch.enable_grad():

@@ -45,27 +45,41 @@ LN_SHAPES = [(b, *m) for b in (1, 3, 32, 128) for m in LN_MAPS] + [
      (4, 128, 16, 16), (4, 1024, 2, 2), (3, 48, 5, 3)]
 
 
-def _film(gen, rows, c, dtype, cuda):
-    """scale, shift: rows 4C apart with unit channel stride, as a training
-    block's `film.chunk(4, dim=1)` gives them."""
-    film = (0.3 * torch.randn(rows, 4 * c, generator=gen, device=cuda)) \
-        .to(dtype)
+# Tables at an odd element offset: the (C,) rows and the FiLM rows no longer
+# start on whole vectors of channels, so the maps of one to four pixels
+# (several channels a vector) read their tables element by element.
+LN_CASES = [(s, 0) for s in LN_SHAPES] + [
+    ((b, *m), 1) for b in (3, 32) for m in ((1024, 2, 2), (2048, 1, 1))]
+
+
+def _tables(gen, c, dtype, cuda, offset):
+    """weight, bias: (C,) rows `offset` elements into their storage."""
+    return (torch.randn(c + offset, generator=gen, device=cuda)
+            .to(dtype)[offset:] for _ in range(2))
+
+
+def _film(gen, rows, c, dtype, cuda, offset=0):
+    """scale, shift: rows 4C (+ offset) apart with unit channel stride, as a
+    training block's `film.chunk(4, dim=1)` gives them, the first `offset`
+    elements into their storage."""
+    film = (0.3 * torch.randn(rows, 4 * c + offset, generator=gen,
+                              device=cuda)).to(dtype)[:, offset:]
     _, scale, _, shift = film.chunk(4, dim=1)
     return scale, shift
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("film", ["shared", "per_sample"])
-@pytest.mark.parametrize("shape", LN_SHAPES)
-def test_ln_film_kernel_matches_plain(cuda, dtype, shape, film):
+@pytest.mark.parametrize("shape,offset", LN_CASES)
+def test_ln_film_kernel_matches_plain(cuda, dtype, shape, offset, film):
     """Against the plain version, and twice on the same inputs for equal
-    bits, with a shared (1, C) FiLM and per-sample rows 4C apart."""
+    bits, with a shared (1, C) FiLM and per-sample rows 4C apart, the
+    tables aligned or at an odd element offset."""
     g = torch.Generator(device=cuda).manual_seed(0)
     b, c = shape[0], shape[1]
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    w, bb = (torch.randn(c, generator=g, device=cuda).to(dtype)
-             for _ in range(2))
-    s, t = _film(g, 1 if film == "shared" else b, c, dtype, cuda)
+    w, bb = _tables(g, c, dtype, cuda, offset)
+    s, t = _film(g, 1 if film == "shared" else b, c, dtype, cuda, offset)
     before = kernels.LAUNCHES["ln_film"]
     with torch.inference_mode():
         out = norm.ln_film(x, w, bb, s, t)
@@ -145,17 +159,19 @@ def _rel(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("need_wb", [True, False])
 @pytest.mark.parametrize("film", ["per_sample", "shared"])
-@pytest.mark.parametrize("shape", LN_SHAPES)
-def test_ln_film_bwd_kernel_matches_plain(cuda, dtype, shape, film, need_wb):
+@pytest.mark.parametrize("shape,offset", LN_CASES)
+def test_ln_film_bwd_kernel_matches_plain(cuda, dtype, shape, offset, film,
+                                          need_wb):
     """Against the closed form, with g made non-contiguous as autograd may
-    hand it over, and twice on the same inputs for equal bits."""
+    hand it over, and twice on the same inputs for equal bits; the tables
+    aligned or at an odd element offset."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     b, c = shape[0], shape[1]
     x, g = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
-    w, bb = (torch.randn(c, generator=gen, device=cuda).to(dtype)
-             for _ in range(2))
-    scale, _ = _film(gen, 1 if film == "shared" else b, c, dtype, cuda)
+    w, bb = _tables(gen, c, dtype, cuda, offset)
+    scale, _ = _film(gen, 1 if film == "shared" else b, c, dtype, cuda,
+                     offset)
     before = kernels.LAUNCHES["ln_film_bwd"]
     out = norm.ln_film_bwd(g.transpose(2, 3).contiguous().transpose(2, 3),
                            x, w, bb, scale, 1e-6, need_wb)
