@@ -13,14 +13,14 @@ raises at once):
      plain PyTorch versions on the card at every shape of the paths: the
      samplers' batch 128, and for `ln_film` and the warp the train steps'
      float32 maps at batch 32 and 8, `ln_film` with per-sample FiLM rows 4C
-     apart as a training block gives them (the warp with random, shear and
-     out-of-bounds thetas; the block
+     apart as a training block gives them (the warp with identity, random,
+     shear, zoom-in and out-of-bounds thetas, in f32 bit for bit; the block
      with bf16 and with int8 weights, on what it adds to its input, where
      three controls that each leave out a part of the block must fail),
      with both versions' times, the bound of each shape and, where one
-     PyTorch call computes the same function, that call's time; `ln_film`
-     and the block also the same call twice, bit for bit; `ln_film` timed
-     on copies of its map beyond the 50 MB L2, beside the nearest library
+     PyTorch call computes the same function, that call's time; each call
+     also twice, bit for bit; `ln_film` and the warp timed on copies of
+     their maps beyond the 50 MB L2, `ln_film` beside the nearest library
      route (`F.layer_norm` over a channels-last view and the FiLM's
      multiply-add, `layer_norm_route_ms`) and a streaming pass over the
      same bytes (`x.mul(1.5)`); for the block as a yardstick the
@@ -46,9 +46,11 @@ raises at once):
      wrapper, one call with the launch counts set to 0 before and read
      after, held against the counts the module tree gives; `matmul_w8` and
      `group_norm_silu` against their plain versions at every recorded shape
-     (`matmul_w8` also twice, bit for bit, and beside `torch.matmul` on
+     (both also twice, bit for bit; `matmul_w8` beside `torch.matmul` on
      pre-dequantized bf16 weights, printed as `cublas_bf16_ms`: twice the
-     weight bytes and not the same function, so no `library_ms`);
+     weight bytes and not the same function, so no `library_ms`;
+     `group_norm_silu` with the path each shape takes, on chip or
+     streaming, and its cluster, timed on copies of its maps beyond L2);
      then timed calls in turns (faces/s as the median and the spread of the
      calls, per-stage ms, peak memory) and (at the end of the run) one scan
      of each configuration under `torch.profiler` for the card's own time
@@ -59,8 +61,8 @@ raises at once):
      with a per-sample FiLM and with a (1, C) FiLM, f32 and bf16 maps, with
      and without dw and db (a frozen block wants none), each call also twice
      for equal bits; the CR's nine STN maps at batch 8 with identity,
-     random, shear and out-of-bounds thetas, and dx alone and dcoef alone;
-     with both versions' times, each shape's bound and, for the warp, the
+     random, shear and out-of-bounds thetas, each call also twice for equal
+     bits, and dx alone and dcoef alone; with both versions' times, each shape's bound and, for the warp, the
      library's `grid_sampler_2d_backward`; `ln_film_bwd` timed on copies of
      x and g beyond L2, beside `torch.autograd.grad` of phase 3's library
      route;
@@ -80,10 +82,11 @@ raises at once):
      phases 3 and 7. Then the timed steps (images/s as the median and the
      spread of the steps, peak memory), (at the end of the run) one step
      under `torch.profiler` for the share of the step in which the card is
-     busy, for the refiner one more with the host's operators traced, for
-     the device launches (kernels and memsets) of each `ln_film_bwd` call
-     (at most two), and one step each of the IDC, denoiser, cached-denoiser
-     and VAE steps at full width for a finite loss.
+     busy, one more with the host's operators traced, for the device
+     launches (kernels and memsets) of each backward kernel's call
+     (`ln_film_bwd` in the refiner step, at most two; `affine_warp_bwd` in
+     the CR step, at most three), and one step each of the IDC, denoiser,
+     cached-denoiser and VAE steps at full width for a finite loss.
 
 Whatever runs under `torch.profiler` runs after every timing of the run is
 taken: no timed launch follows a profiler trace in the same process.
@@ -153,9 +156,13 @@ WARP_SHAPES = {(32, 128, 128): 1, (64, 64, 64): 2, (128, 32, 32): 2,
 # latents (mid; enc3 + dec0)
 LATENT = 16
 FUSED_SHAPES = {(2048, 1): 8, (1024, 2): 10}
-THETAS = {"random": None,
-          "shear": [[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]],
-          "out_of_bounds": [[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]]}
+# the warp's thetas: a base matrix and the spread of the noise added per
+# sample
+IDENTITY = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]
+THETAS = {"identity": (IDENTITY, 0.0), "random": (IDENTITY, 0.05),
+          "shear": ([[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]], 0.02),
+          "zoom_in": ([[0.5, 0.0, 0.1], [0.0, 0.5, -0.1]], 0.02),
+          "out_of_bounds": ([[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]], 0.02)}
 
 # kernel vs plain on the same inputs. f32: ln_film and GroupNorm sum in
 # another order (a few ulps); the warp rounds each op in the plain version's
@@ -209,14 +216,12 @@ INT8_LIMITS = (7e-3, 6)
 # Training (phases 7-9). The CLIs' default batches, and the check's batch.
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
 TIMED_STEPS = 8
-THETAS_BWD = {"identity": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.0),
-              "random": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.05),
-              "shear": (THETAS["shear"], 0.02),
-              "out_of_bounds": (THETAS["out_of_bounds"], 0.02)}
+THETAS_BWD = {k: THETAS[k]
+              for k in ("identity", "random", "shear", "out_of_bounds")}
 # Backward kernel vs plain, as the largest difference over the tensor's
 # largest value. f32: sums over up to 2048 channels or 16384 pixels of
-# order-1 terms in another order (the warp's with atomics, in an order that
-# changes from run to run). bf16 dx: one rounding of a float32 value (2^-8),
+# order-1 terms in another order (fixed run to run, but not the plain
+# version's). bf16 dx: one rounding of a float32 value (2^-8),
 # and the cancellation in `gw - y * mean - mean`. The sums stay float32.
 # dcoef sums C*H*W terms times pixel coordinates up to 127.
 BWD_REL = {"float32": 2e-5, "bfloat16": 2 ** -6}
@@ -614,51 +619,61 @@ def check_warp(dev, g, stats):
     (dtype, B, C, H, W))."""
     from hifidiff_tpu_torch.ops import warp
 
-    ident = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
     for b in (BATCH, CR_BATCH, REFINER_BATCH):
         for dtype in (torch.bfloat16, torch.float32):
-            dn = dtype_name(dtype)
             for c, h, w in WARP_SHAPES:
-                check_warp_shape(dev, g, stats, warp, ident, dtype, dn,
-                                 (b, c, h, w))
+                check_warp_shape(dev, g, stats, warp, dtype, (b, c, h, w))
 
 
-def check_warp_shape(dev, g, stats, warp, ident, dtype, dn, shape):
+def check_warp_shape(dev, g, stats, warp, dtype, shape):
+    """Every theta against the plain version (f32 bit for bit: the kernel
+    rounds each product and sum in the plain version's order) and twice
+    for equal bits; timed at the random theta on copies of the map beyond
+    L2, beside the library's `F.affine_grid` + `F.grid_sample`."""
     b, c, h, w = shape
+    dn = dtype_name(dtype)
+    label = f"{dn} {b}x{c}x{h}x{w}"
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
-    for kind, fixed in THETAS.items():
-        base = ident if fixed is None else torch.tensor(fixed, device=dev)
-        theta = base + (0.05 if fixed is None else 0.02) * torch.randn(
+    for kind, (base, spread) in THETAS.items():
+        theta = torch.tensor(base, device=dev) + spread * torch.randn(
             b, 2, 3, generator=g, device=dev)
         coef = warp.pixel_coef(theta, h, w)
         with torch.inference_mode():
             out = warp.warp(x, coef)
-            ok = stats.compare(
-                "affine_warp", f"{dn} {b}x{c}x{h}x{w} {kind}",
-                out, warp.warp_plain(x, coef), dn)
+            ref = warp.warp_plain(x, coef)
+            ok = stats.compare("affine_warp", f"{label} {kind}", out, ref, dn)
+        if ok and dtype == torch.float32 and not torch.equal(out, ref):
+            fail(f"affine_warp {label} {kind}: float32 not bit-equal to the "
+                 "plain version")
+        same_bits("affine_warp", f"{label} {kind}",
+                  lambda: warp.warp(x, coef))
         zeros = int((out == 0).sum())
         if ok and kind == "out_of_bounds" and zeros == 0:
-            fail(f"affine_warp {dn} {b}x{c}x{h}x{w}: no zero padding")
+            fail(f"affine_warp {label}: no zero padding")
         if kind != "random":
             continue
+        xs = [xc for xc, in l2_copies(x)]
 
-        def library():
+        def library(xc):
             # the library's route: a normalised grid in x's dtype
             grid = F.affine_grid(theta, list(x.shape),
                                  align_corners=False).to(dtype)
-            return F.grid_sample(x, grid, mode="bilinear",
+            return F.grid_sample(xc, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=False)
 
         # one read and one write of the map and the coefficients; about a
         # dozen float32 operations per output element
         sampler = b == BATCH
         stats.measure(
-            "affine_warp", (c, h, w) if sampler else (dn, b, c, h, w),
-            f"{dn} {b}x{c}x{h}x{w}",
-            lambda: warp.warp(x, coef), lambda: warp.warp_plain(x, coef),
+            "affine_warp", (c, h, w) if sampler else (dn, b, c, h, w), label,
+            [lambda xc=xc: warp.warp(xc, coef) for xc in xs],
+            [lambda xc=xc: warp.warp_plain(xc, coef) for xc in xs],
             2 * x.numel() * x.element_size() + coef.numel() * 4,
-            12 * x.numel(), "f32", library=library,
-            keep=not sampler or dtype == torch.bfloat16)
+            12 * x.numel(), "f32",
+            library=[lambda xc=xc: library(xc) for xc in xs],
+            keep=not sampler or dtype == torch.bfloat16,
+            iters=max(20, len(xs)))
+        del xs
 
 
 def check_ln_film_bwd(dev, g, stats):
@@ -755,6 +770,8 @@ def check_warp_bwd(dev, g, stats):
                     "affine_warp_bwd", f"{dn} {b}x{c}x{h}x{w} {kind}",
                     (dx, dcoef), warp.warp_bwd_plain(gr, x, coef),
                     (BWD_REL[dn], DCOEF_REL))
+                same_bits("affine_warp_bwd", f"{dn} {b}x{c}x{h}x{w} {kind}",
+                          lambda: warp.warp_bwd(gr, x, coef))
                 if ok and kind == "out_of_bounds" and \
                         float((dx == 0).float().mean()) < 0.2:
                     fail(f"affine_warp_bwd {dn} {c}x{h}x{w}: corners outside "
@@ -777,6 +794,10 @@ def check_warp_bwd(dev, g, stats):
                     f"{dn} {b}x{c}x{h}x{w} dx alone, dcoef alone",
                     (only_dx[0], only_dcoef[1]), ref,
                     (BWD_REL[dn], DCOEF_REL))
+                if not (torch.equal(only_dx[0], dx)
+                        and torch.equal(only_dcoef[1], dcoef)):
+                    fail(f"affine_warp_bwd {dn} {c}x{h}x{w}: dx alone or "
+                         "dcoef alone differs from the call with both")
                 grid = F.affine_grid(theta, list(x.shape),
                                      align_corners=False).to(dtype)
 
@@ -1018,6 +1039,11 @@ def check_matmul_w8(dev, g, stats, shapes):
 
 
 def check_group_norm_silu(dev, g, stats, shapes):
+    """At every recorded shape: against the plain version and twice for
+    equal bits, in bf16 and f32; the path each shape takes (on chip: the
+    map read once from device memory, held by a cluster of blocks; or
+    streaming: read three times); the bf16 times on copies of the map
+    beyond L2, beside the bf16 pair F.silu(F.group_norm(x))."""
     from hifidiff_tpu_torch.ops import norm
 
     for c, h, w in sorted(shapes):
@@ -1032,22 +1058,38 @@ def check_group_norm_silu(dev, g, stats, shapes):
                 stats.compare("group_norm_silu", label,
                               norm.group_norm_silu(x, wt, bs, fused=True),
                               norm.group_norm_silu_plain(x, wt, bs), dn)
+            same_bits("group_norm_silu", label,
+                      lambda: norm.group_norm_silu(x, wt, bs, fused=True))
+            chosen = norm.group_norm_silu_plan(x.shape, dtype)
+            log(f"group_norm_silu {label}: path {chosen['path']}, cluster "
+                f"{chosen['cluster']}, {chosen['slice_bytes']} bytes a block, "
+                f"{chosen['blocks_per_sm']} blocks an SM, the map read "
+                f"{chosen['reads']} time(s)")
+            if dtype == torch.bfloat16 and chosen["path"] != "on_chip":
+                fail(f"group_norm_silu {label}: a shape of the path takes "
+                     "the streaming path")
             if dtype == torch.bfloat16:
                 # one read and one write of the map; about 14 float32
                 # operations per element. No single PyTorch call computes
                 # GroupNorm + SiLU: the pair below is the nearest route.
+                xs = [xc for xc, in l2_copies(x)]
+                iters = max(10, len(xs))
                 stats.measure(
                     "group_norm_silu", (c, h, w), label,
-                    lambda: norm.group_norm_silu(x, wt, bs, fused=True),
-                    lambda: norm.group_norm_silu_plain(x, wt, bs),
+                    [lambda xc=xc: norm.group_norm_silu(xc, wt, bs,
+                                                        fused=True)
+                     for xc in xs],
+                    [lambda xc=xc: norm.group_norm_silu_plain(xc, wt, bs)
+                     for xc in xs],
                     (2 * x.numel() + 2 * c) * x.element_size(),
-                    14 * x.numel(), "f32", iters=10)
+                    14 * x.numel(), "f32", iters=iters)
                 with torch.inference_mode():
-                    pair = time_ms(lambda: F.silu(F.group_norm(
-                        x, 32, wt, bs, 1e-6)), 10)
+                    pair = time_ms([lambda xc=xc: F.silu(F.group_norm(
+                        xc, 32, wt, bs, 1e-6)) for xc in xs], iters)
                 log(f"group_norm_silu {label}: the bf16 pair "
                     f"F.silu(F.group_norm(x)) {pair[1]:.4f} ms on the card")
                 stats.shapes["group_norm_silu"][(c, h, w)]["pair_ms"] = pair[1]
+                del xs
             del x
         torch.cuda.empty_cache()
     x = 50.0 + 1e-3 * torch.randn(BATCH, 128, 32, 32, generator=g, device=dev)
@@ -1401,14 +1443,15 @@ def device_busy_ms(one):
     return (total_us / 1e3 if total_us > 0 else None), wall, top
 
 
-def ln_film_bwd_launches(one):
-    """The device launches (kernels and memsets) of each `ln_film` backward
-    in one call of `one`, in call order, from `torch.profiler` with the
-    host's operators traced: the device events linked to the range of the
-    autograd node's own call (`_LnFilmBackward`) and to the ranges under it.
-    The engine's range around it (`evaluate_function: _LnFilmBackward`)
-    also holds autograd's sums of dx into the gradients of x's other uses,
-    which are not the backward's."""
+def backward_launches(one, node):
+    """The device launches (kernels and memsets) of each call of the
+    autograd node `node` (`_LnFilmBackward`, `_AffineWarpBackward`) in one
+    call of `one`, in call order, from `torch.profiler` with the host's
+    operators traced: the device events linked to the range of the node's
+    own call and to the ranges under it. The engine's range around it
+    (`evaluate_function: ...`) also holds autograd's sums of the gradient
+    into the gradients of the input's other uses, which are not the
+    backward's."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1418,8 +1461,7 @@ def ln_film_bwd_launches(one):
     def launches(e):
         return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
 
-    return [launches(e) for e in prof.events()
-            if e.name == "_LnFilmBackward"]
+    return [launches(e) for e in prof.events() if e.name == node]
 
 
 def timed_train(kind, models, dev, batch, stats_out):
@@ -1479,13 +1521,17 @@ def timed_train(kind, models, dev, batch, stats_out):
     def profile():
         nonlocal state, step
         busy, profiled_ms, top = device_busy_ms(one)
-        if kind == "refiner":
-            per_call = ln_film_bwd_launches(one)
-            log(f"  {label}: device launches of each ln_film_bwd call "
-                f"(profiled step, kernels and memsets): {per_call}")
-            if not per_call or max(per_call) > 2:
-                fail(f"{label}: an ln_film_bwd call took more than two "
-                     f"device launches, or none was seen: {per_call}")
+        # the backward kernel's node, and the most device launches one of
+        # its calls may take
+        node, kernel, most = (("_LnFilmBackward", "ln_film_bwd", 2)
+                              if kind == "refiner" else
+                              ("_AffineWarpBackward", "affine_warp_bwd", 3))
+        per_call = backward_launches(one, node)
+        log(f"  {label}: device launches of each {kernel} call (profiled "
+            f"step, kernels and memsets): {per_call}")
+        if not per_call or max(per_call) > most:
+            fail(f"{label}: a {kernel} call took more than {most} device "
+                 f"launches, or none was seen: {per_call}")
         if busy is not None and busy > med:     # no share can come of that
             log(f"  {label}: the profiler counts {busy:.1f} ms of device "
                 f"time, more than the median step: left out")

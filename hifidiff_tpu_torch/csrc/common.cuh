@@ -1,10 +1,13 @@
 // Shared helpers for the port's hand-written kernels: f32 <-> storage-type
-// conversion for the two activation dtypes the pipeline runs in, and
-// programmatic dependent launch.
+// conversion for the two activation dtypes the pipeline runs in,
+// programmatic dependent launch, mbarriers, the bulk-copy unit and the
+// cluster's barrier.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace hifidiff {
 
@@ -33,6 +36,79 @@ __device__ __forceinline__ void griddep_wait() {
 }
 __device__ __forceinline__ void griddep_launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The current device's SMs, asked of the runtime once per process (a
+// function-local static is initialised once, whatever the threads).
+inline int multiprocessors() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms > 0 ? sms : 132;
+  }();
+  return n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers (in shared memory). A wait with `parity` returns once the
+// barrier has completed a phase of that parity (phases count from 0); a
+// barrier that expects bytes (`mbar_arrive_expect`) completes its phase when
+// its arrivals and the announced bytes of the copies signalling it are in.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from device
+// memory to this block's shared memory by the bulk-copy unit, counted on
+// `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The cluster's barrier in its two halves: every thread of every block
+// arrives (what it wrote before becomes visible to whoever waits) and waits
+// for all the others.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 }  // namespace hifidiff

@@ -78,6 +78,7 @@
 #include <cuda.h>
 
 #include <cstdint>
+#include <mutex>
 #include <unordered_map>
 
 #include "common.cuh"
@@ -121,10 +122,6 @@ static_assert(kResultBytes <= kSlots * kSlotBytes<int8_t>,
 static_assert(kSmemBytes<int8_t> <= 227 * 1024 &&
                   kSmemBytes<__nv_bfloat16> <= 227 * 1024,
               "a block's shared memory");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // ---- warpgroup MMA (`wgmma`): four warps multiply a 64-row tile of A by a
 // 128-column tile of W, both read by the tensor cores straight from shared
@@ -220,41 +217,9 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// ---- mbarriers (in shared memory) and TMA. A ring slot has a `full` barrier
-// (one arrival: the producer's, which also announces the bytes the TMA copies
-// will deliver) and a `free` barrier (one arrival per consumer warp). A wait
-// with `parity` returns once the barrier has completed a phase of that
-// parity (phases count from 0).
-__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(arrivals)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
-                                                   uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+// ---- TMA. A ring slot has a `full` mbarrier (one arrival: the producer's,
+// which also announces the bytes the TMA copies will deliver) and a `free`
+// mbarrier (one arrival per consumer warp).
 // One box of the matrix behind `map` (`tensor_map` below), from column `k`
 // and row `row` on, to shared memory at `dst`; what lies outside the matrix
 // arrives as zeros. The bytes are counted on `bar`.
@@ -271,16 +236,6 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
-}
-
-// The cluster's barrier in its two halves: every thread of every block
-// arrives (what it wrote before becomes visible to whoever waits) and waits
-// for all the others.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // The tile rows that rank `r` of a cluster of S blocks sums and finishes:
@@ -498,6 +453,15 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
 // ---- host side
 
+// The host-side caches below (the descriptors, and per kernel the resident
+// cluster counts) are shared by every caller in the process, and ctypes
+// releases the GIL during a call: one mutex guards them. It is held only
+// while a cache is read or filled, never across a launch.
+inline std::mutex& host_cache_mutex() {
+  static std::mutex m;
+  return m;
+}
+
 // The TMA descriptor of a row-major (rows, K) matrix of 1- or 2-byte
 // elements, read in boxes of kBN (or kBM) rows by kBK columns. `halves` 2:
 // the matrix is two halves of rows / 2 rows each, and a box takes 64 rows of
@@ -505,7 +469,9 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 // bytes land in the 128-byte swizzle, rows of 64 bytes (int8) in the 64-byte
 // swizzle (chunk c of row r at chunk c ^ ((r >> 1) & 3)). Descriptors are
 // kept by what they describe: a layer's weights and the allocator's
-// activation buffers come back.
+// activation buffers come back. The cache empties itself past 16,384 entries,
+// so a descriptor is copied out (into `out`) under the lock: no pointer into
+// the cache outlives the lookup. Returns false where none can be made.
 struct MapKey {
   const void* p;
   int rows, K, elem, halves;
@@ -523,8 +489,8 @@ struct MapKeyHash {
   }
 };
 
-inline const CUtensorMap* tensor_map(const void* p, int rows, int K, int elem,
-                                     int halves) {
+inline bool tensor_map(CUtensorMap* out, const void* p, int rows, int K,
+                       int elem, int halves) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -539,8 +505,12 @@ inline const CUtensorMap* tensor_map(const void* p, int rows, int K, int elem,
   }();
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
   const MapKey key{p, rows, K, elem, halves};
+  std::lock_guard<std::mutex> lock(host_cache_mutex());
   auto it = maps.find(key);
-  if (it != maps.end()) return &it->second;
+  if (it != maps.end()) {
+    *out = it->second;
+    return true;
+  }
   if (maps.size() > 16384) maps.clear();
   CUtensorMap m;
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(K) * elem;
@@ -559,8 +529,9 @@ inline const CUtensorMap* tensor_map(const void* p, int rows, int K, int elem,
              elem == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return nullptr;
-  return &(maps[key] = m);
+    return false;
+  *out = maps[key] = m;
+  return true;
 }
 
 template <typename WT, class EP>
@@ -583,12 +554,14 @@ cudaLaunchConfig_t gemm_config(dim3 grid, cudaLaunchAttribute* attrs,
 }
 
 // How many clusters of 1 .. kMaxSplit blocks of this kernel the card holds
-// at once (index: the size); asked of the runtime once. Also opts the kernel
-// into its dynamic shared memory.
+// at once (index: the size); asked of the runtime once, under the cache's
+// lock (the counts are not written again after). Also opts the kernel into
+// its dynamic shared memory.
 template <typename WT, class EP>
 const int* resident_clusters() {
   static int n[kMaxSplit + 1] = {};
   static bool asked = false;
+  std::lock_guard<std::mutex> lock(host_cache_mutex());
   if (!asked) {
     auto kernel = gemm_kernel<WT, EP>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -638,9 +611,9 @@ void launch_gemm(const __nv_bfloat16* a, int M, const WT* w, int N, int K,
   const int n_tiles = N / kBN, row_tiles = (M + kBM - 1) / kBM;
   const int splits =
       pick_split(n_tiles * row_tiles, K, resident_clusters<WT, EP>());
-  const CUtensorMap* map_a = tensor_map(a, M, K, 2, 1);
-  const CUtensorMap* map_w = tensor_map(w, N, K, sizeof(WT), paired ? 2 : 1);
-  if (map_a == nullptr || map_w == nullptr) {
+  CUtensorMap map_a, map_w;
+  if (!tensor_map(&map_a, a, M, K, 2, 1) ||
+      !tensor_map(&map_w, w, N, K, sizeof(WT), paired ? 2 : 1)) {
     // no descriptor, no launch: leave an error for the caller's check
     cudaFuncSetAttribute(gemm_kernel<WT, EP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, -1);
@@ -649,7 +622,7 @@ void launch_gemm(const __nv_bfloat16* a, int M, const WT* w, int N, int K,
   cudaLaunchAttribute attrs[2];
   const cudaLaunchConfig_t cfg = gemm_config<WT, EP>(
       dim3(n_tiles, row_tiles, splits), attrs, st);
-  cudaLaunchKernelEx(&cfg, gemm_kernel<WT, EP>, *map_a, *map_w, K,
+  cudaLaunchKernelEx(&cfg, gemm_kernel<WT, EP>, map_a, map_w, K,
                      paired ? kBN / 2 : kBN, ep);
 }
 

@@ -111,15 +111,19 @@ def library() -> ctypes.CDLL:
     lib.hifidiff_ln_film_bwd_scratch.restype = ll
     lib.hifidiff_affine_warp.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.hifidiff_affine_warp.restype = i
-    lib.hifidiff_affine_warp_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                             i, p]
+    lib.hifidiff_affine_warp_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                             i, i, p]
     lib.hifidiff_affine_warp_bwd.restype = i
+    lib.hifidiff_affine_warp_bwd_scratch.argtypes = [i, i, i, i]
+    lib.hifidiff_affine_warp_bwd_scratch.restype = ll
     lib.hifidiff_matmul_w8.argtypes = [p, p, p, p, i, i, i, p]
     lib.hifidiff_matmul_w8.restype = i
     lib.hifidiff_matmul_w8_plan.argtypes = [i, i, i, ctypes.POINTER(i * 4)]
     lib.hifidiff_matmul_w8_plan.restype = None
     lib.hifidiff_gn_silu.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
     lib.hifidiff_gn_silu.restype = i
+    lib.hifidiff_gn_silu_plan.argtypes = [i, i, i, i, ctypes.POINTER(i * 6)]
+    lib.hifidiff_gn_silu_plan.restype = None
     lib.hifidiff_cnaf_small.argtypes = [*([p] * 13), i, i, i, i, f, p]
     lib.hifidiff_cnaf_small.restype = i
     lib.build_log = log

@@ -10,6 +10,8 @@ float32 and the output in x's dtype.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -274,13 +276,32 @@ def _group_norm_silu_cuda(x, weight, bias, num_groups, eps):
     return out
 
 
+def group_norm_silu_plan(shape, dtype, num_groups: int = 32) -> dict:
+    """The path the fused kernel takes for an NCHW map of `shape` and
+    `dtype`: "on_chip" (each (sample, group) run read from device memory
+    once, held in the shared memory of a cluster of blocks) or "streaming"
+    (read three times), the cluster's size, the bytes and dynamic shared
+    memory of a block, such blocks resident on an SM, and the map's reads.
+    Asks the kernel library (the card)."""
+    _, c, h, w = shape
+    plan = (ctypes.c_int * 6)()
+    kernels.library().hifidiff_gn_silu_plan(
+        c, h * w, num_groups, int(dtype == torch.bfloat16), plan)
+    return {"path": "on_chip" if plan[0] else "streaming",
+            "cluster": plan[1], "slice_bytes": plan[2], "smem_bytes": plan[3],
+            "blocks_per_sm": plan[4], "reads": plan[5]}
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     num_groups: int = 32, eps: float = 1e-6,
                     fused: bool = False) -> torch.Tensor:
     """GroupNorm + per-channel affine + SiLU. `fused=False` (the default) is
-    the plain version on any device. `fused=True` is the one-pass kernel
+    the plain version on any device. `fused=True` is the kernel
     (csrc/gn_silu.cu) for a CUDA tensor, which raises where it cannot run; a
-    CPU tensor takes the plain version."""
+    CPU tensor takes the plain version. The kernel reads the map from device
+    memory once where a (sample, group) run fits the shared memory of a
+    cluster of blocks (every shape of the SD-VAE's path), else three times
+    (`group_norm_silu_plan` says which)."""
     if not fused or x.device.type == "cpu":
         return group_norm_silu_plain(x, weight, bias, num_groups, eps)
     if x.device.type != "cuda":

@@ -194,22 +194,27 @@ def _warp_bwd_cuda(g, x, coef, need_dx, need_dcoef):
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"{name}: g must match x, got {tuple(g.shape)} "
                          f"{g.dtype} on {g.device}")
-    g = g.contiguous()
-    b, c, h, w = x.shape
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
-        if need_dx else None
-    dcoef = torch.zeros((b, 6), dtype=torch.float32, device=x.device) \
-        if need_dcoef else None
     if not (need_dx or need_dcoef):
         return None, None
+    g = g.contiguous()
+    b, c, h, w = x.shape
     lib = kernels.library()
+    dx = torch.empty_like(x) if need_dx else None
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dcoef = scratch = None
+    if need_dcoef:
+        # the partial rows of dcoef (not zeroed: every row is written before
+        # it is read)
+        dcoef = torch.empty((b, 6), **f32)
+        scratch = torch.empty(
+            lib.hifidiff_affine_warp_bwd_scratch(b, c, h, w), **f32)
     kernels.check(lib.hifidiff_affine_warp_bwd(
         g.data_ptr(), x.data_ptr(), coef.data_ptr(),
-        dx.data_ptr() if need_dx else None,
-        dcoef.data_ptr() if need_dcoef else None, b, c, h, w, x_bf16,
-        int(need_dx), int(need_dcoef), kernels.stream_ptr(x.device)), name)
+        *(None if t is None else t.data_ptr() for t in (dx, dcoef, scratch)),
+        b, c, h, w, x_bf16, int(need_dx), int(need_dcoef),
+        kernels.stream_ptr(x.device)), name)
     kernels.LAUNCHES[name] += 1
-    return (dx.to(x.dtype) if need_dx else None), dcoef
+    return dx, dcoef
 
 
 def _warp_forward(x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
@@ -222,11 +227,12 @@ def warp_bwd(g: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
              need_dx: bool = True, need_dcoef: bool = True):
     """The warp's backward; returns what `warp_bwd_plain` returns. A CPU
     tensor takes that plain version; a CUDA tensor the hand-written kernel
-    (csrc/warp_bwd.cu), which raises where it cannot run. There both
-    gradients are summed with float32 atomics, dx in a float32 buffer that
-    is rounded to x's dtype once: the sums' order changes from run to run,
-    so the backward is not bit-reproducible. g may arrive non-contiguous
-    from autograd and is made contiguous."""
+    (csrc/warp_bwd.cu), which raises where it cannot run. There every sum is
+    taken in a fixed order in float32, without atomics and without a
+    memset: dx gathered per source pixel and rounded once to x's dtype,
+    dcoef from per-block partial rows. One device launch (dx alone) or two
+    (dcoef), and two calls on the same inputs give the same bits. g may
+    arrive non-contiguous from autograd and is made contiguous."""
     if kernels.on_cpu("affine_warp", x):
         return warp_bwd_plain(g, x, coef, need_dx, need_dcoef)
     return _warp_bwd_cuda(g, x, coef, need_dx, need_dcoef)

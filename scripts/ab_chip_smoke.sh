@@ -10,10 +10,12 @@
 #       tree's chip_smoke.py into _ab/parent and the committed files of the
 #       working tree (git add -A; git write-tree) into _ab/change.
 #       .gitignore lists _ab/.
-#   scripts/ab_chip_smoke.sh run [OUTDIR]
+#   scripts/ab_chip_smoke.sh run [OUTDIR [KEXPR]]
 #       on a machine with one CUDA device, from the repo root: the four
 #       runs and the tests, each log under OUTDIR/ab_*.log (default
-#       _ab/logs), and a summary of each run on standard output.
+#       _ab/logs), and a summary of each run on standard output. With
+#       KEXPR, also the change's kernel tests that `pytest -k KEXPR` selects,
+#       on the parent's package (a test that must fail there).
 set -u
 case "${1:-}" in
   prepare)
@@ -37,7 +39,7 @@ case "${1:-}" in
       log=$out/ab_${n}_$tree.log
       (cd "_ab/$tree" && timeout 1200 python3 chip_smoke.py) > "$log" 2>&1
       echo "run $n ($tree): rc=$? in $SECONDS s"
-      grep -E "faces/s=|kernels take|ln_film_bwd call|^FAILED" "$log" \
+      grep -E "faces/s=|kernels take|_bwd call|^FAILED" "$log" \
         | cut -c1-240
       tail -2 "$log" | cut -c1-240
     done
@@ -46,6 +48,16 @@ case "${1:-}" in
       tests/test_torch_guards.py) > "$out/ab_tests.log" 2>&1
     echo "tests: rc=$?"
     tail -2 "$out/ab_tests.log"
+    if [ -n "${3:-}" ]; then
+      cp _ab/change/tests/test_torch_kernels_cuda.py \
+        _ab/parent/tests/test_torch_kernels_cuda_of_change.py
+      (cd _ab/parent && timeout 600 python3 -m pytest --noconftest -m cuda \
+        -q -p no:cacheprovider -k "$3" \
+        tests/test_torch_kernels_cuda_of_change.py) \
+        > "$out/ab_parent_tests.log" 2>&1
+      echo "the change's tests '$3' on the parent: rc=$?"
+      tail -2 "$out/ab_parent_tests.log"
+    fi
     ;;
   *)
     echo "usage: $0 prepare PARENT | run" >&2

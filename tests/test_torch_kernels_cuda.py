@@ -91,24 +91,51 @@ def test_ln_film_kernel_matches_plain(cuda, dtype, shape, offset, film):
     assert torch.equal(out, again)
 
 
+# The STN maps of the CR at the batches of the CR train step, the refiner
+# step's frozen CR and the sampler, and ragged maps; thetas near the
+# identity, a shear, a zoom-in, a zoom-out that sends corners outside the
+# image, random spreads up to 2, and zoom-outs whose windows exceed what a
+# block stages (the kernel then gathers that tile from device memory).
+STN_MAPS = ((32, 128, 128), (64, 64, 64), (128, 32, 32), (256, 16, 16),
+            (512, 8, 8))
+WARP_SHAPES = [(b, *m) for b in (8, 32, 128) for m in STN_MAPS] + [
+    (2, 5, 7, 9), (4, 3, 192, 192), (3, 4, 13, 24)]
+IDENT = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]
+WARP_FWD_THETAS = {
+    "identity": (IDENT, 0.0), "random": (IDENT, 0.05),
+    "random_0.5": (IDENT, 0.5), "random_2": (IDENT, 2.0),
+    "shear": ([[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]], 0.02),
+    "zoom_in": ([[0.5, 0.0, 0.1], [0.0, 0.5, -0.1]], 0.02),
+    "out_of_bounds": ([[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]], 0.02),
+    "zoom_out_8": ([[8.0, 0.0, 0.0], [0.0, 8.0, 0.0]], 0.0)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 32, 128, 128), (4, 512, 8, 8),
-                                   (2, 5, 7, 9)])
-@pytest.mark.parametrize("spread", [0.05, 0.5, 2.0])
-def test_warp_kernel_matches_plain(cuda, dtype, shape, spread):
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+@pytest.mark.parametrize("kind", list(WARP_FWD_THETAS))
+def test_warp_kernel_matches_plain(cuda, dtype, shape, kind):
+    """f32: bit-equal to the plain version (the kernel rounds each product
+    and sum in its order); bf16: one rounding of the same float32 value.
+    Two calls give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(1)
     b = shape[0]
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    ident = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], device=cuda)
-    theta = ident + spread * torch.randn(b, 2, 3, generator=g, device=cuda)
+    base, spread = WARP_FWD_THETAS[kind]
+    theta = torch.tensor(base, device=cuda) + spread * torch.randn(
+        b, 2, 3, generator=g, device=cuda)
     coef = warp.pixel_coef(theta, shape[2], shape[3])
     before = kernels.LAUNCHES["affine_warp"]
     with torch.inference_mode():
         out = warp.warp(x, coef)
+        again = warp.warp(x, coef)
         ref = warp.warp_plain(x, coef)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["affine_warp"] == before + 1
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert kernels.LAUNCHES["affine_warp"] == before + 2
+    assert torch.equal(out, again)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
 def test_kernels_refuse_gradients(cuda):
@@ -141,7 +168,7 @@ def test_kernels_refuse_gradients(cuda):
 
 # The backward kernels against their plain versions (the closed forms). f32:
 # the sums over channels, pixels and the batch are taken in another order
-# (the warp's with atomics, in an order that changes from run to run); every
+# (fixed from run to run, but not the plain version's); every
 # sum has up to 2048 (channels) or 32768 (pixels) terms of order 1, so a few
 # 1e-6 of the largest term per element, held relative to the gradient's
 # largest value. bf16: dx is one rounding of a float32 value (2^-8 relative,
@@ -262,7 +289,27 @@ WARP_THETAS = {
     "identity": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.0),
     "random": ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.05),
     "shear": ([[1.0, 0.3, 0.1], [0.4, 0.9, -0.2]], 0.02),
-    "out_of_bounds": ([[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]], 0.02)}
+    "out_of_bounds": ([[1.7, 0.2, 1.5], [-0.3, 2.0, -1.9]], 0.02),
+    # a singular 2x2 part: every output pixel samples one line, and dx
+    # searches the whole output for each source pixel
+    "singular": ([[0.5, 0.5, 0.0], [0.5, 0.5, 0.1]], 0.0)}
+
+
+def _device_launches(fn, calls=3):
+    """Device events (kernels and memsets) of `calls` calls of `fn` under
+    `torch.profiler`, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    return len(events) / calls
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -271,10 +318,12 @@ WARP_THETAS = {
                                    (8, 512, 8, 8), (2, 5, 7, 9)])
 @pytest.mark.parametrize("kind", list(WARP_THETAS))
 def test_warp_bwd_kernel_matches_plain(cuda, dtype, shape, kind):
-    """dx: at most four atomics of order-1 terms land on an element near
-    the identity, many under a strong minification. dcoef sums
-    C * H * W terms times pixel coordinates up to 127: relative to its
-    largest entry."""
+    """dx: each element is a sum of a few order-1 terms near the identity,
+    many under a strong minification, taken in another order than the
+    plain version's scatter. dcoef sums C * H * W terms times pixel
+    coordinates up to 127: relative to its largest entry. Every sum is in a
+    fixed order: two calls give the same bits. One device launch for dx
+    alone, two for dcoef (with or without dx), no memset."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     base, spread = WARP_THETAS[kind]
     theta = torch.tensor(base, device=cuda) + spread * torch.randn(
@@ -284,14 +333,24 @@ def test_warp_bwd_kernel_matches_plain(cuda, dtype, shape, kind):
     coef = warp.pixel_coef(theta, shape[2], shape[3])
     before = kernels.LAUNCHES["affine_warp_bwd"]
     dx, dcoef = warp.warp_bwd(g, x, coef)
+    dx2, dcoef2 = warp.warp_bwd(g, x, coef)
     rdx, rdcoef = warp.warp_bwd_plain(g, x, coef)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["affine_warp_bwd"] == before + 1
+    assert kernels.LAUNCHES["affine_warp_bwd"] == before + 2
     assert dx.dtype == dtype and dcoef.dtype == torch.float32
+    assert torch.equal(dx, dx2) and torch.equal(dcoef, dcoef2)
     assert _rel(dx, rdx) <= BWD_REL[dtype]
     assert _rel(dcoef, rdcoef) <= 1e-4
     only_dx = warp.warp_bwd(g, x, coef, need_dcoef=False)
-    assert only_dx[1] is None and _rel(only_dx[0], rdx) <= BWD_REL[dtype]
+    only_dcoef = warp.warp_bwd(g, x, coef, need_dx=False)
+    assert only_dx[1] is None and torch.equal(only_dx[0], dx)
+    assert only_dcoef[0] is None and torch.equal(only_dcoef[1], dcoef)
+    if kind == "random":
+        assert _device_launches(lambda: warp.warp_bwd(g, x, coef)) == 2
+        assert _device_launches(
+            lambda: warp.warp_bwd(g, x, coef, need_dcoef=False)) == 1
+        assert _device_launches(
+            lambda: warp.warp_bwd(g, x, coef, need_dx=False)) == 2
 
 
 def test_warp_autograd_matches_grid_sample_at_identity(cuda):
@@ -436,6 +495,121 @@ def test_matmul_w8_leaves_its_neighbours_alone(cuda):
         **GEMM_TOL)
 
 
+# A child process that runs `n` matmul_w8 products, each on activations and
+# weights at addresses no product before it used, so that every call adds
+# two entries to the GEMM tile's cache of TMA descriptors, which empties
+# itself past 16,384 entries; and holds every `every`-th product, and each
+# product around the calls at which the cache empties, to the plain
+# version. glibc fills freed memory with a byte pattern
+# (MALLOC_PERTURB_, with its per-thread cache off) so that a descriptor read
+# after the cache freed it is garbage and shows.
+_DESCRIPTOR_CACHE_RUN = """
+import sys
+import torch
+from hifidiff_tpu_torch.ops import quant
+n, every = int(sys.argv[1]), int(sys.argv[2])
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(12)
+K, N = 256, 128
+xs = torch.randn(n + 64, K, generator=g, device=dev).bfloat16()
+ws = torch.randint(-127, 128, (n, N, K), generator=g, device=dev,
+                   dtype=torch.int8)
+scale = 1e-2 * torch.rand(N, generator=g, device=dev) + 1e-3
+edges = {8191, 8192, 8193, 16384, 16385, 16386}
+bad = []
+with torch.inference_mode():
+    for i in range(n):
+        m = 1 + i % 64
+        out = quant.matmul_w8(xs[i:i + m], ws[i], scale)
+        if i % every == 0 or i in edges:
+            ref = quant.matmul_w8_plain(xs[i:i + m], ws[i], scale)
+            err = float((out.float() - ref.float()).abs().max())
+            if not err <= 2e-2 + 2 ** -7 * float(ref.float().abs().max()):
+                bad.append((i, err))
+    torch.cuda.synchronize()
+print("products", n, "wrong", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_matmul_w8_descriptor_cache_past_its_limit(cuda):
+    """More than 16,384 distinct (pointer, M) products: the descriptor cache
+    empties itself at call 8,192 between the lookups of the call's
+    activations and weights, and again at call 16,385; no product may use a
+    descriptor the cache freed."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, MALLOC_PERTURB_="165",
+               GLIBC_TUNABLES="glibc.malloc.tcache_count=0",
+               PYTHONPATH=str(root))
+    run = subprocess.run(
+        [sys.executable, "-c", _DESCRIPTOR_CACHE_RUN, "16500", "97"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=180)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-2000:]
+
+
+def test_gemm_kernels_from_two_threads(cuda):
+    """matmul_w8 and the fused block (both through the GEMM tile's host
+    caches, which ctypes calls reach without the GIL) from two Python
+    threads at once, each on fresh activations every call: every result
+    equals the same call made alone."""
+    import sys
+    import threading
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    wq, scale = quant.quantize_weight_per_cout(
+        torch.randn(1024, 512, generator=g, device=cuda))
+    blk = _block(256, True, cuda)
+    pack = blk.fused_pack(2, torch.bfloat16)
+    film = (0.2 * torch.randn(1, 1024, generator=g, device=cuda)).bfloat16()
+    xs = [torch.randn(1 + i % 7 * 20, 512, generator=g, device=cuda)
+          .bfloat16() for i in range(60)]
+    bs = [torch.randn(1 + i % 5, 256, 2, 2, generator=g, device=cuda)
+          .bfloat16() for i in range(60)]
+    with torch.inference_mode():
+        want_mm = [quant.matmul_w8(x, wq, scale) for x in xs]
+        want_blk = [naf_block.fused_cnaf_block_small(x, film, pack)
+                    for x in bs]
+    torch.cuda.synchronize()
+    got = {"mm": [], "blk": []}
+    errors = []
+
+    def run(name, fn, inputs):
+        try:
+            with torch.inference_mode():
+                for _ in range(5):
+                    # fresh copies: new addresses, new descriptors
+                    got[name] = [fn(x.clone()) for x in inputs]
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below, with the thread's name
+            errors.append((name, repr(e)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [
+            threading.Thread(target=run, args=(
+                "mm", lambda x: quant.matmul_w8(x, wq, scale), xs)),
+            threading.Thread(target=run, args=(
+                "blk", lambda x: naf_block.fused_cnaf_block_small(
+                    x, film, pack), bs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got["mm"], want_mm))
+    assert all(torch.equal(a, b) for a, b in zip(got["blk"], want_blk))
+    assert len(got["mm"]) == len(xs) and len(got["blk"]) == len(bs)
+
+
 def test_conv_w8_routes(cuda):
     """A 1x1 conv on a 2x2 map goes through the kernel on (B*4, C) rows and
     comes back NCHW; a 3x3 conv takes the dequantized plain convolution."""
@@ -457,11 +631,22 @@ def test_conv_w8_routes(cuda):
     assert out3.shape == x.shape and bool(torch.isfinite(out3).all())
 
 
+# The SD-VAE's GroupNorm+SiLU maps (C, H, W) at batches 1 to 128, and maps
+# whose runs take the streaming path: a (sample, group) run of 1 MB (past
+# what the largest cluster holds), H * W not a whole number of vectors.
+GN_MAPS = ((128, 128, 128), (256, 64, 64), (512, 32, 32), (256, 128, 128),
+           (512, 16, 16), (512, 64, 64), (128, 64, 64), (256, 32, 32))
+GN_CASES = [((b, *m), 32, "on_chip") for b in (1, 3, 128) for m in GN_MAPS] \
+    + [((4, 128, 32, 32), 32, "on_chip"), ((2, 256, 128, 128), 8, "streaming"),
+       ((3, 32, 5, 3), 8, "streaming"), ((2, 64, 1, 1), 32, "streaming")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,groups", [
-    ((4, 128, 32, 32), 32), ((4, 512, 16, 16), 32), ((2, 256, 64, 64), 32),
-    ((3, 32, 5, 3), 8), ((2, 64, 1, 1), 32)])
-def test_group_norm_silu_kernel_matches_plain(cuda, dtype, shape, groups):
+@pytest.mark.parametrize("shape,groups,path", GN_CASES)
+def test_group_norm_silu_kernel_matches_plain(cuda, dtype, shape, groups,
+                                              path):
+    """Against the plain version, twice for equal bits (the partial sums of
+    a cluster are added in rank order), on the path the plan names."""
     g = torch.Generator(device=cuda).manual_seed(4)
     c = shape[1]
     x = (2.0 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
@@ -470,12 +655,17 @@ def test_group_norm_silu_kernel_matches_plain(cuda, dtype, shape, groups):
     before = kernels.LAUNCHES["group_norm_silu"]
     with torch.inference_mode():
         out = norm.group_norm_silu(x, w, b, groups, fused=True)
+        again = norm.group_norm_silu(x, w, b, groups, fused=True)
         ref = norm.group_norm_silu_plain(x, w, b, groups)
         unfused = norm.group_norm_silu(x, w, b, groups)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["group_norm_silu"] == before + 1
+    assert kernels.LAUNCHES["group_norm_silu"] == before + 2
     assert torch.equal(unfused, ref)  # fused=False never launches
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(out, again)
+    plan = norm.group_norm_silu_plan(shape, dtype, groups)
+    assert plan["path"] == path, plan
+    assert plan["reads"] == (1 if path == "on_chip" else 3)
 
 
 def test_group_norm_silu_near_constant_group(cuda):
