@@ -39,7 +39,19 @@ raises at once):
      latents and the faces; and every fused block of the first step against
      its plain version on the input the run gave it, on what the block adds
      to that input. Two control runs (the position mix cut to its centre
-     tap; matmul_w8's column scales left out) must fail the limits;
+     tap; matmul_w8's column scales left out) must fail the limits. Then
+     the cached sampler (`cache_interval=2`) on the same configuration
+     against the host's f32 run of it, to the same limits; the uncached
+     card run must fail them;
+  10. (run after 5) the other paths at full width, batch 2, f32 with TF32
+     off, NEW_PATH_STEPS steps, card vs host CPU to phase 4's limits:
+     DPM-Solver++ (2M), `cache_interval=3`, `hoist_invariants=False`,
+     `sample_posterior=False`, `clip_sample`, the three tiny seams at the
+     JAX package's default widths, the monolithic `build_refiner_sampler`
+     (also bit for bit against the split sampler on the card) and
+     `build_unconditional_sampler` (its float faces to UNCOND_TOL). Each
+     path's control must fail its limits: the exact DDIM run where the path
+     adds an option, the FiLM left out where its math is the exact one's;
   6. batch 128, bf16, uint8 I/O, 50 DDIM steps, three configurations: the
      default path, int8 only, and int8 + fused blocks + fused GroupNorm+SiLU.
      For each: a warm-up call that records the shapes reaching every kernel
@@ -51,10 +63,20 @@ raises at once):
      weight bytes and not the same function, so no `library_ms`;
      `group_norm_silu` with the path each shape takes, on chip or
      streaming, and its cluster, timed on copies of its maps beyond L2);
-     then timed calls in turns (faces/s as the median and the spread of the
-     calls, per-stage ms, peak memory) and (at the end of the run) one scan
-     of each configuration under `torch.profiler` for the card's own time
-     in it;
+     then, one configuration at a time, the stages captured as CUDA graphs
+     (`warm_compile`: the launch counts of its warm-up and capture held to
+     twice the eager call's), one replay held to the eager call bit for
+     bit, and eager calls and replays timed in turns (faces/s as the median
+     and the spread of the calls, per-stage ms of each, peak memory; the
+     replays counted, and no launch from Python after the capture, so that
+     a call that ran eagerly fails), the captures dropped before the next
+     configuration. At the end of the run, one eager scan and one replayed
+     scan of each configuration under `torch.profiler` for the card's own
+     time in them: the median timed replay of the scan must stay within
+     GRAPH_SCAN_RATIO of the replay's own time;
+  11. (run after 6) under graphs, default configuration, batch 128: faces/s
+     of DPM-Solver++ (2M) at 20 steps and of cached DDIM-50 at intervals 2
+     and 3, each replay held to its eager call bit for bit;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -212,6 +234,26 @@ FACE_LEVEL_TOL = 1
 # blocks that fuse are amplified as in phase 3, and only they, so that the
 # rest of the model keeps the default path's weights and its bf16 noise.
 INT8_LIMITS = (7e-3, 6)
+# Phase 10: the new paths at full width, batch 2, f32 with TF32 off, card vs
+# host CPU, NEW_PATH_STEPS steps each: the limits of phase 4 (LATENT_REL_TOL,
+# FACE_LEVEL_TOL) on the final latents and the uint8 faces; the
+# unconditional sampler's float faces to UNCOND_TOL (phase 4's latents
+# agree to 1e-6 of their scale, and the decoder keeps that: a fortieth of a
+# uint8 level). Each path has a control that must fail its limits: a card
+# run that leaves out what the path adds (the path's option ignored: the
+# exact DDIM run; for the paths whose math equals the exact one's, the FiLM
+# left out).
+NEW_PATH_STEPS = 10
+UNCOND_TOL = 1e-4
+# The graphs (phase 6): a replay's scan must take at most this many times
+# the card's own time in it (the kernels' sum under torch.profiler).
+GRAPH_SCAN_RATIO = 1.05
+# Phase 11: timed under graphs, default configuration, batch 128.
+GRAPH_SAMPLERS = {"dpmpp, 20 steps": dict(sampler="dpmpp",
+                                          num_inference_steps=20),
+                  "cached DDIM-50, interval 2": dict(cache_interval=2),
+                  "cached DDIM-50, interval 3": dict(cache_interval=3)}
+TIMED_REPLAYS = 5
 
 # Training (phases 7-9). The CLIs' default batches, and the check's batch.
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
@@ -1122,8 +1164,8 @@ def make_sampler(models, device, **options):
                                              build_refiner_sampler_split)
 
     return build_refiner_sampler_split(
-        *models, RefinerPipelineConfig(num_inference_steps=STEPS, **options),
-        device=device)
+        *models, RefinerPipelineConfig(**{"num_inference_steps": STEPS,
+                                          **options}), device=device)
 
 
 def run_stages(sample, lr, post, lat, denoiser=None):
@@ -1613,6 +1655,222 @@ def other_steps_once(models, dev):
         torch.cuda.empty_cache()
 
 
+def film_ignored(x, w, b, scale, shift, eps):
+    """`ln_film` with the FiLM left out: a control's wrong path."""
+    from hifidiff_tpu_torch.ops import norm
+
+    return norm.ln_film(x, w, b, torch.zeros_like(scale),
+                        torch.zeros_like(shift), eps)
+
+
+def float_faces_disagree(name, out, ref, tol):
+    """True when the float faces `out` are not finite or further than `tol`
+    from `ref` anywhere."""
+    err = float((out.cpu() - ref.cpu()).abs().max())
+    log(f"{name}: float faces max_abs_diff={err:.3e} (limit {tol:.1e})")
+    return not (bool(torch.isfinite(out).all()) and err <= tol)
+
+
+def check_new_paths(cpu_models, dev, inputs, on_card):
+    """Phase 10: every path the split sampler has beyond the exact default
+    one, the monolithic sampler and the unconditional sampler, at full
+    width, batch 2, NEW_PATH_STEPS steps, f32 (TF32 off): on the card
+    through the kernels and on the host CPU through the plain versions, to
+    phase 4's limits; each with a control that must fail them. The
+    monolithic sampler must also give the split sampler's bits on the
+    card."""
+    from hifidiff_tpu_torch.models.denoiser import Denoiser
+    from hifidiff_tpu_torch.models.tiny_cr import TinyCR
+    from hifidiff_tpu_torch.nn import layers
+    from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
+                                             build_refiner_sampler,
+                                             build_refiner_sampler_split,
+                                             build_unconditional_sampler)
+    from hifidiff_tpu_torch.random_weights import perturb_
+    from hifidiff_tpu_torch.vae.tiny import tiny_autoencoder_pair
+
+    torch.manual_seed(SEED + 2)
+    tiny_cpu = dict(zip(("tiny_enc", "tiny_dec"), tiny_autoencoder_pair(8)),
+                    tiny_cr=TinyCR())
+    unet = perturb_(Denoiser(), torch.Generator().manual_seed(SEED + 2))
+    card_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
+    tiny_card = {k: copy.deepcopy(m).to(dev) for k, m in tiny_cpu.items()}
+    limits = (LATENT_REL_TOL, FACE_LEVEL_TOL)
+    cfg = dict(num_inference_steps=NEW_PATH_STEPS, latent_size=LATENT)
+
+    def split(device, seams=False, **options):
+        models, tiny, args = (cpu_models, tiny_cpu, inputs) \
+            if device == "cpu" else (card_models, tiny_card, on_card)
+        sample = build_refiner_sampler_split(
+            *models, RefinerPipelineConfig(**cfg, **options), device=device,
+            **(tiny if seams else {}))
+        run = run_stages(sample, *args)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return run
+
+    t0 = time.perf_counter()
+    ddim = {"card": split(dev), "cpu": split("cpu")}
+    paths = {   # name: (options, the control: "ddim" or "film")
+        "sampler=dpmpp": (dict(sampler="dpmpp"), "ddim"),
+        "cache_interval=3": (dict(cache_interval=3), "ddim"),
+        "hoist_invariants=False": (dict(hoist_invariants=False), "film"),
+        "sample_posterior=False": (dict(sample_posterior=False), "ddim"),
+        "clip_sample": (dict(clip_sample=True), "ddim"),
+        "tiny_enc + tiny_dec + tiny_cr": (dict(seams=True), "ddim")}
+    card_runs = {}
+    for name, (options, control) in paths.items():
+        card = card_runs[name] = split(dev, **options)
+        host = split("cpu", **options)
+        label = f"{name}, {NEW_PATH_STEPS} steps, f32"
+        if disagreement(f"{label}: card vs CPU", card, host, *limits):
+            fail(f"{name}: card and CPU runs disagree")
+        if control == "ddim":
+            wrong, what = ddim["card"], "the exact DDIM path"
+        else:
+            with patched(layers, "ln_film", film_ignored):
+                wrong, what = split(dev, **options), "the FiLM left out"
+        if not disagreement(f"control for {name}: {what} on the card",
+                            wrong, host, *limits):
+            fail(f"the {name} check passes {what}")
+    if disagreement(f"exact DDIM, {NEW_PATH_STEPS} steps, f32: card vs CPU",
+                    ddim["card"], ddim["cpu"], *limits):
+        fail("exact DDIM: card and CPU runs disagree")
+
+    mono = build_refiner_sampler(*card_models, RefinerPipelineConfig(**cfg),
+                                 device=dev)(on_card[0],
+                                             posterior_noise=on_card[1],
+                                             latents_noise=on_card[2])
+    same = torch.equal(mono, ddim["card"][1])
+    log(f"build_refiner_sampler on the card gives the split sampler's bits: "
+        f"{same}")
+    if not same:
+        fail("build_refiner_sampler and the split sampler differ on the card")
+    mono_run = (ddim["card"][0], mono, [])
+    if disagreement("build_refiner_sampler: card vs CPU", mono_run,
+                    ddim["cpu"], *limits):
+        fail("build_refiner_sampler: card and CPU runs disagree")
+    if not disagreement("control for build_refiner_sampler: the DPM++ run "
+                        "on the card", card_runs["sampler=dpmpp"],
+                        ddim["cpu"], *limits):
+        fail("the build_refiner_sampler check passes the DPM++ run")
+
+    def unconditional(device, film=True):
+        model = unet if device == "cpu" else copy.deepcopy(unet).to(device)
+        sample = build_unconditional_sampler(
+            model, cpu_models[2] if device == "cpu" else card_models[2],
+            num_inference_steps=NEW_PATH_STEPS, latent_size=LATENT, batch=2,
+            device=device)
+        noise = (inputs if device == "cpu" else on_card)[2]
+        with contextlib.ExitStack() as stack:
+            if not film:
+                stack.enter_context(patched(layers, "ln_film", film_ignored))
+            return sample(latents_noise=noise)
+
+    host = unconditional("cpu")
+    if float_faces_disagree("build_unconditional_sampler: card vs CPU",
+                            unconditional(dev), host, UNCOND_TOL):
+        fail("build_unconditional_sampler: card and CPU runs disagree")
+    if not float_faces_disagree("control for build_unconditional_sampler: "
+                                "the FiLM left out on the card",
+                                unconditional(dev, film=False), host,
+                                UNCOND_TOL):
+        fail("the unconditional check passes a path without FiLM")
+    log(f"new paths checked in {time.perf_counter() - t0:.1f} s")
+
+
+def timed_replay(sample, captured, lr, noise):
+    """One timing of the captured stages: each stage's graph replayed
+    between CUDA events (the inputs loaded first), then one whole
+    `sample` call that replays them (its host work, the inputs' copies in
+    and the output's copy included) as "total"."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with torch.inference_mode():
+        captured.load((lr, noise["posterior_noise"], noise["latents_noise"]))
+        ev[0].record()
+        for i, graph in enumerate(captured.graphs.values()):
+            graph.replay()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        ev[4].record()
+        sample(lr, **noise)
+        ev[5].record()
+    torch.cuda.synchronize()
+    return {"prep": ev[0].elapsed_time(ev[1]),
+            "scan": ev[1].elapsed_time(ev[2]),
+            "decode": ev[2].elapsed_time(ev[3]),
+            "total": ev[4].elapsed_time(ev[5])}
+
+
+def report_calls(label, calls, batch, steps, smi):
+    """faces/s (median and spread of the calls' totals) and per-stage
+    medians."""
+    med = {k: statistics.median(v) for k, v in calls.items()}
+    tot = calls["total"]
+    log(f"{label}: bf16 batch {batch}, {steps}, uint8 I/O, {len(tot)} timed "
+        f"calls: faces/s={batch / med['total'] * 1e3:.2f} median "
+        f"({batch / max(tot) * 1e3:.2f}-{batch / min(tot) * 1e3:.2f} over "
+        f"the calls); median total {med['total']:.1f} ms, prep "
+        f"{med['prep']:.1f}, scan {med['scan']:.1f}, decode "
+        f"{med['decode']:.1f} ms [{smi}]")
+    for stage, v in calls.items():
+        log(f"  {label} {stage} ms per call: {[round(x, 1) for x in v]}")
+    return med
+
+
+def warm_and_check(name, sample, lr, noise, eager_out):
+    """Capture `sample`'s stages (`warm_compile`) and hold one replay to
+    `eager_out` bit for bit. Returns (capture, launches counted in the
+    warm-up and the capture, the host's ms for warm_compile)."""
+    from hifidiff_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    captured = sample.warm_compile(lr, **noise)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    at_capture = dict(kernels.LAUNCHES)
+    before = sample.replays
+    out = sample(lr, **noise)
+    same = torch.equal(out, eager_out)
+    log(f"{name}: warm_compile {warm_s:.2f} s; a replay gives the eager "
+        f"call's bits: {same}")
+    if not same or sample.replays != before + 1:
+        fail(f"{name}: the graph replay differs from the eager call, or did "
+             "not replay")
+    return captured, at_capture
+
+
+def graph_timings(models, dev, lr, noise, smi):
+    """Phase 11: other samplers of the default configuration timed under
+    graphs at batch 128: each captured, one replay held to its eager call
+    bit for bit, TIMED_REPLAYS calls timed, the captures dropped."""
+    from hifidiff_tpu_torch.ops import kernels
+
+    for label, options in GRAPH_SAMPLERS.items():
+        sample = make_sampler(models, dev, **options)
+        eager_out = sample(lr, **noise)
+        captured, at_capture = warm_and_check(label, sample, lr, noise,
+                                              eager_out)
+        calls = collections.defaultdict(list)
+        for _ in range(TIMED_REPLAYS):
+            for stage, ms in timed_replay(sample, captured, lr,
+                                          noise).items():
+                calls[stage].append(ms)
+        if sample.replays != 1 + TIMED_REPLAYS \
+                or dict(kernels.LAUNCHES) != at_capture:
+            fail(f"{label}: {sample.replays} replays, not "
+                 f"{1 + TIMED_REPLAYS}, or launches from Python in them: a "
+                 "call ran eagerly")
+        report_calls(f"{label}, graphs", calls, BATCH,
+                     f"{options.get('num_inference_steps', STEPS)} steps",
+                     smi)
+        del captured
+        sample.clear_compiled()
+        torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1689,10 +1947,6 @@ def main() -> int:
         fail("default path: card and CPU runs disagree")
 
     # controls: paths that are wrong in the FiLM or in precision must fail
-    def film_ignored(x, w, b, scale, shift, eps):
-        return norm.ln_film(x, w, b, torch.zeros_like(scale),
-                            torch.zeros_like(shift), eps)
-
     with patched(layers, "ln_film", film_ignored):
         control = card_run(cpu_models)
     if not disagreement("control, f32 card with the FiLM left out",
@@ -1765,8 +2019,32 @@ def main() -> int:
                         BRANCH_TOL):
         fail("the int8 + fused check passes a matmul_w8 without its "
              "column scales")
-    del control, run_q, plain_q
+    del plain_q
+    # the cached sampler on the same configuration: the fused blocks run in
+    # both halves (enc3 and the middle blocks when the cache is refreshed,
+    # dec0 in every step)
+    t0 = time.perf_counter()
+    ref_qc = run_stages(make_sampler(cpu_q, "cpu", cache_interval=2, **both),
+                        *inputs)
+    log(f"host CPU plain run, int8 + fused, cache_interval=2: "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_qc = card_run(cpu_q, torch.bfloat16, cache_interval=2, **both)
+    if disagreement("e2e int8 + fused, cache_interval=2: bf16 card (kernels) "
+                    "vs f32 CPU (plain)", run_qc, ref_qc, *INT8_LIMITS,
+                    BRANCH_TOL):
+        fail("int8 + fused path, cache_interval=2: card and CPU runs "
+             "disagree, or a fused block and its plain version")
+    if not disagreement("control, the uncached int8 + fused run on the card "
+                        "vs the cached CPU run", run_q, ref_qc,
+                        *INT8_LIMITS):
+        fail("the cached int8 + fused check passes the uncached run")
+    del control, run_q, run_qc, ref_qc
     log(f"[{time.perf_counter() - t_start:.0f} s] int8 + fused path checked")
+
+    # -- 10. the other samplers and options, f32, card vs host CPU ---------
+    check_new_paths(cpu_models, dev, inputs, on_card)
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] new paths checked")
 
     # -- 8. full-width CR and refiner train steps, f32, card vs host CPU ----
     from hifidiff_tpu_torch.ops import warp as warp_ops
@@ -1830,7 +2108,7 @@ def main() -> int:
     lat = torch.randn(BATCH, 16, 16, 4, generator=gen, device=dev)
     noise = dict(posterior_noise=post, latents_noise=lat)
 
-    samplers, launches, shapes = {}, {}, {}
+    samplers, launches, shapes, eager_out = {}, {}, {}, {}
     for name, (models, options, _) in configs.items():
         sample = samplers[name] = make_sampler(models, dev, **options)
         with recording() as seen:      # the warm-up call
@@ -1838,7 +2116,7 @@ def main() -> int:
         torch.cuda.synchronize()
         shapes[name] = seen
         kernels.reset_launches()
-        out = sample(lr, **noise)
+        out = eager_out[name] = sample(lr, **noise)
         torch.cuda.synchronize()
         launches[name] = dict(kernels.LAUNCHES)
         log(f"{name}: launches in one sampler call: {launches[name]}")
@@ -1878,29 +2156,53 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.0f} s] recorded shapes checked")
 
-    torch.cuda.reset_peak_memory_stats()
-    per_call = {name: collections.defaultdict(list) for name in configs}
-    for i in range(max(n for _, _, n in configs.values())):
-        for name, (_, _, n) in configs.items():      # in turns
-            if i < n:
-                for stage, ms in timed_call(samplers[name], lr, post,
-                                            lat).items():
-                    per_call[name][stage].append(ms)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, calls in per_call.items():
-        med = {k: statistics.median(v) for k, v in calls.items()}
-        tot = calls["total"]
-        log(f"{name}: bf16 batch {BATCH}, {STEPS} DDIM steps, uint8 I/O, "
-            f"{len(tot)} timed calls: faces/s="
-            f"{BATCH / med['total'] * 1e3:.2f} median "
-            f"({BATCH / max(tot) * 1e3:.2f}-{BATCH / min(tot) * 1e3:.2f} "
-            f"over the calls); median total {med['total']:.1f} ms, prep "
-            f"{med['prep']:.1f}, scan {med['scan']:.1f}, decode "
-            f"{med['decode']:.1f} ms [{smi}]")
-        for stage, v in calls.items():
-            log(f"  {name} {stage} ms per call: {[round(x, 1) for x in v]}")
-    log(f"peak memory over the timed calls, the three configurations "
-        f"resident: {peak_gb:.2f} GB")
+    # each configuration captured as CUDA graphs: the launches of the warm-up
+    # and the capture (a replay launches nothing from Python) held to twice
+    # the eager call's, one replay bit for bit against the eager call, then
+    # eager calls and replays timed in turns; the captures dropped before
+    # the next configuration
+    per_call = {name: {"eager": collections.defaultdict(list),
+                       "graphs": collections.defaultdict(list)}
+                for name in configs}
+    for name, (_, _, n) in configs.items():
+        sample = samplers[name]
+        captured, at_capture = warm_and_check(name, sample, lr, noise,
+                                              eager_out[name])
+        log(f"{name}: launches in the warm-up and the capture: {at_capture}")
+        if any(at_capture[k] != 2 * launches[name][k] for k in at_capture):
+            fail(f"{name}: the warm-up and the capture launched "
+                 f"{at_capture}, not twice the eager call's "
+                 f"{launches[name]}")
+        torch.cuda.reset_peak_memory_stats()
+        launched = 0    # launches from Python during the replays
+        for _ in range(n):
+            for stage, ms in timed_call(sample, lr, post, lat).items():
+                per_call[name]["eager"][stage].append(ms)
+            before = sum(kernels.LAUNCHES.values())
+            for stage, ms in timed_replay(sample, captured, lr,
+                                          noise).items():
+                per_call[name]["graphs"][stage].append(ms)
+            launched += sum(kernels.LAUNCHES.values()) - before
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if sample.replays != 1 + n or launched:
+            fail(f"{name}: {sample.replays} replays (not {1 + n}), "
+                 f"{launched} launches from Python in them: a call ran "
+                 "eagerly")
+        for mode, calls in per_call[name].items():
+            report_calls(f"{name}, {mode}", calls, BATCH,
+                         f"{STEPS} DDIM steps", smi)
+        log(f"{name}: peak memory over the timed calls (models of every "
+            f"configuration resident): {peak_gb:.2f} GB")
+        del captured
+        sample.clear_compiled()
+        torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] three configurations timed "
+        "eager and under graphs")
+
+    # -- 11. other samplers under graphs, default configuration -------------
+    graph_timings(float_models, dev, lr, noise, smi)
+    log(f"[{time.perf_counter() - t_start:.0f} s] DPM++ and cached DDIM timed "
+        "under graphs")
 
     # -- 9. timed train steps ------------------------------------------------
     train_stats, train_profiles = {}, []
@@ -1925,15 +2227,38 @@ def main() -> int:
             torch.cuda.synchronize()
             busy, wall, top = device_busy_ms(
                 lambda: (st["scan"](*prep), torch.cuda.synchronize()))
-        scan = statistics.median(per_call[name]["scan"])
+        scan = statistics.median(per_call[name]["eager"]["scan"])
         log(f"{name}: the card's kernels take "
             + ("not measured" if busy is None else f"{busy:.1f} ms")
-            + f" of one profiled scan ({wall:.1f} ms on the host's clock)"
+            + f" of one profiled eager scan ({wall:.1f} ms on the host's "
+            "clock)"
             + ("" if busy is None else
-               f": idle {max(0.0, 1 - busy / scan):.3f} of the median scan "
-               f"of {scan:.1f} ms")
+               f": idle {max(0.0, 1 - busy / scan):.3f} of the median eager "
+               f"scan of {scan:.1f} ms")
             + f"; most device time: {top}")
         del prep
+        # the same scan replayed from its graph (captured again: the timed
+        # captures were dropped)
+        captured = samplers[name].warm_compile(lr, **noise)
+        g_busy, g_wall, _ = device_busy_ms(
+            lambda: (captured.graphs["scan"].replay(),
+                     torch.cuda.synchronize()))
+        replay = statistics.median(per_call[name]["graphs"]["scan"])
+        own = g_busy if g_busy is not None else busy
+        ratio = None if own is None else replay / own
+        log(f"{name}: the card's kernels take "
+            + ("not measured" if g_busy is None else f"{g_busy:.1f} ms")
+            + f" of one profiled scan replay ({g_wall:.1f} ms on the host's "
+            f"clock); the median timed replay of the scan takes "
+            f"{replay:.1f} ms: "
+            + ("not measured" if ratio is None else
+               f"{ratio:.3f} times the card's own time (limit "
+               f"{GRAPH_SCAN_RATIO}) [{smi}]"))
+        if ratio is None or ratio > GRAPH_SCAN_RATIO:
+            fail(f"{name}: a replayed scan takes {replay:.1f} ms against "
+                 f"{own} ms of the card's own time")
+        del captured
+        samplers[name].clear_compiled()
     del samplers, configs, float_models, int8_models
     report_chain_splits(stats, chains)
     del chains

@@ -9,6 +9,11 @@ running_mean, running_var and num_batches_tracked. Inputs are nested dicts
 of numpy arrays (`jax.device_get` of a flax tree); no jax is imported. The
 block counts are read from the trees, so no model config is needed.
 
+The tiny modules (`vae/tiny.py`, `models/tiny_cr.py`) have no reference
+checkpoint; their names are the port's own, and the JAX trees (flax
+`nn.Conv` leaves {"kernel", "bias"}) map onto them as the converters below
+say.
+
 Each result loads into the matching port model with
 `load_state_dict(sd, strict=True)`. The maps are linear and keyed by name,
 so a tree of gradients (the same structure as the params) converts to
@@ -268,6 +273,48 @@ def vae_state_dict(params: Tree) -> StateDict:
                       tree[f"{res}{i}_{conv}"])
     _conv(sd, "quant_conv", params["quant_conv"])
     _conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def _tiny_res(sd: StateDict, p: str, tree: Tree) -> None:
+    _conv(sd, f"{p}.conv1", tree["conv1"])
+    _conv(sd, f"{p}.conv2", tree["conv2"])
+
+
+def _tiny_autoencoder(params: Tree, res: str, resample: str,
+                      torch_resample: str) -> StateDict:
+    """conv_in, `{res}{i}_res{j}` -> stages.i.j, `{res}{i}_{resample}` ->
+    `{torch_resample}.i`, conv_out."""
+    sd: StateDict = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    _conv(sd, "conv_out", params["conv_out"])
+    for i in range(_count(params, res, "_res0")):
+        for j in range(_count(params, f"{res}{i}_res")):
+            _tiny_res(sd, f"stages.{i}.{j}", params[f"{res}{i}_res{j}"])
+        if f"{res}{i}_{resample}" in params:
+            _conv(sd, f"{torch_resample}.{i}",
+                  params[f"{res}{i}_{resample}"])
+    return sd
+
+
+def tiny_decoder_state_dict(params: Tree) -> StateDict:
+    """TinyDecoder: `up{i}_res{j}` -> stages.i.j, `up{i}_proj` -> ups.i."""
+    return _tiny_autoencoder(params, "up", "proj", "ups")
+
+
+def tiny_encoder_state_dict(params: Tree) -> StateDict:
+    """TinyEncoder: `down{i}_res{j}` -> stages.i.j, `down{i}_downconv` ->
+    downs.i."""
+    return _tiny_autoencoder(params, "down", "downconv", "downs")
+
+
+def tiny_cr_state_dict(params: Tree) -> StateDict:
+    """TinyCR: down, `res{j}` -> res.j, up_proj, conv_out."""
+    sd: StateDict = {}
+    for name in ("down", "up_proj", "conv_out"):
+        _conv(sd, name, params[name])
+    for j in range(_count(params, "res")):
+        _tiny_res(sd, f"res.{j}", params[f"res{j}"])
     return sd
 
 

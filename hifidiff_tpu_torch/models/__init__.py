@@ -1,1 +1,2 @@
-"""Models of the refiner sampler: CR, IDC, FPG, FusedDenoiser, FacialRefiner."""
+"""Models of the refiner sampler: CR, IDC, FPG, FusedDenoiser, FacialRefiner,
+and the tiny distilled CR."""

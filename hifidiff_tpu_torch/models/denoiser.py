@@ -18,8 +18,11 @@ reference `models/denoiser/model.py:137-266`).
 `precompute` hoists everything that does not depend on the noisy latent:
 the FiLM tables of every block for all the sampler's timesteps, the identity
 injection and the HCA gates. `forward(films=..., idc_pre=..., hca_gates=...)`
-then runs one step without them. Only the exact sampler's modes are ported
-here (full and precompute).
+then runs one step without them. `encode` and `decode` split a step in two
+for the cached sampler (`diffusion.sampling.sample_ddim_cached`): `encode`
+runs up to the conditioned bottleneck (after the identity injection and
+`hcas[0]`) and returns it with the skips; `decode` runs the decoder half on
+such a cache. `decode(encode(...))` is `forward(...)`.
 
 `fuse_small_naf` (off by default) runs the blocks on 1x1 and 2x2 maps (at
 16x16 latents: enc3, the middle blocks and dec0) through the fused
@@ -110,8 +113,7 @@ class _UNetCore(nn.Module):
         """`run(blk, x)` for one forward: each block gets the time embedding,
         or the next of the given `films` (one per block)."""
         t = self.time_mlp(timesteps) if films is None else None
-        films = iter(films if films is not None else
-                     [None] * len(self.blocks()))
+        films = iter(films) if films is not None else itertools.repeat(None)
 
         def run(blk, x):
             return blk(x, t, next(films), fuse_small_naf)
@@ -206,15 +208,56 @@ class FusedDenoiser(_UNetCore):
         A training forward is this call in `.train()` mode with per-sample
         timesteps and nothing hoisted: every block projects its own FiLM
         rows and the HCA BatchNorms run on batch statistics."""
-        h, w = latents.shape[2], latents.shape[3]
         run = self._runner(timesteps, films, fuse_small_naf)
-        gates = hca_gates if hca_gates is not None else \
+        gates = self._gates(hca_gates)
+        x, skips = self._encode_half(latents, run, facial_priors,
+                                     identity_embedding, idc_pre, gates)
+        return self._decode_half(x, skips, run, facial_priors, gates)
+
+    def encode(self, latents: torch.Tensor, timesteps: torch.Tensor,
+               facial_priors: Sequence[torch.Tensor],
+               identity_embedding: Optional[torch.Tensor],
+               films: Optional[Sequence[torch.Tensor]] = None,
+               idc_pre: Optional[torch.Tensor] = None,
+               hca_gates: Optional[Sequence] = None,
+               fuse_small_naf: bool = False) -> Dict:
+        """The first half of `forward` (same arguments): {"x": the
+        bottleneck after the identity injection and `hcas[0]`, "skips": the
+        encoder stages' outputs}."""
+        run = self._runner(timesteps, films, fuse_small_naf)
+        x, skips = self._encode_half(latents, run, facial_priors,
+                                     identity_embedding, idc_pre,
+                                     self._gates(hca_gates))
+        return {"x": x, "skips": skips}
+
+    def decode(self, cache: Dict, timesteps: torch.Tensor,
+               facial_priors: Sequence[torch.Tensor],
+               films: Optional[Sequence[torch.Tensor]] = None,
+               hca_gates: Optional[Sequence] = None,
+               fuse_small_naf: bool = False) -> torch.Tensor:
+        """The second half of `forward` on an `encode` cache, with its own
+        timesteps -> epsilon. `films` is the whole per-block list, as
+        `forward` takes it; the decoder's blocks take its tail."""
+        if films is not None:
+            films = films[len(films) - sum(len(d) for d in self.decoders):]
+        run = self._runner(timesteps, films, fuse_small_naf)
+        return self._decode_half(cache["x"], list(cache["skips"]), run,
+                                 facial_priors, self._gates(hca_gates))
+
+    def _gates(self, hca_gates: Optional[Sequence]) -> Sequence:
+        return hca_gates if hca_gates is not None else \
             [None] * len(self.hcas)
+
+    def _encode_half(self, latents, run, facial_priors, identity_embedding,
+                     idc_pre, gates):
         x, skips = self._encode(latents, run)
         x = x + (self.idc_injection(identity_embedding) if idc_pre is None
                  else idc_pre)
-        x = self.hcas[0](facial_priors[0], x, gates[0])
+        return self.hcas[0](facial_priors[0], x, gates[0]), skips
+
+    def _decode_half(self, x, skips, run, facial_priors, gates):
         for i in range(len(self.decoders)):
             x = self._decode_stage(i, x, skips, run)
             x = self.hcas[i + 1](facial_priors[i + 1], x, gates[i + 1])
+        h, w = skips[0].shape[2], skips[0].shape[3]  # the latents' size
         return self.ending(x)[:, :, :h, :w]

@@ -73,6 +73,9 @@ class ConditionalNAFBlock(NAFBlock):
         super().__init__(c, dw_expand, ffn_expand)
         self.mlp = nn.Sequential(SimpleGate(), nn.Linear(time_dim // 2, 4 * c))
         self._packs: Dict[Tuple[int, torch.dtype], CnafPack] = {}
+        # how many times the packs were dropped: a CUDA graph that baked in
+        # their pointers is stale once this moves (pipeline.py keys on it)
+        self.pack_generation = 0
         self.register_load_state_dict_post_hook(
             lambda module, _: module.clear_fused_packs())
 
@@ -143,7 +146,8 @@ class ConditionalNAFBlock(NAFBlock):
 
     def clear_fused_packs(self) -> None:
         self._packs.clear()
+        self.pack_generation += 1
 
     def _apply(self, *args, **kwargs):
-        self._packs.clear()
+        self.clear_fused_packs()
         return super()._apply(*args, **kwargs)

@@ -1,1 +1,2 @@
-"""The SD-VAE (AutoencoderKL) with diffusers' state-dict layout."""
+"""The SD-VAE (AutoencoderKL) with diffusers' state-dict layout, and the tiny
+distilled autoencoder."""

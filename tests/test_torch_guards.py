@@ -47,7 +47,8 @@ def test_port_imports_with_jax_blocked():
     res = _run([sys.executable, "-c", BLOCKED_IMPORT], REPO)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
-    assert "hifidiff_tpu_torch.train.steps" in _port_modules()
+    assert {"hifidiff_tpu_torch.train.steps", "hifidiff_tpu_torch.vae.tiny",
+            "hifidiff_tpu_torch.models.tiny_cr"} <= _port_modules()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -92,6 +93,23 @@ def test_sampler_default_device_is_the_card(monkeypatch):
         build_refiner_sampler_split(*_tiny_models())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_refiner_sampler_split(*_tiny_models(), device="cuda")
+
+
+@pytest.mark.parametrize("builder", ["build_refiner_sampler",
+                                     "build_unconditional_sampler"])
+def test_other_samplers_default_device_is_the_card(monkeypatch, builder):
+    """The monolithic and the unconditional sampler target the card too:
+    without one they raise, and run on the CPU only when asked."""
+    from hifidiff_tpu_torch import pipeline
+    from hifidiff_tpu_torch.models.denoiser import Denoiser
+
+    refiner, cr, vae = _tiny_models()
+    args = (refiner, cr, vae) if builder == "build_refiner_sampler" else (
+        Denoiser(width=16, enc_nums=(1,), mid_num=1, dec_nums=(1,)), vae)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(pipeline, builder)(*args)
+    assert callable(getattr(pipeline, builder)(*args, device="cpu"))
 
 
 def test_sampler_runs_on_the_cpu_when_asked():

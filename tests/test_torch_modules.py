@@ -1,6 +1,7 @@
 """Port modules against their JAX counterparts on perturbed weights (float32,
 CPU, narrow widths): NAFBlock, ConditionalNAFBlock, STNBlock, HCA, ResNet-50,
-CR, FPG and the FusedDenoiser in full and precompute+films modes. Weights:
+CR, FPG and the FusedDenoiser in full, precompute+films and encode / decode
+modes. Weights:
 port init -> perturb -> JAX importers, and back through convert.py under a
 strict load (torch_parity.jax_weights)."""
 
@@ -215,3 +216,50 @@ def test_fused_denoiser_precompute_and_films(denoisers):
                   films=[f[k:k + 1] for f in pre["films"]],
                   idc_pre=pre["idc"], hca_gates=pre["gates"])
     close(nhwc(out), ref, 1e-4)
+
+
+@pytest.mark.parametrize("hoisted", [False, True])
+def test_fused_denoiser_encode_decode(denoisers, hoisted):
+    """The cached sampler's halves match JAX's `mode="encode"` (bottleneck
+    and skips) and `mode="decode"` (on the JAX cache, at another timestep),
+    with and without the hoisted invariants; and decode(encode(x, t), t) is
+    the full call, bit for bit."""
+    den, jv, x, t, priors, emb = denoisers
+    t2 = np.asarray([700.0, 100.0], np.float32)
+    tp = [nchw(p) for p in priors]
+    jkw, kw, films2 = {}, {}, None
+    if hoisted:
+        ts = np.asarray([999.0, 700.0], np.float32)
+        jpre = jax.jit(lambda v, *a: JDen(**DEN).apply(
+            v, None, *a, mode="precompute"))(jv, ts, priors, emb)
+        with torch.inference_mode():
+            pre = den.precompute(torch.from_numpy(ts), tp,
+                                 torch.from_numpy(emb))
+        jf = [jax.tree_util.tree_map(lambda a: a[k][None], jpre["films"])
+              for k in range(2)]
+        jkw = dict(idc_pre=jpre["idc"], hca_gates=jpre["gates"])
+        kw = dict(idc_pre=pre["idc"], hca_gates=pre["gates"])
+        films = [[f[k:k + 1] for f in pre["films"]] for k in range(2)]
+        films2 = films[1]
+    apply = jax.jit(lambda v, *a, **k: JDen(**DEN).apply(
+        v, *a, train=False, **k), static_argnames="mode")
+    jcache = apply(jv, x, t, priors, emb, mode="encode",
+                   **(dict(jkw, films=jf[0]) if hoisted else {}))
+    jout = apply(jv, x, t2, priors, emb, mode="decode", cache=jcache,
+                 **(dict(hca_gates=jkw["hca_gates"], films=jf[1])
+                    if hoisted else {}))
+    with torch.inference_mode():
+        args = (nchw(x), torch.from_numpy(t), tp, torch.from_numpy(emb))
+        cache = den.encode(*args, films=films[0] if hoisted else None, **kw)
+        gates = {"hca_gates": kw["hca_gates"]} if hoisted else {}
+        out = den.decode(cache, torch.from_numpy(t2), tp, films=films2,
+                         **gates)
+        full = den(*args, films=films[0] if hoisted else None, **kw)
+        again = den.decode(cache, torch.from_numpy(t), tp,
+                           films=films[0] if hoisted else None, **gates)
+    close(nhwc(cache["x"]), jcache["x"], 1e-4)
+    assert len(cache["skips"]) == len(jcache["skips"]) == 2
+    for a, b in zip(cache["skips"], jcache["skips"]):
+        close(nhwc(a), b, 1e-4)
+    close(nhwc(out), jout, 1e-4)
+    assert torch.equal(again, full)
