@@ -77,6 +77,27 @@ raises at once):
   11. (run after 6) under graphs, default configuration, batch 128: faces/s
      of DPM-Solver++ (2M) at 20 steps and of cached DDIM-50 at intervals 2
      and 3, each replay held to its eager call bit for bit;
+  12. (run after 11, before anything is profiled) the server
+     (`cli/serve.py`) at full width through `create_server`, at its
+     defaults (batch 16, bf16, exact DDIM-50, clip 3.0) with buckets 1 and
+     4, reading the seeded perturbed weights from reference-named torch
+     files: three buckets x three stages captured and the warm-up's launch
+     counts held to the module tree; each face served at concurrency 1 bit
+     for bit against an eager call with the same (seed, counter) generator
+     (the next counter's call must differ); a 3-request burst in one
+     bucket-4 launch, each face against the eager call on the padded batch;
+     every `ln_film` and warp call of an eager bucket-1 call against its
+     plain version to phase 3's limits; every launch while serving a replay
+     (the sampler's `replays` rise by the launches, no kernel launched from
+     Python); then the load generator (`cli/serve_bench.py`) at
+     concurrencies 1, 4, 16 and 32, 16 requests a client (p50 / p95 ms,
+     faces/s, launches, mean fill, errors, which must be 0), the cold
+     start by part, the card's memory after the warm-up, and the host's ms
+     a launch outside the replay with what `_state_key` costs of it; with
+     the captures dropped, a launch must raise. Before the server, on the
+     same weight files, the eval CLI (`cli/test_refiner.py`) at its
+     defaults (f32, batch 4, DDIM-50, clip 3.0) on procedural faces: finite
+     PSNR and SSIM, and its kernels launched as the module tree gives;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -115,7 +136,8 @@ taken: no timed launch follows a profiler trace in the same process.
 
 The line before the last is a JSON object with one entry per kernel (times
 are sums over the launches of one call of the kernel's path: `ln_film` and
-the warp on the sampler's default path, `matmul_w8`, `group_norm_silu` and
+the warp on the sampler's default path (their `server_launches`: the
+server's, all in its warm-up), `matmul_w8`, `group_norm_silu` and
 the fused block on its int8 + fused path, `ln_film_bwd` on a refiner train
 step and `affine_warp_bwd` on a CR train step; under "paths" the same sums
 for every path that launched the kernel, the train steps included); the last
@@ -254,6 +276,19 @@ GRAPH_SAMPLERS = {"dpmpp, 20 steps": dict(sampler="dpmpp",
                   "cached DDIM-50, interval 2": dict(cache_interval=2),
                   "cached DDIM-50, interval 3": dict(cache_interval=3)}
 TIMED_REPLAYS = 5
+# Phase 12: the server at its defaults (batch 16, bf16, exact DDIM-50, clip
+# 3.0) with buckets 1 and 4; the load generator's concurrencies and requests
+# per client; the requests at concurrency 1 held to eager calls; the calls
+# timed for the host's share of a launch. The eval CLI (`test_refiner`, at
+# its defaults: f32, batch 4, float I/O) on the same weight files over the
+# held-out split of this many procedural faces (a quarter of it: 2 batches).
+SERVE_BUCKETS = "1,4"
+SERVE_CONCURRENCIES = (1, 4, 16, 32)
+SERVE_REQUESTS = 16
+SERVE_EAGER_CHECKS = 3
+SERVE_TIMED = 10
+EVAL_PROCEDURAL = 32
+EVAL_BATCHES = 2
 
 # Training (phases 7-9). The CLIs' default batches, and the check's batch.
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
@@ -1871,6 +1906,340 @@ def graph_timings(models, dev, lr, noise, smi):
 
 
 
+def _post_raw(host, port, img):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        conn.request("POST", "/infer", img.tobytes(),
+                     {"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        body = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"POST /infer: {resp.status} {body[:200]!r}")
+    return np.frombuffer(body, np.uint8).reshape(img.shape)
+
+
+@contextlib.contextmanager
+def held_to_plain(stats):
+    """While the block runs, every call of `ln_film` and of the warp is also
+    computed by its plain version on the same inputs and compared, to phase
+    3's limits (TOL by dtype); yields {(kernel, shape, dtype): [calls, worst
+    error, all within the limit]}, filled as the calls come."""
+    from hifidiff_tpu_torch.nn import layers
+    from hifidiff_tpu_torch.ops import norm, warp
+
+    seen = {}
+
+    def shim(name, orig, plain):
+        def call(*a, **k):
+            out = orig(*a, **k)
+            ok, err = close(out, plain(*a, **k), dtype_name(out.dtype))
+            key = (name, tuple(a[0].shape), dtype_name(out.dtype))
+            n, worst, good = seen.get(key, (0, 0.0, True))
+            seen[key] = (n + 1, max(worst, err), good and ok)
+            stats.err[name] = max(stats.err[name], err)
+            return out
+        return call
+
+    with patched(layers, "ln_film", shim("ln_film", layers.ln_film,
+                                          norm.ln_film_plain)), \
+            patched(warp, "warp", shim("affine_warp", warp.warp,
+                                       warp.warp_plain)):
+        yield seen
+
+
+def serving_counts(sample, batcher):
+    from hifidiff_tpu_torch.ops import kernels
+
+    return dict(kernels.LAUNCHES), sample.replays, batcher.batches
+
+
+def check_no_eager(label, sample, batcher, before):
+    """Fail unless the launches served since `before` (serving_counts) were
+    all replays and no kernel was launched from Python."""
+    launches, replays, batches = serving_counts(sample, batcher)
+    n = batches - before[2]
+    log(f"server, {label}: {n} launches served, the sampler's replays rose "
+        f"by {replays - before[1]}; kernel launches from Python "
+        f"{ {k: v - before[0][k] for k, v in launches.items()} }")
+    if replays - before[1] != n or launches != before[0] or n == 0:
+        fail(f"server, {label}: a launch was not a replay ({n} launches, "
+             f"{replays - before[1]} replays, launches from Python "
+             f"{launches} against {before[0]})")
+
+
+def median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_eval_cli(paths, models, smi):
+    """The eval CLI on the card at its defaults (f32, batch 4, float I/O,
+    DDIM-50, clip 3.0) over EVAL_PROCEDURAL procedural faces' held-out
+    split, reading the weight files `paths`: its PSNR and SSIM must be
+    finite, and its `ln_film` and warp launches EVAL_BATCHES calls' worth of
+    what the module tree gives (`models`: refiner, cr, vae)."""
+    from hifidiff_tpu_torch.cli import test_refiner
+    from hifidiff_tpu_torch.ops import kernels
+
+    per_call = expected_launches(*models)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = test_refiner.main([
+        "--refiner-ckpt", paths["refiner"], "--cr-ckpt", paths["cr"],
+        "--vae-ckpt", paths["vae"], "--procedural", str(EVAL_PROCEDURAL),
+        "--grid-every", "0", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: kernels.LAUNCHES[k] for k in ("ln_film", "affine_warp")}
+    want = {k: EVAL_BATCHES * per_call[k] for k in launched}
+    log(f"test_refiner on the card (f32, batch 4, DDIM-50, "
+        f"{EVAL_BATCHES} batches of procedural faces): psnr "
+        f"{got['psnr']:.4f}, ssim {got['ssim']:.4f}, {seconds:.1f} s with "
+        f"the weights' load; kernel launches {launched} (the module tree "
+        f"gives {want}) [{smi}]")
+    if not all(np.isfinite(got[k]) for k in ("psnr", "ssim")) \
+            or launched != want:
+        fail(f"test_refiner on the card: {got}, launches {launched} against "
+             f"{want}")
+    torch.cuda.empty_cache()
+
+
+def check_server(models, dev, smi, stats):
+    """Phase 12: the port's server at full width through its entry point.
+    The seeded perturbed weights (`models`, float32 on the host) are written
+    as reference-named torch files and read by `create_server` through its
+    checkpoint flags, at its defaults (batch 16, bf16, exact DDIM-50, clip
+    3.0) with buckets 1 and 4. Checked: three buckets x three stages
+    captured; each face served at concurrency 1 equal to an eager call on
+    the same image with the same (seed, counter) generator, the next
+    counter's call different; a 3-request burst served by one bucket-4
+    launch, each face equal to the eager call on the padded batch; every
+    `ln_film` and warp call of an eager bucket-1 call against its plain
+    version; every launch while serving a replay. Then the load generator
+    at SERVE_CONCURRENCIES, the host's share of a launch, and a launch with
+    the captures dropped, which must raise. Before the server starts, the
+    eval CLI on the same files (`check_eval_cli`). Returns the
+    kernels' launch counts from the cold start through the serving (all of
+    them in the warm-up: serving only replays)."""
+    import tempfile
+    import threading
+
+    from hifidiff_tpu_torch.cli import serve, serve_bench
+    from hifidiff_tpu_torch.cli.common import seeded_generator
+    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.pipeline import build_refiner_sampler_split
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, m in zip(("refiner", "cr", "vae"), models):
+            paths[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(m.state_dict(), paths[name])
+        log(f"server: weights written as reference-named torch files "
+            f"({sum(os.path.getsize(p) for p in paths.values()) / 1e9:.2f} "
+            f"GB) in {time.perf_counter() - t0:.1f} s")
+        check_eval_cli(paths, models, smi)
+        cfg = serve.Config(port=0, buckets=SERVE_BUCKETS, seed=SEED,
+                           refiner_ckpt=paths["refiner"],
+                           cr_ckpt=paths["cr"], vae_ckpt=paths["vae"])
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        httpd, batcher = serve.create_server(cfg)
+        cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run = batcher.run_fn
+    sample = run.sampler
+    warm = dict(kernels.LAUNCHES)
+    log(f"server: cold start {cold_s:.2f} s (kernel library "
+        f"{run.timings['kernel_build_s']:.2f} s, weights loaded "
+        f"{run.timings['load_s']:.2f} s, {len(run.buckets)} buckets x 3 "
+        f"stages captured {run.timings['capture_s']:.2f} s, one launch a "
+        f"bucket {run.timings['first_launch_s']:.2f} s); the server's card "
+        f"memory after the warm-up: "
+        f"{(torch.cuda.memory_allocated() - mem0[0]) / 1e9:.2f} GB "
+        f"allocated, {(torch.cuda.memory_reserved() - mem0[1]) / 1e9:.2f} "
+        f"GB reserved (the graphs' pools included) [{smi}]")
+    per_call = expected_launches(*run.models)
+    want = {k: 2 * len(run.buckets) * (v or 0) for k, v in per_call.items()}
+    log(f"server: kernel launches in the warm-up (an eager call and a "
+        f"capture a bucket): {warm}")
+    if run.buckets != [1, 4, 16] or sorted(run.captured) != run.buckets \
+            or any(list(c.graphs) != ["prep", "scan", "decode"]
+                   for c in run.captured.values()) \
+            or sample.replays != len(run.buckets) or warm != want:
+        fail(f"server: buckets {run.buckets}, captured "
+             f"{ {b: list(c.graphs) for b, c in run.captured.items()} }, "
+             f"{sample.replays} replays in the warm-up, launches {warm} "
+             f"(the module tree gives {want})")
+
+    launched = []   # (counter, batch) of each launch the batcher makes
+
+    def recorded(imgs):
+        launched.append((run.counter + 1, imgs))
+        return run(imgs)
+
+    batcher.run_fn = recorded
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    host, port = httpd.server_address
+    rng = np.random.default_rng(SEED + 12)
+    try:
+        # -- faces at concurrency 1, and a 3-request burst ---------------
+        before = serving_counts(sample, batcher)
+        singles = []
+        for _ in range(SERVE_EAGER_CHECKS):
+            img = rng.integers(0, 256, (cfg.size, cfg.size, 3), np.uint8)
+            singles.append((img, _post_raw(host, port, img), run.counter))
+        burst = [rng.integers(0, 256, (cfg.size, cfg.size, 3), np.uint8)
+                 for _ in range(3)]
+        outs = [None] * 3
+
+        def client(i):
+            outs[i] = _post_raw(host, port, burst[i])
+
+        # a window wider than the default for the burst, so that a slow
+        # thread start cannot split it
+        batcher.max_wait_s = 0.2
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        batcher.max_wait_s = cfg.max_wait_ms / 1e3
+        burst_counter, padded = launched[-1]
+        check_no_eager("concurrency 1 and the burst", sample, batcher,
+                       before)
+        if padded.shape[0] != 4 or batcher.batches - before[2] != \
+                SERVE_EAGER_CHECKS + 1:
+            fail(f"server: the 3-request burst went to a batch of "
+                 f"{padded.shape[0]}, not one bucket-4 launch")
+
+        # -- the same faces from eager calls, on copies of the server's
+        # models: a sampler built over the models themselves would move
+        # them (`.to()` renews the blocks' pack generations) and so drop
+        # the server's captures
+        eager = build_refiner_sampler_split(*copy.deepcopy(run.models),
+                                            sample.config, device=dev)
+
+        def eager_call(batch, counter):
+            return eager(torch.from_numpy(batch).to(dev),
+                         generator=seeded_generator(SEED, counter, dev)
+                         ).cpu().numpy()
+
+        for img, served, counter in singles:
+            ref = eager_call(img[None], counter)[0]
+            other = eager_call(img[None], counter + 1)[0]
+            log(f"server, launch {counter} (bucket 1): served face equal to "
+                f"the eager call {np.array_equal(served, ref)}; control, "
+                f"the next counter's call: "
+                f"{int(np.abs(other.astype(int) - ref).max())} levels off")
+            if not np.array_equal(served, ref):
+                fail(f"server: launch {counter}'s face differs from the "
+                     "eager call with its generator")
+            if np.array_equal(other, ref):
+                fail("server: the next counter's eager call gives the same "
+                     "face: the check cannot fail")
+        ref = eager_call(padded, burst_counter)
+        slots = [next(j for j in range(len(padded))
+                      if np.array_equal(padded[j], img)) for img in burst]
+        same = [np.array_equal(out, ref[j]) for out, j in zip(outs, slots)]
+        log(f"server, launch {burst_counter} (the burst, bucket 4, slots "
+            f"{slots}): faces equal to the eager call on the padded batch: "
+            f"{same}")
+        if not all(same):
+            fail("server: a face of the padded bucket-4 launch differs from "
+                 "the eager call")
+
+        # -- ln_film and the warp against their plain versions at bucket 1 -
+        with held_to_plain(stats) as seen:
+            eager_call(singles[0][0][None], singles[0][2])
+        for (name, shape, dtype), (n, worst, ok) in sorted(seen.items()):
+            log(f"server, bucket 1: {name} {dtype} {shape}: {n} calls, "
+                f"max_abs_err vs plain {worst:.3e} ok={ok}")
+            if not ok:
+                fail(f"server, bucket 1: {name} at {shape} disagrees with "
+                     "its plain version")
+        counts = collections.Counter()
+        for (name, _, _), (n, _, _) in seen.items():
+            counts[name] += n
+        if dict(counts) != {k: per_call[k] for k in ("ln_film",
+                                                     "affine_warp")}:
+            fail(f"server, bucket 1: {dict(counts)} calls held to the "
+                 "plain versions, not the module tree's")
+        del eager
+
+        # -- load ------------------------------------------------------------
+        before = serving_counts(sample, batcher)
+        t0 = time.perf_counter()
+        phases = serve_bench.run_load(host, port, cfg.size,
+                                      SERVE_CONCURRENCIES, SERVE_REQUESTS)
+        log(f"server: load generator {time.perf_counter() - t0:.1f} s")
+        check_no_eager("load", sample, batcher, before)
+        for ph in phases:
+            log(f"server load c={ph['concurrency']}: p50 {ph['p50_ms']:.2f} "
+                f"ms, p95 {ph['p95_ms']:.2f} ms, "
+                f"{ph['throughput_faces_per_sec']:.2f} faces/s, "
+                f"{ph['launches']} launches, mean fill "
+                f"{ph['mean_fill']:.2f}, {ph['errors']} errors, "
+                f"{ph['requests']} requests [{smi}]")
+            if ph["errors"] or ph["requests"] != \
+                    ph["concurrency"] * SERVE_REQUESTS:
+                fail(f"server load c={ph['concurrency']}: {ph['errors']} "
+                     "errors")
+        log("server load: " + json.dumps(phases))
+
+        # -- the host's share of a launch ------------------------------------
+        key_ms = median_ms(sample._state_key, 2 * SERVE_TIMED)
+        for b in (1, 16):
+            imgs = rng.integers(0, 256, (b, cfg.size, cfg.size, 3),
+                                np.uint8)
+            graphs = list(run.captured[b].graphs.values())
+
+            def replay():
+                for graph in graphs:
+                    graph.replay()
+                torch.cuda.synchronize()
+
+            call_ms = median_ms(lambda: run(imgs), SERVE_TIMED)
+            replay_ms = median_ms(replay, SERVE_TIMED)
+            log(f"server, bucket {b}: a launch (run(): the upload through "
+                f"pinned memory, the generator, the key, the three replays, "
+                f"the faces' copy back) {call_ms:.2f} ms, the three replays "
+                f"alone {replay_ms:.2f} ms: {call_ms - replay_ms:.2f} ms of "
+                f"host work outside the replay, of which the key over "
+                f"{len(sample._state_key()[2])} parameters and buffers "
+                f"(`_state_key`) {key_ms:.3f} ms [{smi}]")
+
+        # -- a launch that can no longer replay must fail, not run eagerly
+        sample.clear_compiled()
+        try:
+            run(imgs[:1])
+            fail("server: a launch with the captures dropped ran eagerly "
+                 "without an error")
+        except RuntimeError as e:
+            if "ran eagerly" not in str(e):
+                raise
+            log(f"server: with the captures dropped, a launch raises: {e}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+    del run, sample
+    torch.cuda.empty_cache()
+    return warm
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2204,6 +2573,10 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.0f} s] DPM++ and cached DDIM timed "
         "under graphs")
 
+    # -- 12. the server at full width, before anything is profiled ----------
+    server_launches = check_server(train_models, dev, smi, stats)
+    log(f"[{time.perf_counter() - t_start:.0f} s] server checked and loaded")
+
     # -- 9. timed train steps ------------------------------------------------
     train_stats, train_profiles = {}, []
     for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
@@ -2282,6 +2655,11 @@ def main() -> int:
                         ("cnaf_small", "int8+fused"),
                         ("ln_film_bwd", "refiner train"),
                         ("affine_warp_bwd", "cr train"))]
+    for entry in entries:
+        if entry is not None and server_launches[entry["name"]]:
+            # the server's cold start through its load: captured in the
+            # warm-up, replayed while serving
+            entry["server_launches"] = server_launches[entry["name"]]
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
     if FAILURES:
         print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),

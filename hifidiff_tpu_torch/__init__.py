@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of hifidiff_tpu for NVIDIA Hopper (H100).
 
 Mirrors hifidiff_tpu's layout (ops/, nn/, models/, vae/, diffusion/, train/,
-pipeline.py). Modules are NCHW `nn.Module`s whose `state_dict()` keys are the
+pipeline.py, and the entry points' cli/, data/, eval/ and utils/). Modules
+are NCHW `nn.Module`s whose `state_dict()` keys are the
 HifiDiff reference checkpoint's own (diffusers' for the VAE); the public
 pipeline keeps the JAX package's NHWC uint8 image layout. The TPU's Pallas
 kernels are hand-written CUDA kernels in `csrc/`, each with a plain PyTorch

@@ -1,0 +1,140 @@
+"""Full-pipeline eval CLI (counterpart of hifidiff_tpu/cli/test_refiner.py,
+the reference's `test_refiner.py`).
+
+DDIM-50 with the reference's eval scheduler config (clip_sample, range 3.0,
+`test_refiner.py:166-171`), batch-global min-max normalization of
+prediction and ground truth before the metrics (`:113-119`), PSNR / SSIM
+(`eval.metrics.reference_eval_metrics`), image grids every `grid_every`
+batches (PIL; `--grid-every 0` turns them off). Returns {"psnr", "ssim"}.
+Batch i samples its noise from `seeded_generator(seed, i)`, the
+counterpart of the JAX CLI's `fold_in(key, i)`.
+
+It runs on one device, the card unless `--device cpu`, on `--synthetic N`
+or `--procedural N` data (the held-out split). Not yet in the port, and
+refused with the ROADMAP item that brings them: `--dataroot` (K-Face, §A9),
+`--niqe-model` and `--vgg16-ckpt` / `--lpips-ckpt` (NIQE and LPIPS, §A6).
+
+    python -m hifidiff_tpu_torch.cli.test_refiner --refiner-ckpt ... \
+        --cr-ckpt ... --vae-ckpt ... --procedural 64
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
+                                           parse_config, seeded_generator,
+                                           smoke_datasets)
+from hifidiff_tpu_torch.data.core import Loader
+from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.eval.metrics import reference_eval_metrics
+from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
+                                         build_refiner_sampler_split)
+from hifidiff_tpu_torch.utils.logging import save_image_grid, side_by_side
+
+
+@dataclasses.dataclass
+class Config:
+    dataroot: str = ""         # K-Face: ROADMAP §A9, refused
+    refiner_ckpt: str = ""
+    cr_ckpt: str = ""
+    vae_ckpt: str = ""
+    batch_size: int = 4
+    size: int = 128
+    num_inference_steps: int = 50
+    sampler: str = "ddim"      # or "dpmpp" (DPM-Solver++ 2M)
+    clip_sample_range: float = 3.0
+    # model-size knobs (defaults = reference architecture)
+    width: int = 128
+    enc_depths: str = "2,2,4,8"
+    mid_depth: int = 8
+    dec_depths: str = "2,2,2,2"
+    idc_stages: str = "3,4,6,3"
+    cr_width: int = 32
+    cr_enc_depths: str = "2,2,4,8"
+    cr_mid_depth: int = 8
+    vae_blocks: str = "128,256,512,512"
+    vae_layers: int = 2
+    seed: int = 0
+    synthetic: int = 0
+    procedural: int = 0
+    proc_id_spread: float = 1.0   # <1: hard-identity family
+    proc_light_jitter: float = 0.0  # >0: per-sample input lighting nuisance
+    proc_detail: float = 0.0    # >0: per-identity facial-mark detail
+    proc_clutter: int = 0       # >0: per-sample background shapes
+    grid_every: int = 10
+    out_dir: str = "output/test_refiner"
+    niqe_model: str = ""        # NIQE: ROADMAP §A6, refused
+    vgg16_ckpt: str = ""        # LPIPS: ROADMAP §A6, refused
+    lpips_ckpt: str = ""
+    tae_ckpt: str = ""          # the tiny autoencoder (cli/common.py)
+    tae_mode: str = "both"      # "decode" = tiny decoder only; "both" also
+    # replaces the CR-latent encode (deterministic posterior mean)
+    tiny_cr_ckpt: str = ""      # the TinyCR at the CR seam
+    tiny_cr_width: int = 64     # student arch (must match the ckpt)
+    tiny_cr_blocks: int = 4
+    tiny_cr_down: int = 2
+    device: str = "cuda"        # "cpu" only when asked for
+
+
+def _refuse_unported(cfg: Config) -> None:
+    if cfg.niqe_model:
+        raise NotImplementedError(
+            "--niqe-model: NIQE is not in the port yet (ROADMAP §A6)")
+    if cfg.vgg16_ckpt or cfg.lpips_ckpt:
+        raise NotImplementedError(
+            "--vgg16-ckpt / --lpips-ckpt: LPIPS is not in the port yet "
+            "(ROADMAP §A6)")
+    if cfg.dataroot:
+        raise NotImplementedError(
+            "--dataroot: the K-Face dataset is not in the port yet (ROADMAP "
+            "§A9); use --synthetic N or --procedural N")
+    if not (cfg.synthetic or cfg.procedural):
+        raise ValueError("give --synthetic N or --procedural N (K-Face, "
+                         "--dataroot, is ROADMAP §A9)")
+
+
+def main(argv=None) -> dict:
+    cfg = parse_config(Config, argv, "Full-pipeline eval")
+    _refuse_unported(cfg)
+    device = resolve_device(cfg.device, "test_refiner")
+    cr, vae, refiner, latent = load_refiner_stack(cfg, device)
+    sampler = build_refiner_sampler_split(
+        refiner, cr, vae,
+        RefinerPipelineConfig(
+            num_inference_steps=cfg.num_inference_steps,
+            latent_size=latent, sampler=cfg.sampler, io_uint8=False,
+            clip_sample=True, clip_sample_range=cfg.clip_sample_range),
+        device=device, **load_tiny_seams(cfg, latent, device))
+
+    # the held-out split, matching train-CLI val data
+    ds = smoke_datasets(cfg, ("lr", "gt", "patches"))[1]
+    loader = Loader(ds, cfg.batch_size, shuffle=False)
+
+    psnrs, ssims = [], []
+    for i, batch in enumerate(loader):
+        lr = torch.from_numpy(batch["lr"]).to(device)
+        gt = torch.from_numpy(batch["gt"]).to(device)
+        pred = sampler(lr, generator=seeded_generator(cfg.seed, i, device))
+        m, _, _ = reference_eval_metrics(pred, gt)
+        psnrs.append(float(m["psnr"]))
+        ssims.append(float(m["ssim"]))
+        if cfg.grid_every and i % cfg.grid_every == 0:
+            save_image_grid(
+                side_by_side(batch["lr"], pred.float().cpu().numpy(),
+                             batch["gt"]),
+                os.path.join(cfg.out_dir, f"batch_{i}.png"))
+        print(f"({i + 1}/{len(loader)}) psnr={psnrs[-1]:.3f} "
+              f"ssim={ssims[-1]:.4f}", flush=True)
+
+    print(f"PSNR: {np.mean(psnrs):.4f}")
+    print(f"SSIM: {np.mean(ssims):.4f}")
+    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+
+
+if __name__ == "__main__":
+    main()

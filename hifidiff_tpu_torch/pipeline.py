@@ -335,15 +335,18 @@ class RefinerSampler:
         self.replays = 0
 
     def _state_key(self) -> Tuple:
+        # each module's own __dict__: a `getattr` that misses raises inside
+        # `Module.__getattr__`, which at ~1,600 modules doubled the key's
+        # host time
         tensors, modes = [], []
         for m in self._modules:
             for sub in m.modules():
-                for t in itertools.chain(sub._parameters.values(),
-                                         sub._buffers.values()):
+                d = sub.__dict__
+                for t in itertools.chain(d["_parameters"].values(),
+                                         d["_buffers"].values()):
                     if t is not None:
                         tensors.append((t.data_ptr(), t.dtype, t.shape))
-                modes.append((sub.training,
-                              getattr(sub, "pack_generation", None)))
+                modes.append((d["training"], d.get("pack_generation")))
         return self.config, self._tiny, tuple(tensors), tuple(modes)
 
     @staticmethod

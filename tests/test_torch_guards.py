@@ -1,8 +1,9 @@
 """Guards of the port's boundaries: it imports without jax, chip_smoke.py
-refuses to run without CUDA, the sampler and the train steps target the card
-unless asked for the CPU, the inference-only kernels raise where a gradient
-is wanted, and a CUDA tensor reaching a kernel wrapper whose library cannot be
-built raises rather than falling back."""
+refuses to run without CUDA, the sampler, the train steps, the server and
+the eval CLI target the card unless asked for the CPU, the inference-only
+kernels raise where a gradient is wanted, and a CUDA tensor reaching a
+kernel wrapper whose library cannot be built raises rather than falling
+back."""
 
 import os
 import pathlib
@@ -49,6 +50,10 @@ def test_port_imports_with_jax_blocked():
     assert int(res.stdout.split()[-1]) >= 20
     assert {"hifidiff_tpu_torch.train.steps", "hifidiff_tpu_torch.vae.tiny",
             "hifidiff_tpu_torch.models.tiny_cr"} <= _port_modules()
+    assert {f"hifidiff_tpu_torch.{m}" for m in (
+        "cli.common", "cli.serve", "cli.test_refiner", "cli.serve_bench",
+        "data.core", "data.procedural", "eval.metrics",
+        "utils.logging")} <= _port_modules()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -125,6 +130,37 @@ def test_sampler_runs_on_the_cpu_when_asked():
                    generator=torch.Generator().manual_seed(0))
     assert faces.device.type == "cpu" and faces.dtype == torch.uint8
     assert faces.shape == (1, 32, 32, 3)
+
+
+SERVE_TINY = dict(size=32, width=16, enc_depths="1", mid_depth=1,
+                  dec_depths="1", idc_stages="1,1,1,1", cr_width=8,
+                  cr_enc_depths="1", cr_mid_depth=1, vae_blocks="32,32,32",
+                  vae_layers=1, num_inference_steps=1, dtype="f32")
+
+
+def test_server_default_device_is_the_card(monkeypatch):
+    """The server's Config targets the card: without one `create_server`
+    raises, and builds its runner on the CPU only when asked."""
+    from hifidiff_tpu_torch.cli import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.create_server(serve.Config(port=0, **SERVE_TINY))
+    run, _, _ = serve.build_runner(serve.Config(device="cpu", **SERVE_TINY))
+    assert run.device.type == "cpu"
+
+
+def test_eval_cli_default_device_is_the_card(monkeypatch):
+    from hifidiff_tpu_torch.cli import test_refiner
+
+    flags = [a for k, v in dict(SERVE_TINY, synthetic=4, batch_size=4,
+                                grid_every=0).items() if k != "dtype"
+             for a in (f"--{k.replace('_', '-')}", str(v))]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_refiner.main(flags)
+    out = test_refiner.main(flags + ["--device", "cpu"])
+    assert set(out) == {"psnr", "ssim"}
 
 
 STEP_FACTORIES = ["make_cr_train_step", "make_cr_eval_step",
