@@ -98,6 +98,29 @@ raises at once):
      same weight files, the eval CLI (`cli/test_refiner.py`) at its
      defaults (f32, batch 4, DDIM-50, clip 3.0) on procedural faces: finite
      PSNR and SSIM, and its kernels launched as the module tree gives;
+  13. (run after 9's timed steps, before anything is profiled) the
+     training CLIs through their `main`, eager, at their default widths and
+     batches, each on `--procedural` two of its batches for one epoch,
+     chained through their checkpoint directories in a temporary directory:
+     `train_vae` (batch 64), `train_cr` (8), `pretrain_idc --cr-ckpt` (24),
+     `test_idc` on both stage files, `pretrain_denoiser --vae-ckpt` (512)
+     on images and then on cached latents without and with `--remat`, and
+     `train_refiner` (32) on the four files. Checked: every logged value
+     finite; every step's kernel launches as the module tree gives them
+     (`--remat` runs each block's two `ln_film` once more); the refiner as
+     `train_refiner` composed it holding the IDC and denoiser files'
+     tensors bit for bit; the `--remat` run's first loss and gradients
+     against the plain run's to phase 8's limits and its steps adding less
+     memory; `train_refiner` stopped after epoch 0 and resumed reaching the
+     uninterrupted two epochs' step count and learning rate; then
+     `cli/convergence_demo.py` at its defaults (32 px, narrow widths, every
+     stage's epochs) with every check of its `check_summary` (each stage
+     learns; the trained stack beats a random one by at least 1 dB); every
+     map that reached `ln_film`, `ln_film_bwd`, the warp or its backward in
+     the phase against the plain version (twice, for equal bits). Printed by
+     stage: each step's ms, the median and images/s, the memory a step adds,
+     the run's peak and its wall seconds; the demo's summary and wall
+     seconds;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -151,6 +174,7 @@ import collections
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -292,6 +316,8 @@ EVAL_BATCHES = 2
 
 # Training (phases 7-9). The CLIs' default batches, and the check's batch.
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
+# phase 13: each training CLI on `--procedural` this many of its batches
+STAGE_BATCHES = 2
 TIMED_STEPS = 8
 THETAS_BWD = {k: THETAS[k]
               for k in ("identity", "random", "shear", "out_of_bounds")}
@@ -1468,24 +1494,30 @@ def train_disagreement(name, run, ref, n_steps):
     return bad
 
 
-def expected_train_launches(module, cr):
+def expected_train_launches(module, cr=None):
     """The launches of one train step of `module` that the module tree
-    gives; `cr` is the CR under training (then `module` itself) or the
-    refiner step's frozen one. One warp per STN of the CR, each with a
-    backward launch while the STN has trainable parameters (none in a frozen
-    CR). A refiner's blocks run two `ln_film` each, each with a backward
-    launch while the `time_mlp` that feeds every block's FiLM is trainable
-    (else only in blocks with trainable parameters)."""
-    stns = [m for m in cr.modules() if hasattr(m, "fc_loc")]
-    expected = {"affine_warp": len(stns), "affine_warp_bwd": sum(
-        any(p.requires_grad for p in m.parameters()) for m in stns)}
-    if module is not cr:
-        den = module.denoiser
+    gives; `cr` is the CR under training (then `module` itself), the frozen
+    CR of the IDC or refiner step, or None (the VAE and denoiser steps). One
+    warp per STN of the CR, each with a backward launch while the STN has
+    trainable parameters (none in a frozen CR). A denoiser's blocks (a
+    refiner's, or a stage-3 Denoiser's own) run two `ln_film` each, each
+    with a backward launch while the `time_mlp` that feeds every block's
+    FiLM is trainable (else only in blocks with trainable parameters);
+    under `remat` a block whose backward runs runs its forward, and its two
+    `ln_film`, once more."""
+    expected = {}
+    if cr is not None:
+        stns = [m for m in cr.modules() if hasattr(m, "fc_loc")]
+        expected.update(affine_warp=len(stns), affine_warp_bwd=sum(
+            any(p.requires_grad for p in m.parameters()) for m in stns))
+    den = getattr(module, "denoiser", module)
+    if hasattr(den, "blocks"):
         blocks = den.blocks()
         films = any(p.requires_grad for p in den.time_mlp.parameters())
         trained = len(blocks) if films else sum(
             any(p.requires_grad for p in blk.parameters()) for blk in blocks)
-        expected.update(ln_film=2 * len(blocks), ln_film_bwd=2 * trained)
+        expected.update(ln_film=2 * (len(blocks) + den.remat * trained),
+                        ln_film_bwd=2 * trained)
     return expected
 
 
@@ -2240,6 +2272,433 @@ def check_server(models, dev, smi, stats):
     return warm
 
 
+# -- phase 13: the training CLIs ---------------------------------------------
+
+def counting_factory(factory, records, peak):
+    """`factory`, a train-step factory that a CLI calls, made to count each
+    step it takes: the step's ms (the card synchronised before and after),
+    the memory it adds to what was resident, and the launches of every
+    kernel beside what the module tree gives (`expected_train_launches`).
+    The per-step peak resets the card's peak counter; `peak[0]` keeps the
+    run's peak across them."""
+    from hifidiff_tpu_torch.models.cr import CoarseRestoration
+    from hifidiff_tpu_torch.ops import kernels
+
+    def make(*args, **kwargs):
+        step = factory(*args, **kwargs)
+        frozen = next((a for a in args if isinstance(a, CoarseRestoration)),
+                      None)
+
+        def counted(state, *a, **k):
+            torch.cuda.synchronize()
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            out = step(state, *a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            top = torch.cuda.max_memory_allocated()
+            peak[0] = max(peak[0], top)
+            module = state.module
+            cr = module if isinstance(module, CoarseRestoration) else frozen
+            records.append(dict(
+                ms=ms, peak_gb=(top - resident) / 1e9,
+                launches={n: kernels.LAUNCHES[n] - c
+                          for n, c in before.items()
+                          if kernels.LAUNCHES[n] != c},
+                expected={n: c for n, c in expected_train_launches(
+                    module, cr).items() if c}))
+            return out
+
+        return counted
+
+    return make
+
+
+def run_cli(label, cli, argv, factories, batch, smi):
+    """`cli.main(argv)` with the steps of its step `factories` counted
+    (`counting_factory`): every step's launches must be what the module
+    tree gives. Logs the steps' ms, their median and images/s, the largest
+    memory a step adds to what was resident, the run's peak over what was
+    resident before it, and the wall seconds. Returns (main's result, the
+    numbers)."""
+    records, peak = [], [0]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for name in factories:
+            stack.enter_context(patched(cli, name, counting_factory(
+                getattr(cli, name), records, peak)))
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+    ms = [r["ms"] for r in records]
+    med = statistics.median(ms) if ms else None
+    out = dict(batch=batch, steps=len(records), step_ms=ms, median_ms=med,
+               images_per_s=None if med is None else batch / med * 1e3,
+               step_peak_gb=max((r["peak_gb"] for r in records),
+                                default=None),
+               run_peak_gb=(peak[0] - resident) / 1e9, wall_s=wall,
+               launches_per_step=records[0]["launches"] if records else {})
+    log(f"{label}: {len(records)} steps at batch {batch}, ms "
+        f"{[round(t, 1) for t in ms]} (the first with the warm-up), median "
+        + ("-" if med is None else f"{med:.1f} ms, "
+           f"{out['images_per_s']:.1f} images/s")
+        + f"; a step adds at most {out['step_peak_gb'] or 0:.2f} GB, the run "
+        f"peaks {out['run_peak_gb']:.2f} GB over what was resident; "
+        f"{wall:.1f} s wall [{smi}]")
+    for i, r in enumerate(records):
+        log(f"  {label} step {i}: launches {r['launches']}, the module tree "
+            f"gives {r['expected']}")
+        if r["launches"] != r["expected"]:
+            fail(f"{label} step {i}: launches {r['launches']}, the module "
+                 f"tree gives {r['expected']}")
+    return result, out
+
+
+def finite_log(label, log_dir, project, name, steps):
+    """The JSONL rows a CLI wrote: every value finite, `steps` rows with a
+    train loss. Returns the rows."""
+    path = os.path.join(log_dir, f"{project}.{name}.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    bad = [r for r in rows if not all(math.isfinite(v) for v in r.values())]
+    other = [{k: round(v, 4) for k, v in r.items() if k != "time"}
+             for r in rows if "train_loss" not in r]
+    log(f"{label}: train losses {[round(v, 5) for v in losses]}; other "
+        f"rows {other}")
+    if bad or len(losses) != steps:
+        fail(f"{label}: {len(losses)} train losses (not {steps}), rows with "
+             f"a value that is not finite: {bad}")
+    return rows
+
+
+def first_step_gradients(store):
+    """Patch `TrainState.apply_gradients` so that the first call keeps a
+    host copy of the gradients it finds in `store["grads"]`."""
+    from hifidiff_tpu_torch.train import steps
+
+    real = steps.TrainState.apply_gradients
+
+    def spy(self):
+        if "grads" not in store:
+            store["grads"] = {n: p.grad.detach().float().cpu()
+                              for n, p in self.module.named_parameters()
+                              if p.grad is not None}
+        real(self)
+
+    return patched(steps.TrainState, "apply_gradients", spy)
+
+
+def check_recorded_shapes(dev, g, stats, seen):
+    """Every map that reached `ln_film`, `ln_film_bwd`, the warp or its
+    backward in phase 13 ((dtype, B, C, H, W) keys of `recording`), held to
+    its plain version and run twice for equal bits: `ln_film` and its
+    backward with per-sample FiLM rows 4C apart and with a shared (1, C)
+    row, the backward with and without dw and db; the warp and its backward
+    at every theta (the forward in f32 bit for bit)."""
+    from hifidiff_tpu_torch.ops import norm, warp
+
+    for key in sorted(set(seen["ln_film"]) | set(seen["ln_film_bwd"])):
+        dn, b, c, h, w = key
+        dtype = getattr(torch, dn)
+        x, gr = (torch.randn(b, c, h, w, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        wt, bs = (torch.randn(c, generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        limits = [BWD_REL[dn]] + [SUM_REL] * 4
+        for fb in (b, 1):
+            film = (0.3 * torch.randn(fb, 4 * c, generator=g, device=dev)
+                    ).to(dtype)
+            shift, scale = film.chunk(4, dim=1)[:2]
+            label = f"{dn} {b}x{c}x{h}x{w} film_batch={fb} (phase 13)"
+            if key in seen["ln_film"]:
+                with torch.inference_mode():
+                    stats.compare("ln_film", label,
+                                  norm.ln_film(x, wt, bs, scale, shift),
+                                  norm.ln_film_plain(x, wt, bs, scale, shift),
+                                  dn)
+                same_bits("ln_film", label,
+                          lambda: norm.ln_film(x, wt, bs, scale, shift))
+            if key not in seen["ln_film_bwd"]:
+                continue
+            for need_wb in (True, False):
+                got = norm.ln_film_bwd(gr, x, wt, bs, scale, need_wb=need_wb)
+                ref = norm.ln_film_bwd_plain(gr, x, wt, bs, scale,
+                                             need_wb=need_wb)
+                keep = [i for i in range(5) if ref[i] is not None]
+                stats.compare_rel(
+                    "ln_film_bwd", f"{label} need_wb={need_wb}",
+                    [got[i] for i in keep], [ref[i] for i in keep],
+                    [limits[i] for i in keep])
+                same_bits("ln_film_bwd", f"{label} need_wb={need_wb}",
+                          lambda: norm.ln_film_bwd(gr, x, wt, bs, scale,
+                                                   need_wb=need_wb))
+        del x, gr
+    for key in sorted(set(seen["affine_warp"])
+                      | set(seen["affine_warp_bwd"])):
+        dn, b, c, h, w = key
+        dtype = getattr(torch, dn)
+        x, gr = (torch.randn(b, c, h, w, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        for kind, (base, spread) in THETAS.items():
+            theta = torch.tensor(base, device=dev) + spread * torch.randn(
+                b, 2, 3, generator=g, device=dev)
+            coef = warp.pixel_coef(theta, h, w)
+            label = f"{dn} {b}x{c}x{h}x{w} {kind} (phase 13)"
+            if key in seen["affine_warp"]:
+                with torch.inference_mode():
+                    out, ref = warp.warp(x, coef), warp.warp_plain(x, coef)
+                if stats.compare("affine_warp", label, out, ref, dn) \
+                        and dtype == torch.float32 \
+                        and not torch.equal(out, ref):
+                    fail(f"affine_warp {label}: float32 not bit-equal to "
+                         "the plain version")
+                same_bits("affine_warp", label, lambda: warp.warp(x, coef))
+            if key in seen["affine_warp_bwd"] and kind in THETAS_BWD:
+                stats.compare_rel(
+                    "affine_warp_bwd", label, warp.warp_bwd(gr, x, coef),
+                    warp.warp_bwd_plain(gr, x, coef),
+                    (BWD_REL[dn], DCOEF_REL))
+                same_bits("affine_warp_bwd", label,
+                          lambda: warp.warp_bwd(gr, x, coef))
+        del x, gr
+    torch.cuda.empty_cache()
+
+
+def run_convergence_demo(tmp, smi):
+    """`cli/convergence_demo.py` on the card at its defaults, `--check`
+    included, in `tmp`: its summary, its wall seconds, and a failure where a
+    check of `check_summary` does not hold."""
+    from hifidiff_tpu_torch.cli import convergence_demo
+
+    t0 = time.perf_counter()
+    failed = None
+    try:
+        convergence_demo.main([
+            "--out-dir", os.path.join(tmp, "demo"),
+            "--log-dir", os.path.join(tmp, "demo_logs"), "--device", "cuda"])
+    except AssertionError as e:
+        failed = str(e)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "demo", "convergence.json")) as f:
+        summary = json.load(f)
+    log(f"convergence_demo at its defaults: {wall:.1f} s wall, "
+        + ("every check passed" if failed is None else
+           f"check failed: {failed}") + f" [{smi}]")
+    log("convergence summary: " + json.dumps(summary))
+    if failed is not None:
+        fail(f"convergence_demo: {failed}")
+    return dict(wall_s=wall, summary=summary)
+
+
+def check_training_clis(dev, g, stats, smi):
+    """Phase 13: the five training stages through their CLIs' `main` at
+    their default widths and batches, on the card, chained through their
+    checkpoint directories in a temporary directory: `train_vae`,
+    `train_cr`, `pretrain_idc --cr-ckpt`, `test_idc` on both stage files,
+    `pretrain_denoiser --vae-ckpt` (on images, then on cached latents, with
+    and without `--remat`), and `train_refiner` on the four files; each on
+    `--procedural` two of its batches, one epoch, so two steps. Checked:
+    every logged value finite; every step's kernel launches as the module
+    tree gives them; the refiner as `train_refiner` composed it holding the
+    stage files' tensors bit for bit; the `--remat` run's first loss and
+    gradients against the plain run's to phase 8's limits, and a step of it
+    adding less memory; `train_refiner` stopped after its first epoch and
+    resumed reaching the uninterrupted run's step count and learning rate
+    (these three runs validate with 2 sampler steps); then
+    `convergence_demo` at its defaults, every check of `check_summary`
+    (`run_convergence_demo`); every map that reached a kernel in all of it
+    against the plain version. Returns the numbers by stage."""
+    import shutil
+    import tempfile
+
+    from hifidiff_tpu_torch.cli import (common, pretrain_denoiser,
+                                        pretrain_idc, test_idc, train_cr,
+                                        train_refiner, train_vae)
+    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.train import checkpoint
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            recording(training=True) as seen:
+        kernels.reset_launches()
+        logs = os.path.join(tmp, "logs")
+
+        def ck(stage, name="t"):
+            return os.path.join(tmp, "ckpt", stage, name)
+
+        def argv(cli, name="t", **kw):
+            stage = cli.__name__.rsplit(".", 1)[1]
+            fields = {f.name for f in dataclasses.fields(cli.Config)}
+            kw = {"procedural": STAGE_BATCHES * cli.Config.batch_size,
+                  "seed": SEED, **kw}
+            if "num_epochs" in fields:
+                kw.update(num_epochs=kw.get("num_epochs", 1), name=name,
+                          log_dir=logs,
+                          ckpt_dir=os.path.dirname(ck(stage, name)))
+            if "out_dir" in fields:
+                kw["out_dir"] = os.path.join(tmp, "img", stage)
+            return [a for k, v in kw.items()
+                    for a in (f"--{k.replace('_', '-')}", str(v))]
+
+        def stage(label, cli, factories, name="t", **kw):
+            result, numbers = run_cli(label, cli, argv(cli, name, **kw),
+                                      factories, cli.Config.batch_size, smi)
+            out[label] = numbers
+            return result
+
+        stage("train_vae", train_vae, ["make_vae_train_step"])
+        finite_log("train_vae", logs, "hifi_vae", "t", STAGE_BATCHES)
+        stage("train_cr", train_cr, ["make_cr_train_step"])
+        finite_log("train_cr", logs, "hifi_cr", "t", STAGE_BATCHES)
+        stage("pretrain_idc", pretrain_idc, ["make_idc_train_step"],
+              cr_ckpt=ck("train_cr"))
+        finite_log("pretrain_idc", logs, "hifi_idc", "t", STAGE_BATCHES)
+
+        # test_idc on the held-out split of pretrain_idc's faces
+        n = STAGE_BATCHES * pretrain_idc.Config.batch_size
+        batches = math.ceil(max(4, n // 4) / test_idc.Config.batch_size)
+        before = dict(kernels.LAUNCHES)
+        acc = stage("test_idc", test_idc, [], procedural=n,
+                    cr_ckpt=ck("train_cr"), idc_ckpt=ck("pretrain_idc"))
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        want = {"affine_warp": batches
+                * out["pretrain_idc"]["launches_per_step"]["affine_warp"]}
+        log(f"test_idc: {acc}; launches {launched}, the module tree gives "
+            f"{want}")
+        if launched != want or not all(0 <= acc[k] <= 1 for k in (
+                "batch_accuracy", "sample_accuracy")):
+            fail(f"test_idc: {acc}, launches {launched} against {want}")
+
+        # the denoiser: on images (the refiner's stage file), then on
+        # cached latents without and with --remat, the same seed
+        stage("pretrain_denoiser", pretrain_denoiser,
+              ["make_denoiser_train_step"], vae_ckpt=ck("train_vae"))
+        finite_log("pretrain_denoiser", logs, "hifi_denoiser", "t",
+                   STAGE_BATCHES)
+        firsts = {}
+        for name, more in (("cached", {}), ("remat", dict(remat=1))):
+            store = firsts[name] = {}
+            label = "pretrain_denoiser --cache-latents" + (
+                " --remat" if more else "")
+            with first_step_gradients(store):
+                stage(label, pretrain_denoiser,
+                      ["make_denoiser_train_step_cached"], name=name,
+                      vae_ckpt=ck("train_vae"), cache_latents=1, **more)
+            rows = finite_log(f"pretrain_denoiser {name}", logs,
+                              "hifi_denoiser", name, STAGE_BATCHES)
+            store["loss"] = rows[0]["train_loss"]
+            shutil.rmtree(ck("pretrain_denoiser", name))   # read by none
+        plain, remat = (out[f"pretrain_denoiser --cache-latents{m}"]
+                        for m in ("", " --remat"))
+        if train_disagreement("pretrain_denoiser at batch 512: --remat vs "
+                              "plain, first step", firsts["remat"],
+                              firsts["cached"], 1):
+            fail("pretrain_denoiser --remat: the first step's loss or "
+                 "gradients differ from the plain run's")
+        log(f"pretrain_denoiser at batch 512 on cached latents: a step adds "
+            f"{plain['step_peak_gb']:.2f} GB plain and "
+            f"{remat['step_peak_gb']:.2f} GB with --remat; steps "
+            f"{[round(t, 1) for t in plain['step_ms']]} and "
+            f"{[round(t, 1) for t in remat['step_ms']]} ms; the runs peak "
+            f"{plain['run_peak_gb']:.2f} and {remat['run_peak_gb']:.2f} GB "
+            f"[{smi}]")
+        if not remat["step_peak_gb"] < plain["step_peak_gb"]:
+            fail("pretrain_denoiser --remat: a step does not add less memory")
+
+        # the refiner over the four stage files; the composed refiner
+        # against them
+        composed = {}
+        real_compose = train_refiner.compose
+
+        def spy(cfg, refiner):
+            loaded = real_compose(cfg, refiner)
+            composed.update({k: v.detach().cpu().clone()
+                             for k, v in refiner.state_dict().items()})
+            return loaded
+
+        files = dict(cr_ckpt=ck("train_cr"), idc_ckpt=ck("pretrain_idc"),
+                     denoiser_ckpt=ck("pretrain_denoiser"),
+                     vae_ckpt=ck("train_vae"))
+        with patched(train_refiner, "compose", spy):
+            stage("train_refiner", train_refiner,
+                  ["make_refiner_train_step"], **files)
+        finite_log("train_refiner", logs, "hifi_refiner", "t",
+                   STAGE_BATCHES)
+        held = 0
+        for prefix, path in (("idc.", files["idc_ckpt"]),
+                             ("denoiser.", files["denoiser_ckpt"])):
+            for k, v in common.read_state_dict(path).items():
+                held += 1
+                if not torch.equal(composed[prefix + k], v):
+                    fail(f"train_refiner: the composed {prefix + k} is not "
+                         "the stage file's")
+        log(f"train_refiner: the composed refiner holds the {held} tensors "
+            "of the IDC and denoiser files bit for bit")
+        del composed
+        shutil.rmtree(ck("train_refiner"))
+
+        # resume: one epoch and --stop-after-epoch, then --resume, against
+        # the uninterrupted two epochs
+        def final(name):
+            """The run's last state on the host; its files are removed (a
+            full-width refiner's state is 5.9 GB a file)."""
+            mgr = checkpoint.CheckpointManager(ck("train_refiner", name),
+                                               create=False)
+            state = torch.load(mgr.path(mgr.latest_step()),
+                               map_location="cpu", weights_only=True)
+            shutil.rmtree(ck("train_refiner", name))
+            return state["state"]
+
+        resume_runs = dict(num_epochs=2, num_inference_steps=2, **files)
+        stage("train_refiner, two epochs", train_refiner,
+              ["make_refiner_train_step"], name="whole", **resume_runs)
+        whole = final("whole")
+        stage("train_refiner, stopped after epoch 0", train_refiner,
+              ["make_refiner_train_step"], name="split", stop_after_epoch=0,
+              **resume_runs)
+        stage("train_refiner, resumed", train_refiner,
+              ["make_refiner_train_step"], name="split", resume=1,
+              **resume_runs)
+        split = final("split")
+        lrs = [s["optimizer"]["param_groups"][0]["lr"] for s in (whole,
+                                                                  split)]
+        far = max(float((whole["module"][k].float()
+                         - split["module"][k].float()).abs().max())
+                  for k in whole["module"])
+        log(f"train_refiner resume: steps {whole['step']} / {split['step']}, "
+            f"learning rate {lrs[0]:.6e} / {lrs[1]:.6e}, schedule "
+            f"{whole['scheduler']['last_epoch']} / "
+            f"{split['scheduler']['last_epoch']}; for the record, the "
+            f"parameters differ by at most {far:.3e}")
+        if whole["step"] != split["step"] or lrs[0] != lrs[1] \
+                or whole["step"] != 2 * STAGE_BATCHES:
+            fail("train_refiner: the resumed run did not reach the "
+                 "uninterrupted run's step count and learning rate")
+        del whole, split
+        shutil.rmtree(os.path.join(tmp, "ckpt"))   # the stage files
+        out["convergence_demo"] = run_convergence_demo(tmp, smi)
+
+        launched = dict(kernels.LAUNCHES)
+    for k, n in launched.items():
+        if n != sum(seen[k].values()):
+            fail(f"phase 13: {k} launched {n} times, the recorded calls "
+                 f"{sum(seen[k].values())}")
+    log("phase 13 maps (dtype, B, C, H, W) -> calls: "
+        + json.dumps({k: {"x".join(map(str, s)): n for s, n in v.items()}
+                      for k, v in seen.items() if v}))
+    check_recorded_shapes(dev, g, stats, seen)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2585,6 +3044,12 @@ def main() -> int:
         train_profiles.append(profile)
     log(f"[{time.perf_counter() - t_start:.0f} s] samplers and train steps "
         "timed")
+
+    # -- 13. the training CLIs, eager, before anything is profiled ----------
+    cli_stats = check_training_clis(dev, g, stats, smi)
+    torch.cuda.empty_cache()
+    log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs checked")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The

@@ -1,13 +1,17 @@
 """Shared CLI machinery (counterpart of hifidiff_tpu/cli/common.py): typed
 dataclass configs -> argparse flags, the smoke datasets, the model stack
-built from a config's size knobs, and its weights read from checkpoint files.
+built from a config's size knobs, its weights read from checkpoint files, and
+what the training CLIs share (the refusals, the host-to-card batch copy,
+resume, the module to evaluate).
 
-Checkpoints the port reads, each a file:
+Checkpoints the port reads:
   * torch files (`.pt` / `.pth`) holding a state dict in the HifiDiff
     reference's names (the VAE: diffusers' names), also inside the
     reference's `{"model_state_dict": ...}` wrapper;
   * the port's own `train/checkpoint.save_state` files (the module's state
-    dict is read, the optimizer's is not);
+    dict is read, the optimizer's is not), and a training CLI's checkpoint
+    directory of them (`CheckpointManager`: its latest step is read), which
+    is what one stage hands the next;
   * `.safetensors` files, where the `safetensors` package imports.
 The refiner's file is either a whole FacialRefiner (names under
 `denoiser.`, `fpg.` and `idc.`; every name must load) or a stage-3
@@ -21,9 +25,11 @@ Without a checkpoint a network keeps its seeded random init, with a warning.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import os
-from typing import Dict, Optional, Type, TypeVar, Union
+from typing import Dict, Iterator, Optional, Type, TypeVar, Union
 
 import numpy as np
 import torch
@@ -78,6 +84,94 @@ def seeded_generator(seed: int, counter: int,
     state = np.random.SeedSequence([seed, counter]).generate_state(
         1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+@contextlib.contextmanager
+def seeded(seed: int) -> Iterator[None]:
+    """Modules built inside take their init from `seed`; the global torch
+    RNG is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield
+
+
+def refuse_unported(cfg) -> None:
+    """The training CLIs' flags whose modules are not in the port yet, each
+    refused with the ROADMAP item that brings it, and the need for one of
+    the two generated datasets."""
+    roots = [f for f in ("dataroot", "multipie_root", "celeba_root")
+             if getattr(cfg, f, "")]
+    if roots:
+        flags = ", ".join("--" + f.replace("_", "-") for f in roots)
+        raise NotImplementedError(
+            f"{flags}: the real datasets are not in the port yet (ROADMAP "
+            "§A9.2); use --synthetic N or --procedural N")
+    if getattr(cfg, "lambda_vgg", 0.0) > 0 and getattr(cfg, "vgg19_ckpt",
+                                                        ""):
+        raise NotImplementedError(
+            "--lambda-vgg > 0 with --vgg19-ckpt: the VGG term needs "
+            "eval/vgg.py, not in the port yet (ROADMAP §A6)")
+    if not (cfg.synthetic or cfg.procedural):
+        raise ValueError("give --synthetic N or --procedural N (the real "
+                         "datasets are ROADMAP §A9.2)")
+
+
+def to_device(batch: Dict[str, np.ndarray],
+              device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
+    """A loader's batch on `device`: NHWC image arrays (B, H, W, C) become
+    NCHW tensors, patch stacks (B, P, H, W, C) become (B, P, C, H, W); the
+    counterpart of the JAX CLIs' `device_prefetch` / `shard_batch` on one
+    card."""
+    out = {}
+    for k, a in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if t.ndim in (4, 5):
+            t = t.movedim(-1, -3).contiguous()
+        out[k] = t
+    return out
+
+
+def to_nhwc(images: torch.Tensor) -> np.ndarray:
+    """NCHW images on any device -> a float32 NHWC numpy array (for the
+    grids)."""
+    return images.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def resume(cfg, ckpt, state, loader) -> int:
+    """With `cfg.resume` and a checkpoint in `ckpt`, restore the latest into
+    `state`. Returns the epoch to start at, and sets the loader's epoch to
+    it, so that a resumed run draws the uninterrupted run's shuffles (the
+    JAX CLIs leave their loader at epoch 0, ROADMAP §C)."""
+    start = 0
+    if cfg.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        start = state.step // max(1, len(loader))
+        print(f"resumed at step {state.step} (epoch {start})")
+    loader.epoch = start
+    return start
+
+
+class EvalModule:
+    """What a training CLI evaluates: the module under training, or, with an
+    EMA, a copy that `__call__` fills with the EMA parameters and the live
+    buffers (the JAX CLIs' `state.eval_params`). Either way it is returned
+    in eval mode; the next train step puts the live module back in training
+    mode."""
+
+    def __init__(self, state):
+        self.state = state
+        self.module = state.module if state.ema_params is None \
+            else copy.deepcopy(state.module)
+
+    @torch.no_grad()
+    def __call__(self) -> torch.nn.Module:
+        live = self.state.module
+        if self.module is not live:
+            for n, p in self.module.named_parameters():
+                p.copy_(self.state.ema_params[n])
+            for n, b in self.module.named_buffers():
+                b.copy_(live.get_buffer(n))
+        return self.module.eval()
 
 
 def smoke_datasets(cfg, keys, val_keys=None):
@@ -159,36 +253,49 @@ class SyntheticFaceDataset(Dataset):
 def build_refiner_models(cfg):
     """The CR / VAE / FacialRefiner modules from cfg's model-size knobs, on
     the CPU in float32 with their init drawn from `cfg.seed` (the global
-    torch RNG is left as it was). Returns (cr, vae, refiner, latent), latent
-    being the latent map's side. The CR's decoder has two blocks a level,
-    as the JAX package builds it."""
-    from hifidiff_tpu_torch.models.cr import CoarseRestoration
+    torch RNG is left as it was; `cfg.remat`, where the config has it,
+    goes to the refiner). Returns (cr, vae, refiner, latent), latent being
+    the latent map's side."""
     from hifidiff_tpu_torch.models.refiner import FacialRefiner
     from hifidiff_tpu_torch.vae.model import AutoencoderKL
 
     vae_blocks = parse_ints(cfg.vae_blocks)
     latent = cfg.size // (2 ** (len(vae_blocks) - 1))
-    cr_enc = parse_ints(cfg.cr_enc_depths)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        cr = CoarseRestoration(width=cfg.cr_width, resolution=cfg.size,
-                               enc_nums=cr_enc, mid_num=cfg.cr_mid_depth,
-                               dec_nums=(2,) * len(cr_enc))
+    with seeded(cfg.seed):
+        cr = build_cr(cfg.cr_width, cfg.size, cfg.cr_enc_depths,
+                      cfg.cr_mid_depth)
         vae = AutoencoderKL(block_out=vae_blocks,
                             layers_per_block=cfg.vae_layers)
         refiner = FacialRefiner(latent_size=latent, width=cfg.width,
                                 enc_nums=parse_ints(cfg.enc_depths),
                                 mid_num=cfg.mid_depth,
                                 dec_nums=parse_ints(cfg.dec_depths),
-                                idc_stage_sizes=parse_ints(cfg.idc_stages))
+                                idc_stage_sizes=parse_ints(cfg.idc_stages),
+                                remat=getattr(cfg, "remat", False))
     return cr, vae, refiner, latent
 
 
+def build_cr(width: int, size: int, enc_depths: str, mid_depth: int):
+    """The CR of these size flags; its decoder has two blocks a level, as
+    the JAX package builds it."""
+    from hifidiff_tpu_torch.models.cr import CoarseRestoration
+
+    enc = parse_ints(enc_depths)
+    return CoarseRestoration(width=width, resolution=size, enc_nums=enc,
+                             mid_num=mid_depth, dec_nums=(2,) * len(enc))
+
+
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A checkpoint file as a flat state dict (see the module's docstring for
-    the formats); raises on an orbax directory and on a `.safetensors` file
-    without the `safetensors` package."""
+    """A checkpoint file, or the latest file of a training CLI's checkpoint
+    directory, as a flat state dict (see the module's docstring for the
+    formats); raises on any other directory (an orbax one) and on a
+    `.safetensors` file without the `safetensors` package."""
     if os.path.isdir(path):
+        from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(path, create=False)
+        if ckpt.latest_step() is not None:
+            return read_state_dict(ckpt.path(ckpt.latest_step()))
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
             "package?): the port cannot read orbax without JAX. Give a torch "
@@ -222,16 +329,30 @@ def _load_strict(module: torch.nn.Module, sd, what: str, path: str) -> None:
                          f"unexpected {unexpected[:8]}")
 
 
-def load_vae_params(vae: torch.nn.Module, vae_ckpt: str) -> torch.nn.Module:
-    """Load the frozen VAE's weights in place from a state dict in diffusers'
-    names (the SD-2.1 checkpoint of `pretrain_denoiser.py:256-259`), or keep
-    its random init with a warning; returns `vae`."""
-    if vae_ckpt:
-        _load_strict(vae, read_state_dict(vae_ckpt), "VAE", vae_ckpt)
-        print(f"loaded VAE weights from {vae_ckpt}")
+def load_weights(module: torch.nn.Module, path: str,
+                 what: str) -> torch.nn.Module:
+    """Load a frozen stage's weights strictly from `path` (a file or a
+    training CLI's checkpoint directory; the formats of the module's
+    docstring), or keep the seeded random init with a warning when `path`
+    is empty; returns `module`."""
+    if path:
+        _load_strict(module, read_state_dict(path), what, path)
+        print(f"loaded {what} weights from {path}")
     else:
-        print("[warn] no --vae-ckpt: frozen VAE is randomly initialized")
-    return vae
+        print(f"[warn] no checkpoint: the {what} is randomly initialized")
+    return module
+
+
+def load_vae(vae: torch.nn.Module, path: str, seed: int) -> torch.nn.Module:
+    """`load_weights` for the frozen VAE; without a checkpoint it is drawn
+    from `seed` as the JAX CLIs' `vae.init` draws it
+    (`vae.model.flax_default_init_`)."""
+    from hifidiff_tpu_torch.vae.model import flax_default_init_
+
+    if not path:
+        with seeded(seed):
+            flax_default_init_(vae)
+    return load_weights(vae, path, "VAE")
 
 
 def _load_refiner(refiner: torch.nn.Module, path: str) -> None:
@@ -265,12 +386,8 @@ def load_refiner_stack(cfg, device: Union[str, torch.device],
         _load_refiner(refiner, cfg.refiner_ckpt)
     else:
         print("[warn] random refiner weights")
-    if cfg.cr_ckpt:
-        _load_strict(cr, read_state_dict(cfg.cr_ckpt), "CR", cfg.cr_ckpt)
-        print(f"loaded CR weights from {cfg.cr_ckpt}")
-    else:
-        print("[warn] random CR weights")
-    load_vae_params(vae, cfg.vae_ckpt)
+    load_weights(cr, cfg.cr_ckpt, "CR")
+    load_vae(vae, cfg.vae_ckpt, cfg.seed)
     for m in (cr, vae, refiner):
         m.to(device, dtype).eval()
     return cr, vae, refiner, latent

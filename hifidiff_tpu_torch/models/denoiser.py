@@ -27,6 +27,13 @@ such a cache. `decode(encode(...))` is `forward(...)`.
 `fuse_small_naf` (off by default) runs the blocks on 1x1 and 2x2 maps (at
 16x16 latents: enc3, the middle blocks and dec0) through the fused
 small-map block (each block decides: `ConditionalNAFBlock.will_fuse`).
+
+`remat` (off by default; the JAX package's `nn.remat` of the blocks) runs
+every ConditionalNAFBlock of a training forward under
+`torch.utils.checkpoint`: its activations are recomputed in the backward
+instead of kept, so each block's forward, `ln_film` included, runs twice.
+It applies only in training mode with a gradient wanted; the state-dict
+names do not change.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hifidiff_tpu_torch.nn.hca import HybridCrossAttention
 from hifidiff_tpu_torch.nn.layers import compute_dtype
@@ -66,8 +74,10 @@ class _UNetCore(nn.Module):
 
     def __init__(self, width: int, in_channels: int, latent_size: int,
                  enc_nums: Sequence[int], mid_num: int,
-                 dec_nums: Sequence[int], id_dim: Optional[int] = None):
+                 dec_nums: Sequence[int], id_dim: Optional[int] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         time_dim = width * 4
 
         def stage(ch, n):
@@ -111,11 +121,16 @@ class _UNetCore(nn.Module):
 
     def _runner(self, timesteps, films, fuse_small_naf=False):
         """`run(blk, x)` for one forward: each block gets the time embedding,
-        or the next of the given `films` (one per block)."""
+        or the next of the given `films` (one per block); under `remat` in a
+        training forward that wants a gradient, through a checkpoint."""
         t = self.time_mlp(timesteps) if films is None else None
         films = iter(films) if films is not None else itertools.repeat(None)
+        remat = self.remat and self.training and torch.is_grad_enabled()
 
         def run(blk, x):
+            if remat:
+                return checkpoint(blk, x, t, next(films), fuse_small_naf,
+                                  use_reentrant=False)
             return blk(x, t, next(films), fuse_small_naf)
 
         return run
@@ -148,8 +163,10 @@ class Denoiser(_UNetCore):
 
     def __init__(self, width: int = 128, in_channels: int = 4,
                  enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
-                 dec_nums: Sequence[int] = (2, 2, 2, 2)):
-        super().__init__(width, in_channels, 0, enc_nums, mid_num, dec_nums)
+                 dec_nums: Sequence[int] = (2, 2, 2, 2),
+                 remat: bool = False):
+        super().__init__(width, in_channels, 0, enc_nums, mid_num, dec_nums,
+                         remat=remat)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
                 films: Optional[Sequence[torch.Tensor]] = None
@@ -167,9 +184,10 @@ class FusedDenoiser(_UNetCore):
     def __init__(self, width: int = 128, in_channels: int = 4,
                  latent_size: int = 16,
                  enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
-                 dec_nums: Sequence[int] = (2, 2, 2, 2), id_dim: int = 2048):
+                 dec_nums: Sequence[int] = (2, 2, 2, 2), id_dim: int = 2048,
+                 remat: bool = False):
         super().__init__(width, in_channels, latent_size, enc_nums, mid_num,
-                         dec_nums, id_dim)
+                         dec_nums, id_dim, remat)
 
     def idc_injection(self, identity_embedding: torch.Tensor) -> torch.Tensor:
         """(B, 2048) -> (B, ch, bh, bw), the reference's NCHW view."""

@@ -1,7 +1,8 @@
 """FacialRefiner: the IDC encoder, the FPG and the FusedDenoiser
 (counterpart of hifidiff_tpu/models/refiner.py; reference
 `models/refiner.py:10-38`). Its `state_dict()` prefixes are the reference's
-`idc.`, `denoiser.` and `fpg.`."""
+`idc.`, `denoiser.` and `fpg.`. `remat` checkpoints the denoiser's blocks
+in training (`models/denoiser.py`)."""
 
 from __future__ import annotations
 
@@ -20,12 +21,13 @@ class FacialRefiner(nn.Module):
     def __init__(self, latent_size: int = 16, width: int = 128,
                  enc_nums: Sequence[int] = (2, 2, 4, 8), mid_num: int = 8,
                  dec_nums: Sequence[int] = (2, 2, 2, 2),
-                 idc_stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+                 idc_stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 remat: bool = False):
         super().__init__()
         self.idc = IDCEncoder(stage_sizes=idc_stage_sizes)
         self.denoiser = FusedDenoiser(width=width, latent_size=latent_size,
                                       enc_nums=enc_nums, mid_num=mid_num,
-                                      dec_nums=dec_nums)
+                                      dec_nums=dec_nums, remat=remat)
         self.fpg = FacialPriorGuidance(width=width, enc_nums=enc_nums)
 
     def train(self, mode: bool = True) -> "FacialRefiner":

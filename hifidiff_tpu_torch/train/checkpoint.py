@@ -62,7 +62,7 @@ class CheckpointManager:
             raise FileNotFoundError(
                 f"checkpoint directory does not exist: {self.directory}")
 
-    def _path(self, step: int) -> str:
+    def path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:08d}.pt")
 
     def steps(self) -> List[int]:
@@ -75,9 +75,9 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              extra: Optional[Dict] = None) -> None:
-        save_state(self._path(step), state, extra)
+        save_state(self.path(step), state, extra)
         for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+            os.remove(self.path(old))
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> Optional[Dict]:
@@ -86,7 +86,7 @@ class CheckpointManager:
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return restore_state(self._path(step), state)
+        return restore_state(self.path(step), state)
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

@@ -2,9 +2,9 @@
 (counterpart of hifidiff_tpu/utils/logging.py).
 
 A pluggable MetricsLogger (stdout + JSONL always; wandb only if installed and
-requested), a PIL-based grid writer (PIL is imported when a grid is written,
-and only then), a `torch.profiler` trace scope, and a step timer that waits
-for the card before it reads the clock.
+requested), a grid writer that writes the PNG itself with `zlib` (no PIL), a
+`torch.profiler` trace scope, and a step timer that waits for the card
+before it reads the clock.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import struct
 import time
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -72,15 +74,9 @@ class MetricsLogger:
 
 def save_image_grid(images: np.ndarray, path: str,
                     nrow: Optional[int] = None, pad: int = 2) -> None:
-    """(B, H, W, C) float [0,1] -> one grid PNG (save_image equivalent).
-    Needs PIL, and raises without it."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError(
-            f"save_image_grid writes PNG files through PIL, which is not "
-            f"installed; turn the grids off (--grid-every 0) ({e})") from e
-
+    """(B, H, W, C) float [0,1] -> one grid PNG (save_image equivalent), 8
+    bits a channel, RGB for C 3 and grey for C 1: the JAX package's grid,
+    written without PIL."""
     b, h, w, c = images.shape
     nrow = nrow or max(1, int(np.ceil(np.sqrt(b))))
     ncol = int(np.ceil(b / nrow))
@@ -92,10 +88,31 @@ def save_image_grid(images: np.ndarray, path: str,
         x0 = col * (w + pad) + pad
         grid[y0:y0 + h, x0:x0 + w] = images[i]
     arr = (np.clip(grid, 0, 1) * 255).astype(np.uint8)
-    if c == 1:
-        arr = arr[..., 0]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(arr).save(path)
+    with open(path, "wb") as f:
+        f.write(png_bytes(arr[..., 0] if c == 1 else arr))
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """A uint8 (H, W) grey or (H, W, 3) RGB array as a PNG file's bytes:
+    one IDAT chunk of unfiltered rows."""
+    if arr.dtype != np.uint8 or not (arr.ndim == 2 or (
+            arr.ndim == 3 and arr.shape[2] == 3)):
+        raise ValueError(f"png_bytes takes uint8 (H, W) or (H, W, 3), got "
+                         f"{arr.dtype} {arr.shape}")
+    h, w = arr.shape[:2]
+    rows = arr.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    color = 0 if arr.ndim == 2 else 2
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def side_by_side(*batches: np.ndarray) -> np.ndarray:

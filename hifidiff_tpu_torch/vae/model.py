@@ -12,10 +12,16 @@ loads with `load_state_dict`.
 `fused_gn_silu` (an argument of `encode` / `moments` / `decode`, off by
 default) sends every GroupNorm + SiLU site through the fused kernel
 (`ops.norm.group_norm_silu(..., fused=True)`).
+
+A fresh AutoencoderKL draws as torch's layers do (the reference's diffusers
+VAE); `flax_default_init_` draws it as the JAX package's `vae.init` does
+(flax's `lecun_normal` weights, zero biases), which the training CLIs use
+where the JAX ones initialize a VAE.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -173,6 +179,22 @@ class Decoder(nn.Module):
         for blk in self.up_blocks:
             x = blk(x, fused)
         return self.conv_out(_gn_silu(self.conv_norm_out, x, fused))
+
+
+def flax_default_init_(module: nn.Module) -> nn.Module:
+    """Draw every Conv2d and Linear of `module` as flax's `nn.Conv` /
+    `nn.Dense` defaults do: weights from a normal truncated at two standard
+    deviations with variance 1 / fan_in (`lecun_normal`), biases zero. Draws
+    from torch's global RNG; returns `module`."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / .87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+    return module
 
 
 class AutoencoderKL(nn.Module):

@@ -8,7 +8,6 @@ JAX package's own loaders, bit for bit), `utils/logging` and
 """
 
 import dataclasses
-import importlib.util
 import json
 import os
 
@@ -397,7 +396,6 @@ def test_tiny_seam_checkpoints(ckpts, tmp_path):
 # -- logging and test_refiner ------------------------------------------------
 
 def test_logging_utilities(tmp_path):
-    pytest.importorskip("PIL")
     log = tlogging.MetricsLogger(str(tmp_path), "proj", stdout_every=0)
     log.log({"loss": torch.tensor(0.5)}, step=1)
     log.close()
@@ -416,12 +414,27 @@ def test_logging_utilities(tmp_path):
 
 
 def test_save_image_grid_without_pil(monkeypatch, tmp_path):
+    """The grid PNG is written without PIL; decoded with PIL afterwards it
+    holds the JAX writer's grid bit for bit (RGB and grey)."""
     import sys
 
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="PIL"):
-        tlogging.save_image_grid(np.zeros((1, 4, 4, 3)),
-                                 str(tmp_path / "x.png"))
+    from PIL import Image
+
+    from hifidiff_tpu.utils import logging as jlogging
+
+    rng = np.random.default_rng(0)
+    for c in (3, 1):
+        imgs = rng.uniform(-0.1, 1.1, (5, 7, 9, c)).astype(np.float32)
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "PIL", None)
+            tlogging.save_image_grid(imgs, str(tmp_path / "p" / "x.png"))
+        jlogging.save_image_grid(imgs, str(tmp_path / "j.png"))
+        port = Image.open(tmp_path / "p" / "x.png")
+        ref = Image.open(tmp_path / "j.png")
+        assert port.mode == ref.mode == ("RGB" if c == 3 else "L")
+        np.testing.assert_array_equal(np.asarray(port), np.asarray(ref))
+        # five 7x9 tiles in rows of three, 2 pixels apart and around
+        assert np.asarray(port).shape == ((20, 35, 3) if c == 3 else (20, 35))
 
 
 def test_test_refiner_synthetic(ckpts, tmp_path):
@@ -433,9 +446,7 @@ def test_test_refiner_synthetic(ckpts, tmp_path):
         device="cpu"))
     assert set(out) == {"psnr", "ssim"}
     assert all(np.isfinite(v) for v in out.values())
-    if importlib.util.find_spec("PIL") is not None:   # grids need PIL
-        assert sorted(os.listdir(tmp_path)) == ["batch_0.png",
-                                                "batch_1.png"]
+    assert sorted(os.listdir(tmp_path)) == ["batch_0.png", "batch_1.png"]
 
 
 def test_test_refiner_procedural():

@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it imports without jax, chip_smoke.py
 refuses to run without CUDA, the sampler, the train steps, the server and
-the eval CLI target the card unless asked for the CPU, the inference-only
+every CLI target the card unless asked for the CPU, the training CLIs refuse
+the flags of what is not ported yet, the inference-only
 kernels raise where a gradient is wanted, and a CUDA tensor reaching a
 kernel wrapper whose library cannot be built raises rather than falling
 back."""
@@ -54,6 +55,8 @@ def test_port_imports_with_jax_blocked():
         "cli.common", "cli.serve", "cli.test_refiner", "cli.serve_bench",
         "data.core", "data.procedural", "eval.metrics",
         "utils.logging")} <= _port_modules()
+    assert {f"hifidiff_tpu_torch.cli.{m}" for m in TRAIN_CLIS} \
+        <= _port_modules()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -161,6 +164,73 @@ def test_eval_cli_default_device_is_the_card(monkeypatch):
         test_refiner.main(flags)
     out = test_refiner.main(flags + ["--device", "cpu"])
     assert set(out) == {"psnr", "ssim"}
+
+
+TRAIN_CLIS = ["train_vae", "train_cr", "pretrain_idc", "test_idc",
+              "pretrain_denoiser", "train_refiner", "convergence_demo"]
+# the tiny stack's flags each training CLI takes
+TRAIN_TINY = dict(size=32, vae_blocks="32,32,32", vae_layers=1, width=16,
+                  enc_depths="1", mid_depth=1, dec_depths="1", cr_width=8,
+                  cr_enc_depths="1", cr_mid_depth=1, idc_stages="1,1,1,1")
+
+
+def _train_flags(name, **more):
+    import dataclasses
+    import importlib
+
+    fields = {f.name for f in dataclasses.fields(importlib.import_module(
+        f"hifidiff_tpu_torch.cli.{name}").Config)}
+    kw = {k: v for k, v in TRAIN_TINY.items() if k in fields}
+    if name == "train_cr":   # its own widths are the CR's
+        kw.update(width=8, enc_depths="1", mid_depth=1)
+    if name == "convergence_demo":
+        kw = dict(n=8, batch_size=4, epochs_vae=1, epochs_cr=1,
+                  epochs_idc=1, epochs_dn=1, epochs_refiner=1, check=0)
+    else:
+        kw.update(procedural=8, batch_size=4, num_epochs=1)
+        kw = {k: v for k, v in kw.items() if k in fields}
+    kw.update(more)
+    return [a for k, v in kw.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+@pytest.mark.parametrize("name", TRAIN_CLIS)
+def test_training_clis_default_device_is_the_card(monkeypatch, tmp_path,
+                                                  name):
+    """Without `--device` each training CLI targets the card and raises
+    without one, before it trains or writes anything; the CPU takes it only
+    when asked (the runs themselves: tests/test_torch_train_cli.py)."""
+    import importlib
+
+    main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_train_flags(name))
+    assert not any(p.suffix in (".pt", ".jsonl", ".png")
+                   for p in tmp_path.rglob("*"))
+
+
+@pytest.mark.parametrize("name, flags, item", [
+    ("train_vae", dict(multipie_root="/data/mp"), "§A9.2"),
+    ("pretrain_denoiser", dict(celeba_root="/data/celeba"), "§A9.2"),
+    ("train_cr", dict(dataroot="/data/mp"), "§A9.2"),
+    ("pretrain_idc", dict(dataroot="/data/mp"), "§A9.2"),
+    ("test_idc", dict(dataroot="/data/kface"), "§A9.2"),
+    ("train_refiner", dict(dataroot="/data/mp"), "§A9.2"),
+    ("train_cr", dict(loss="composite", lambda_vgg=0.1,
+                      vgg19_ckpt="vgg19.pt"), "§A6"),
+])
+def test_training_cli_refusals(monkeypatch, tmp_path, name, flags, item):
+    """The real datasets and the VGG term are refused, naming the ROADMAP
+    item that brings them, before anything runs."""
+    import importlib
+
+    main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=item):
+        main(_train_flags(name, device="cpu", **flags))
+    assert not list(tmp_path.rglob("*"))
 
 
 STEP_FACTORIES = ["make_cr_train_step", "make_cr_eval_step",

@@ -51,3 +51,32 @@ def test_decode():
         out = vae.decode(nchw(z))
     assert out.shape == (2, 3, 16, 16)
     assert_close(nhwc(out), ref, **TOL)
+
+
+def test_flax_default_init_draws_as_the_jax_vae():
+    """`flax_default_init_` (what the training CLIs use where the JAX ones
+    call `vae.init`) draws as the JAX VAE's flax init does: every conv and
+    linear bias zero, every weight within two of its standard deviations (a
+    truncated normal of variance 1 / fan_in), and each weight's spread
+    within 10% of the JAX init's for the same tensor (the draws differ;
+    torch's own default sits near 0.58 of it)."""
+    from hifidiff_tpu_torch.vae.model import flax_default_init_
+
+    torch.manual_seed(0)
+    vae = flax_default_init_(AutoencoderKL(**CFG))
+    ref = convert.vae_state_dict(jax.jit(JVAE(**CFG).init)(
+        jax.random.PRNGKey(0), np.zeros((1, 16, 16, 3), np.float32))["params"])
+    weights = 0
+    for name, m in vae.named_modules():
+        if not isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            continue
+        w = m.weight.detach()
+        std = (1.0 / w[0].numel()) ** 0.5 / .87962566103423978
+        assert torch.count_nonzero(m.bias) == 0, name
+        assert float(w.abs().max()) <= 2 * std * (1 + 1e-6), name
+        assert torch.count_nonzero(ref[f"{name}.bias"]) == 0, name
+        if w.numel() >= 1000:
+            weights += 1
+            ratio = float(w.std() / ref[f"{name}.weight"].std())
+            assert abs(ratio - 1.0) < 0.1, (name, ratio)
+    assert weights >= 10
