@@ -121,6 +121,28 @@ raises at once):
      stage: each step's ms, the median and images/s, the memory a step adds,
      the run's peak and its wall seconds; the demo's summary and wall
      seconds;
+  14. (run after 13, on the stage files of its `train_vae`, `train_cr` and
+     first `train_refiner` run) the perceptual metrics and the
+     distillation CLIs, eager, at their default widths, with TF32, the
+     launch counts set to 0 before and read after: `test_refiner` at its
+     defaults (f32, batch 4) with `--vgg16-ckpt --lpips-ckpt --niqe-model`
+     (a VGG16 and lpips heads drawn at random under torchvision's and
+     lpips' names, a NIQE model fitted on procedural faces): every metric
+     finite, its launches as the module tree gives, and one LPIPS call on
+     the card against the host CPU's (TF32 off, LPIPS_REL); `train_cr` at
+     its defaults with `--loss composite --lambda-vgg 0.1 --vgg19-ckpt` (a
+     random torchvision-named VGG19), two steps, through the kernels and
+     through their plain versions, and with `--lambda-vgg 0`: the first
+     step's loss and gradients against the plain run's, its gradients
+     against the run without the term, to phase 8's limits, 9 warp and 9
+     warp-backward launches a step; `train_tae` (batch 64), `train_tiny_cr`
+     (64), `train_tiny_dn` (16) and `distill` (16, 50 -> 10 steps, 5
+     sub-steps), two steps each, every step's launches as the module tree
+     gives them (`distill_launches`: the teacher's and the student's
+     forwards, the student's backward); the distilled student, the tiny
+     denoiser and the two tiny seams each through `test_refiner` for one
+     sampler call; every map that reached a kernel in the phase against
+     its plain version (twice, for equal bits). Printed by stage as in 13;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -163,8 +185,9 @@ the warp on the sampler's default path (their `server_launches`: the
 server's, all in its warm-up), `matmul_w8`, `group_norm_silu` and
 the fused block on its int8 + fused path, `ln_film_bwd` on a refiner train
 step and `affine_warp_bwd` on a CR train step; under "paths" the same sums
-for every path that launched the kernel, the train steps included); the last
-line is
+for every path that launched the kernel, the train steps included; under
+"phase14_launches_per_step" a step's launches in each of phase 14's stages
+that launched it); the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -318,6 +341,11 @@ EVAL_BATCHES = 2
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
 # phase 13: each training CLI on `--procedural` this many of its batches
 STAGE_BATCHES = 2
+# phase 14: the faces the NIQE model is fitted on, LPIPS card vs host CPU,
+# and distill's procedural faces (its held-out quarter is one eval batch)
+NIQE_FACES = 48
+LPIPS_REL = 1e-4
+DISTILL_PROCEDURAL = 64
 TIMED_STEPS = 8
 THETAS_BWD = {k: THETAS[k]
               for k in ("identity", "random", "shear", "out_of_bounds")}
@@ -2274,13 +2302,20 @@ def check_server(models, dev, smi, stats):
 
 # -- phase 13: the training CLIs ---------------------------------------------
 
-def counting_factory(factory, records, peak):
+def default_expected(module, cr, args, kwargs):
+    return expected_train_launches(module, cr)
+
+
+def counting_factory(factory, records, peak, expected=default_expected):
     """`factory`, a train-step factory that a CLI calls, made to count each
     step it takes: the step's ms (the card synchronised before and after),
     the memory it adds to what was resident, and the launches of every
-    kernel beside what the module tree gives (`expected_train_launches`).
-    The per-step peak resets the card's peak counter; `peak[0]` keeps the
-    run's peak across them."""
+    kernel beside what the module tree gives (`expected(module, cr, args,
+    kwargs)` of the step's module, the frozen CR among the factory's
+    arguments and the step's other arguments; by default
+    `expected_train_launches`). A call with `update=False` (a validation
+    pass through the step) is recorded as such. The per-step peak resets
+    the card's peak counter; `peak[0]` keeps the run's peak across them."""
     from hifidiff_tpu_torch.models.cr import CoarseRestoration
     from hifidiff_tpu_torch.ops import kernels
 
@@ -2305,11 +2340,12 @@ def counting_factory(factory, records, peak):
             cr = module if isinstance(module, CoarseRestoration) else frozen
             records.append(dict(
                 ms=ms, peak_gb=(top - resident) / 1e9,
+                val=k.get("update", True) is False,
                 launches={n: kernels.LAUNCHES[n] - c
                           for n, c in before.items()
                           if kernels.LAUNCHES[n] != c},
-                expected={n: c for n, c in expected_train_launches(
-                    module, cr).items() if c}))
+                expected={n: c for n, c in expected(
+                    module, cr, a, k).items() if c}))
             return out
 
         return counted
@@ -2317,12 +2353,14 @@ def counting_factory(factory, records, peak):
     return make
 
 
-def run_cli(label, cli, argv, factories, batch, smi):
+def run_cli(label, cli, argv, factories, batch, smi,
+            expected=default_expected):
     """`cli.main(argv)` with the steps of its step `factories` counted
-    (`counting_factory`): every step's launches must be what the module
-    tree gives. Logs the steps' ms, their median and images/s, the largest
-    memory a step adds to what was resident, the run's peak over what was
-    resident before it, and the wall seconds. Returns (main's result, the
+    (`counting_factory`, with `expected`): every step's launches must be
+    what the module tree gives. Logs the steps' ms, their median and
+    images/s (validation passes through the step apart), the largest memory
+    a step adds to what was resident, the run's peak over what was resident
+    before it, and the wall seconds. Returns (main's result, the
     numbers)."""
     records, peak = [], [0]
     torch.cuda.synchronize()
@@ -2331,21 +2369,23 @@ def run_cli(label, cli, argv, factories, batch, smi):
     with contextlib.ExitStack() as stack:
         for name in factories:
             stack.enter_context(patched(cli, name, counting_factory(
-                getattr(cli, name), records, peak)))
+                getattr(cli, name), records, peak, expected)))
         t0 = time.perf_counter()
         result = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
-    ms = [r["ms"] for r in records]
+    trained = [r for r in records if not r["val"]]
+    ms = [r["ms"] for r in trained]
     med = statistics.median(ms) if ms else None
-    out = dict(batch=batch, steps=len(records), step_ms=ms, median_ms=med,
+    out = dict(batch=batch, steps=len(trained), step_ms=ms, median_ms=med,
                images_per_s=None if med is None else batch / med * 1e3,
-               step_peak_gb=max((r["peak_gb"] for r in records),
+               step_peak_gb=max((r["peak_gb"] for r in trained),
                                 default=None),
                run_peak_gb=(peak[0] - resident) / 1e9, wall_s=wall,
-               launches_per_step=records[0]["launches"] if records else {})
-    log(f"{label}: {len(records)} steps at batch {batch}, ms "
+               launches_per_step=trained[0]["launches"] if trained else {},
+               val_ms=[r["ms"] for r in records if r["val"]])
+    log(f"{label}: {len(trained)} steps at batch {batch}, ms "
         f"{[round(t, 1) for t in ms]} (the first with the warm-up), median "
         + ("-" if med is None else f"{med:.1f} ms, "
            f"{out['images_per_s']:.1f} images/s")
@@ -2353,8 +2393,9 @@ def run_cli(label, cli, argv, factories, batch, smi):
         f"peaks {out['run_peak_gb']:.2f} GB over what was resident; "
         f"{wall:.1f} s wall [{smi}]")
     for i, r in enumerate(records):
-        log(f"  {label} step {i}: launches {r['launches']}, the module tree "
-            f"gives {r['expected']}")
+        what = "validation pass" if r["val"] else "step"
+        log(f"  {label} {what} {i}: launches {r['launches']}, the module "
+            f"tree gives {r['expected']}")
         if r["launches"] != r["expected"]:
             fail(f"{label} step {i}: launches {r['launches']}, the module "
                  f"tree gives {r['expected']}")
@@ -2396,9 +2437,9 @@ def first_step_gradients(store):
     return patched(steps.TrainState, "apply_gradients", spy)
 
 
-def check_recorded_shapes(dev, g, stats, seen):
+def check_recorded_shapes(dev, g, stats, seen, phase="phase 13"):
     """Every map that reached `ln_film`, `ln_film_bwd`, the warp or its
-    backward in phase 13 ((dtype, B, C, H, W) keys of `recording`), held to
+    backward in `phase` ((dtype, B, C, H, W) keys of `recording`), held to
     its plain version and run twice for equal bits: `ln_film` and its
     backward with per-sample FiLM rows 4C apart and with a shared (1, C)
     row, the backward with and without dw and db; the warp and its backward
@@ -2417,7 +2458,7 @@ def check_recorded_shapes(dev, g, stats, seen):
             film = (0.3 * torch.randn(fb, 4 * c, generator=g, device=dev)
                     ).to(dtype)
             shift, scale = film.chunk(4, dim=1)[:2]
-            label = f"{dn} {b}x{c}x{h}x{w} film_batch={fb} (phase 13)"
+            label = f"{dn} {b}x{c}x{h}x{w} film_batch={fb} ({phase})"
             if key in seen["ln_film"]:
                 with torch.inference_mode():
                     stats.compare("ln_film", label,
@@ -2451,7 +2492,7 @@ def check_recorded_shapes(dev, g, stats, seen):
             theta = torch.tensor(base, device=dev) + spread * torch.randn(
                 b, 2, 3, generator=g, device=dev)
             coef = warp.pixel_coef(theta, h, w)
-            label = f"{dn} {b}x{c}x{h}x{w} {kind} (phase 13)"
+            label = f"{dn} {b}x{c}x{h}x{w} {kind} ({phase})"
             if key in seen["affine_warp"]:
                 with torch.inference_mode():
                     out, ref = warp.warp(x, coef), warp.warp_plain(x, coef)
@@ -2498,7 +2539,7 @@ def run_convergence_demo(tmp, smi):
     return dict(wall_s=wall, summary=summary)
 
 
-def check_training_clis(dev, g, stats, smi):
+def check_training_clis(dev, g, stats, smi, keep):
     """Phase 13: the five training stages through their CLIs' `main` at
     their default widths and batches, on the card, chained through their
     checkpoint directories in a temporary directory: `train_vae`,
@@ -2515,7 +2556,9 @@ def check_training_clis(dev, g, stats, smi):
     (these three runs validate with 2 sampler steps); then
     `convergence_demo` at its defaults, every check of `check_summary`
     (`run_convergence_demo`); every map that reached a kernel in all of it
-    against the plain version. Returns the numbers by stage."""
+    against the plain version. The stage directories of `train_vae`,
+    `train_cr` and the first `train_refiner` run are moved to `keep` (phase
+    14 reads them). Returns the numbers by stage."""
     import shutil
     import tempfile
 
@@ -2535,18 +2578,7 @@ def check_training_clis(dev, g, stats, smi):
             return os.path.join(tmp, "ckpt", stage, name)
 
         def argv(cli, name="t", **kw):
-            stage = cli.__name__.rsplit(".", 1)[1]
-            fields = {f.name for f in dataclasses.fields(cli.Config)}
-            kw = {"procedural": STAGE_BATCHES * cli.Config.batch_size,
-                  "seed": SEED, **kw}
-            if "num_epochs" in fields:
-                kw.update(num_epochs=kw.get("num_epochs", 1), name=name,
-                          log_dir=logs,
-                          ckpt_dir=os.path.dirname(ck(stage, name)))
-            if "out_dir" in fields:
-                kw["out_dir"] = os.path.join(tmp, "img", stage)
-            return [a for k, v in kw.items()
-                    for a in (f"--{k.replace('_', '-')}", str(v))]
+            return cli_argv(**stage_flags(cli, tmp, name, **kw))
 
         def stage(label, cli, factories, name="t", **kw):
             result, numbers = run_cli(label, cli, argv(cli, name, **kw),
@@ -2644,7 +2676,7 @@ def check_training_clis(dev, g, stats, smi):
         log(f"train_refiner: the composed refiner holds the {held} tensors "
             "of the IDC and denoiser files bit for bit")
         del composed
-        shutil.rmtree(ck("train_refiner"))
+        shutil.move(ck("train_refiner"), os.path.join(keep, "train_refiner"))
 
         # resume: one epoch and --stop-after-epoch, then --resume, against
         # the uninterrupted two epochs
@@ -2684,6 +2716,8 @@ def check_training_clis(dev, g, stats, smi):
             fail("train_refiner: the resumed run did not reach the "
                  "uninterrupted run's step count and learning rate")
         del whole, split
+        for kept in ("train_vae", "train_cr"):
+            shutil.move(ck(kept), os.path.join(keep, kept))
         shutil.rmtree(os.path.join(tmp, "ckpt"))   # the stage files
         out["convergence_demo"] = run_convergence_demo(tmp, smi)
 
@@ -2697,6 +2731,340 @@ def check_training_clis(dev, g, stats, smi):
                       for k, v in seen.items() if v}))
     check_recorded_shapes(dev, g, stats, seen)
     return out
+
+
+# -- phase 14: the perceptual metrics and the distillation trainers --------
+
+def torchvision_state_dict(features, gen):
+    """Random weights under torchvision's names for a `features` Sequential
+    of `eval/vgg.py` / `eval/lpips.py`: kaiming-normal convolutions (the
+    activations keep their scale through the trunk), small biases; drawn
+    on the host from the torch.Generator `gen`."""
+    sd = {}
+    for i, m in enumerate(features):
+        if isinstance(m, torch.nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            sd[f"features.{i}.weight"] = torch.randn(
+                m.weight.shape, generator=gen) * math.sqrt(2.0 / fan_in)
+            sd[f"features.{i}.bias"] = 0.05 * torch.randn(m.bias.shape,
+                                                          generator=gen)
+    return sd
+
+
+def distill_launches(module, teacher, cr, teacher_calls, student_calls,
+                     update=True):
+    """The launches of one distillation step that the module tree gives:
+    one warp per STN of the frozen CR (no backward), two `ln_film` per
+    ConditionalNAFBlock in each of the teacher's `teacher_calls` and the
+    student's `student_calls` forwards, and with `update` two
+    `ln_film_bwd` per block of the student in each of its calls."""
+    blocks = len(module.denoiser.blocks())
+    return {"affine_warp": sum(hasattr(m, "fc_loc") for m in cr.modules()),
+            "ln_film": 2 * (len(teacher.denoiser.blocks()) * teacher_calls
+                            + blocks * student_calls),
+            "ln_film_bwd": 2 * blocks * student_calls if update else 0}
+
+
+def meta_stack(cli, **flags):
+    """The CR / VAE / FacialRefiner of a CLI's size flags, built on the meta
+    device (no memory, no init): what `expected_launches` counts."""
+    from hifidiff_tpu_torch.cli import common
+
+    with torch.device("meta"):
+        cr, vae, refiner, _ = common.build_refiner_models(
+            cli.Config(**flags))
+    return refiner, cr, vae
+
+
+def check_test_refiner_metrics(dev, tmp, keep, g_host, smi):
+    """`test_refiner` at its defaults on the card with the three metric
+    flags: a VGG16 and lpips heads drawn at random under torchvision's and
+    lpips' names, and a NIQE model that `fit_niqe_model` fits on procedural
+    faces, over phase 13's stage files; then one LPIPS call on the card
+    against the same call on the host CPU (TF32 off)."""
+    from hifidiff_tpu_torch.cli import test_refiner
+    from hifidiff_tpu_torch.data.procedural import ProceduralFaceDataset
+    from hifidiff_tpu_torch.eval import lpips, niqe
+    from hifidiff_tpu_torch.ops import kernels
+
+    vgg16, heads = (os.path.join(tmp, f) for f in ("vgg16.pt",
+                                                   "lpips_vgg.pt"))
+    torch.save(torchvision_state_dict(lpips.vgg_features(
+        lpips.VGG16_STAGES, pool_after_last=True), g_host), vgg16)
+    torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1,
+                                                     generator=g_host)
+                for i, c in enumerate((64, 128, 256, 512, 512))}, heads)
+    t0 = time.perf_counter()
+    faces = ProceduralFaceDataset(NIQE_FACES, 128, keys=("gt",),
+                                  seed=SEED + 3)
+    mu, cov = niqe.fit_niqe_model([faces[i]["gt"] for i in range(len(faces))])
+    model = os.path.join(tmp, "niqe.npz")
+    np.savez(model, mu=mu, cov=cov)
+    log(f"NIQE model fitted on {NIQE_FACES} procedural faces at 128 px on "
+        f"the host: {time.perf_counter() - t0:.1f} s")
+
+    files = dict(refiner_ckpt=os.path.join(keep, "train_refiner"),
+                 cr_ckpt=os.path.join(keep, "train_cr"),
+                 vae_ckpt=os.path.join(keep, "train_vae"))
+    per_call = expected_launches(*meta_stack(test_refiner))
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    got = test_refiner.main(cli_argv(
+        **files, procedural=EVAL_PROCEDURAL, grid_every=0, seed=SEED,
+        vgg16_ckpt=vgg16, lpips_ckpt=heads, niqe_model=model))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: kernels.LAUNCHES[k] - before[k]
+                for k in ("ln_film", "affine_warp")}
+    want = {k: EVAL_BATCHES * per_call[k] for k in launched}
+    log(f"test_refiner on the card with its metric flags (f32, batch 4, "
+        f"DDIM-50, {EVAL_BATCHES} batches): {json.dumps(got)}, "
+        f"{seconds:.1f} s with the weights' load; kernel launches "
+        f"{launched} (the module tree gives {want}) [{smi}]")
+    if set(got) != {"psnr", "ssim", "lpips", "niqe"} \
+            or not all(np.isfinite(v) for v in got.values()) \
+            or launched != want:
+        fail(f"test_refiner with its metric flags: {got}, launches "
+             f"{launched} against {want}")
+
+    # LPIPS, card against host CPU, on procedural faces against their
+    # degraded inputs
+    from hifidiff_tpu_torch.cli.common import read_state_dict
+
+    pairs = ProceduralFaceDataset(4, 128, keys=("lr", "gt"), seed=SEED + 4)
+    x, y = (torch.from_numpy(np.stack([pairs[i][k] for i in range(4)]))
+            .permute(0, 3, 1, 2).contiguous() for k in ("lr", "gt"))
+    net, lins = lpips.load_lpips_params(read_state_dict(vgg16),
+                                        read_state_dict(heads))
+    with torch.no_grad():
+        host = lpips.lpips_distance(net, lins, x, y)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            card = lpips.lpips_distance(
+                net.to(dev), [w.to(dev) for w in lins], x.to(dev),
+                y.to(dev)).cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    rel = float((card - host).abs().max() / host.abs().max())
+    log(f"LPIPS (VGG16) of 4 procedural faces against their inputs: card "
+        f"{card.tolist()}, host CPU {host.tolist()}: rel {rel:.2e} (limit "
+        f"{LPIPS_REL:.0e})")
+    if not rel <= LPIPS_REL:
+        fail(f"LPIPS on the card: {rel:.2e} from the host CPU's")
+    return got
+
+
+def check_train_cr_vgg(tmp, g_host, smi):
+    """`train_cr` at its defaults with the CRLoss and its VGG term
+    (`--loss composite --lambda-vgg 0.1 --vgg19-ckpt`, a VGG19 drawn at
+    random under torchvision's names), two steps, three runs: through the
+    kernels, through their plain versions on the card, and with
+    `--lambda-vgg 0`. The first step's loss and gradients of the first run
+    against the second's to phase 8's limits (9 warp and 9 warp-backward
+    launches a step through the kernels); its gradients against the third
+    run's to the same limits, the VGG term adding no gradient; its loss
+    above the third run's."""
+    from hifidiff_tpu_torch.cli import train_cr
+    from hifidiff_tpu_torch.eval import vgg
+    from hifidiff_tpu_torch.ops import warp
+
+    vgg19 = os.path.join(tmp, "vgg19.pt")
+    torch.save(torchvision_state_dict(vgg.vgg_features(
+        ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4)),
+        pool_after_last=True), g_host), vgg19)
+    out, firsts = {}, {}
+    runs = (("vgg", dict(lambda_vgg=0.1, vgg19_ckpt=vgg19), False),
+            ("vgg, plain versions", dict(lambda_vgg=0.1, vgg19_ckpt=vgg19),
+             True),
+            ("no vgg", dict(lambda_vgg=0.0), False))
+    for name, more, plain in runs:
+        store = firsts[name] = {}
+        label = f"train_cr --loss composite ({name})"
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(patched(warp, "warp", warp.warp_plain))
+                stack.enter_context(patched(warp, "warp_bwd",
+                                            warp.warp_bwd_plain))
+            stack.enter_context(first_step_gradients(store))
+            _, out[label] = run_cli(
+                label, train_cr, cli_argv(
+                    **stage_flags(train_cr, tmp, name.replace(" ", "_")
+                                  .replace(",", "")),
+                    loss="composite", dump_every=0, **more),
+                ["make_cr_train_step"], train_cr.Config.batch_size, smi,
+                expected=(lambda *a: {}) if plain else default_expected)
+        rows = finite_log(label, os.path.join(tmp, "logs"), "hifi_cr",
+                          name.replace(" ", "_").replace(",", ""),
+                          STAGE_BATCHES)
+        store["loss"] = rows[0]["train_loss"]
+    vgg_run = firsts["vgg"]
+    if train_disagreement("train_cr with the VGG term: kernels vs plain "
+                          "versions on the card, first step", vgg_run,
+                          firsts["vgg, plain versions"], 1):
+        fail("train_cr with the VGG term: the kernels' run and the plain "
+             "versions' disagree")
+    no_vgg = firsts["no vgg"]
+    if train_disagreement("train_cr: gradients with the VGG term vs "
+                          "without (the loss of the run without)",
+                          dict(vgg_run, loss=no_vgg["loss"]), no_vgg, 1):
+        fail("train_cr: the VGG term changed the gradients")
+    log(f"train_cr first loss with the VGG term {vgg_run['loss']:.6f}, "
+        f"without {no_vgg['loss']:.6f}")
+    if not vgg_run["loss"] > no_vgg["loss"]:
+        fail("train_cr: the VGG term added nothing to the loss")
+    return out
+
+
+def stage_flags(cli, tmp, name, **more):
+    """The flags phases 13 and 14 give a stage: STAGE_BATCHES of the CLI's
+    default batch of procedural faces, one epoch, and its run `name`, logs,
+    checkpoints (`tmp/ckpt/<stage>/<name>`) and images under `tmp`, where
+    the CLI has those fields; `more` on top."""
+    stage = cli.__name__.rsplit(".", 1)[1]
+    fields = {f.name for f in dataclasses.fields(cli.Config)}
+    kw = {"procedural": STAGE_BATCHES * cli.Config.batch_size, "seed": SEED,
+          "num_epochs": 1, "name": name,
+          "log_dir": os.path.join(tmp, "logs"),
+          "ckpt_dir": os.path.join(tmp, "ckpt", stage),
+          "out_dir": os.path.join(tmp, "img", stage)}
+    return {**{k: v for k, v in kw.items()
+               if k in fields or k == "procedural"}, **more}
+
+
+def cli_argv(**kw):
+    return [a for k, v in kw.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def check_distill_clis(tmp, keep, smi):
+    """The four distillation CLIs at their default widths and batches, two
+    steps each, eager, on phase 13's stage files: `train_tae --vae-ckpt`
+    (batch 64), `train_tiny_cr --cr-ckpt` (64), `train_tiny_dn` (16, its
+    validation pass counted apart) and `distill` (16, 50 -> 10 steps, 5
+    sub-steps) on the refiner, CR and VAE files. Every step's launches as
+    the module tree gives them (`distill_launches`); then the distilled
+    student, the tiny denoiser and the two tiny seams through
+    `test_refiner` for one sampler call each (10 steps), finite and with
+    their launches."""
+    from hifidiff_tpu_torch.cli import (distill, test_refiner, train_tae,
+                                        train_tiny_cr, train_tiny_dn)
+    from hifidiff_tpu_torch.ops import kernels
+
+    out = {}
+    files = dict(refiner_ckpt=os.path.join(keep, "train_refiner"),
+                 cr_ckpt=os.path.join(keep, "train_cr"),
+                 vae_ckpt=os.path.join(keep, "train_vae"))
+    rollout = train_tiny_dn.Config.rollout_steps
+    substeps = distill.Config.teacher_steps // int(distill.Config
+                                                   .student_steps)
+    stages = (
+        ("train_tae", train_tae, "make_tae_train_step", "hifi_tae",
+         dict(vae_ckpt=files["vae_ckpt"]), default_expected),
+        ("train_tiny_cr", train_tiny_cr, "make_tiny_cr_train_step",
+         "hifi_tiny_cr", dict(cr_ckpt=files["cr_ckpt"]), default_expected),
+        ("train_tiny_dn", train_tiny_dn, "make_tiny_dn_train_step",
+         "hifi_tiny_dn", files,
+         lambda module, cr, a, k: distill_launches(
+             module, a[0], cr, rollout + 1, 2, k.get("update", True))),
+        ("distill", distill, "make_distill_train_step", "hifi_distill",
+         dict(files, steps_per_round=STAGE_BATCHES,
+              procedural=DISTILL_PROCEDURAL),
+         lambda module, cr, a, k: distill_launches(module, a[0], cr,
+                                                   substeps, 1)))
+    for label, cli, factory, project, more, expected in stages:
+        result, out[label] = run_cli(
+            label, cli, cli_argv(**stage_flags(cli, tmp, "t", **more)),
+            [factory], cli.Config.batch_size, smi, expected=expected)
+        rows = [r for r in finite_log(label, os.path.join(tmp, "logs"),
+                                      project, "t", 0 if label == "distill"
+                                      else STAGE_BATCHES)]
+        if out[label]["steps"] != STAGE_BATCHES:
+            fail(f"{label}: {out[label]['steps']} steps, not "
+                 f"{STAGE_BATCHES}")
+        if label == "distill":
+            log(f"distill: {json.dumps(result)} [{smi}]")
+            if not all(np.isfinite(v) for r in result["rounds"]
+                       for v in r.values()) or not rows:
+                fail(f"distill: {result}")
+
+    # the students and the seams in the split sampler, one call each
+    ck = os.path.join(tmp, "ckpt")
+    calls = (
+        ("the distilled student",
+         dict(refiner_ckpt=os.path.join(ck, "distill", "t", "round0_s10")),
+         {}),
+        ("the tiny denoiser", dict(
+            refiner_ckpt=os.path.join(ck, "train_tiny_dn", "t"),
+            width=train_tiny_dn.Config.tiny_width),
+         dict(width=train_tiny_dn.Config.tiny_width)),
+        ("the tiny autoencoder and the tiny CR", dict(
+            refiner_ckpt=files["refiner_ckpt"],
+            tae_ckpt=os.path.join(ck, "train_tae", "t"),
+            tiny_cr_ckpt=os.path.join(ck, "train_tiny_cr", "t")),
+         {}))
+    steps = distill.Config.student_steps
+    for what, flags, sizes in calls:
+        refiner, cr, vae = meta_stack(test_refiner, **sizes)
+        per_step = expected_launches(refiner, cr, vae)
+        want = {"ln_film": per_step["ln_film"] // STEPS * int(steps),
+                "affine_warp": 0 if "tiny_cr_ckpt" in flags
+                else per_step["affine_warp"]}
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        got = test_refiner.main(cli_argv(
+            **dict(files, **flags), procedural=16, grid_every=0, seed=SEED,
+            num_inference_steps=steps))
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in want}
+        log(f"split sampler with {what}: {json.dumps(got)}, one call of "
+            f"{steps} steps at batch 4, {time.perf_counter() - t0:.1f} s "
+            f"with the load; launches {launched} (the module tree gives "
+            f"{want})")
+        if not all(np.isfinite(v) for v in got.values()) or launched != want:
+            fail(f"split sampler with {what}: {got}, launches {launched} "
+                 f"against {want}")
+    return out
+
+
+def check_eval_and_distillation(dev, g, stats, smi, keep):
+    """Phase 14: `test_refiner`'s metric flags, `train_cr`'s VGG term and the
+    four distillation CLIs on the card at their default widths, in a
+    temporary directory, on the stage files phase 13 kept in `keep`; the
+    launch counts set to 0 before and read after, held to the shapes
+    recorded, and every map that reached `ln_film`, `ln_film_bwd`, the warp
+    or its backward held to the plain version (twice, for equal bits).
+    Returns the numbers by stage, and the launches of each kernel by
+    stage's first step."""
+    import tempfile
+
+    from hifidiff_tpu_torch.ops import kernels
+
+    g_host = torch.Generator().manual_seed(SEED + 14)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            recording(training=True) as seen:
+        kernels.reset_launches()
+        out["test_refiner metrics"] = check_test_refiner_metrics(
+            dev, tmp, keep, g_host, smi)
+        out.update(check_train_cr_vgg(tmp, g_host, smi))
+        out.update(check_distill_clis(tmp, keep, smi))
+        launched = dict(kernels.LAUNCHES)
+    for k, n in launched.items():
+        if n != sum(seen[k].values()):
+            fail(f"phase 14: {k} launched {n} times, the recorded calls "
+                 f"{sum(seen[k].values())}")
+    log("phase 14 maps (dtype, B, C, H, W) -> calls: "
+        + json.dumps({k: {"x".join(map(str, s)): n for s, n in v.items()}
+                      for k, v in seen.items() if v}))
+    check_recorded_shapes(dev, g, stats, seen, "phase 14")
+    per_step = {label: numbers["launches_per_step"]
+                for label, numbers in out.items()
+                if isinstance(numbers, dict) and "launches_per_step" in numbers}
+    return out, per_step
 
 
 def main() -> int:
@@ -3046,10 +3414,22 @@ def main() -> int:
         "timed")
 
     # -- 13. the training CLIs, eager, before anything is profiled ----------
-    cli_stats = check_training_clis(dev, g, stats, smi)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as keep:
+        cli_stats = check_training_clis(dev, g, stats, smi, keep)
+        torch.cuda.empty_cache()
+        log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
+        log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs checked")
+
+        # -- 14. the metrics and the distillation CLIs, on 13's stage files
+        t14 = time.perf_counter()
+        eval_stats, phase14_launches = check_eval_and_distillation(
+            dev, g, stats, smi, keep)
     torch.cuda.empty_cache()
-    log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs checked")
+    log(f"metrics and distillation CLIs [{smi}]: " + json.dumps(eval_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] metrics and distillation "
+        f"CLIs checked ({time.perf_counter() - t14:.0f} s)")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The
@@ -3125,6 +3505,13 @@ def main() -> int:
             # the server's cold start through its load: captured in the
             # warm-up, replayed while serving
             entry["server_launches"] = server_launches[entry["name"]]
+        if entry is not None:
+            # phase 14: a step's launches of each stage that launched it
+            by_stage = {stage: n[entry["name"]]
+                        for stage, n in phase14_launches.items()
+                        if n.get(entry["name"])}
+            if by_stage:
+                entry["phase14_launches_per_step"] = by_stage
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
     if FAILURES:
         print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),

@@ -96,9 +96,9 @@ def seeded(seed: int) -> Iterator[None]:
 
 
 def refuse_unported(cfg) -> None:
-    """The training CLIs' flags whose modules are not in the port yet, each
-    refused with the ROADMAP item that brings it, and the need for one of
-    the two generated datasets."""
+    """The training CLIs' dataset flags, whose modules are not in the port
+    yet, refused with the ROADMAP item that brings them, and the need for
+    one of the two generated datasets."""
     roots = [f for f in ("dataroot", "multipie_root", "celeba_root")
              if getattr(cfg, f, "")]
     if roots:
@@ -106,11 +106,6 @@ def refuse_unported(cfg) -> None:
         raise NotImplementedError(
             f"{flags}: the real datasets are not in the port yet (ROADMAP "
             "§A9.2); use --synthetic N or --procedural N")
-    if getattr(cfg, "lambda_vgg", 0.0) > 0 and getattr(cfg, "vgg19_ckpt",
-                                                        ""):
-        raise NotImplementedError(
-            "--lambda-vgg > 0 with --vgg19-ckpt: the VGG term needs "
-            "eval/vgg.py, not in the port yet (ROADMAP §A6)")
     if not (cfg.synthetic or cfg.procedural):
         raise ValueError("give --synthetic N or --procedural N (the real "
                          "datasets are ROADMAP §A9.2)")

@@ -5,14 +5,18 @@ DDIM-50 with the reference's eval scheduler config (clip_sample, range 3.0,
 `test_refiner.py:166-171`), batch-global min-max normalization of
 prediction and ground truth before the metrics (`:113-119`), PSNR / SSIM
 (`eval.metrics.reference_eval_metrics`), image grids every `grid_every`
-batches (PIL; `--grid-every 0` turns them off). Returns {"psnr", "ssim"}.
-Batch i samples its noise from `seeded_generator(seed, i)`, the
-counterpart of the JAX CLI's `fold_in(key, i)`.
+batches (`--grid-every 0` turns them off). With `--vgg16-ckpt` (a
+torchvision vgg16 state dict) and `--lpips-ckpt` (lpips' linear heads) the
+batch-mean LPIPS of the normalized images (`eval/lpips.py`, the VGG16
+trunk), and with `--niqe-model` (an `.npz` with `mu` and `cov` from
+`eval.niqe.fit_niqe_model`) the mean NIQE of the normalized predictions on
+the host (`eval/niqe.py`). Returns {"psnr", "ssim"} and "lpips" / "niqe"
+where asked for. Batch i samples its noise from `seeded_generator(seed,
+i)`, the counterpart of the JAX CLI's `fold_in(key, i)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N`
-or `--procedural N` data (the held-out split). Not yet in the port, and
-refused with the ROADMAP item that brings them: `--dataroot` (K-Face, §A9),
-`--niqe-model` and `--vgg16-ckpt` / `--lpips-ckpt` (NIQE and LPIPS, §A6).
+or `--procedural N` data (the held-out split). `--dataroot` (K-Face) is
+refused until the datasets are ported (ROADMAP §A9.2).
 
     python -m hifidiff_tpu_torch.cli.test_refiner --refiner-ckpt ... \
         --cr-ckpt ... --vae-ckpt ... --procedural 64
@@ -68,9 +72,9 @@ class Config:
     proc_clutter: int = 0       # >0: per-sample background shapes
     grid_every: int = 10
     out_dir: str = "output/test_refiner"
-    niqe_model: str = ""        # NIQE: ROADMAP §A6, refused
-    vgg16_ckpt: str = ""        # LPIPS: ROADMAP §A6, refused
-    lpips_ckpt: str = ""
+    niqe_model: str = ""        # .npz with mu/cov from eval.niqe.fit_niqe_model
+    vgg16_ckpt: str = ""        # torchvision vgg16 state_dict (for LPIPS)
+    lpips_ckpt: str = ""        # lpips linear-head state_dict (for LPIPS)
     tae_ckpt: str = ""          # the tiny autoencoder (cli/common.py)
     tae_mode: str = "both"      # "decode" = tiny decoder only; "both" also
     # replaces the CR-latent encode (deterministic posterior mean)
@@ -82,20 +86,49 @@ class Config:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.niqe_model:
-        raise NotImplementedError(
-            "--niqe-model: NIQE is not in the port yet (ROADMAP §A6)")
-    if cfg.vgg16_ckpt or cfg.lpips_ckpt:
-        raise NotImplementedError(
-            "--vgg16-ckpt / --lpips-ckpt: LPIPS is not in the port yet "
-            "(ROADMAP §A6)")
     if cfg.dataroot:
         raise NotImplementedError(
             "--dataroot: the K-Face dataset is not in the port yet (ROADMAP "
-            "§A9); use --synthetic N or --procedural N")
+            "§A9.2); use --synthetic N or --procedural N")
     if not (cfg.synthetic or cfg.procedural):
         raise ValueError("give --synthetic N or --procedural N (K-Face, "
-                         "--dataroot, is ROADMAP §A9)")
+                         "--dataroot, is ROADMAP §A9.2)")
+    if bool(cfg.vgg16_ckpt) != bool(cfg.lpips_ckpt):
+        raise ValueError("LPIPS needs both --vgg16-ckpt and --lpips-ckpt")
+    for path in (cfg.niqe_model, cfg.vgg16_ckpt, cfg.lpips_ckpt):
+        if path and not os.path.exists(path):
+            raise FileNotFoundError(f"no file at {path}")
+
+
+def perceptual_metrics(cfg: Config, device):
+    """(lpips_fn, niqe_fn) for the flags given, else None: `lpips_fn(pred_n,
+    gt_n)` the batch mean of the VGG16 LPIPS of two NHWC batches in [0, 1]
+    on `device`; `niqe_fn(image)` the NIQE of one NHWC image in [0, 1] on
+    the host."""
+    lpips_fn = niqe_fn = None
+    if cfg.vgg16_ckpt and cfg.lpips_ckpt:
+        from hifidiff_tpu_torch.cli.common import read_state_dict
+        from hifidiff_tpu_torch.eval.lpips import (load_lpips_params,
+                                                   lpips_distance)
+
+        net, lins = load_lpips_params(read_state_dict(cfg.vgg16_ckpt),
+                                      read_state_dict(cfg.lpips_ckpt))
+        net.to(device)
+        lins = [w.to(device) for w in lins]
+
+        @torch.no_grad()
+        def lpips_fn(a, b):
+            return float(lpips_distance(net, lins, a.permute(0, 3, 1, 2),
+                                        b.permute(0, 3, 1, 2)).mean())
+    if cfg.niqe_model:
+        from hifidiff_tpu_torch.eval.niqe import niqe
+
+        m = np.load(cfg.niqe_model)
+        mu, cov = m["mu"], m["cov"]
+
+        def niqe_fn(image):
+            return niqe(image, mu, cov)
+    return lpips_fn, niqe_fn
 
 
 def main(argv=None) -> dict:
@@ -114,15 +147,20 @@ def main(argv=None) -> dict:
     # the held-out split, matching train-CLI val data
     ds = smoke_datasets(cfg, ("lr", "gt", "patches"))[1]
     loader = Loader(ds, cfg.batch_size, shuffle=False)
+    lpips_fn, niqe_fn = perceptual_metrics(cfg, device)
 
-    psnrs, ssims = [], []
+    psnrs, ssims, lpipss, niqes = [], [], [], []
     for i, batch in enumerate(loader):
         lr = torch.from_numpy(batch["lr"]).to(device)
         gt = torch.from_numpy(batch["gt"]).to(device)
         pred = sampler(lr, generator=seeded_generator(cfg.seed, i, device))
-        m, _, _ = reference_eval_metrics(pred, gt)
+        m, pred_n, gt_n = reference_eval_metrics(pred, gt)
         psnrs.append(float(m["psnr"]))
         ssims.append(float(m["ssim"]))
+        if lpips_fn is not None:
+            lpipss.append(lpips_fn(pred_n, gt_n))
+        if niqe_fn is not None:
+            niqes.extend(niqe_fn(p) for p in pred_n.cpu().numpy())
         if cfg.grid_every and i % cfg.grid_every == 0:
             save_image_grid(
                 side_by_side(batch["lr"], pred.float().cpu().numpy(),
@@ -133,7 +171,14 @@ def main(argv=None) -> dict:
 
     print(f"PSNR: {np.mean(psnrs):.4f}")
     print(f"SSIM: {np.mean(ssims):.4f}")
-    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+    out = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+    if lpipss:
+        print(f"LPIPS: {np.mean(lpipss):.4f}")
+        out["lpips"] = float(np.mean(lpipss))
+    if niqes:
+        print(f"NIQE: {np.mean(niqes):.4f}")
+        out["niqe"] = float(np.mean(niqes))
+    return out
 
 
 if __name__ == "__main__":

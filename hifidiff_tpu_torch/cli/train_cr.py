@@ -5,8 +5,11 @@ Defaults mirror the reference flags (`train_cr.py:15-48`): 24 epochs, Adam
 lr 5e-4, batch 8, cr_loss = MSE + key-region MSE, `[lr | pred | gt]` grids
 every `dump_every` batches, a checkpoint every 5 epochs. `--loss composite`
 is the reference's optional CRLoss (smooth-L1 + key-region smooth-L1 +
-SSIM); its VGG term (`--lambda-vgg > 0` with `--vgg19-ckpt`) is refused
-until eval/vgg.py is ported (ROADMAP §A6).
+SSIM), with its VGG term when `--lambda-vgg > 0` and `--vgg19-ckpt` (a
+torchvision vgg19 state dict, torch file or `.safetensors`) are given: the
+smooth-L1 between `eval/vgg.py`'s relu4_2 features of prediction and target,
+both taken without gradient as the reference takes them, so that the term
+adds to the loss and nothing to the gradient.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
 `--procedural N` data; `--dataroot` (Multi-PIE) is refused until the
@@ -24,10 +27,12 @@ import os
 import numpy as np
 
 from hifidiff_tpu_torch.cli.common import (build_cr, parse_config,
-                                           refuse_unported, resume, seeded,
-                                           smoke_datasets, to_device, to_nhwc)
+                                           read_state_dict, refuse_unported,
+                                           resume, seeded, smoke_datasets,
+                                           to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.eval.vgg import make_vgg_features_fn
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.losses import composite_cr_loss
 from hifidiff_tpu_torch.train.optim import adam
@@ -55,8 +60,8 @@ class Config:
     loss: str = "cr"
     lambda_pix: float = 1.0
     lambda_ssim: float = 0.0
-    lambda_vgg: float = 0.0     # > 0 with vgg19_ckpt: ROADMAP §A6, refused
-    vgg19_ckpt: str = ""
+    lambda_vgg: float = 0.0
+    vgg19_ckpt: str = ""   # torchvision vgg19 state_dict for the VGG term
     seed: int = 0
     synthetic: int = 0          # >0: use N synthetic samples (smoke mode)
     procedural: int = 0         # >0: N learnable procedural faces (demo)
@@ -94,9 +99,14 @@ def main(argv=None) -> None:
 
     loss_fn = None
     if cfg.loss == "composite":
+        vgg_fn = None
+        if cfg.lambda_vgg > 0 and cfg.vgg19_ckpt:
+            vgg_fn = make_vgg_features_fn(read_state_dict(cfg.vgg19_ckpt),
+                                          device)
         loss_fn = functools.partial(
             composite_cr_loss, lambda_pix=cfg.lambda_pix,
-            lambda_ssim=cfg.lambda_ssim, lambda_vgg=cfg.lambda_vgg)
+            lambda_ssim=cfg.lambda_ssim, lambda_vgg=cfg.lambda_vgg,
+            vgg_features_fn=vgg_fn)
     train_step = make_cr_train_step(loss_fn, device=device)
     eval_step = make_cr_eval_step(device=device)
 

@@ -3,14 +3,32 @@ counterpart of hifidiff_tpu/diffusion/schedule.py at its defaults, the one
 schedule the refiner is trained and sampled with. 1000 train timesteps,
 `scaled_linear` betas (linspace from sqrt(1e-4) to sqrt(0.02), squared) and
 their cumulative alpha products; `add_noise` is the forward process that
-training draws its noisy latents with."""
+training draws its noisy latents with. `betas` also gives the JAX package's
+other schedule, `linear` (linspace from beta_start to beta_end), and other
+ends or lengths, as `DiffusionSchedule.create` takes them."""
 
 import numpy as np
 import torch
 
 NUM_TRAIN_TIMESTEPS = 1000
-BETAS = np.linspace(1e-4 ** 0.5, 0.02 ** 0.5, NUM_TRAIN_TIMESTEPS,
-                    dtype=np.float64) ** 2
+
+
+def betas(beta_schedule: str = "scaled_linear", beta_start: float = 1e-4,
+          beta_end: float = 0.02,
+          num_train_timesteps: int = NUM_TRAIN_TIMESTEPS) -> np.ndarray:
+    """The float64 beta table: `scaled_linear` (linspace between the square
+    roots, squared) or `linear`; the cumulative alpha products are
+    `np.cumprod(1 - betas)`."""
+    if beta_schedule == "scaled_linear":
+        return np.linspace(beta_start ** 0.5, beta_end ** 0.5,
+                           num_train_timesteps, dtype=np.float64) ** 2
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, num_train_timesteps,
+                           dtype=np.float64)
+    raise ValueError(f"unknown beta schedule: {beta_schedule}")
+
+
+BETAS = betas()
 ALPHAS_CUMPROD = np.cumprod(1.0 - BETAS)
 BETAS.flags.writeable = False
 ALPHAS_CUMPROD.flags.writeable = False

@@ -458,10 +458,14 @@ def test_test_refiner_procedural():
 
 @pytest.mark.parametrize("flags, match", [
     (dict(dataroot="/data/kface", synthetic=4), "§A9"),
-    (dict(niqe_model="niqe.npz", synthetic=4), "§A6"),
-    (dict(vgg16_ckpt="vgg.pt", lpips_ckpt="lpips.pt", synthetic=4), "§A6"),
+    (dict(niqe_model="niqe.npz", synthetic=4), "no file at niqe.npz"),
+    (dict(vgg16_ckpt="vgg.pt", lpips_ckpt="lpips.pt", synthetic=4),
+     "no file at vgg.pt"),
     (dict(), "--synthetic"),
 ])
 def test_test_refiner_refusals(flags, match):
-    with pytest.raises((NotImplementedError, ValueError), match=match):
+    """The K-Face dataset is refused (ROADMAP §A9.2), and so are metric
+    files that do not exist (the JAX CLI skips NIQE silently then)."""
+    with pytest.raises((NotImplementedError, ValueError, FileNotFoundError),
+                       match=match):
         test_refiner.main(cli_flags(device="cpu", **flags))

@@ -57,6 +57,9 @@ def test_port_imports_with_jax_blocked():
         "utils.logging")} <= _port_modules()
     assert {f"hifidiff_tpu_torch.cli.{m}" for m in TRAIN_CLIS} \
         <= _port_modules()
+    assert {f"hifidiff_tpu_torch.{m}" for m in (
+        "eval.vgg", "eval.lpips", "eval.niqe", "train.distill")} \
+        <= _port_modules()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -167,7 +170,8 @@ def test_eval_cli_default_device_is_the_card(monkeypatch):
 
 
 TRAIN_CLIS = ["train_vae", "train_cr", "pretrain_idc", "test_idc",
-              "pretrain_denoiser", "train_refiner", "convergence_demo"]
+              "pretrain_denoiser", "train_refiner", "convergence_demo",
+              "train_tae", "train_tiny_cr", "train_tiny_dn", "distill"]
 # the tiny stack's flags each training CLI takes
 TRAIN_TINY = dict(size=32, vae_blocks="32,32,32", vae_layers=1, width=16,
                   enc_depths="1", mid_depth=1, dec_depths="1", cr_width=8,
@@ -218,12 +222,11 @@ def test_training_clis_default_device_is_the_card(monkeypatch, tmp_path,
     ("pretrain_idc", dict(dataroot="/data/mp"), "§A9.2"),
     ("test_idc", dict(dataroot="/data/kface"), "§A9.2"),
     ("train_refiner", dict(dataroot="/data/mp"), "§A9.2"),
-    ("train_cr", dict(loss="composite", lambda_vgg=0.1,
-                      vgg19_ckpt="vgg19.pt"), "§A6"),
+    ("train_tae", dict(celeba_root="/data/celeba"), "§A9.2"),
 ])
 def test_training_cli_refusals(monkeypatch, tmp_path, name, flags, item):
-    """The real datasets and the VGG term are refused, naming the ROADMAP
-    item that brings them, before anything runs."""
+    """The real datasets are refused, naming the ROADMAP item that brings
+    them, before anything runs."""
     import importlib
 
     main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
@@ -252,6 +255,52 @@ def test_train_steps_default_device_is_the_card(monkeypatch, factory):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(steps, factory)(*frozen)
     assert callable(getattr(steps, factory)(*frozen, device="cpu"))
+
+
+DISTILL_FACTORIES = ["make_distill_train_step", "make_tiny_dn_train_step",
+                     "make_tiny_cr_train_step", "make_tae_train_step"]
+
+
+@pytest.mark.parametrize("factory", DISTILL_FACTORIES)
+def test_distill_steps_default_device_is_the_card(monkeypatch, factory):
+    """The distillation factories of `train/distill.py` as the steps'."""
+    from hifidiff_tpu_torch.train import distill
+
+    refiner, cr, vae = _tiny_models()
+    frozen = {"make_distill_train_step": (cr, vae, 5),
+              "make_tiny_dn_train_step": (cr, vae),
+              "make_tiny_cr_train_step": (cr,),
+              "make_tae_train_step": (vae,)}[factory]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(distill, factory)(*frozen)
+    assert callable(getattr(distill, factory)(*frozen, device="cpu"))
+
+
+@pytest.mark.parametrize("name, flags", [
+    ("test_refiner", dict(vgg16_ckpt="vgg16.pt", lpips_ckpt="lpips.pt",
+                          niqe_model="niqe.npz")),
+    ("train_cr", dict(loss="composite", lambda_vgg=0.1,
+                      vgg19_ckpt="vgg19.pt")),
+])
+def test_eval_flags_and_vgg_term_not_refused(monkeypatch, tmp_path, name,
+                                             flags):
+    """`test_refiner`'s three metric flags and `train_cr`'s VGG term are no
+    longer refused: with the files in place the CLI goes on to look for the
+    card, and raises only for the want of one."""
+    import importlib
+
+    main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
+    monkeypatch.chdir(tmp_path)
+    for f in flags.values():
+        if isinstance(f, str) and "." in f:
+            (tmp_path / f).write_bytes(b"")
+    argv = _train_flags(name, **flags) if name == "train_cr" else [
+        a for k, v in dict(SERVE_TINY, synthetic=4, **flags).items()
+        if k != "dtype" for a in (f"--{k.replace('_', '-')}", str(v))]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
 
 
 def test_train_state_default_device_is_the_card(monkeypatch):

@@ -711,3 +711,222 @@ def test_check_summary_agrees_with_jax(changes, passes):
     jax_says = outcome(jdemo.check_summary)
     assert outcome(convergence_demo.check_summary) == jax_says
     assert (jax_says is None) == passes
+
+
+# -- the demo's first two stages, loop for loop (ROADMAP §C) ---------------------
+
+# the demo's narrow widths and its stages' rates and warm-ups; 16 faces at
+# batch 8 for two epochs: four steps a stage, an epoch boundary, the val
+# pass and a checkpoint after each epoch
+LOOP = dict(procedural=16, batch_size=8, size=32, seed=0, num_epochs=2,
+            name="t", save_model_epoch=1)
+LOOP_VAE = dict(vae_blocks="32,32", vae_layers=1)
+LOOP_UNET = dict(width=32, enc_depths="1,1", mid_depth=1, dec_depths="1,1")
+LOOP_STAGES = {
+    "train_vae": dict(lr=1e-3, warmup_steps=10, save_image_epoch=10),
+    "pretrain_denoiser": dict(lr=5e-4, warmup_steps=20, sample_size=1,
+                              save_image_epoch=10)}
+
+
+def _jax_recorded(factory, grads):
+    """A JAX step factory whose steps hand the gradients their TrainState
+    (`SpyState`) saw to the host, under the CLI's own jit."""
+    from test_torch_train import SpyState
+
+    def make(*a, **k):
+        inner = factory(*a, **k)
+
+        def step(state, *args):
+            state, metrics = inner(state, *args)
+            jax.debug.callback(lambda g: grads.append(
+                jax.tree_util.tree_map(np.asarray, g)), SpyState.grads)
+            return state, metrics
+        return step
+    return make
+
+
+def _jax_stage(mp, module, factory, argv):
+    """Run a JAX stage CLI with its steps' gradients recorded and the
+    arguments of its `adamw_cosine` call kept."""
+    from test_torch_train import SpyState
+
+    grads, sched = [], []
+    real_tx = module.adamw_cosine
+    mp.setattr(module, "TrainState", SpyState)
+    mp.setattr(module, factory, _jax_recorded(getattr(module, factory), grads))
+    mp.setattr(module, "adamw_cosine",
+               lambda *a, **k: sched.append((a, k)) or real_tx(*a, **k))
+    module.main(argv)
+    jax.effects_barrier()
+    return grads, sched[0]
+
+
+def _port_stage(mp, module, factory, draws, init, argv):
+    """Run a port stage CLI fed JAX's draws and initial parameters: its step
+    factory's steps get `draws(step)` for the state's step, and `init` (the
+    module name, a function of the built module) loads the JAX CLI's first
+    parameters. Returns the rates and gradients its optimizer was handed."""
+    seen = []
+    real_apply = steps.TrainState.apply_gradients
+
+    def spy(self):
+        seen.append((self.optimizer.param_groups[0]["lr"],
+                     {n: p.grad.detach().clone()
+                      for n, p in self.module.named_parameters()
+                      if p.grad is not None}))
+        real_apply(self)
+
+    real_factory = getattr(module, factory)
+
+    def fed(*a, **k):
+        inner = real_factory(*a, **k)
+
+        def step(state, batch, generator=None):
+            return inner(state, batch, *draws(state.step))
+        return step
+
+    mp.setattr(steps.TrainState, "apply_gradients", spy)
+    mp.setattr(module, factory, fed)
+    mp.setattr(module, init[0], init[1])
+    module.main(argv)
+    return seen
+
+
+def _jax_key(step):
+    return jax.random.fold_in(jax.random.PRNGKey(LOOP["seed"]), step)
+
+
+def _nchw_normal(key, shape_nhwc):
+    return torch.from_numpy(np.array(jax.random.normal(
+        key, shape_nhwc))).permute(0, 3, 1, 2).contiguous()
+
+
+def _noise_tensors(port_grads, jax_grads, to_sd):
+    """The tensors whose gradients are rounding noise on both sides at some
+    step: under 1e-4 of the step's largest gradient, with a sign that
+    differs between the packages (so that Adam, which turns a gradient of
+    either size into a step of about lr, moves them apart). The biases in
+    front of the demo VAE's GroupNorms, one channel a group, have a true
+    gradient of zero."""
+    noise = set()
+    for tg, jg in zip(port_grads, jax_grads):
+        jg = to_sd(jg)
+        top = max(float(g.abs().max()) for g in tg.values())
+        noise |= {n for n, g in tg.items()
+                  if max(float(g.abs().max()), float(jg[n].abs().max()))
+                  < 1e-4 * top
+                  and bool((torch.sign(g) != torch.sign(jg[n])).any())}
+    return noise
+
+
+def test_demo_stages_train_vae_then_pretrain_denoiser_loop_for_loop(
+        tmp_path):
+    """ROADMAP §C: the demo's first two stages through both packages' CLI
+    loops (`train_vae`, then `pretrain_denoiser` on the VAE the stage
+    wrote), at the demo's widths, rates and warm-ups, the port started from
+    the JAX CLIs' first parameters (their `init` under PRNGKey(seed),
+    through convert.py) and fed the draws the JAX steps make from
+    `fold_in(PRNGKey(seed), step)`. Equal to 1e-4: the rate fed at each step
+    (against optax's schedule of the JAX CLI's own `adamw_cosine` call), each
+    step's logged losses and each epoch's val PSNR, and both checkpoints
+    the stage writes; the tensors whose gradient is rounding noise on both
+    sides (`_noise_tensors`) are left out of the parameters. The loops are
+    equal step for step: the demo's gap lies in the draws, not in what the
+    CLIs do around the step."""
+    from hifidiff_tpu.models import Denoiser as JDenoiser
+    from hifidiff_tpu.train.checkpoint import restore_state
+    from hifidiff_tpu.vae import AutoencoderKL as JVAE
+
+    flags = {pkg: dict(LOOP, log_dir=tmp_path / pkg / "logs",
+                       out_dir=tmp_path / pkg / "img")
+             for pkg in ("jax", "port")}
+    ck = {pkg: {s: tmp_path / pkg / "ckpt" / s for s in LOOP_STAGES}
+          for pkg in flags}
+    key = jax.random.PRNGKey(LOOP["seed"])
+    jvae = JVAE(block_out=(32, 32), layers_per_block=1)
+    vae_init = jax.device_get(jax.jit(jvae.init)(
+        key, jnp.zeros((1, 32, 32, 3)))["params"])
+    jden = JDenoiser(width=32, enc_nums=(1, 1), mid_num=1, dec_nums=(1, 1))
+    den_init = jax.device_get(jax.jit(lambda k: jden.init(
+        k, jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,))))(key)["params"])
+
+    def argv(pkg, stage, **more):
+        kw = dict(flags[pkg], **LOOP_VAE, **LOOP_STAGES[stage],
+                  ckpt_dir=ck[pkg][stage], **more)
+        if pkg == "port":
+            kw["device"] = "cpu"
+        return cli_flags(**kw)
+
+    def vae_draws(step):
+        return (_nchw_normal(_jax_key(step), (8, 16, 16, 4)),)
+
+    def den_draws(step):
+        k_enc, k_noise, k_t = jax.random.split(_jax_key(step), 3)
+        return (_nchw_normal(k_enc, (8, 16, 16, 4)),
+                _nchw_normal(k_noise, (8, 16, 16, 4)),
+                torch.from_numpy(np.array(jax.random.randint(
+                    k_t, (8,), 0, 1000))))
+
+    def load_vae_init(vae):
+        vae.load_state_dict(convert.vae_state_dict(vae_init), strict=True)
+        return vae
+
+    class Denoiser(pretrain_denoiser.Denoiser):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.load_state_dict(convert.denoiser_state_dict(den_init),
+                                 strict=True)
+
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        runs["train_vae", "jax"] = _jax_stage(
+            mp, jtrain_vae, "make_vae_train_step", argv("jax", "train_vae"))
+        runs["pretrain_denoiser", "jax"] = _jax_stage(
+            mp, jpretrain_denoiser, "make_denoiser_train_step",
+            argv("jax", "pretrain_denoiser", **LOOP_UNET,
+                 vae_ckpt=ck["jax"]["train_vae"] / "t"))
+    with pytest.MonkeyPatch.context() as mp:
+        runs["train_vae", "port"] = _port_stage(
+            mp, train_vae, "make_vae_train_step", vae_draws,
+            ("flax_default_init_", load_vae_init), argv("port", "train_vae"))
+    with pytest.MonkeyPatch.context() as mp:
+        runs["pretrain_denoiser", "port"] = _port_stage(
+            mp, pretrain_denoiser, "make_denoiser_train_step", den_draws,
+            ("Denoiser", Denoiser),
+            argv("port", "pretrain_denoiser", **LOOP_UNET,
+                 vae_ckpt=ck["port"]["train_vae"] / "t"))
+
+    to_sd = {"train_vae": convert.vae_state_dict,
+             "pretrain_denoiser": convert.denoiser_state_dict}
+    projects = {"train_vae": "hifi_vae", "pretrain_denoiser": "hifi_denoiser"}
+    for stage in LOOP_STAGES:
+        jgrads, (args, kwargs) = runs[stage, "jax"]
+        seen = runs[stage, "port"]
+        assert len(seen) == len(jgrads) == 4, stage
+        np.testing.assert_allclose([lr for lr, _ in seen],
+                                   _optax_lrs(*args, n=4), rtol=1e-4,
+                                   atol=1e-10, err_msg=stage)
+        rows = {pkg: _rows(tmp_path / pkg / "logs", projects[stage])
+                for pkg in flags}
+        for jrow, trow in zip(*(rows[p] for p in ("jax", "port")),
+                              strict=True):
+            assert set(jrow) == set(trow), stage
+            for k in set(jrow) - {"time", "step_time"}:
+                np.testing.assert_allclose(trow[k], jrow[k], rtol=1e-4,
+                                           atol=1e-6, err_msg=(stage, k))
+        noise = _noise_tensors([g for _, g in seen], jgrads, to_sd[stage])
+        assert len(noise) <= len(seen[0][1]) / 4, (stage, sorted(noise))
+        mgr = checkpoint.CheckpointManager(str(ck["port"][stage] / "t"),
+                                           create=False)
+        assert mgr.steps() == [2, 4], stage
+        for step in mgr.steps():
+            want = to_sd[stage](restore_state(
+                str(ck["jax"][stage] / "t"), step)["state"]["params"])
+            got = torch.load(mgr.path(step), weights_only=True)["state"][
+                "module"]
+            assert set(got) == set(want), stage
+            for n, v in got.items():
+                if n not in noise:
+                    np.testing.assert_allclose(
+                        v.numpy(), want[n].numpy(), rtol=0, atol=1e-4,
+                        err_msg=(stage, step, n))
