@@ -143,6 +143,24 @@ raises at once):
      denoiser and the two tiny seams each through `test_refiner` for one
      sampler call; every map that reached a kernel in the phase against
      its plain version (twice, for equal bits). Printed by stage as in 13;
+  15. (run after 14, on phase 13's `train_vae` and `train_cr` directories)
+     the PNG data path: a Multi-PIE tree (train and test, 4 pids, 15
+     angles, 2 lights, patches on the frontal; 160 x 160) and a flat
+     CelebA-HQ directory (968 files, 256 x 256) of procedural faces written
+     by `png_filtered`, its rows through the five PNG filters in turn,
+     colour types 2 and 6; the decoder's time a file on the host (160 x 160
+     and 640 x 480, the filter mix stated); `infer_cr` at its defaults on
+     the `train_cr` directory, on the card and on the host CPU (f32, TF32
+     off; phase 4's limits), 9 warp launches; `pretrain_idc --dataroot`,
+     `pretrain_denoiser --multipie-root --celeba-root` (two steps of 512)
+     and `train_tae --multipie-root` (two epochs) at their defaults, every
+     step's launches held to the module tree, the loader's wait as a share
+     of the steps' wall; every map that reached a kernel against its plain
+     version (twice, for equal bits). On phase 12's server, one PNG request
+     (a 160 x 160 face): 200, the launched batch equal to the port's decode
+     and PIL-bicubic resize, its face equal to the eager call on that batch
+     with the launch's generator. Phase 13 prints the resize the procedural
+     faces' LR protocol uses;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -1982,6 +2000,49 @@ def _post_raw(host, port, img):
     return np.frombuffer(body, np.uint8).reshape(img.shape)
 
 
+def check_png_request(host, port, cfg, sample, batcher, launched,
+                      eager_call, smi):
+    """One PNG request (a MP_SIDE^2 procedural face written by
+    `png_filtered`) to the server: answered 200 with a PNG; the batch the
+    server launched equal to the port's decode and PIL-bicubic resize of
+    the body (`image_io`, `resize_pil`); the face equal to an eager call on
+    that batch with the launch's generator, which is the face a raw
+    request of those pixels gets from that launch."""
+    import http.client
+
+    from hifidiff_tpu_torch.data import procedural as proc
+    from hifidiff_tpu_torch.data.image_io import decode_png
+    from hifidiff_tpu_torch.data.resize import resize_pil
+
+    face = (proc.render_face(proc._identity_params(SEED, 5), 0.4, MP_SIDE)
+            * 255).astype(np.uint8)
+    png = png_filtered(face)
+    before = serving_counts(sample, batcher)
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        conn.request("POST", "/infer", png, {"Content-Type": "image/png"})
+        resp = conn.getresponse()
+        status, ctype, body = (resp.status, resp.getheader("Content-Type"),
+                               resp.read())
+    finally:
+        conn.close()
+    check_no_eager("the PNG request", sample, batcher, before)
+    counter, batch = launched[-1]
+    pixels = resize_pil(decode_png(png), (cfg.size, cfg.size), "bicubic")
+    served = decode_png(body) if status == 200 else None
+    ref = eager_call(batch, counter)[0]
+    same_in = np.array_equal(batch[0], pixels)
+    same_out = served is not None and np.array_equal(served, ref)
+    log(f"server, a {MP_SIDE}x{MP_SIDE} PNG request (phase 15): {status} "
+        f"{ctype}, {len(body)} bytes; the launched batch (bucket "
+        f"{batch.shape[0]}) holds the port's decode and PIL-bicubic resize "
+        f"{same_in}; the face equal to the eager call on that batch with "
+        f"launch {counter}'s generator {same_out} [{smi}]")
+    if status != 200 or ctype != "image/png" or not (same_in and same_out):
+        fail(f"server: the PNG request answered {status} {body[:200]!r}, "
+             f"input equal {same_in}, face equal {same_out}")
+
+
 @contextlib.contextmanager
 def held_to_plain(stats):
     """While the block runs, every call of `ln_film` and of the warp is also
@@ -2220,6 +2281,12 @@ def check_server(models, dev, smi, stats):
         if not all(same):
             fail("server: a face of the padded bucket-4 launch differs from "
                  "the eager call")
+
+        # -- phase 15 on this server: a PNG body, decoded by the port's
+        # decoder and PIL-bicubic resized, against an eager call on the same
+        # pixels with the launch's generator
+        check_png_request(host, port, cfg, sample, batcher, launched,
+                          eager_call, smi)
 
         # -- ln_film and the warp against their plain versions at bucket 1 -
         with held_to_plain(stats) as seen:
@@ -2518,7 +2585,10 @@ def run_convergence_demo(tmp, smi):
     included, in `tmp`: its summary, its wall seconds, and a failure where a
     check of `check_summary` does not hold."""
     from hifidiff_tpu_torch.cli import convergence_demo
+    from hifidiff_tpu_torch.data import procedural
 
+    log(f"convergence_demo: the procedural faces' LR protocol resizes with "
+        f"{procedural.LR_RESIZE}")
     t0 = time.perf_counter()
     failed = None
     try:
@@ -3067,6 +3137,306 @@ def check_eval_and_distillation(dev, g, stats, smi, keep):
     return out, per_step
 
 
+# -- phase 15: the PNG data path ----------------------------------------------
+
+def png_filtered(img, filters=(0, 1, 2, 3, 4), idat_size=8192, level=6):
+    """A uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4) array as a PNG
+    file's bytes (colour type 0, 4, 2 or 6, bit depth 8), row y filtered
+    with `filters[y % len(filters)]` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), the image data split over IDAT chunks of `idat_size` bytes:
+    files that take every path of the port's decoder."""
+    import struct
+    import zlib
+
+    img = img if img.ndim == 3 else img[..., None]
+    h, w, ch = img.shape
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    rows = img.reshape(h, w * ch).astype(np.int16)
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    left = np.zeros_like(rows)
+    left[:, ch:] = rows[:, :-ch]
+    corner = np.zeros_like(rows)
+    corner[1:, ch:] = rows[:-1, :-ch]
+    p = left + up - corner
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, corner))
+    pred = (np.zeros_like(rows), left, up, (left + up) // 2, paeth)
+    kinds = np.array([filters[y % len(filters)] for y in range(h)])
+    raw = np.empty((h, w * ch + 1), np.uint8)
+    raw[:, 0] = kinds
+    for k in range(5):
+        raw[kinds == k, 1:] = (rows[kinds == k] - pred[k][kinds == k]) % 256
+    data = zlib.compress(raw.tobytes(), level)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + b"".join(chunk(b"IDAT", data[i:i + idat_size])
+                       for i in range(0, len(data), idat_size))
+            + chunk(b"IEND", b""))
+
+
+MP_ANGLES = ("11_0", "12_0", "09_0", "19_1", "08_1", "20_0", "01_0", "24_0",
+             "08_0", "13_0", "14_0", "05_0", "04_1", "19_0", "05_1")
+MP_PIDS = 4
+MP_SIDE = 160
+CELEBA_SIDE = 256
+# with the 56 images of the Multi-PIE train split, two batches of 512 for
+# pretrain_denoiser (phase 13's batch and step count)
+CELEBA_FACES = 968
+CELEBA_LOOKS = 64
+
+
+def write_png_trees(root):
+    """A Multi-PIE tree (`train/` and `test/`, MP_PIDS pids each, the 15
+    angles, lights 00 and 01, `_patch.png` on 05_1) of MP_SIDE^2 procedural
+    faces, and a flat CelebA-HQ directory of CELEBA_FACES CELEBA_SIDE^2
+    ones, written by `png_filtered` (rows through the five filters in
+    turn): Multi-PIE in colour type 2, CelebA in types 2 and 6 in turn.
+    Returns (Multi-PIE root, CelebA root, files, bytes)."""
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    mp, celeba = os.path.join(root, "multipie"), os.path.join(root, "celeba")
+    written = [0, 0]
+
+    def put(path, img):
+        data = png_filtered(img, level=1)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        written[0] += 1
+        written[1] += len(data)
+
+    def u8(face):
+        return (np.clip(face, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+    for split, first in (("train", 0), ("test", MP_PIDS)):
+        for p in range(MP_PIDS):
+            idp = proc._identity_params(SEED, first + p)
+            for a, angle in enumerate(MP_ANGLES):
+                pose = 0.0 if angle == "05_1" else -0.8 + 1.6 * a / 13
+                face = proc.render_face(idp, pose, MP_SIDE)
+                for light, gain in (("00", 1.0), ("01", 0.8)):
+                    d = os.path.join(mp, split, f"{p:03d}", angle)
+                    put(os.path.join(d, f"{light}.png"), u8(face * gain))
+                    if angle == "05_1":
+                        patch = np.zeros_like(face)
+                        for t, le, b, r in proc.component_boxes(idp,
+                                                                MP_SIDE):
+                            patch[t:b, le:r] = face[t:b, le:r]
+                        put(os.path.join(d, f"{light}_patch.png"),
+                            u8(patch * gain))
+    looks = [u8(proc.render_face(proc._identity_params(SEED + 1, j),
+                                 -0.5 + j / CELEBA_LOOKS, CELEBA_SIDE))
+             for j in range(CELEBA_LOOKS)]
+    for j in range(CELEBA_FACES):
+        img = looks[j % CELEBA_LOOKS]
+        img = np.roll(img, j // CELEBA_LOOKS, axis=1)   # a file of its own
+        if j % 2:
+            img = np.concatenate([img, np.full_like(img[..., :1], 255)], -1)
+        put(os.path.join(celeba, f"{j:05d}.png"), img)
+    return mp, celeba, written[0], written[1]
+
+
+def time_decodes(smi):
+    """`imread_rgb` on the host: ms per file for a MP_SIDE^2 face and for
+    640 x 480 (Multi-PIE's uncropped frame), rows through the five filters
+    in turn, and the 640 x 480 frame with every row Sub (cv2's choice when
+    it writes a PNG) and every row Paeth. Returns {label: ms}."""
+    import tempfile
+
+    from hifidiff_tpu_torch.data import procedural as proc
+    from hifidiff_tpu_torch.data.image_io import imread_rgb
+
+    idp = proc._identity_params(SEED, 0)
+    small = (proc.render_face(idp, 0.3, MP_SIDE) * 255).astype(np.uint8)
+    frame = (proc.render_face(idp, 0.3, 640)[80:560] * 255).astype(np.uint8)
+    frame = np.ascontiguousarray(frame)
+    cases = {f"{MP_SIDE}x{MP_SIDE}, the five filters in turn": (small, None),
+             "640x480, the five filters in turn": (frame, None),
+             "640x480, Sub rows only": (frame, (1,)),
+             "640x480, Paeth rows only": (frame, (4,))}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (img, filters) in cases.items():
+            path = os.path.join(tmp, "x.png")
+            with open(path, "wb") as f:
+                f.write(png_filtered(img, filters or (0, 1, 2, 3, 4)))
+            if not np.array_equal(imread_rgb(path), img):
+                fail(f"imread_rgb: {label} does not read back bit for bit")
+            out[label] = median_ms(lambda: imread_rgb(path), 5)
+            log(f"imread_rgb on the host, {label}: {out[label]:.2f} ms a "
+                f"file [{smi}]")
+    return out
+
+
+@contextlib.contextmanager
+def timed_loader(cli, waits):
+    """`cli.Loader` made to add, for its shuffled (training) loaders, the
+    seconds the consumer waits for each batch to `waits`."""
+    real = cli.Loader
+
+    class Timed(real):
+        def __iter__(self):
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                if self.shuffle:
+                    waits.append(time.perf_counter() - t0)
+                yield batch
+
+    with patched(cli, "Loader", Timed):
+        yield
+
+
+def check_infer_cr(dev, tmp, image, keep, smi):
+    """`infer_cr` at its defaults (width 32, depths 2,2,4,8, mid 8, size
+    128) on phase 13's `train_cr` directory and one PNG: on the host CPU
+    and on the card (f32, TF32 off); the restored faces within
+    LATENT_REL_TOL of their scale and the saved grids within
+    FACE_LEVEL_TOL; on the card 9 warp launches, the module tree's."""
+    from hifidiff_tpu_torch.cli import infer_cr
+    from hifidiff_tpu_torch.data.image_io import imread_rgb
+    from hifidiff_tpu_torch.ops import kernels
+
+    argv = ["--image", image, "--ckpt", os.path.join(keep, "train_cr")]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        host = infer_cr.main(argv + ["--device", "cpu", "--output",
+                                     os.path.join(tmp, "host.png")])
+        host_s = time.perf_counter() - t0
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        card = infer_cr.main(argv + ["--output",
+                                     os.path.join(tmp, "card.png")])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                if kernels.LAUNCHES[k] != before[k]}
+    cfg = infer_cr.Config()
+    with torch.device("meta"):
+        cr = infer_cr.build_cr(cfg.width, cfg.size, cfg.enc_depths,
+                               cfg.mid_depth)
+    want = {"affine_warp": sum(hasattr(m, "fc_loc") for m in cr.modules())}
+    rel = float(np.abs(card - host).max() / max(np.abs(host).max(), 1e-12))
+    grids = [imread_rgb(os.path.join(tmp, f"{w}.png")).astype(int)
+             for w in ("card", "host")]
+    levels = int(np.abs(grids[0] - grids[1]).max())
+    log(f"infer_cr at its defaults on the train_cr directory: card "
+        f"{card_s:.2f} s, host CPU {host_s:.2f} s (each with the load); "
+        f"card vs host {rel:.3e} of the face's scale (limit "
+        f"{LATENT_REL_TOL}), saved grids {levels} levels apart (limit "
+        f"{FACE_LEVEL_TOL}); launches {launched}, the module tree gives "
+        f"{want} [{smi}]")
+    if card.shape != (1, cfg.size, cfg.size, 3) or not np.isfinite(
+            card).all() or rel > LATENT_REL_TOL or levels > FACE_LEVEL_TOL \
+            or launched != want or want["affine_warp"] != 9:
+        fail(f"infer_cr: card vs host {rel:.3e}, grids {levels} levels, "
+             f"launches {launched} against {want}")
+    return dict(card_s=card_s, host_s=host_s, rel_err=rel, levels=levels,
+                launches=launched)
+
+
+def check_png_data_path(dev, g, stats, smi, keep):
+    """Phase 15: the PNG data path on the card, on image trees written in a
+    temporary directory (`write_png_trees`), with phase 13's stage files in
+    `keep`: the decoder's host times (`time_decodes`); `infer_cr`
+    (`check_infer_cr`); `pretrain_idc --dataroot` (batch 24, one epoch),
+    `pretrain_denoiser --multipie-root --celeba-root` (batch 512, one
+    epoch: two steps) and `train_tae --multipie-root` (batch 64, two
+    epochs), every step's launches held to the module tree, the loader's
+    wait timed as a share of the steps' wall; every map that reached a
+    kernel held to its plain version (twice, for equal bits). Returns the
+    numbers by stage."""
+    import tempfile
+
+    from hifidiff_tpu_torch.cli import pretrain_denoiser, pretrain_idc
+    from hifidiff_tpu_torch.cli import train_tae
+    from hifidiff_tpu_torch.data import procedural
+    from hifidiff_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    out = {"lr_resize": procedural.LR_RESIZE}
+    log(f"phase 15: the procedural faces' LR protocol resizes with "
+        f"{procedural.LR_RESIZE}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp, celeba, files, nbytes = write_png_trees(tmp)
+        log(f"phase 15: {files} PNG files ({nbytes / 1e6:.1f} MB) written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        out["decode_ms"] = time_decodes(smi)
+        out["infer_cr"] = check_infer_cr(
+            dev, tmp, os.path.join(mp, "test", "000", "19_1", "00.png"),
+            keep, smi)
+        with recording(training=True) as seen:
+            kernels.reset_launches()
+            stages = (
+                ("pretrain_idc --dataroot", pretrain_idc,
+                 "make_idc_train_step", "hifi_idc",
+                 dict(dataroot=mp, cr_ckpt=os.path.join(keep, "train_cr"))),
+                ("pretrain_denoiser --multipie-root --celeba-root",
+                 pretrain_denoiser, "make_denoiser_train_step",
+                 "hifi_denoiser",
+                 dict(multipie_root=mp, celeba_root=celeba,
+                      vae_ckpt=os.path.join(keep, "train_vae"))),
+                ("train_tae --multipie-root", train_tae,
+                 "make_tae_train_step", "hifi_tae",
+                 dict(multipie_root=mp, num_epochs=2,
+                      vae_ckpt=os.path.join(keep, "train_vae"))))
+            for label, cli, factory, project, more in stages:
+                flags = stage_flags(cli, tmp, "t", **more)
+                del flags["procedural"]
+                waits = []
+                with timed_loader(cli, waits):
+                    _, numbers = run_cli(label, cli, cli_argv(**flags),
+                                         [factory], cli.Config.batch_size,
+                                         smi)
+                rows = finite_log(label, os.path.join(tmp, "logs"), project,
+                                  "t", numbers["steps"])
+                step_s = sum(numbers["step_ms"]) / 1e3
+                numbers.update(loader_wait_s=sum(waits),
+                               loader_wait_share=sum(waits)
+                               / max(sum(waits) + step_s, 1e-9))
+                log(f"{label}: {numbers['steps']} steps; the training "
+                    f"loop waited {sum(waits):.2f} s for its "
+                    f"{len(waits)} batches against {step_s:.2f} s in the "
+                    f"steps: the loader's wait is "
+                    f"{numbers['loader_wait_share']:.3f} of the steps' "
+                    f"wall ({numbers['wall_s']:.1f} s for the stage) "
+                    f"[{smi}]")
+                if numbers["steps"] < 2 or not rows:
+                    fail(f"{label}: {numbers['steps']} steps")
+                out[label] = numbers
+            launched = dict(kernels.LAUNCHES)
+    for k, n in launched.items():
+        if n != sum(seen[k].values()):
+            fail(f"phase 15: {k} launched {n} times, the recorded calls "
+                 f"{sum(seen[k].values())}")
+    log("phase 15 maps (dtype, B, C, H, W) -> calls: "
+        + json.dumps({k: {"x".join(map(str, s)): n for s, n in v.items()}
+                      for k, v in seen.items() if v}))
+    check_recorded_shapes(dev, g, stats, seen, "phase 15")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['wall_s']:.1f} s wall [{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3426,10 +3796,17 @@ def main() -> int:
         t14 = time.perf_counter()
         eval_stats, phase14_launches = check_eval_and_distillation(
             dev, g, stats, smi, keep)
+        torch.cuda.empty_cache()
+        log(f"metrics and distillation CLIs [{smi}]: "
+            + json.dumps(eval_stats))
+        log(f"[{time.perf_counter() - t_start:.0f} s] metrics and "
+            f"distillation CLIs checked ({time.perf_counter() - t14:.0f} s)")
+
+        # -- 15. the PNG data path, on 13's stage files ----------------------
+        png_stats = check_png_data_path(dev, g, stats, smi, keep)
     torch.cuda.empty_cache()
-    log(f"metrics and distillation CLIs [{smi}]: " + json.dumps(eval_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] metrics and distillation "
-        f"CLIs checked ({time.perf_counter() - t14:.0f} s)")
+    log(f"PNG data path [{smi}]: " + json.dumps(png_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] PNG data path checked")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The

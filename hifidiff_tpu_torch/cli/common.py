@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.data.core import Dataset, Sample
+from hifidiff_tpu_torch.data.degradations import CODEC_SLICE
 
 T = TypeVar("T")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -95,20 +96,47 @@ def seeded(seed: int) -> Iterator[None]:
         yield
 
 
-def refuse_unported(cfg) -> None:
-    """The training CLIs' dataset flags, whose modules are not in the port
-    yet, refused with the ROADMAP item that brings them, and the need for
-    one of the two generated datasets."""
+BLIND_SPLIT = ("the Multi-PIE train split takes the blind branch, which "
+               "JPEG-encodes every input")
+KFACE = "K-Face is all JPEG"
+
+
+def refuse_unported(cfg, ported=(), needs_jpeg: str = BLIND_SPLIT) -> None:
+    """The training CLIs' dataset flags: those in `ported` (the PNG
+    datasets the CLI reads) are accepted; any other one that is set is
+    refused, naming why its data needs JPEG (`needs_jpeg`) and the ROADMAP
+    item that brings the codec. Without a dataset flag the CLI needs one of
+    the two generated datasets."""
     roots = [f for f in ("dataroot", "multipie_root", "celeba_root")
              if getattr(cfg, f, "")]
-    if roots:
-        flags = ", ".join("--" + f.replace("_", "-") for f in roots)
+    refused = [f for f in roots if f not in ported]
+    if refused:
+        flags = ", ".join("--" + f.replace("_", "-") for f in refused)
         raise NotImplementedError(
-            f"{flags}: the real datasets are not in the port yet (ROADMAP "
-            "§A9.2); use --synthetic N or --procedural N")
-    if not (cfg.synthetic or cfg.procedural):
-        raise ValueError("give --synthetic N or --procedural N (the real "
-                         "datasets are ROADMAP §A9.2)")
+            f"{flags}: {needs_jpeg}, and {CODEC_SLICE}; use --synthetic N "
+            "or --procedural N")
+    if not (cfg.synthetic or cfg.procedural or roots):
+        wanted = " or ".join(["--synthetic N", "--procedural N"]
+                             + ["--" + f.replace("_", "-") for f in ported])
+        raise ValueError(f"give {wanted}")
+
+
+def hq_datasets(cfg):
+    """The image datasets of `--multipie-root` (its train split) and
+    `--celeba-root` at `cfg.size`, concatenated, as the JAX CLIs build them
+    for the VAE, the denoiser and the tiny autoencoder."""
+    from hifidiff_tpu_torch.data.core import ConcatDataset
+    from hifidiff_tpu_torch.data.pretraining import (CelebAHQDataset,
+                                                     MultiPIEHQDataset)
+
+    parts = []
+    if cfg.multipie_root:
+        parts.append(MultiPIEHQDataset(cfg.multipie_root, size=cfg.size))
+    if cfg.celeba_root:
+        parts.append(CelebAHQDataset(cfg.celeba_root, size=cfg.size))
+    if not parts:
+        raise ValueError("need --multipie-root and/or --celeba-root")
+    return ConcatDataset(parts)
 
 
 def to_device(batch: Dict[str, np.ndarray],

@@ -22,8 +22,8 @@ call draws its noise from `seeded_generator(seed, 10_000)`. Returns the
 results dict the JAX CLI returns.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` is refused until the datasets are ported
-(ROADMAP §A9.2).
+`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
+takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.distill --refiner-ckpt ... \
         --cr-ckpt ... --vae-ckpt ... --student-steps 10 --procedural 64
@@ -59,7 +59,7 @@ from hifidiff_tpu_torch.utils.logging import MetricsLogger
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
     model_type: str = "uni"
     # distillation schedule
     teacher_steps: int = 50

@@ -15,8 +15,9 @@ the VAE is frozen and the data not augmented, so the moments are constants).
 Step n draws its noise from `seeded_generator(seed, n)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--multipie-root` / `--celeba-root` are refused until
-the datasets are ported (ROADMAP §A9.2).
+`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
+are refused until the codec slice, ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.pretrain_denoiser --procedural 1024 \
         --vae-ckpt checkpoints/vae/temp
@@ -31,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, load_vae,
+from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
                                            parse_config, parse_ints,
                                            refuse_unported, resume, seeded,
                                            seeded_generator, smoke_datasets,
@@ -54,8 +55,8 @@ from hifidiff_tpu_torch.vae.model import AutoencoderKL
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    multipie_root: str = ""    # ROADMAP §A9.2, refused
-    celeba_root: str = ""      # ROADMAP §A9.2, refused
+    multipie_root: str = ""    # PNG
+    celeba_root: str = ""      # PNG
     vae_ckpt: str = ""
     num_epochs: int = 100
     batch_size: int = 512
@@ -108,9 +109,9 @@ def cache_moments(vae: AutoencoderKL, dataset, batch_size: int,
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-3 denoiser pretraining")
-    refuse_unported(cfg)
+    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "pretrain_denoiser")
-    train_ds = smoke_datasets(cfg, ("image",))[0]
+    train_ds = (smoke_datasets(cfg, ("image",)) or (hq_datasets(cfg),))[0]
 
     vae_blocks = parse_ints(cfg.vae_blocks)
     latent = cfg.size // (2 ** (len(vae_blocks) - 1))

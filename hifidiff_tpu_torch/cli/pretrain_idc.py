@@ -12,8 +12,8 @@ over the val set in eval mode.
 (the JAX CLI trains `num_epochs` more epochs after a resume, ROADMAP §C).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` is refused until the datasets are ported
-(ROADMAP §A9.2).
+`--procedural N` data, or on the Multi-PIE PNG tree of `--dataroot`
+(`data/multipie.MultiPIEIDCDataset`, its train and test splits).
 
     python -m hifidiff_tpu_torch.cli.pretrain_idc \
         --cr-ckpt checkpoints/cr/temp --procedural 96
@@ -33,6 +33,7 @@ from hifidiff_tpu_torch.cli.common import (build_cr, load_weights,
                                            refuse_unported, resume, seeded,
                                            smoke_datasets, to_device)
 from hifidiff_tpu_torch.data.core import Loader
+from hifidiff_tpu_torch.data.multipie import MultiPIEIDCDataset
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.models.idc import IDCEncoder
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
@@ -50,7 +51,7 @@ KEYS = ("lr", "pos", "other")
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE (PNG)
     cr_ckpt: str = ""
     num_epochs: int = 24
     batch_size: int = 24
@@ -95,9 +96,11 @@ def embeddings(cr, idc, batch):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-2 IDC pretraining")
-    refuse_unported(cfg)
+    refuse_unported(cfg, ported=("dataroot",))
     device = resolve_device(cfg.device, "pretrain_idc")
-    train_ds, val_ds = smoke_datasets(cfg, KEYS)
+    train_ds, val_ds = smoke_datasets(cfg, KEYS) or (
+        MultiPIEIDCDataset(cfg.dataroot, split=split, size=cfg.size,
+                           seed=cfg.seed) for split in ("train", "test"))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

@@ -12,9 +12,11 @@ behind a dependency-free HTTP interface with dynamic batching:
     renews a `--max-wait-ms` window, up to `--max-fill-wait-ms` from the
     first request;
   * POST /infer with a raw uint8 RGB body (size*size*3 bytes,
-    Content-Type: application/octet-stream) or a PNG (image/png, needs PIL;
-    without PIL a PNG is refused with 400 "bad image") -> the restored face
-    in the same format;
+    Content-Type: application/octet-stream) or a PNG (image/png: decoded by
+    `data/image_io`, PIL-bicubic resized to `--size` by `data/resize`; a
+    body the decoder refuses gets 400 "bad image" with its reason) -> the
+    restored face in the same format (the PNG written by
+    `utils/logging.png_bytes`);
   * GET /healthz -> JSON {status, batch, buckets, steps, cache_interval,
     sampler, served, batches, mean_fill}.
 
@@ -56,7 +58,6 @@ tensors, so the capture follows the weights' load.
 from __future__ import annotations
 
 import dataclasses
-import io
 import json
 import queue
 import threading
@@ -70,10 +71,13 @@ import torch
 from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
                                            model_dtype, parse_config,
                                            parse_ints, seeded_generator)
+from hifidiff_tpu_torch.data.image_io import PNG_SIGNATURE, decode_png
+from hifidiff_tpu_torch.data.resize import resize_pil
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.ops import kernels
 from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
                                          build_refiner_sampler_split)
+from hifidiff_tpu_torch.utils.logging import png_bytes
 
 
 @dataclasses.dataclass
@@ -387,12 +391,9 @@ def make_handler(batcher: _Batcher, cfg: Config):
             ctype = self.headers.get("Content-Type",
                                      "application/octet-stream")
             try:
-                if ctype == "image/png" or body[:8] == b"\x89PNG\r\n\x1a\n":
-                    from PIL import Image
-
-                    im = Image.open(io.BytesIO(body)).convert("RGB")
-                    im = im.resize((cfg.size, cfg.size), Image.BICUBIC)
-                    img = np.asarray(im, np.uint8)
+                if ctype == "image/png" or body[:8] == PNG_SIGNATURE:
+                    img = resize_pil(decode_png(body), (cfg.size, cfg.size),
+                                     "bicubic")
                     png = True
                 else:
                     expect = cfg.size * cfg.size * 3
@@ -411,11 +412,7 @@ def make_handler(batcher: _Batcher, cfg: Config):
             except Exception as e:  # noqa: BLE001
                 return self._json(500, {"error": f"inference failed: {e}"})
             if png:
-                from PIL import Image
-
-                buf = io.BytesIO()
-                Image.fromarray(out).save(buf, format="PNG")
-                payload, out_type = buf.getvalue(), "image/png"
+                payload, out_type = png_bytes(out), "image/png"
             else:
                 payload, out_type = out.tobytes(), "application/octet-stream"
             self.send_response(200)

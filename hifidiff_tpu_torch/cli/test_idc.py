@@ -7,8 +7,8 @@ mean(sim_hf) > mean(sim_ck) (`test_idc.py:23-39`), returned as
 `batch_accuracy`, beside the per-sample accuracy (`sample_accuracy`).
 
 It runs on one device, the card unless `--device cpu`, on the held-out split
-of `--synthetic N` or `--procedural N` data; `--dataroot` (K-Face) is refused
-until the datasets are ported (ROADMAP §A9.2).
+of `--synthetic N` or `--procedural N` data; `--dataroot` (K-Face, all
+JPEG) is refused until the codec slice (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.test_idc --cr-ckpt ... --idc-ckpt ... \
         --procedural 64
@@ -18,9 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from hifidiff_tpu_torch.cli.common import (load_weights, parse_config,
-                                           parse_ints, refuse_unported,
-                                           seeded, smoke_datasets, to_device)
+from hifidiff_tpu_torch.cli.common import (KFACE, load_weights,
+                                           parse_config, parse_ints,
+                                           refuse_unported, seeded,
+                                           smoke_datasets, to_device)
 from hifidiff_tpu_torch.cli.pretrain_idc import KEYS, embeddings, frozen_cr
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
@@ -30,7 +31,7 @@ from hifidiff_tpu_torch.models.idc import IDCEncoder
 
 @dataclasses.dataclass
 class Config:
-    dataroot: str = ""          # K-Face: ROADMAP §A9.2, refused
+    dataroot: str = ""          # K-Face, JPEG: refused
     cr_ckpt: str = ""
     idc_ckpt: str = ""
     batch_size: int = 8
@@ -51,7 +52,7 @@ class Config:
 
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "IDC identity verification eval")
-    refuse_unported(cfg)
+    refuse_unported(cfg, needs_jpeg=KFACE)
     device = resolve_device(cfg.device, "test_idc")
     cr = frozen_cr(cfg, device)
     with seeded(cfg.seed):

@@ -15,8 +15,8 @@ where asked for. Batch i samples its noise from `seeded_generator(seed,
 i)`, the counterpart of the JAX CLI's `fold_in(key, i)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N`
-or `--procedural N` data (the held-out split). `--dataroot` (K-Face) is
-refused until the datasets are ported (ROADMAP §A9.2).
+or `--procedural N` data (the held-out split). `--dataroot` (K-Face, all
+JPEG) is refused until the codec slice (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.test_refiner --refiner-ckpt ... \
         --cr-ckpt ... --vae-ckpt ... --procedural 64
@@ -30,7 +30,8 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
+from hifidiff_tpu_torch.cli.common import (CODEC_SLICE, KFACE,
+                                           load_refiner_stack, load_tiny_seams,
                                            parse_config, seeded_generator,
                                            smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
@@ -43,7 +44,7 @@ from hifidiff_tpu_torch.utils.logging import save_image_grid, side_by_side
 
 @dataclasses.dataclass
 class Config:
-    dataroot: str = ""         # K-Face: ROADMAP §A9, refused
+    dataroot: str = ""         # K-Face, JPEG: refused
     refiner_ckpt: str = ""
     cr_ckpt: str = ""
     vae_ckpt: str = ""
@@ -88,11 +89,12 @@ class Config:
 def _refuse_unported(cfg: Config) -> None:
     if cfg.dataroot:
         raise NotImplementedError(
-            "--dataroot: the K-Face dataset is not in the port yet (ROADMAP "
-            "§A9.2); use --synthetic N or --procedural N")
+            f"--dataroot: {KFACE}, and {CODEC_SLICE}; use --synthetic N "
+            "or --procedural N")
     if not (cfg.synthetic or cfg.procedural):
         raise ValueError("give --synthetic N or --procedural N (K-Face, "
-                         "--dataroot, is ROADMAP §A9.2)")
+                         "--dataroot, waits for the codec slice: ROADMAP "
+                         "§A9.2, step 3)")
     if bool(cfg.vgg16_ckpt) != bool(cfg.lpips_ckpt):
         raise ValueError("LPIPS needs both --vgg16-ckpt and --lpips-ckpt")
     for path in (cfg.niqe_model, cfg.vgg16_ckpt, cfg.lpips_ckpt):

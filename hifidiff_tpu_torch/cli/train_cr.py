@@ -12,8 +12,8 @@ both taken without gradient as the reference takes them, so that the term
 adds to the loss and nothing to the gradient.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused until the
-datasets are ported (ROADMAP §A9.2).
+`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
+takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_cr --procedural 64
 """
@@ -46,7 +46,7 @@ from hifidiff_tpu_torch.utils.logging import (MetricsLogger, StepTimer,
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
     model_type: str = "uni"
     num_epochs: int = 24
     batch_size: int = 8

@@ -19,8 +19,8 @@ run's schedule and shuffles (the JAX CLI restarts its shuffles at epoch 0,
 ROADMAP §C).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` is refused until the datasets are ported
-(ROADMAP §A9.2).
+`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
+takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_refiner --procedural 64 \
         --vae-ckpt ... --cr-ckpt ... --idc-ckpt ... --denoiser-ckpt ...
@@ -59,7 +59,7 @@ from hifidiff_tpu_torch.utils.logging import (MetricsLogger, StepTimer,
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
     vae_ckpt: str = ""
     cr_ckpt: str = ""
     idc_ckpt: str = ""

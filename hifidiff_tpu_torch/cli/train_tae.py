@@ -17,8 +17,9 @@ names (`enc.` / `dec.`) are what `test_refiner --tae-ckpt` and `serve
 --tae-ckpt` load (`cli/common.load_tiny_seams`).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--multipie-root` / `--celeba-root` are refused until
-the datasets are ported (ROADMAP §A9.2).
+`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
+are refused until the codec slice, ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_tae --procedural 64 \
         --vae-ckpt checkpoints/vae/temp
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, load_vae,
+from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
                                            parse_config, parse_ints,
                                            refuse_unported, resume, seeded,
                                            seeded_generator, smoke_datasets,
@@ -56,8 +57,8 @@ from hifidiff_tpu_torch.vae.tiny import tiny_autoencoder_pair
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    multipie_root: str = ""    # ROADMAP §A9.2, refused
-    celeba_root: str = ""      # ROADMAP §A9.2, refused
+    multipie_root: str = ""    # PNG
+    celeba_root: str = ""      # PNG
     num_epochs: int = 100
     batch_size: int = 64
     lr: float = 3e-4
@@ -108,9 +109,11 @@ def recon(pair: nn.Module, vae: AutoencoderKL, images: torch.Tensor):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-autoencoder distillation")
-    refuse_unported(cfg)
+    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "train_tae")
-    train_ds, val_ds = smoke_datasets(cfg, ("image",))
+    # the real data's train and val sets are one, as the JAX CLI has them
+    train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (
+        hq_datasets(cfg),) * 2
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

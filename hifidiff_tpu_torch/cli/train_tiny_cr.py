@@ -14,8 +14,8 @@ own names, which `test_refiner --tiny-cr-ckpt` and `serve --tiny-cr-ckpt`
 load (`cli/common.load_tiny_seams`).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused until the
-datasets are ported (ROADMAP §A9.2).
+`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
+takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_tiny_cr --procedural 64 \
         --cr-ckpt checkpoints/cr/temp
@@ -51,7 +51,7 @@ from hifidiff_tpu_torch.vae.model import flax_default_init_
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
     model_type: str = "uni"
     num_epochs: int = 100
     batch_size: int = 64

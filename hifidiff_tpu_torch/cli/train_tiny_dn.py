@@ -21,8 +21,8 @@ whole student, which `test_refiner` and `serve` load with `--refiner-ckpt`
 and `--width` set to the student's.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` is refused until the datasets are ported
-(ROADMAP §A9.2).
+`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
+takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_tiny_dn --procedural 64 \
         --refiner-ckpt ... --cr-ckpt ... --vae-ckpt ... --tiny-width 64
@@ -54,7 +54,7 @@ from hifidiff_tpu_torch.utils.logging import MetricsLogger, StepTimer
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE: ROADMAP §A9.2, refused
+    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
     model_type: str = "uni"
     num_epochs: int = 100
     batch_size: int = 16

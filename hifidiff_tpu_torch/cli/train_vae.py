@@ -9,8 +9,9 @@ reconstruction PSNR on the val set, and a `[input | recon]` grid every
 stage's `--vae-ckpt` reads.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--multipie-root` / `--celeba-root` are refused until
-the datasets are ported (ROADMAP §A9.2).
+`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
+are refused until the codec slice, ROADMAP §A9.2, step 3).
 
     python -m hifidiff_tpu_torch.cli.train_vae --procedural 64 --size 32 \
         --vae-blocks 32,32 --vae-layers 1    # tiny demo fit
@@ -26,10 +27,11 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, parse_config,
-                                           parse_ints, refuse_unported,
-                                           resume, seeded, seeded_generator,
-                                           smoke_datasets, to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets,
+                                           parse_config, parse_ints,
+                                           refuse_unported, resume, seeded,
+                                           seeded_generator, smoke_datasets,
+                                           to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
@@ -44,8 +46,8 @@ from hifidiff_tpu_torch.vae.model import AutoencoderKL, flax_default_init_
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    multipie_root: str = ""    # ROADMAP §A9.2, refused
-    celeba_root: str = ""      # ROADMAP §A9.2, refused
+    multipie_root: str = ""    # PNG
+    celeba_root: str = ""      # PNG
     num_epochs: int = 100
     batch_size: int = 64
     lr: float = 1e-4
@@ -85,9 +87,11 @@ def recon_psnr(vae: AutoencoderKL, images: torch.Tensor):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-0 VAE training")
-    refuse_unported(cfg)
+    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "train_vae")
-    train_ds, val_ds = smoke_datasets(cfg, ("image",))
+    # the real data's train and val sets are one, as the JAX CLI has them
+    train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (
+        hq_datasets(cfg),) * 2
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

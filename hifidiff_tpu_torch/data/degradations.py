@@ -1,0 +1,117 @@
+"""Degradations of the training data (counterpart of
+hifidiff_tpu/data/degradations.py; host-side numpy, no cv2).
+
+Each function takes the same `np.random.Generator` draws, in the same order,
+as the JAX package's, so that a loader seeded alike draws the same
+degradations. The images are float32 [0, 1] HWC in RGB order: every op is
+channelwise but `to_gray3`, which weighs the channels as cv2's
+`COLOR_BGR2GRAY` weighs the BGR image the JAX package holds.
+
+`filter2d` is cv2's `filter2D(img, -1, kernel)`: a correlation with the
+anchor at the kernel's centre and `BORDER_REFLECT_101` borders.
+
+The JPEG round trip, and with it the blind branch, needs a JPEG codec the
+port does not have yet: `jpeg_roundtrip` and `blind_degrade` raise before
+they draw anything (ROADMAP §A9.2, step 3: the codec slice).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from hifidiff_tpu_torch.data.resize import bgr2gray
+
+CODEC_SLICE = ("the JPEG codec is not in the port yet (ROADMAP §A9.2, step "
+               "3: the codec slice)")
+
+
+def bivariate_gaussian_kernel(kernel_size: int, sigma_x: float,
+                              sigma_y: float, theta: float) -> np.ndarray:
+    """Rotated anisotropic Gaussian kernel, normalized to sum 1."""
+    half = kernel_size // 2
+    xs, ys = np.meshgrid(np.arange(-half, half + 1),
+                         np.arange(-half, half + 1))
+    coords = np.stack([xs, ys], axis=-1).astype(np.float64)  # (k, k, 2)
+    c, s = math.cos(theta), math.sin(theta)
+    rot = np.array([[c, -s], [s, c]])
+    sigma = rot @ np.diag([sigma_x ** 2, sigma_y ** 2]) @ rot.T
+    inv = np.linalg.inv(sigma)
+    z = np.einsum("hwi,ij,hwj->hw", coords, inv, coords)
+    kernel = np.exp(-0.5 * z)
+    return (kernel / kernel.sum()).astype(np.float32)
+
+
+def random_mixed_kernel(rng: np.random.Generator, kernel_size: int,
+                        sigma_x_range=(0.1, 1.0), sigma_y_range=(0.1, 1.0),
+                        rotation_range=(-math.pi, math.pi),
+                        iso_prob: float = 0.5) -> np.ndarray:
+    """iso/aniso mixture, the reference's `random_mixed_kernels` with
+    ["iso", "aniso"] at [0.5, 0.5] (`dataset_multipie.py:107-115`)."""
+    sigma_x = rng.uniform(*sigma_x_range)
+    if rng.uniform() < iso_prob:
+        return bivariate_gaussian_kernel(kernel_size, sigma_x, sigma_x, 0.0)
+    sigma_y = rng.uniform(*sigma_y_range)
+    theta = rng.uniform(*rotation_range)
+    return bivariate_gaussian_kernel(kernel_size, sigma_x, sigma_y, theta)
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """cv2's `filter2D(img, -1, kernel)` on a float32 (H, W) or (H, W, C)
+    image: correlation with `kernel` (kh, kw), anchor at the centre,
+    `BORDER_REFLECT_101` borders, summed in float64 and returned as
+    float32."""
+    kh, kw = kernel.shape
+    ay, ax = kh // 2, kw // 2
+    pad = [(ay, kh - 1 - ay), (ax, kw - 1 - ax)] + [(0, 0)] * (img.ndim - 2)
+    src = np.pad(img.astype(np.float64), pad, mode="reflect")
+    h, w = img.shape[:2]
+    out = np.zeros(img.shape, np.float64)
+    for i in range(kh):
+        for j in range(kw):
+            out += float(kernel[i, j]) * src[i:i + h, j:j + w]
+    return out.astype(np.float32)
+
+
+def add_gaussian_noise(rng: np.random.Generator, img: np.ndarray,
+                       sigma_range=(0.0, 5.0)) -> np.ndarray:
+    """img float32 [0,1]; sigma drawn in 8-bit units (basicsr convention)."""
+    sigma = rng.uniform(*sigma_range) / 255.0
+    noise = rng.standard_normal(img.shape, dtype=np.float32) * sigma
+    return np.clip(img + noise, 0.0, 1.0)
+
+
+def jpeg_roundtrip(rng: np.random.Generator, img: np.ndarray,
+                   quality_range=(80, 100)) -> np.ndarray:
+    """The JAX package's JPEG round trip at a random quality: refused,
+    before any draw."""
+    raise NotImplementedError(f"jpeg_roundtrip: {CODEC_SLICE}")
+
+
+def color_jitter_pair(rng: np.random.Generator, a: np.ndarray, b: np.ndarray,
+                      shift: float = 0.05):
+    """Joint per-channel shift applied to both images
+    (`dataset_multipie.py:26-34`). The three shifts are drawn in the JAX
+    package's (BGR) channel order and applied to the RGB channels they
+    belong to."""
+    jitter = rng.uniform(-shift, shift, 3).astype(np.float32)[::-1]
+    return (np.clip(a + jitter, 0, 1), np.clip(b + jitter, 0, 1))
+
+
+def to_gray3(img: np.ndarray) -> np.ndarray:
+    """Grey repeated over three channels, with cv2's `COLOR_BGR2GRAY`
+    weights on the BGR form of the RGB `img`."""
+    return np.repeat(bgr2gray(img)[:, :, None], 3, axis=2)
+
+
+def blind_degrade(rng: np.random.Generator, img: np.ndarray,
+                  size: int = 128) -> np.ndarray:
+    """The blind branch (blur, downsample, noise, JPEG, resize back):
+    refused, before any draw, until the codec slice brings its JPEG."""
+    raise NotImplementedError(f"blind_degrade: {CODEC_SLICE}")
+
+
+def quantize_8bit(img: np.ndarray) -> np.ndarray:
+    """Snap to the 8-bit grid (`dataset_multipie.py:160-166`)."""
+    return np.clip(np.rint(img * 255.0), 0, 255).astype(np.float32) / 255.0

@@ -38,11 +38,10 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from hifidiff_tpu_torch.data.core import Dataset, Sample
+from hifidiff_tpu_torch.data.resize import resize_cv2
 
-try:  # cv2 ships with the reference stack; fall back to numpy if absent
-    import cv2
-except ImportError:  # pragma: no cover
-    cv2 = None
+# what `degrade_lr` resizes with, as `chip_smoke.py` reports it
+LR_RESIZE = "resize_cv2 cubic (cv2 INTER_CUBIC semantics, numpy)"
 
 
 def _identity_params(seed: int, ident: int,
@@ -182,11 +181,7 @@ def render_face(idp: Dict[str, np.ndarray], pose: float,
 
 
 def _resize(img: np.ndarray, size: int) -> np.ndarray:
-    if cv2 is not None:
-        return cv2.resize(img, (size, size), interpolation=cv2.INTER_CUBIC)
-    # numpy fallback: nearest (only exercised where cv2 is unavailable)
-    idx = (np.arange(size) * img.shape[0] / size).astype(int)
-    return img[idx][:, idx]
+    return resize_cv2(img, (size, size), "cubic")
 
 
 def degrade_lr(gt_posed: np.ndarray, size: int, factor: int = 4) -> np.ndarray:

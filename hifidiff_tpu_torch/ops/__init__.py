@@ -1,2 +1,3 @@
-"""Tensor ops: norms, gates, embeddings, pixel shuffle and the affine warp,
-with the dispatch to the hand-written CUDA kernels (`kernels`)."""
+"""Tensor ops: norms, gates, embeddings, pixel shuffle, the affine warp and
+the torch-bicubic resize, with the dispatch to the hand-written CUDA
+kernels (`kernels`)."""

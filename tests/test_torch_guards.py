@@ -12,6 +12,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,7 +20,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "hifidiff_tpu"):
+for name in sys.argv[1:]:
     sys.modules[name] = None  # any import of these now raises ImportError
 import hifidiff_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hifidiff_tpu_torch.__path__,
@@ -46,7 +47,8 @@ def _run(args, cwd, env_extra=None):
 
 
 def test_port_imports_with_jax_blocked():
-    res = _run([sys.executable, "-c", BLOCKED_IMPORT], REPO)
+    res = _run([sys.executable, "-c", BLOCKED_IMPORT, "jax", "jaxlib", "flax",
+                "optax", "hifidiff_tpu"], REPO)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
     assert {"hifidiff_tpu_torch.train.steps", "hifidiff_tpu_torch.vae.tiny",
@@ -60,6 +62,41 @@ def test_port_imports_with_jax_blocked():
     assert {f"hifidiff_tpu_torch.{m}" for m in (
         "eval.vgg", "eval.lpips", "eval.niqe", "train.distill")} \
         <= _port_modules()
+    assert {f"hifidiff_tpu_torch.{m}" for m in PNG_PATH} <= _port_modules()
+
+
+# the PNG data path: the port's own resizes and decoder in place of cv2 and
+# PIL
+PNG_PATH = ("data.resize", "data.image_io", "data.degradations",
+            "data.multipie", "data.pretraining", "ops.resize", "cli.infer_cr")
+
+
+def test_port_imports_with_cv2_and_pil_blocked():
+    """Every module of the port imports with cv2 and PIL blocked (and jax):
+    the card's machine has neither."""
+    res = _run([sys.executable, "-c", BLOCKED_IMPORT, "cv2", "PIL", "jax",
+                "hifidiff_tpu"], REPO)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) == len(_port_modules())
+
+
+def test_infer_cr_default_device_is_the_card(monkeypatch, tmp_path):
+    """`infer_cr` targets the card: without one it raises before it writes
+    anything, and runs on the CPU only when asked."""
+    from hifidiff_tpu_torch.cli import infer_cr
+    from hifidiff_tpu_torch.utils.logging import png_bytes
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "face.png").write_bytes(png_bytes(np.full((40, 36, 3), 90,
+                                                          np.uint8)))
+    argv = ["--image", "face.png", "--size", "32", "--width", "8",
+            "--enc-depths", "1", "--mid-depth", "1", "--output", "out.png"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer_cr.main(argv)
+    assert not (tmp_path / "out.png").exists()
+    out = infer_cr.main(argv + ["--device", "cpu"])
+    assert out.shape == (1, 32, 32, 3) and (tmp_path / "out.png").exists()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -215,25 +252,77 @@ def test_training_clis_default_device_is_the_card(monkeypatch, tmp_path,
                    for p in tmp_path.rglob("*"))
 
 
+def _real_data_flags(name, **more):
+    """`_train_flags` without `--procedural`: the CLI on its real data."""
+    argv = _train_flags(name, **more)
+    i = argv.index("--procedural")
+    return argv[:i] + argv[i + 2:]
+
+
+JPEG_DIR = "<a directory holding a JPEG>"
+
+
+@pytest.fixture(scope="module")
+def jpeg_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("celeba_jpeg")
+    (root / "00001.jpg").write_bytes(b"\xff\xd8\xff")
+    return str(root)
+
+
 @pytest.mark.parametrize("name, flags, item", [
-    ("train_vae", dict(multipie_root="/data/mp"), "§A9.2"),
-    ("pretrain_denoiser", dict(celeba_root="/data/celeba"), "§A9.2"),
-    ("train_cr", dict(dataroot="/data/mp"), "§A9.2"),
-    ("pretrain_idc", dict(dataroot="/data/mp"), "§A9.2"),
-    ("test_idc", dict(dataroot="/data/kface"), "§A9.2"),
-    ("train_refiner", dict(dataroot="/data/mp"), "§A9.2"),
-    ("train_tae", dict(celeba_root="/data/celeba"), "§A9.2"),
+    pytest.param("train_vae", dict(celeba_root=JPEG_DIR), "§A9.2",
+                 id="train_vae-flags0-§A9.2"),
+    pytest.param("pretrain_denoiser", dict(celeba_root=JPEG_DIR), "§A9.2",
+                 id="pretrain_denoiser-flags1-§A9.2"),
+    pytest.param("train_cr", dict(dataroot="/data/mp"), "§A9.2",
+                 id="train_cr-flags2-§A9.2"),
+    pytest.param("test_idc", dict(dataroot="/data/kface"), "§A9.2",
+                 id="test_idc-flags4-§A9.2"),
+    pytest.param("train_refiner", dict(dataroot="/data/mp"), "§A9.2",
+                 id="train_refiner-flags5-§A9.2"),
+    pytest.param("train_tae", dict(celeba_root=JPEG_DIR), "§A9.2",
+                 id="train_tae-flags6-§A9.2"),
+    pytest.param("train_tiny_cr", dict(dataroot="/data/mp"), "§A9.2",
+                 id="train_tiny_cr-blind"),
+    pytest.param("train_tiny_dn", dict(dataroot="/data/mp"), "§A9.2",
+                 id="train_tiny_dn-blind"),
+    pytest.param("distill", dict(dataroot="/data/mp"), "§A9.2",
+                 id="distill-blind"),
 ])
-def test_training_cli_refusals(monkeypatch, tmp_path, name, flags, item):
-    """The real datasets are refused, naming the ROADMAP item that brings
-    them, before anything runs."""
+def test_training_cli_refusals(monkeypatch, tmp_path, jpeg_dir, name, flags,
+                               item):
+    """What still needs the JPEG codec is refused, naming JPEG and the
+    ROADMAP item that brings it, before anything is written: `--dataroot`
+    of the CLIs whose Multi-PIE train split takes the blind branch, K-Face,
+    and a CelebA-HQ directory holding a JPEG."""
     import importlib
 
     main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        main(_train_flags(name, device="cpu", **flags))
+    flags = {k: jpeg_dir if v == JPEG_DIR else v for k, v in flags.items()}
+    with pytest.raises(NotImplementedError, match=item) as exc:
+        main(_real_data_flags(name, device="cpu", **flags))
+    assert "JPEG" in str(exc.value)
     assert not list(tmp_path.rglob("*"))
+
+
+@pytest.mark.parametrize("name, flags", [
+    ("train_vae", dict(multipie_root="/data/mp", celeba_root="/data/c")),
+    ("pretrain_denoiser", dict(multipie_root="/data/mp")),
+    ("pretrain_idc", dict(dataroot="/data/mp")),
+    ("train_tae", dict(celeba_root="/data/celeba")),
+])
+def test_png_dataset_flags_accepted(monkeypatch, tmp_path, name, flags):
+    """The PNG datasets' flags are no longer refused: without generated data
+    the CLI goes on to look for the card, and raises only for the want of
+    one."""
+    import importlib
+
+    main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_real_data_flags(name, **flags))
 
 
 STEP_FACTORIES = ["make_cr_train_step", "make_cr_eval_step",

@@ -1,6 +1,7 @@
 """The port's batching server (`hifidiff_tpu_torch/cli/serve.py`) on the CPU,
 tiny stack, 2 DDIM steps, float32: every case of tests/test_serve.py on the
-port's server, a PNG refused without PIL, the runner against the JAX server's
+port's server, PNG bodies decoded without PIL (a body the decoder refuses
+answered 400), the runner against the JAX server's
 split sampler on the same weights and normals (uint8 faces within 1 level),
 and the runner's seeded launches.
 
@@ -145,15 +146,55 @@ def test_png_round_trip(server):
     assert Image.open(io.BytesIO(body)).size == (SIZE, SIZE)
 
 
-def test_png_without_pil_is_bad_image(server, monkeypatch):
-    """Without PIL a PNG body is a client error, 400 "bad image", and the
-    server goes on answering."""
-    base, _ = server
+def test_png_without_pil_is_served(server, monkeypatch):
+    """With PIL blocked a PNG body is decoded by the port's own decoder and
+    PIL-bicubic resized to the server's size (`data/image_io`,
+    `data/resize`): 200, a PNG reply whose face equals the face a raw
+    request of the same decoded, resized pixels gets (both launches drawn
+    from the same generator)."""
+    from hifidiff_tpu_torch.data.image_io import decode_png
+    from hifidiff_tpu_torch.data.resize import resize_pil
+    from hifidiff_tpu_torch.utils.logging import png_bytes
+
+    base, batcher = server
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(urllib.error.HTTPError) as exc:
-        _post(base, b"\x89PNG\r\n\x1a\n" + b"\x00" * 64, "image/png")
-    assert exc.value.code == 400
-    assert "bad image" in json.loads(exc.value.read())["error"]
+    real = batcher.run_fn
+    monkeypatch.setattr(batcher, "run_fn", lambda imgs: real(
+        imgs, generator=seeded_generator(7, 0, "cpu")))
+    rng = np.random.default_rng(11)
+    png = png_bytes(rng.integers(0, 256, (SIZE + 9, SIZE - 3, 3), np.uint8))
+    status, body = _post(base, png, "image/png")
+    assert status == 200
+    face = decode_png(body)
+    pixels = resize_pil(decode_png(png), (SIZE, SIZE), "bicubic")
+    status, raw = _post(base, pixels.tobytes())
+    assert status == 200
+    np.testing.assert_array_equal(
+        face, np.frombuffer(raw, np.uint8).reshape(SIZE, SIZE, 3))
+
+
+def test_png_the_decoder_refuses_is_bad_image(server):
+    """A body the decoder cannot read (an interlaced PNG; a PNG signature
+    and nothing else) is a client error, 400 "bad image" with the
+    decoder's reason, and the server goes on answering."""
+    import struct
+    import zlib
+
+    from hifidiff_tpu_torch.utils.logging import png_bytes
+
+    base, _ = server
+    png = png_bytes(_images(1)[0])
+    header = png[16:28] + b"\x01"   # IHDR with the interlace flag set
+    interlaced = (png[:16] + header
+                  + struct.pack(">I", zlib.crc32(b"IHDR" + header))
+                  + png[33:])
+    for body, reason in ((interlaced, "interlaced"),
+                         (b"\x89PNG\r\n\x1a\n", "IEND")):
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            _post(base, body, "image/png")
+        assert exc.value.code == 400
+        error = json.loads(exc.value.read())["error"]
+        assert "bad image" in error and reason in error, error
     status, _ = _post(base, _images(1)[0].tobytes())
     assert status == 200
 
