@@ -161,6 +161,26 @@ raises at once):
      and PIL-bicubic resize, its face equal to the eager call on that batch
      with the launch's generator. Phase 13 prints the resize the procedural
      faces' LR protocol uses;
+  16. (run after 15, on phase 13's stage files and 15's Multi-PIE tree)
+     the JPEG codec slice: the host library (the JPEG codec and the
+     data-path core, csrc/host) built with g++ and its log printed; the
+     codec against the golden digests of tests/fixtures/jpeg (cv2's and
+     PIL's decodes of the files there, cv2.imencode's bytes of seeded
+     inputs); a K-Face tree (val 2 ids, test 10, 2 lights, 3 expressions,
+     20 angles, 160 x 160, 4:2:0 at quality 95, head boxes past the edge
+     on two angles) written by the port's encoder; on the host the decode
+     ms a file (160 x 160 and 1920 x 1080), the encode ms, the round trip
+     at 16-128 px and the blind branch an item on its default and native
+     paths; `infer_cr --dataroot` (one batch of the val split) and
+     `--image` on one K-Face JPEG, card vs host CPU to phase 4's limits
+     with 9 warp launches a call; `train_cr` (2 steps at batch 8),
+     `train_refiner` (2 at 32), `train_tiny_cr`, `train_tiny_dn` and
+     `distill` (1 each) with `--dataroot` through the blind branch at their
+     defaults, every step's launches held to the module tree, the loader's
+     wait as a share of the steps' wall; `test_refiner --dataroot` (one
+     sampler call on the val split) and `test_idc --dataroot` (2 batches of
+     the test split's triplets) with their launches; every map that
+     reached a kernel against its plain version (twice, for equal bits);
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -204,8 +224,9 @@ server's, all in its warm-up), `matmul_w8`, `group_norm_silu` and
 the fused block on its int8 + fused path, `ln_film_bwd` on a refiner train
 step and `affine_warp_bwd` on a CR train step; under "paths" the same sums
 for every path that launched the kernel, the train steps included; under
-"phase14_launches_per_step" a step's launches in each of phase 14's stages
-that launched it); the last line is
+"phase14_launches_per_step" and "phase16_launches_per_step" a step's
+launches in each of phase 14's and phase 16's training stages that
+launched it); the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -3131,9 +3152,8 @@ def check_eval_and_distillation(dev, g, stats, smi, keep):
         + json.dumps({k: {"x".join(map(str, s)): n for s, n in v.items()}
                       for k, v in seen.items() if v}))
     check_recorded_shapes(dev, g, stats, seen, "phase 14")
-    per_step = {label: numbers["launches_per_step"]
-                for label, numbers in out.items()
-                if isinstance(numbers, dict) and "launches_per_step" in numbers}
+    per_step = {label: n["launches_per_step"] for label, n in out.items()
+                if isinstance(n, dict) and "launches_per_step" in n}
     return out, per_step
 
 
@@ -3276,12 +3296,27 @@ def time_decodes(smi):
 
 
 @contextlib.contextmanager
-def timed_loader(cli, waits):
-    """`cli.Loader` made to add, for its shuffled (training) loaders, the
-    seconds the consumer waits for each batch to `waits`."""
-    real = cli.Loader
+def timed_loader(cli, waits=None, train_batches=None, eval_batches=None):
+    """`data.core.Loader` (and `cli.Loader` where the CLI imported it by
+    name) made to add, for its shuffled (training) loaders, the seconds the
+    consumer waits for each batch to `waits`, and, where given, to give at
+    most `train_batches` batches when shuffled and `eval_batches`
+    otherwise."""
+    from hifidiff_tpu_torch.data import core
+
+    real = core.Loader
 
     class Timed(real):
+        def _limit(self):
+            limit = train_batches if self.shuffle else eval_batches
+            return len(self.dataset) if limit is None else limit
+
+        def _batch_indices(self):
+            return super()._batch_indices()[:self._limit()]
+
+        def __len__(self):
+            return min(super().__len__(), self._limit())
+
         def __iter__(self):
             batches = super().__iter__()
             while True:
@@ -3290,38 +3325,51 @@ def timed_loader(cli, waits):
                     batch = next(batches)
                 except StopIteration:
                     return
-                if self.shuffle:
+                if self.shuffle and waits is not None:
                     waits.append(time.perf_counter() - t0)
                 yield batch
 
-    with patched(cli, "Loader", Timed):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(core, "Loader", Timed))
+        if getattr(cli, "Loader", None) is real:
+            stack.enter_context(patched(cli, "Loader", Timed))
         yield
 
 
-def check_infer_cr(dev, tmp, image, keep, smi):
+def check_infer_cr(dev, tmp, keep, smi, image=None, dataroot=None):
     """`infer_cr` at its defaults (width 32, depths 2,2,4,8, mid 8, size
-    128) on phase 13's `train_cr` directory and one PNG: on the host CPU
-    and on the card (f32, TF32 off); the restored faces within
-    LATENT_REL_TOL of their scale and the saved grids within
-    FACE_LEVEL_TOL; on the card 9 warp launches, the module tree's."""
+    128, batch 8) on phase 13's `train_cr` directory, on one image
+    (`--image`) or on a K-Face tree (`--dataroot`, its val split, the
+    caller's loader cut to one batch): on the host CPU and on the card (f32,
+    TF32 off); the restored faces within LATENT_REL_TOL of their scale and
+    the saved grids within FACE_LEVEL_TOL; on the card 9 warp launches a
+    CR call, the module tree's."""
     from hifidiff_tpu_torch.cli import infer_cr
     from hifidiff_tpu_torch.data.image_io import imread_rgb
     from hifidiff_tpu_torch.ops import kernels
 
-    argv = ["--image", image, "--ckpt", os.path.join(keep, "train_cr")]
+    source = ["--image", image] if image else ["--dataroot", dataroot]
+    argv = source + ["--ckpt", os.path.join(keep, "train_cr")]
+
+    def grid(where):
+        return (os.path.join(tmp, f"{where}.png") if image
+                else os.path.join(tmp, where, "batch_0.png"))
+
+    def flags(where):
+        return ["--output", grid(where), "--out-dir",
+                os.path.join(tmp, where)]
+
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         t0 = time.perf_counter()
-        host = infer_cr.main(argv + ["--device", "cpu", "--output",
-                                     os.path.join(tmp, "host.png")])
+        host = infer_cr.main(argv + ["--device", "cpu"] + flags("host"))
         host_s = time.perf_counter() - t0
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
-        card = infer_cr.main(argv + ["--output",
-                                     os.path.join(tmp, "card.png")])
+        card = infer_cr.main(argv + flags("card"))
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
     finally:
@@ -3333,39 +3381,41 @@ def check_infer_cr(dev, tmp, image, keep, smi):
     with torch.device("meta"):
         cr = infer_cr.build_cr(cfg.width, cfg.size, cfg.enc_depths,
                                cfg.mid_depth)
-    want = {"affine_warp": sum(hasattr(m, "fc_loc") for m in cr.modules())}
+    stns = sum(hasattr(m, "fc_loc") for m in cr.modules())
+    calls = 1 if image else math.ceil(len(card) / cfg.batch_size)
+    want = {"affine_warp": stns * calls}
     rel = float(np.abs(card - host).max() / max(np.abs(host).max(), 1e-12))
-    grids = [imread_rgb(os.path.join(tmp, f"{w}.png")).astype(int)
-             for w in ("card", "host")]
+    grids = [imread_rgb(grid(w)).astype(int) for w in ("card", "host")]
     levels = int(np.abs(grids[0] - grids[1]).max())
-    log(f"infer_cr at its defaults on the train_cr directory: card "
-        f"{card_s:.2f} s, host CPU {host_s:.2f} s (each with the load); "
-        f"card vs host {rel:.3e} of the face's scale (limit "
-        f"{LATENT_REL_TOL}), saved grids {levels} levels apart (limit "
-        f"{FACE_LEVEL_TOL}); launches {launched}, the module tree gives "
-        f"{want} [{smi}]")
-    if card.shape != (1, cfg.size, cfg.size, 3) or not np.isfinite(
-            card).all() or rel > LATENT_REL_TOL or levels > FACE_LEVEL_TOL \
-            or launched != want or want["affine_warp"] != 9:
-        fail(f"infer_cr: card vs host {rel:.3e}, grids {levels} levels, "
-             f"launches {launched} against {want}")
+    what = "one image" if image else "the K-Face val split"
+    log(f"infer_cr at its defaults on the train_cr directory, {what} "
+        f"({len(card)} faces, {calls} CR calls): card {card_s:.2f} s, host "
+        f"CPU {host_s:.2f} s (each with the load); card vs host "
+        f"{rel:.3e} of the face's scale (limit {LATENT_REL_TOL}), saved "
+        f"grids {levels} levels apart (limit {FACE_LEVEL_TOL}); launches "
+        f"{launched}, the module tree gives {want} [{smi}]")
+    if card.shape[1:] != (cfg.size, cfg.size, 3) or not len(card) \
+            or card.shape != host.shape or not np.isfinite(card).all() \
+            or rel > LATENT_REL_TOL or levels > FACE_LEVEL_TOL \
+            or launched != want or stns != 9:
+        fail(f"infer_cr on {what}: card vs host {rel:.3e}, grids {levels} "
+             f"levels, launches {launched} against {want}")
     return dict(card_s=card_s, host_s=host_s, rel_err=rel, levels=levels,
-                launches=launched)
+                launches=launched, faces=len(card))
 
 
-def check_png_data_path(dev, g, stats, smi, keep):
-    """Phase 15: the PNG data path on the card, on image trees written in a
-    temporary directory (`write_png_trees`), with phase 13's stage files in
-    `keep`: the decoder's host times (`time_decodes`); `infer_cr`
-    (`check_infer_cr`); `pretrain_idc --dataroot` (batch 24, one epoch),
-    `pretrain_denoiser --multipie-root --celeba-root` (batch 512, one
-    epoch: two steps) and `train_tae --multipie-root` (batch 64, two
-    epochs), every step's launches held to the module tree, the loader's
-    wait timed as a share of the steps' wall; every map that reached a
-    kernel held to its plain version (twice, for equal bits). Returns the
-    numbers by stage."""
-    import tempfile
-
+def check_png_data_path(dev, g, stats, smi, keep, tmp):
+    """Phase 15: the PNG data path on the card, on image trees written in
+    `tmp` (`write_png_trees`; phase 16 reads the Multi-PIE tree again), with
+    phase 13's stage files in `keep`: the decoder's host times
+    (`time_decodes`); `infer_cr` (`check_infer_cr`); `pretrain_idc
+    --dataroot` (batch 24, one epoch), `pretrain_denoiser --multipie-root
+    --celeba-root` (batch 512, one epoch: two steps) and `train_tae
+    --multipie-root` (batch 64, two epochs), every step's launches held to
+    the module tree, the loader's wait timed as a share of the steps' wall;
+    every map that reached a kernel held to its plain version (twice, for
+    equal bits). Returns the numbers by stage, the Multi-PIE root under
+    "multipie_root"."""
     from hifidiff_tpu_torch.cli import pretrain_denoiser, pretrain_idc
     from hifidiff_tpu_torch.cli import train_tae
     from hifidiff_tpu_torch.data import procedural
@@ -3375,55 +3425,55 @@ def check_png_data_path(dev, g, stats, smi, keep):
     out = {"lr_resize": procedural.LR_RESIZE}
     log(f"phase 15: the procedural faces' LR protocol resizes with "
         f"{procedural.LR_RESIZE}")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        mp, celeba, files, nbytes = write_png_trees(tmp)
-        log(f"phase 15: {files} PNG files ({nbytes / 1e6:.1f} MB) written "
-            f"in {time.perf_counter() - t0:.1f} s")
-        out["decode_ms"] = time_decodes(smi)
-        out["infer_cr"] = check_infer_cr(
-            dev, tmp, os.path.join(mp, "test", "000", "19_1", "00.png"),
-            keep, smi)
-        with recording(training=True) as seen:
-            kernels.reset_launches()
-            stages = (
-                ("pretrain_idc --dataroot", pretrain_idc,
-                 "make_idc_train_step", "hifi_idc",
-                 dict(dataroot=mp, cr_ckpt=os.path.join(keep, "train_cr"))),
-                ("pretrain_denoiser --multipie-root --celeba-root",
-                 pretrain_denoiser, "make_denoiser_train_step",
-                 "hifi_denoiser",
-                 dict(multipie_root=mp, celeba_root=celeba,
-                      vae_ckpt=os.path.join(keep, "train_vae"))),
-                ("train_tae --multipie-root", train_tae,
-                 "make_tae_train_step", "hifi_tae",
-                 dict(multipie_root=mp, num_epochs=2,
-                      vae_ckpt=os.path.join(keep, "train_vae"))))
-            for label, cli, factory, project, more in stages:
-                flags = stage_flags(cli, tmp, "t", **more)
-                del flags["procedural"]
-                waits = []
-                with timed_loader(cli, waits):
-                    _, numbers = run_cli(label, cli, cli_argv(**flags),
-                                         [factory], cli.Config.batch_size,
-                                         smi)
-                rows = finite_log(label, os.path.join(tmp, "logs"), project,
-                                  "t", numbers["steps"])
-                step_s = sum(numbers["step_ms"]) / 1e3
-                numbers.update(loader_wait_s=sum(waits),
-                               loader_wait_share=sum(waits)
-                               / max(sum(waits) + step_s, 1e-9))
-                log(f"{label}: {numbers['steps']} steps; the training "
-                    f"loop waited {sum(waits):.2f} s for its "
-                    f"{len(waits)} batches against {step_s:.2f} s in the "
-                    f"steps: the loader's wait is "
-                    f"{numbers['loader_wait_share']:.3f} of the steps' "
-                    f"wall ({numbers['wall_s']:.1f} s for the stage) "
-                    f"[{smi}]")
-                if numbers["steps"] < 2 or not rows:
-                    fail(f"{label}: {numbers['steps']} steps")
-                out[label] = numbers
-            launched = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    mp, celeba, files, nbytes = write_png_trees(tmp)
+    out["multipie_root"] = mp
+    log(f"phase 15: {files} PNG files ({nbytes / 1e6:.1f} MB) written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    out["decode_ms"] = time_decodes(smi)
+    out["infer_cr"] = check_infer_cr(
+        dev, tmp, keep, smi,
+        image=os.path.join(mp, "test", "000", "19_1", "00.png"))
+    with recording(training=True) as seen:
+        kernels.reset_launches()
+        stages = (
+            ("pretrain_idc --dataroot", pretrain_idc,
+             "make_idc_train_step", "hifi_idc",
+             dict(dataroot=mp, cr_ckpt=os.path.join(keep, "train_cr"))),
+            ("pretrain_denoiser --multipie-root --celeba-root",
+             pretrain_denoiser, "make_denoiser_train_step",
+             "hifi_denoiser",
+             dict(multipie_root=mp, celeba_root=celeba,
+                  vae_ckpt=os.path.join(keep, "train_vae"))),
+            ("train_tae --multipie-root", train_tae,
+             "make_tae_train_step", "hifi_tae",
+             dict(multipie_root=mp, num_epochs=2,
+                  vae_ckpt=os.path.join(keep, "train_vae"))))
+        for label, cli, factory, project, more in stages:
+            flags = stage_flags(cli, tmp, "t", **more)
+            del flags["procedural"]
+            waits = []
+            with timed_loader(cli, waits):
+                _, numbers = run_cli(label, cli, cli_argv(**flags),
+                                     [factory], cli.Config.batch_size,
+                                     smi)
+            rows = finite_log(label, os.path.join(tmp, "logs"), project,
+                              "t", numbers["steps"])
+            step_s = sum(numbers["step_ms"]) / 1e3
+            numbers.update(loader_wait_s=sum(waits),
+                           loader_wait_share=sum(waits)
+                           / max(sum(waits) + step_s, 1e-9))
+            log(f"{label}: {numbers['steps']} steps; the training "
+                f"loop waited {sum(waits):.2f} s for its "
+                f"{len(waits)} batches against {step_s:.2f} s in the "
+                f"steps: the loader's wait is "
+                f"{numbers['loader_wait_share']:.3f} of the steps' "
+                f"wall ({numbers['wall_s']:.1f} s for the stage) "
+                f"[{smi}]")
+            if numbers["steps"] < 2 or not rows:
+                fail(f"{label}: {numbers['steps']} steps")
+            out[label] = numbers
+        launched = dict(kernels.LAUNCHES)
     for k, n in launched.items():
         if n != sum(seen[k].values()):
             fail(f"phase 15: {k} launched {n} times, the recorded calls "
@@ -3436,6 +3486,364 @@ def check_png_data_path(dev, g, stats, smi, keep):
     log(f"phase 15: {out['wall_s']:.1f} s wall [{smi}]")
     return out
 
+
+
+# -- phase 16: the JPEG codec slice ------------------------------------------
+
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "fixtures", "jpeg")
+KF_SIDE = 160
+KF_QUALITY = 95
+# val: test_refiner's and infer_cr's split; test: test_idc's, 10 ids the
+# fewest for which KFaceIDCDataset's 19-id window yields items
+KF_IDS = {"val": 2, "test": 10}
+KF_LIGHTS = ("L1", "L3")
+KF_EXPRESSIONS = ("E01", "E02", "E03")
+KF_ANGLES = 20
+KF_FRONTAL = 7
+# head boxes (left, top, width, height): most inside the image; angle 1's
+# runs past the left and top edges, angle 20's past the right and bottom
+KF_HEAD = (8, 8, 144, 144)
+KF_HEAD_PAST = {1: (-6, -4, 150, 150), 20: (20, 16, 150, 150)}
+# phase 16's runs, cut to these batches
+P16_STEPS = {"train_cr": 2, "train_refiner": 2, "train_tiny_cr": 1,
+             "train_tiny_dn": 1, "distill": 1}
+P16_EVAL_BATCHES = 1
+P16_IDC_BATCHES = 2
+ROUNDTRIP_SIDES = (16, 32, 64, 128)
+
+
+def golden_input(seed, h, w):
+    """The seeded (h, w, 3) uint8 RGB image behind a golden encoder digest
+    of tests/fixtures/jpeg/digests.json: three ramps with noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    base = np.stack([x * 255 // max(1, w - 1), y * 255 // max(1, h - 1),
+                     (x + y) * 255 // max(1, h + w - 2)], -1)
+    return np.clip(base + rng.integers(-24, 25, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def sha256_hex(data):
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def check_golden(smi):
+    """The port's codec against tests/fixtures/jpeg/digests.json: every
+    golden file decoded to the SHA-256 of cv2's and PIL's RGB, the refused
+    files refused naming what they are, a golden file cut short refused as
+    truncated, and every seeded input encoded to the SHA-256 of
+    cv2.imencode's bytes. Returns the counts checked."""
+    from hifidiff_tpu_torch.data.jpeg import JPEGError, decode_jpeg, \
+        encode_jpeg
+
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        golden = json.load(f)
+    bad = []
+
+    def read(name):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            return f.read()
+
+    for name, want in golden["decode"].items():
+        rgb = decode_jpeg(read(name))
+        if list(rgb.shape) != want["shape"] \
+                or sha256_hex(rgb.tobytes()) != want["sha256"]:
+            bad.append(f"decode {name}")
+    refusals = dict(golden["refuse"])
+    first = next(iter(golden["decode"]))
+    cases = [(name, read(name), what) for name, what in refusals.items()]
+    cases.append((f"{first} cut short", read(first)[:-40], "truncated"))
+    for name, data, what in cases:
+        try:
+            decode_jpeg(data)
+            bad.append(f"{name} decoded")
+        except JPEGError as e:
+            if what not in str(e):
+                bad.append(f"{name}: {e}")
+    for e in golden["encode"]:
+        data = encode_jpeg(golden_input(e["seed"], e["height"], e["width"]),
+                           e["quality"])
+        if sha256_hex(data) != e["sha256"]:
+            bad.append(f"encode seed {e['seed']} {e['height']}x"
+                       f"{e['width']} q {e['quality']}")
+    n = dict(decoded=len(golden["decode"]), refused=len(cases),
+             encoded=len(golden["encode"]))
+    log(f"phase 16: golden JPEG digests: {n['decoded']} files decoded, "
+        f"{n['refused']} refused, {n['encoded']} seeded inputs encoded; "
+        f"mismatches: {bad or 'none'} [{smi}]")
+    if bad:
+        fail(f"the JPEG codec disagrees with the golden digests: {bad}")
+    return n
+
+
+def write_kface_tree(root):
+    """A K-Face tree of procedural faces under `root/kface`: the splits of
+    KF_IDS, lights L1 and L3, expressions E01-E03 (the face shifted by 0-2
+    columns), angles C1-C20 with C7 frontal, KF_SIDE^2, written by the
+    port's encoder (4:2:0, quality KF_QUALITY), each with its `.txt`
+    metadata (7 filler lines, the head box, the four component boxes,
+    tab-separated `left top width height`). Returns (root, files,
+    bytes)."""
+    from hifidiff_tpu_torch.data import procedural as proc
+    from hifidiff_tpu_torch.data.jpeg import encode_jpeg
+
+    kf = os.path.join(root, "kface")
+    written = [0, 0]
+    first = 0
+    for split, ids in KF_IDS.items():
+        for i in range(ids):
+            idp = proc._identity_params(SEED + 16, first + i)
+            comps = ["\t".join(map(str, (le, t, r - le, b - t)))
+                     for t, le, b, r in proc.component_boxes(idp, KF_SIDE)]
+            for angle in range(1, KF_ANGLES + 1):
+                pose = 0.0 if angle == KF_FRONTAL \
+                    else -0.8 + 1.6 * (angle - 1) / (KF_ANGLES - 1)
+                face = proc.render_face(idp, pose, KF_SIDE)
+                head = KF_HEAD_PAST.get(angle, KF_HEAD)
+                meta = "\n".join(["x"] * 7 + ["\t".join(map(str, head))]
+                                 + comps)
+                for light, gain in zip(KF_LIGHTS, (1.0, 0.8)):
+                    for e, expr in enumerate(KF_EXPRESSIONS):
+                        d = os.path.join(kf, split, f"{split}{i:02d}",
+                                         "S001", light, expr)
+                        os.makedirs(d, exist_ok=True)
+                        img = (np.clip(np.roll(face * gain, e, axis=1), 0,
+                                       1) * 255 + 0.5).astype(np.uint8)
+                        data = encode_jpeg(img, KF_QUALITY)
+                        with open(os.path.join(d, f"C{angle}.jpg"),
+                                  "wb") as f:
+                            f.write(data)
+                        with open(os.path.join(d, f"C{angle}.txt"),
+                                  "w") as f:
+                            f.write(meta)
+                        written[0] += 1
+                        written[1] += len(data)
+        first += ids
+    return kf, written[0], written[1]
+
+
+def time_codec(smi, kf):
+    """The codec and the blind branch on the host: decode ms a file (a
+    KF_SIDE^2 K-Face file, and a 1920 x 1080 frame at KF_QUALITY), encode
+    ms a file, `jpeg_roundtrip` ms at ROUNDTRIP_SIDES, `blind_degrade` ms
+    an item (a KF_SIDE^2 face to 128) on the default and the native path.
+    Returns {label: ms}."""
+    from hifidiff_tpu_torch.data import degradations, procedural as proc
+    from hifidiff_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    path = os.path.join(kf, "val", "val00", "S001", "L1", "E01", "C7.jpg")
+    with open(path, "rb") as f:
+        small = f.read()
+    face = decode_jpeg(small)
+    frame = proc.render_face(proc._identity_params(SEED, 0), 0.3, 640)
+    frame = (np.tile(frame, (2, 3, 1))[:1080, :1920] * 255).astype(np.uint8)
+    big = encode_jpeg(np.ascontiguousarray(frame), KF_QUALITY)
+    out = {f"decode {KF_SIDE}x{KF_SIDE}": median_ms(
+               lambda: decode_jpeg(small), 21),
+           "decode 1920x1080": median_ms(lambda: decode_jpeg(big), 5),
+           f"encode {KF_SIDE}x{KF_SIDE}": median_ms(
+               lambda: encode_jpeg(face, KF_QUALITY), 21)}
+    img = face.astype(np.float32) / 255.0
+    for side in ROUNDTRIP_SIDES:
+        x = np.ascontiguousarray(img[:side, :side])
+        rng = np.random.default_rng(SEED)
+        out[f"jpeg_roundtrip {side}x{side}"] = median_ms(
+            lambda: degradations.jpeg_roundtrip(rng, x), 21)
+    for native in (False, True):
+        rng = np.random.default_rng(SEED)
+        out[f"blind_degrade, {'native' if native else 'default'} path"] = \
+            median_ms(lambda: degradations.blind_degrade(
+                rng, img, 128, native=native), 11)
+    for label, ms in out.items():
+        log(f"phase 16 on the host: {label}: {ms:.3f} ms [{smi}]")
+    log(f"phase 16: the 1920x1080 frame is {len(big)} bytes at quality "
+        f"{KF_QUALITY}")
+    return out
+
+
+def run_blind_clis(tmp, keep, mp, smi):
+    """The five training CLIs whose `--dataroot` takes the blind branch,
+    at their defaults on the card, on phase 15's Multi-PIE tree and phase
+    13's stage files, cut to P16_STEPS steps and P16_EVAL_BATCHES
+    validation batches: every step's launches held to the module tree, the
+    loader's wait as a share of the steps' wall. Returns the numbers by
+    stage."""
+    from hifidiff_tpu_torch.cli import (distill, train_cr, train_refiner,
+                                        train_tiny_cr, train_tiny_dn)
+
+    files = dict(refiner_ckpt=os.path.join(keep, "train_refiner"),
+                 cr_ckpt=os.path.join(keep, "train_cr"),
+                 vae_ckpt=os.path.join(keep, "train_vae"))
+    rollout = train_tiny_dn.Config.rollout_steps
+    substeps = distill.Config.teacher_steps // int(distill.Config
+                                                   .student_steps)
+    stages = (
+        ("train_cr", train_cr, "make_cr_train_step", "hifi_cr", {},
+         default_expected),
+        ("train_refiner", train_refiner, "make_refiner_train_step",
+         "hifi_refiner", dict(cr_ckpt=files["cr_ckpt"],
+                              vae_ckpt=files["vae_ckpt"]),
+         default_expected),
+        ("train_tiny_cr", train_tiny_cr, "make_tiny_cr_train_step",
+         "hifi_tiny_cr", dict(cr_ckpt=files["cr_ckpt"]), default_expected),
+        ("train_tiny_dn", train_tiny_dn, "make_tiny_dn_train_step",
+         "hifi_tiny_dn", files,
+         lambda module, cr, a, k: distill_launches(
+             module, a[0], cr, rollout + 1, 2, k.get("update", True))),
+        ("distill", distill, "make_distill_train_step", "hifi_distill",
+         dict(files, steps_per_round=P16_STEPS["distill"]),
+         lambda module, cr, a, k: distill_launches(module, a[0], cr,
+                                                   substeps, 1)))
+    out = {}
+    for name, cli, factory, project, more, expected in stages:
+        label = f"{name} --dataroot"
+        flags = stage_flags(cli, tmp, "p16", dataroot=mp, **more)
+        del flags["procedural"]
+        waits = []
+        with timed_loader(cli, waits, P16_STEPS[name], P16_EVAL_BATCHES):
+            _, numbers = run_cli(label, cli, cli_argv(**flags), [factory],
+                                 cli.Config.batch_size, smi,
+                                 expected=expected)
+        rows = finite_log(label, os.path.join(tmp, "logs"), project, "p16",
+                          0 if name == "distill" else numbers["steps"])
+        step_s = sum(numbers["step_ms"]) / 1e3
+        numbers.update(loader_wait_s=sum(waits),
+                       loader_wait_share=sum(waits)
+                       / max(sum(waits) + step_s, 1e-9))
+        log(f"{label}: {numbers['steps']} steps at batch "
+            f"{cli.Config.batch_size} through the blind branch; the "
+            f"training loop waited {sum(waits):.2f} s for its {len(waits)} "
+            f"batches against {step_s:.2f} s in the steps: the loader's "
+            f"wait is {numbers['loader_wait_share']:.3f} of the steps' wall "
+            f"({numbers['wall_s']:.1f} s for the stage) [{smi}]")
+        if numbers["steps"] != P16_STEPS[name] or not rows:
+            fail(f"{label}: {numbers['steps']} steps, not "
+                 f"{P16_STEPS[name]}")
+        out[label] = numbers
+    return out
+
+
+def run_kface_clis(tmp, keep, kf, smi):
+    """`test_refiner --dataroot` (the K-Face val split, one sampler call at
+    its defaults) and `test_idc --dataroot` (the test split's IDC triplets,
+    P16_IDC_BATCHES batches) on the card on phase 13's stage files, their
+    launches held to the module tree. Returns their numbers."""
+    from hifidiff_tpu_torch.cli import test_idc, test_refiner
+    from hifidiff_tpu_torch.ops import kernels
+
+    files = dict(refiner_ckpt=os.path.join(keep, "train_refiner"),
+                 cr_ckpt=os.path.join(keep, "train_cr"),
+                 vae_ckpt=os.path.join(keep, "train_vae"))
+    out = {}
+    refiner, cr, vae = meta_stack(test_refiner)
+    per_call = expected_launches(refiner, cr, vae)
+    steps = test_refiner.Config.num_inference_steps
+    want = {"ln_film": per_call["ln_film"] // STEPS * steps,
+            "affine_warp": per_call["affine_warp"]}
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with timed_loader(test_refiner, None, 0, P16_EVAL_BATCHES):
+        got = test_refiner.main(cli_argv(
+            **files, dataroot=kf, grid_every=0, seed=SEED,
+            out_dir=os.path.join(tmp, "img", "test_refiner")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in want}
+    log(f"test_refiner --dataroot (K-Face val, one call of {steps} steps at "
+        f"batch {test_refiner.Config.batch_size}): {json.dumps(got)}, "
+        f"{wall:.1f} s with the load; launches {launched}, the module tree "
+        f"gives {want} [{smi}]")
+    if not got or not all(np.isfinite(v) for v in got.values()) \
+            or launched != want:
+        fail(f"test_refiner --dataroot: {got}, launches {launched} against "
+             f"{want}")
+    out["test_refiner --dataroot"] = dict(got, wall_s=wall,
+                                          launches=launched)
+
+    stns = sum(hasattr(m, "fc_loc") for m in cr.modules())
+    want = {"affine_warp": stns * P16_IDC_BATCHES}
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    with timed_loader(test_idc, None, 0, P16_IDC_BATCHES):
+        acc = test_idc.main(cli_argv(dataroot=kf, cr_ckpt=files["cr_ckpt"],
+                                     seed=SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                if kernels.LAUNCHES[k] != before[k]}
+    log(f"test_idc --dataroot (K-Face test, {P16_IDC_BATCHES} batches of "
+        f"{test_idc.Config.batch_size} triplets): {acc}, {wall:.1f} s with "
+        f"the load; launches {launched}, the module tree gives {want} "
+        f"[{smi}]")
+    if launched != want or not all(0 <= acc[k] <= 1 for k in (
+            "batch_accuracy", "sample_accuracy")):
+        fail(f"test_idc --dataroot: {acc}, launches {launched} against "
+             f"{want}")
+    out["test_idc --dataroot"] = dict(acc, wall_s=wall, launches=launched)
+    return out
+
+
+def check_codec_path(dev, g, stats, smi, keep, mp):
+    """Phase 16: the JPEG codec slice on the card, after 15, on phase 13's
+    stage files in `keep` and phase 15's Multi-PIE tree `mp`: the host
+    library built (g++) and its log printed; the codec against the golden
+    digests (`check_golden`); a K-Face tree written by the port's encoder
+    (`write_kface_tree`); the codec's and the blind branch's host times
+    (`time_codec`); `infer_cr --dataroot` (K-Face val, one batch) and
+    `--image` on one K-Face JPEG, card vs host CPU (`check_infer_cr`); the
+    five blind training CLIs (`run_blind_clis`), `test_refiner --dataroot`
+    and `test_idc --dataroot` (`run_kface_clis`) with the launch counts set
+    to 0 before and read after; every map that reached a kernel in them
+    held to its plain version (twice, for equal bits). Returns the numbers
+    by stage, and the launches of each kernel by training stage's first
+    step."""
+    import tempfile
+
+    from hifidiff_tpu_torch.data import host
+    from hifidiff_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = host.library()
+    out = {"build_s": time.perf_counter() - t0}
+    log(f"phase 16: the host library (the JPEG codec and the data-path "
+        f"core) in {out['build_s']:.2f} s; g++: {lib.build_log}")
+    out["golden"] = check_golden(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        kf, files, nbytes = write_kface_tree(tmp)
+        log(f"phase 16: {files} K-Face JPEG files ({nbytes / 1e6:.1f} MB) "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        out["codec_ms"] = time_codec(smi, kf)
+        with timed_loader(None, None, 0, P16_EVAL_BATCHES):
+            out["infer_cr --dataroot"] = check_infer_cr(
+                dev, os.path.join(tmp, "infer_dataroot"), keep, smi,
+                dataroot=kf)
+        out["infer_cr --image"] = check_infer_cr(
+            dev, os.path.join(tmp, "infer_image"), keep, smi,
+            image=os.path.join(kf, "val", "val01", "S001", "L3", "E02",
+                               "C12.jpg"))
+        with recording(training=True) as seen:
+            kernels.reset_launches()
+            out.update(run_blind_clis(tmp, keep, mp, smi))
+            out.update(run_kface_clis(tmp, keep, kf, smi))
+            launched = dict(kernels.LAUNCHES)
+    for k, n in launched.items():
+        if n != sum(seen[k].values()):
+            fail(f"phase 16: {k} launched {n} times, the recorded calls "
+                 f"{sum(seen[k].values())}")
+    log("phase 16 maps (dtype, B, C, H, W) -> calls: "
+        + json.dumps({k: {"x".join(map(str, s)): n for s, n in v.items()}
+                      for k, v in seen.items() if v}))
+    check_recorded_shapes(dev, g, stats, seen, "phase 16")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['wall_s']:.1f} s wall [{smi}]")
+    per_step = {label: n["launches_per_step"] for label, n in out.items()
+                if isinstance(n, dict) and "launches_per_step" in n}
+    return out, per_step
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3803,10 +4211,19 @@ def main() -> int:
             f"distillation CLIs checked ({time.perf_counter() - t14:.0f} s)")
 
         # -- 15. the PNG data path, on 13's stage files ----------------------
-        png_stats = check_png_data_path(dev, g, stats, smi, keep)
+        with tempfile.TemporaryDirectory() as data:
+            png_stats = check_png_data_path(dev, g, stats, smi, keep, data)
+            torch.cuda.empty_cache()
+            log(f"PNG data path [{smi}]: " + json.dumps(png_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] PNG data path "
+                "checked")
+
+            # -- 16. the JPEG codec slice, on 13's stage files and 15's tree
+            codec_stats, phase16_launches = check_codec_path(
+                dev, g, stats, smi, keep, png_stats["multipie_root"])
     torch.cuda.empty_cache()
-    log(f"PNG data path [{smi}]: " + json.dumps(png_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] PNG data path checked")
+    log(f"JPEG codec slice [{smi}]: " + json.dumps(codec_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] JPEG codec slice checked")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The
@@ -3889,6 +4306,12 @@ def main() -> int:
                         if n.get(entry["name"])}
             if by_stage:
                 entry["phase14_launches_per_step"] = by_stage
+            # phase 16: the same for the blind training CLIs' --dataroot
+            by_stage = {stage: n[entry["name"]]
+                        for stage, n in phase16_launches.items()
+                        if n.get(entry["name"])}
+            if by_stage:
+                entry["phase16_launches_per_step"] = by_stage
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
     if FAILURES:
         print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),

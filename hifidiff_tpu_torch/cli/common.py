@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.data.core import Dataset, Sample
-from hifidiff_tpu_torch.data.degradations import CODEC_SLICE
 
 T = TypeVar("T")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -96,29 +95,29 @@ def seeded(seed: int) -> Iterator[None]:
         yield
 
 
-BLIND_SPLIT = ("the Multi-PIE train split takes the blind branch, which "
-               "JPEG-encodes every input")
-KFACE = "K-Face is all JPEG"
-
-
-def refuse_unported(cfg, ported=(), needs_jpeg: str = BLIND_SPLIT) -> None:
-    """The training CLIs' dataset flags: those in `ported` (the PNG
-    datasets the CLI reads) are accepted; any other one that is set is
-    refused, naming why its data needs JPEG (`needs_jpeg`) and the ROADMAP
-    item that brings the codec. Without a dataset flag the CLI needs one of
-    the two generated datasets."""
-    roots = [f for f in ("dataroot", "multipie_root", "celeba_root")
-             if getattr(cfg, f, "")]
-    refused = [f for f in roots if f not in ported]
-    if refused:
-        flags = ", ".join("--" + f.replace("_", "-") for f in refused)
-        raise NotImplementedError(
-            f"{flags}: {needs_jpeg}, and {CODEC_SLICE}; use --synthetic N "
-            "or --procedural N")
-    if not (cfg.synthetic or cfg.procedural or roots):
+def require_data(cfg, roots) -> None:
+    """The CLIs' "give one of" check: without generated data (`--synthetic
+    N` or `--procedural N`) one of the dataset flags `roots` (Config field
+    names) must be set."""
+    if not (cfg.synthetic or cfg.procedural
+            or any(getattr(cfg, f) for f in roots)):
         wanted = " or ".join(["--synthetic N", "--procedural N"]
-                             + ["--" + f.replace("_", "-") for f in ported])
+                             + ["--" + f.replace("_", "-") for f in roots])
         raise ValueError(f"give {wanted}")
+
+
+def multipie_datasets(cfg, use_patch: bool = False):
+    """The `--dataroot` Multi-PIE splits as the JAX training CLIs build
+    them: the train split through the blind branch, the test split
+    without, at `cfg.size`, `cfg.model_type` and `cfg.seed`."""
+    from hifidiff_tpu_torch.data.multipie import MultiPIEDataset
+
+    kw = dict(model_type=cfg.model_type, size=cfg.size, use_patch=use_patch,
+              seed=cfg.seed)
+    return (MultiPIEDataset(cfg.dataroot, split="train", use_blind=True,
+                            **kw),
+            MultiPIEDataset(cfg.dataroot, split="test", use_blind=False,
+                            **kw))
 
 
 def hq_datasets(cfg):

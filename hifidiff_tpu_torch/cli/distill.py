@@ -22,8 +22,9 @@ call draws its noise from `seeded_generator(seed, 10_000)`. Returns the
 results dict the JAX CLI returns.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
-takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
+`--procedural N` data, or on `--dataroot` (Multi-PIE: the train split
+through the blind branch, the test split without, as the JAX CLI builds
+them).
 
     python -m hifidiff_tpu_torch.cli.distill --refiner-ckpt ... \
         --cr-ckpt ... --vae-ckpt ... --student-steps 10 --procedural 64
@@ -38,8 +39,9 @@ import os
 
 import torch
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack, parse_config,
-                                           parse_ints, refuse_unported,
+from hifidiff_tpu_torch.cli.common import (load_refiner_stack,
+                                           multipie_datasets, parse_config,
+                                           parse_ints, require_data,
                                            seeded_generator, smoke_datasets,
                                            to_device)
 from hifidiff_tpu_torch.data.core import Loader
@@ -59,7 +61,7 @@ from hifidiff_tpu_torch.utils.logging import MetricsLogger
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
+    dataroot: str = ""          # Multi-PIE (train split: blind)
     model_type: str = "uni"
     # distillation schedule
     teacher_steps: int = 50
@@ -102,12 +104,13 @@ class Config:
 
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "Progressive sampler distillation")
-    refuse_unported(cfg)
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "distill")
     cr, vae, teacher, latent = load_refiner_stack(cfg, device)
     teacher.requires_grad_(False)
 
-    train_ds, val_ds = smoke_datasets(cfg, ("lr", "gt"))
+    train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
+                        or multipie_datasets(cfg))
     loader = Loader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed)
     val_loader = Loader(val_ds, min(cfg.eval_batch, len(val_ds)),
                         shuffle=False)

@@ -15,9 +15,9 @@ the VAE is frozen and the data not augmented, so the moments are constants).
 Step n draws its noise from `seeded_generator(seed, n)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
-are refused until the codec slice, ROADMAP §A9.2, step 3).
+`--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
+files; BMP and WebP files in it are refused).
 
     python -m hifidiff_tpu_torch.cli.pretrain_denoiser --procedural 1024 \
         --vae-ckpt checkpoints/vae/temp
@@ -34,7 +34,7 @@ import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
                                            parse_config, parse_ints,
-                                           refuse_unported, resume, seeded,
+                                           require_data, resume, seeded,
                                            seeded_generator, smoke_datasets,
                                            to_device)
 from hifidiff_tpu_torch.data.core import ArrayDataset, Loader
@@ -109,7 +109,7 @@ def cache_moments(vae: AutoencoderKL, dataset, batch_size: int,
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-3 denoiser pretraining")
-    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
+    require_data(cfg, ("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "pretrain_denoiser")
     train_ds = (smoke_datasets(cfg, ("image",)) or (hq_datasets(cfg),))[0]
 

@@ -30,7 +30,7 @@ import torch
 
 from hifidiff_tpu_torch.cli.common import (build_cr, load_weights,
                                            parse_config, parse_ints,
-                                           refuse_unported, resume, seeded,
+                                           require_data, resume, seeded,
                                            smoke_datasets, to_device)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.data.multipie import MultiPIEIDCDataset
@@ -96,7 +96,7 @@ def embeddings(cr, idc, batch):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-2 IDC pretraining")
-    refuse_unported(cfg, ported=("dataroot",))
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "pretrain_idc")
     train_ds, val_ds = smoke_datasets(cfg, KEYS) or (
         MultiPIEIDCDataset(cfg.dataroot, split=split, size=cfg.size,

@@ -7,8 +7,9 @@ mean(sim_hf) > mean(sim_ck) (`test_idc.py:23-39`), returned as
 `batch_accuracy`, beside the per-sample accuracy (`sample_accuracy`).
 
 It runs on one device, the card unless `--device cpu`, on the held-out split
-of `--synthetic N` or `--procedural N` data; `--dataroot` (K-Face, all
-JPEG) is refused until the codec slice (ROADMAP §A9.2, step 3).
+of `--synthetic N` or `--procedural N` data, or on `--dataroot` (K-Face:
+the IDC triplets of its test split, `data.kface.KFaceIDCDataset` at its
+default seed, as the JAX CLI reads them).
 
     python -m hifidiff_tpu_torch.cli.test_idc --cr-ckpt ... --idc-ckpt ... \
         --procedural 64
@@ -18,9 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from hifidiff_tpu_torch.cli.common import (KFACE, load_weights,
-                                           parse_config, parse_ints,
-                                           refuse_unported, seeded,
+from hifidiff_tpu_torch.cli.common import (load_weights, parse_config,
+                                           parse_ints, require_data, seeded,
                                            smoke_datasets, to_device)
 from hifidiff_tpu_torch.cli.pretrain_idc import KEYS, embeddings, frozen_cr
 from hifidiff_tpu_torch.data.core import Loader
@@ -31,7 +31,7 @@ from hifidiff_tpu_torch.models.idc import IDCEncoder
 
 @dataclasses.dataclass
 class Config:
-    dataroot: str = ""          # K-Face, JPEG: refused
+    dataroot: str = ""          # K-Face (IDC triplets of its test split)
     cr_ckpt: str = ""
     idc_ckpt: str = ""
     batch_size: int = 8
@@ -52,14 +52,20 @@ class Config:
 
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "IDC identity verification eval")
-    refuse_unported(cfg, needs_jpeg=KFACE)
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "test_idc")
     cr = frozen_cr(cfg, device)
     with seeded(cfg.seed):
         idc = IDCEncoder(stage_sizes=parse_ints(cfg.idc_stages))
     idc = load_weights(idc, cfg.idc_ckpt, "IDC").to(device)
 
-    ds = smoke_datasets(cfg, KEYS)[1]   # held-out split (never-trained poses)
+    smoke = smoke_datasets(cfg, KEYS)
+    if smoke is not None:
+        ds = smoke[1]   # held-out split (never-trained poses)
+    else:
+        from hifidiff_tpu_torch.data.kface import KFaceIDCDataset
+
+        ds = KFaceIDCDataset(cfg.dataroot, split="test", size=cfg.size)
     loader = Loader(ds, cfg.batch_size, shuffle=False)
 
     batch_correct, sample_correct, n_samples, n_batches = 0, 0, 0, 0

@@ -15,8 +15,8 @@ where asked for. Batch i samples its noise from `seeded_generator(seed,
 i)`, the counterpart of the JAX CLI's `fold_in(key, i)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N`
-or `--procedural N` data (the held-out split). `--dataroot` (K-Face, all
-JPEG) is refused until the codec slice (ROADMAP §A9.2, step 3).
+or `--procedural N` data (the held-out split), or on `--dataroot` (K-Face:
+its val split, `data.kface.KFaceDataset`, as the JAX CLI reads it).
 
     python -m hifidiff_tpu_torch.cli.test_refiner --refiner-ckpt ... \
         --cr-ckpt ... --vae-ckpt ... --procedural 64
@@ -30,10 +30,9 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (CODEC_SLICE, KFACE,
-                                           load_refiner_stack, load_tiny_seams,
-                                           parse_config, seeded_generator,
-                                           smoke_datasets)
+from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
+                                           parse_config, require_data,
+                                           seeded_generator, smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.eval.metrics import reference_eval_metrics
@@ -44,7 +43,7 @@ from hifidiff_tpu_torch.utils.logging import save_image_grid, side_by_side
 
 @dataclasses.dataclass
 class Config:
-    dataroot: str = ""         # K-Face, JPEG: refused
+    dataroot: str = ""         # K-Face (its val split)
     refiner_ckpt: str = ""
     cr_ckpt: str = ""
     vae_ckpt: str = ""
@@ -86,15 +85,8 @@ class Config:
     device: str = "cuda"        # "cpu" only when asked for
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.dataroot:
-        raise NotImplementedError(
-            f"--dataroot: {KFACE}, and {CODEC_SLICE}; use --synthetic N "
-            "or --procedural N")
-    if not (cfg.synthetic or cfg.procedural):
-        raise ValueError("give --synthetic N or --procedural N (K-Face, "
-                         "--dataroot, waits for the codec slice: ROADMAP "
-                         "§A9.2, step 3)")
+def _check_flags(cfg: Config) -> None:
+    require_data(cfg, ("dataroot",))
     if bool(cfg.vgg16_ckpt) != bool(cfg.lpips_ckpt):
         raise ValueError("LPIPS needs both --vgg16-ckpt and --lpips-ckpt")
     for path in (cfg.niqe_model, cfg.vgg16_ckpt, cfg.lpips_ckpt):
@@ -135,7 +127,7 @@ def perceptual_metrics(cfg: Config, device):
 
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "Full-pipeline eval")
-    _refuse_unported(cfg)
+    _check_flags(cfg)
     device = resolve_device(cfg.device, "test_refiner")
     cr, vae, refiner, latent = load_refiner_stack(cfg, device)
     sampler = build_refiner_sampler_split(
@@ -146,8 +138,13 @@ def main(argv=None) -> dict:
             clip_sample=True, clip_sample_range=cfg.clip_sample_range),
         device=device, **load_tiny_seams(cfg, latent, device))
 
-    # the held-out split, matching train-CLI val data
-    ds = smoke_datasets(cfg, ("lr", "gt", "patches"))[1]
+    smoke = smoke_datasets(cfg, ("lr", "gt", "patches"))
+    if smoke is not None:
+        ds = smoke[1]  # the held-out split, matching train-CLI val data
+    else:
+        from hifidiff_tpu_torch.data.kface import KFaceDataset
+
+        ds = KFaceDataset(cfg.dataroot, split="val", size=cfg.size)
     loader = Loader(ds, cfg.batch_size, shuffle=False)
     lpips_fn, niqe_fn = perceptual_metrics(cfg, device)
 

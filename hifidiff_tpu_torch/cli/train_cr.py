@@ -12,8 +12,9 @@ both taken without gradient as the reference takes them, so that the term
 adds to the loss and nothing to the gradient.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
-takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
+`--procedural N` data, or on `--dataroot` (Multi-PIE: the train split
+through the blind branch, the test split without, as the JAX CLI builds
+them).
 
     python -m hifidiff_tpu_torch.cli.train_cr --procedural 64
 """
@@ -26,10 +27,10 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (build_cr, parse_config,
-                                           read_state_dict, refuse_unported,
-                                           resume, seeded, smoke_datasets,
-                                           to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (build_cr, multipie_datasets,
+                                           parse_config, read_state_dict,
+                                           require_data, resume, seeded,
+                                           smoke_datasets, to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.eval.vgg import make_vgg_features_fn
@@ -46,7 +47,7 @@ from hifidiff_tpu_torch.utils.logging import (MetricsLogger, StepTimer,
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
+    dataroot: str = ""          # Multi-PIE (train split: blind)
     model_type: str = "uni"
     num_epochs: int = 24
     batch_size: int = 8
@@ -80,12 +81,13 @@ class Config:
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-1 CR training")
-    refuse_unported(cfg)
+    require_data(cfg, ("dataroot",))
     if cfg.loss not in ("cr", "composite"):
         raise ValueError(f"--loss must be 'cr' or 'composite', got "
                          f"{cfg.loss!r}")
     device = resolve_device(cfg.device, "train_cr")
-    train_ds, val_ds = smoke_datasets(cfg, ("lr", "gt", "patches"))
+    train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt", "patches"))
+                        or multipie_datasets(cfg, use_patch=True))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

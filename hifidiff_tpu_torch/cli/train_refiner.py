@@ -19,8 +19,9 @@ run's schedule and shuffles (the JAX CLI restarts its shuffles at epoch 0,
 ROADMAP §C).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
-takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
+`--procedural N` data, or on `--dataroot` (Multi-PIE: the train split
+through the blind branch, the test split without, as the JAX CLI builds
+them).
 
     python -m hifidiff_tpu_torch.cli.train_refiner --procedural 64 \
         --vae-ckpt ... --cr-ckpt ... --idc-ckpt ... --denoiser-ckpt ...
@@ -37,10 +38,10 @@ import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, build_refiner_models,
                                            load_vae, load_weights,
-                                           parse_config, read_state_dict,
-                                           refuse_unported, resume,
-                                           seeded_generator, smoke_datasets,
-                                           to_device)
+                                           multipie_datasets, parse_config,
+                                           read_state_dict, require_data,
+                                           resume, seeded_generator,
+                                           smoke_datasets, to_device)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.eval.metrics import reference_eval_metrics
@@ -59,7 +60,7 @@ from hifidiff_tpu_torch.utils.logging import (MetricsLogger, StepTimer,
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
+    dataroot: str = ""          # Multi-PIE (train split: blind)
     vae_ckpt: str = ""
     cr_ckpt: str = ""
     idc_ckpt: str = ""
@@ -117,9 +118,10 @@ def compose(cfg, refiner) -> dict:
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-4 refiner training")
-    refuse_unported(cfg)
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "train_refiner")
-    train_ds, val_ds = smoke_datasets(cfg, ("lr", "gt"))
+    train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
+                        or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

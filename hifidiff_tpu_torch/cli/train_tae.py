@@ -17,9 +17,9 @@ names (`enc.` / `dec.`) are what `test_refiner --tae-ckpt` and `serve
 --tae-ckpt` load (`cli/common.load_tiny_seams`).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
-are refused until the codec slice, ROADMAP §A9.2, step 3).
+`--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
+files; BMP and WebP files in it are refused).
 
     python -m hifidiff_tpu_torch.cli.train_tae --procedural 64 \
         --vae-ckpt checkpoints/vae/temp
@@ -38,7 +38,7 @@ from torch import nn
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
                                            parse_config, parse_ints,
-                                           refuse_unported, resume, seeded,
+                                           require_data, resume, seeded,
                                            seeded_generator, smoke_datasets,
                                            to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
@@ -109,7 +109,7 @@ def recon(pair: nn.Module, vae: AutoencoderKL, images: torch.Tensor):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-autoencoder distillation")
-    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
+    require_data(cfg, ("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "train_tae")
     # the real data's train and val sets are one, as the JAX CLI has them
     train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (

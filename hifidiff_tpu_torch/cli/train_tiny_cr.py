@@ -14,8 +14,9 @@ own names, which `test_refiner --tiny-cr-ckpt` and `serve --tiny-cr-ckpt`
 load (`cli/common.load_tiny_seams`).
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
-takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
+`--procedural N` data, or on `--dataroot` (Multi-PIE: the train split
+through the blind branch, the test split without, as the JAX CLI builds
+them).
 
     python -m hifidiff_tpu_torch.cli.train_tiny_cr --procedural 64 \
         --cr-ckpt checkpoints/cr/temp
@@ -32,9 +33,9 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, build_cr, load_weights,
-                                           parse_config, refuse_unported,
-                                           resume, seeded, smoke_datasets,
-                                           to_device, to_nhwc)
+                                           multipie_datasets, parse_config,
+                                           require_data, resume, seeded,
+                                           smoke_datasets, to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.models.tiny_cr import TinyCR
@@ -51,7 +52,7 @@ from hifidiff_tpu_torch.vae.model import flax_default_init_
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
+    dataroot: str = ""          # Multi-PIE (train split: blind)
     model_type: str = "uni"
     num_epochs: int = 100
     batch_size: int = 64
@@ -91,9 +92,10 @@ def _db(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-CR distillation")
-    refuse_unported(cfg)
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "train_tiny_cr")
-    train_ds, val_ds = smoke_datasets(cfg, ("lr", "gt"))
+    train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
+                        or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

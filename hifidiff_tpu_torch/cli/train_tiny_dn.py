@@ -21,8 +21,9 @@ whole student, which `test_refiner` and `serve` load with `--refiner-ckpt`
 and `--width` set to the student's.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data; `--dataroot` (Multi-PIE) is refused: its train split
-takes the blind branch, which needs the JPEG codec (ROADMAP §A9.2, step 3).
+`--procedural N` data, or on `--dataroot` (Multi-PIE: the train split
+through the blind branch, the test split without, as the JAX CLI builds
+them).
 
     python -m hifidiff_tpu_torch.cli.train_tiny_dn --procedural 64 \
         --refiner-ckpt ... --cr-ckpt ... --vae-ckpt ... --tiny-width 64
@@ -36,8 +37,9 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack, parse_config,
-                                           parse_ints, refuse_unported, resume,
+from hifidiff_tpu_torch.cli.common import (load_refiner_stack,
+                                           multipie_datasets, parse_config,
+                                           parse_ints, require_data, resume,
                                            seeded, seeded_generator,
                                            smoke_datasets, to_device)
 from hifidiff_tpu_torch.data.core import Loader
@@ -54,7 +56,7 @@ from hifidiff_tpu_torch.utils.logging import MetricsLogger, StepTimer
 class Config:
     name: str = "temp"
     log_dir: str = "logs"
-    dataroot: str = ""          # Multi-PIE, blind: needs JPEG, refused
+    dataroot: str = ""          # Multi-PIE (train split: blind)
     model_type: str = "uni"
     num_epochs: int = 100
     batch_size: int = 16
@@ -116,9 +118,10 @@ def build_student(cfg, latent: int, teacher: FacialRefiner) -> FacialRefiner:
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-denoiser width distillation")
-    refuse_unported(cfg)
+    require_data(cfg, ("dataroot",))
     device = resolve_device(cfg.device, "train_tiny_dn")
-    train_ds, val_ds = smoke_datasets(cfg, ("lr", "gt"))
+    train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
+                        or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed)
     val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)

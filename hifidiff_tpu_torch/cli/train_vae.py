@@ -9,9 +9,9 @@ reconstruction PSNR on the val set, and a `[input | recon]` grid every
 stage's `--vae-ckpt` reads.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
-`--procedural N` data, or on the PNG images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory; JPEG files in it
-are refused until the codec slice, ROADMAP §A9.2, step 3).
+`--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
+tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
+files; BMP and WebP files in it are refused).
 
     python -m hifidiff_tpu_torch.cli.train_vae --procedural 64 --size 32 \
         --vae-blocks 32,32 --vae-layers 1    # tiny demo fit
@@ -29,7 +29,7 @@ import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets,
                                            parse_config, parse_ints,
-                                           refuse_unported, resume, seeded,
+                                           require_data, resume, seeded,
                                            seeded_generator, smoke_datasets,
                                            to_device, to_nhwc)
 from hifidiff_tpu_torch.data.core import Loader
@@ -87,7 +87,7 @@ def recon_psnr(vae: AutoencoderKL, images: torch.Tensor):
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-0 VAE training")
-    refuse_unported(cfg, ported=("multipie_root", "celeba_root"))
+    require_data(cfg, ("multipie_root", "celeba_root"))
     device = resolve_device(cfg.device, "train_vae")
     # the real data's train and val sets are one, as the JAX CLI has them
     train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (

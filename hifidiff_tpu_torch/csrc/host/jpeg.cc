@@ -1,0 +1,1305 @@
+// The port's JPEG codec: a baseline / extended-sequential 8-bit Huffman
+// decoder and a baseline encoder, each held bit for bit to libjpeg-turbo's
+// defaults (the library under cv2 and PIL). Host code with a plain C
+// interface, bound with ctypes by hifidiff_tpu_torch/data/jpeg.py.
+//
+// Decoder (libjpeg-turbo's jdhuff.c, jidctint.c, jdsample.c, jdcolor.c):
+//   * SOF0 / SOF1 at 8 bits, interleaved and non-interleaved scans,
+//     restart intervals, any size, partial MCUs;
+//   * the islow IDCT with its masked range-limit table;
+//   * fancy upsampling: h2v1 / h1v2 / h2v2 triangle filters with their
+//     rounding biases and clamped edges (box replication where libjpeg
+//     takes it: h2v1 / h2v2 on a plane of at most two columns, and every
+//     other whole ratio); never the merged upsampler;
+//   * fixed-point YCbCr -> RGB; grey repeated over three channels.
+//   Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
+//   samples, CMYK / YCCK / RGB-coded components and truncated data raise,
+//   naming what they are.
+//
+// Encoder (cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) as
+// libjpeg-turbo runs it: jcparam.c, jccolor.c, jcsample.c, jcprepct.c,
+// jfdctint.c, jcdctmgr.c, jccoefct.c, jchuff.c, jcmarker.c):
+//   * Annex K tables scaled by jpeg_set_quality(q, force_baseline=TRUE);
+//   * fixed-point RGB -> YCbCr, 4:2:0 with h2v2_downsample's alternating
+//     bias and edge replication, dummy blocks carrying the DC to their left
+//     (or above);
+//   * the islow FDCT and the reciprocal quantizer of a SIMD build (16-bit
+//     DCTELEM);
+//   * the standard Huffman tables, no restart markers, a JFIF APP0.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct Error : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    // extra entries for a corrupt run past the block (jutils.c)
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// ---------------------------------------------------------------- Huffman
+
+struct HuffSpec {
+  uint8_t bits[17] = {0};  // bits[l]: codes of length l
+  uint8_t vals[256] = {0};
+  int count = 0;
+  bool defined = false;
+};
+
+// Canonical codes (JPEG Annex C) from the bits / vals lists.
+void canonical_codes(const HuffSpec& s, std::vector<uint16_t>& code,
+                     std::vector<uint8_t>& size) {
+  code.clear();
+  size.clear();
+  uint32_t c = 0;
+  for (int l = 1; l <= 16; ++l) {
+    for (int i = 0; i < s.bits[l]; ++i) {
+      code.push_back((uint16_t)c);
+      size.push_back((uint8_t)l);
+      ++c;
+    }
+    if (c > (1u << l)) throw Error("corrupt data: bad Huffman table");
+    c <<= 1;
+  }
+}
+
+struct HuffDec {
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint16_t lookup[512];  // (length << 8) | value for codes of <= 9 bits
+  uint8_t vals[256];
+};
+
+void build_decoder(const HuffSpec& s, HuffDec& d) {
+  std::vector<uint16_t> code;
+  std::vector<uint8_t> size;
+  canonical_codes(s, code, size);
+  std::memcpy(d.vals, s.vals, sizeof d.vals);
+  int p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (s.bits[l]) {
+      d.valoffset[l] = p - (int)code[p];
+      p += s.bits[l];
+      d.maxcode[l] = code[p - 1];
+    } else {
+      d.maxcode[l] = -1;
+    }
+  }
+  d.maxcode[17] = 0x7fffffff;
+  std::memset(d.lookup, 0, sizeof d.lookup);
+  for (int i = 0; i < (int)code.size(); ++i) {
+    if (size[i] > 9) continue;
+    const int shift = 9 - size[i];
+    const int base = code[i] << shift;
+    for (int j = 0; j < (1 << shift); ++j)
+      d.lookup[base + j] = (uint16_t)((size[i] << 8) | s.vals[i]);
+  }
+}
+
+// ---------------------------------------------------------------- decoder
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dc_tbl = 0, ac_tbl = 0;
+  int bw = 0, bh = 0;          // coefficient blocks stored (MCU-padded)
+  int wib = 0, hib = 0;        // width / height in blocks
+  int dw = 0, dh = 0;          // downsampled width / height
+  bool latched = false;
+  int quant[64];               // natural order, latched at its first scan
+  std::vector<int16_t> coef;   // bh x bw blocks of 64
+  int dc_pred = 0;
+};
+
+struct BitReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;
+  int bits = 0;
+  int64_t phantom = 0;  // zero bits appended past a marker or the data
+  bool at_marker = false;
+
+  void fill() {
+    while (bits <= 56) {
+      uint32_t byte = 0;
+      if (!at_marker && p < end) {
+        byte = *p;
+        if (byte == 0xFF) {
+          if (p + 1 < end && p[1] == 0x00) {
+            p += 2;
+          } else {
+            at_marker = true;  // a marker: supply zeros from here
+            byte = 0;
+            phantom += 8;
+          }
+        } else {
+          ++p;
+        }
+      } else {
+        phantom += 8;
+      }
+      buf |= (uint64_t)byte << (56 - bits);
+      bits += 8;
+    }
+  }
+  uint32_t peek(int n) {
+    if (bits < n) fill();
+    return (uint32_t)(buf >> (64 - n));
+  }
+  void skip(int n) {
+    buf <<= n;
+    bits -= n;
+  }
+  int get(int n) {
+    if (n == 0) return 0;
+    const uint32_t v = peek(n);
+    skip(n);
+    return (int)v;
+  }
+  // Ran past the entropy-coded data: some zeros supplied were consumed.
+  bool overran() const { return phantom > bits; }
+  void reset() {
+    buf = 0;
+    bits = 0;
+    phantom = 0;
+    at_marker = false;
+  }
+};
+
+inline int extend(int v, int s) {
+  return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+}
+
+int huff_decode(BitReader& br, const HuffDec& d) {
+  const uint32_t look = br.peek(16);
+  const uint16_t e = d.lookup[look >> 7];
+  if (e) {
+    br.skip(e >> 8);
+    return e & 0xFF;
+  }
+  for (int l = 10; l <= 16; ++l) {
+    const int32_t c = (int32_t)(look >> (16 - l));
+    if (c <= d.maxcode[l]) {
+      br.skip(l);
+      return d.vals[(c + d.valoffset[l]) & 0xFF];
+    }
+  }
+  throw Error("corrupt data: a Huffman code no table defines");
+}
+
+struct Decoder {
+  const uint8_t* data;
+  size_t n;
+  size_t pos = 0;
+  int width = 0, height = 0;
+  bool frame = false, saw_jfif = false, saw_adobe = false;
+  int adobe_transform = -1;
+  int restart_interval = 0;
+  int qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  HuffSpec dc_spec[4], ac_spec[4];
+  HuffDec dc_dec[4], ac_dec[4];
+  std::vector<Component> comps;
+  int max_h = 1, max_v = 1, mcus_per_row = 0, mcu_rows = 0;
+  int scans = 0;
+
+  Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
+
+  uint8_t byte() {
+    if (pos >= n) throw Error("truncated data: the file ends in a header");
+    return data[pos++];
+  }
+  int word() {
+    const int hi = byte();
+    return (hi << 8) | byte();
+  }
+  // The next marker code, skipping fill bytes (and, after entropy-coded
+  // data, any stray bytes as libjpeg's next_marker does).
+  int next_marker() {
+    for (;;) {
+      if (pos >= n) return -1;
+      if (data[pos] != 0xFF) {
+        ++pos;
+        continue;
+      }
+      while (pos < n && data[pos] == 0xFF) ++pos;
+      if (pos >= n) return -1;
+      const int m = data[pos++];
+      if (m != 0) return m;
+    }
+  }
+
+  void read_dqt() {
+    int len = word() - 2;
+    while (len > 0) {
+      const int pq_tq = byte();
+      const int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3) throw Error("corrupt data: DQT table index > 3");
+      for (int i = 0; i < 64; ++i)
+        qt[tq][kNatural[i]] = pq ? word() : byte();
+      qt_defined[tq] = true;
+      len -= 1 + 64 * (pq ? 2 : 1);
+    }
+    if (len != 0) throw Error("corrupt data: bad DQT length");
+  }
+
+  void read_dht() {
+    int len = word() - 2;
+    while (len > 16) {
+      const int tc_th = byte();
+      const int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) throw Error("corrupt data: bad DHT index");
+      HuffSpec& s = tc ? ac_spec[th] : dc_spec[th];
+      s = HuffSpec();
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += (s.bits[l] = byte());
+      if (count > 256 || count > len - 17)
+        throw Error("corrupt data: bad DHT length");
+      for (int i = 0; i < count; ++i) s.vals[i] = byte();
+      s.count = count;
+      s.defined = true;
+      build_decoder(s, tc ? ac_dec[th] : dc_dec[th]);
+      len -= 17 + count;
+    }
+    if (len != 0) throw Error("corrupt data: bad DHT length");
+  }
+
+  void read_app(int m) {
+    const int len = word() - 2;
+    if (len < 0 || pos + len > n)
+      throw Error("truncated data: the file ends in a header");
+    const uint8_t* d = data + pos;
+    if (m == 0xE0 && len >= 14 && !std::memcmp(d, "JFIF\0", 5))
+      saw_jfif = true;
+    if (m == 0xEE && len >= 12 && !std::memcmp(d, "Adobe", 5)) {
+      saw_adobe = true;
+      adobe_transform = d[11];
+    }
+    pos += len;
+  }
+
+  void skip_segment() {
+    const int len = word() - 2;
+    if (len < 0 || pos + len > n)
+      throw Error("truncated data: the file ends in a header");
+    pos += len;
+  }
+
+  void read_sof() {
+    if (frame) throw Error("corrupt data: a second frame header");
+    word();
+    const int precision = byte();
+    if (precision != 8)
+      throw Error(std::to_string(precision) +
+                  "-bit samples are not supported (8-bit only)");
+    height = word();
+    width = word();
+    const int nc = byte();
+    if (height == 0) throw Error("a zero or DNL-defined height is not "
+                                 "supported");
+    if (width == 0) throw Error("corrupt data: zero width");
+    if (nc == 4)
+      throw Error("CMYK / YCCK (four-component) JPEG is not supported");
+    if (nc != 1 && nc != 3)
+      throw Error(std::to_string(nc) + "-component JPEG is not supported");
+    comps.resize(nc);
+    for (auto& c : comps) {
+      c.id = byte();
+      const int hv = byte();
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = byte();
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+        throw Error("corrupt data: bad component parameters");
+      max_h = std::max(max_h, c.h);
+      max_v = std::max(max_v, c.v);
+    }
+    mcus_per_row = (width + 8 * max_h - 1) / (8 * max_h);
+    mcu_rows = (height + 8 * max_v - 1) / (8 * max_v);
+    for (auto& c : comps) {
+      if (max_h % c.h || max_v % c.v)
+        throw Error("sampling factors that are not whole ratios are not "
+                    "supported");
+      c.dw = (int)(((int64_t)width * c.h + max_h - 1) / max_h);
+      c.dh = (int)(((int64_t)height * c.v + max_v - 1) / max_v);
+      c.wib = (int)(((int64_t)width * c.h + 8 * max_h - 1) / (8 * max_h));
+      c.hib = (int)(((int64_t)height * c.v + 8 * max_v - 1) / (8 * max_v));
+      c.bw = mcus_per_row * c.h;
+      c.bh = mcu_rows * c.v;
+      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+    }
+    frame = true;
+  }
+
+  void decode_block(BitReader& br, Component& c, int16_t* blk) {
+    const HuffDec& dc = dc_dec[c.dc_tbl];
+    const HuffDec& ac = ac_dec[c.ac_tbl];
+    int s = huff_decode(br, dc);
+    if (s > 16) throw Error("corrupt data: bad DC magnitude");
+    int diff = s ? extend(br.get(s), s) : 0;
+    c.dc_pred += diff;
+    blk[0] = (int16_t)c.dc_pred;
+    for (int k = 1; k < 64; ++k) {
+      const int rs = huff_decode(br, ac);
+      const int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        const int v = extend(br.get(s), s);
+        blk[kNatural[k]] = (int16_t)v;
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  // Past the entropy-coded data of an interval or a scan: drop the bits
+  // left over, check none was made up, and step to the marker.
+  void finish_segment(BitReader& br) {
+    if (br.overran())
+      throw Error("truncated data: the entropy-coded data ends early");
+    pos = (size_t)(br.p - data);
+    br.reset();
+  }
+
+  void read_sos() {
+    if (!frame) throw Error("corrupt data: a scan before the frame header");
+    word();
+    const int ns = byte();
+    if (ns < 1 || ns > 4 || ns > (int)comps.size())
+      throw Error("corrupt data: bad scan component count");
+    std::vector<Component*> sc;
+    for (int i = 0; i < ns; ++i) {
+      const int id = byte();
+      const int t = byte();
+      Component* found = nullptr;
+      for (auto& c : comps)
+        if (c.id == id) found = &c;
+      if (!found) throw Error("corrupt data: a scan names no component");
+      found->dc_tbl = t >> 4;
+      found->ac_tbl = t & 15;
+      if (found->dc_tbl > 3 || found->ac_tbl > 3 ||
+          !dc_spec[found->dc_tbl].defined ||
+          !ac_spec[found->ac_tbl].defined)
+        throw Error("corrupt data: a scan uses an undefined Huffman table");
+      if (!found->latched) {
+        if (!qt_defined[found->tq])
+          throw Error("corrupt data: a component's quantization table is "
+                      "not defined");
+        std::memcpy(found->quant, qt[found->tq], sizeof found->quant);
+        found->latched = true;
+      }
+      sc.push_back(found);
+    }
+    const int ss = byte(), se = byte(), ahal = byte();
+    if (ss != 0 || se != 63 || ahal != 0)
+      throw Error("corrupt data: a sequential scan with spectral "
+                  "selection or approximation");
+    for (auto* c : sc) c->dc_pred = 0;
+    BitReader br{data + pos, data + n};
+    int next_rst = 0, todo = restart_interval;
+    auto restart = [&]() {
+      finish_segment(br);
+      const int m = next_marker();
+      if (m == -1) throw Error("truncated data: the file ends in a scan");
+      if (m != 0xD0 + next_rst)
+        throw Error("corrupt data: restart marker RST" +
+                    std::to_string(next_rst) + " expected");
+      next_rst = (next_rst + 1) & 7;
+      for (auto* c : sc) c->dc_pred = 0;
+      br = BitReader{data + pos, data + n};
+      todo = restart_interval;
+    };
+    if (ns == 1) {
+      Component& c = *sc[0];
+      for (int by = 0; by < c.hib; ++by)
+        for (int bx = 0; bx < c.wib; ++bx) {
+          if (restart_interval && todo == 0) restart();
+          decode_block(br, c,
+                       &c.coef[((size_t)by * c.bw + bx) * 64]);
+          --todo;
+        }
+    } else {
+      int blocks = 0;
+      for (auto* c : sc) blocks += c->h * c->v;
+      if (blocks > 10)
+        throw Error("corrupt data: more than 10 blocks in an MCU");
+      for (int my = 0; my < mcu_rows; ++my)
+        for (int mx = 0; mx < mcus_per_row; ++mx) {
+          if (restart_interval && todo == 0) restart();
+          for (auto* c : sc)
+            for (int y = 0; y < c->v; ++y)
+              for (int x = 0; x < c->h; ++x) {
+                const size_t b = (size_t)(my * c->v + y) * c->bw +
+                                 (size_t)(mx * c->h + x);
+                decode_block(br, *c, &c->coef[b * 64]);
+              }
+          --todo;
+        }
+    }
+    finish_segment(br);
+    ++scans;
+  }
+
+  void parse() {
+    if (n < 2 || data[0] != 0xFF || data[1] != 0xD8)
+      throw Error("not a JPEG file (no SOI marker)");
+    pos = 2;
+    for (;;) {
+      const int m = next_marker();
+      if (m == -1)
+        throw Error("truncated data: the file ends before its EOI marker");
+      if (m == 0xD9) break;
+      switch (m) {
+        case 0xC0:
+        case 0xC1:
+          read_sof();
+          break;
+        case 0xC2:
+        case 0xC6:
+          throw Error("progressive JPEG (SOF" + std::to_string(m - 0xC0) +
+                      ") is not supported");
+        case 0xC3:
+        case 0xC7:
+          throw Error("lossless JPEG (SOF" + std::to_string(m - 0xC0) +
+                      ") is not supported");
+        case 0xC5:
+          throw Error("hierarchical JPEG (SOF5) is not supported");
+        case 0xC9:
+        case 0xCA:
+        case 0xCB:
+        case 0xCD:
+        case 0xCE:
+        case 0xCF:
+        case 0xCC:
+          throw Error("arithmetic-coded JPEG is not supported");
+        case 0xC4:
+          read_dht();
+          break;
+        case 0xDB:
+          read_dqt();
+          break;
+        case 0xDD:
+          word();
+          restart_interval = word();
+          break;
+        case 0xDA:
+          read_sos();
+          break;
+        case 0xD8:
+          throw Error("corrupt data: a second SOI marker");
+        default:
+          if (m >= 0xD0 && m <= 0xD7) break;  // stray RSTn: no segment
+          if (m >= 0xE0 && m <= 0xEF) {
+            read_app(m);
+          } else {
+            skip_segment();
+          }
+      }
+    }
+    if (!frame) throw Error("corrupt data: no frame header");
+    if (!scans) throw Error("corrupt data: no scan");
+    for (auto& c : comps)
+      if (!c.latched) throw Error("truncated data: a component no scan "
+                                  "holds");
+    if (comps.size() == 3) {
+      if (!saw_jfif && saw_adobe && adobe_transform != 1)
+        throw Error(adobe_transform == 0
+                        ? "RGB-coded JPEG (Adobe transform 0) is not "
+                          "supported"
+                        : "Adobe transform " +
+                              std::to_string(adobe_transform) +
+                              " is not supported");
+      if (!saw_jfif && !saw_adobe && comps[0].id == 'R' &&
+          comps[1].id == 'G' && comps[2].id == 'B')
+        throw Error("RGB-coded JPEG (component ids R, G, B) is not "
+                    "supported");
+    }
+  }
+};
+
+// The post-IDCT range limit (jdmaster.c): x & 1023 indexes a table that
+// is x + 128 clamped to [0, 255] for |x| < 512 and wraps past it.
+struct RangeLimit {
+  uint8_t t[1024];
+  RangeLimit() {
+    for (int i = 0; i < 1024; ++i) {
+      int v;
+      if (i < 128) v = i + 128;
+      else if (i < 512) v = 255;
+      else if (i < 896) v = 0;
+      else v = i - 896;
+      t[i] = (uint8_t)v;
+    }
+  }
+};
+const RangeLimit kRange;
+
+#define FIX_0_298631336 ((int64_t)2446)
+#define FIX_0_390180644 ((int64_t)3196)
+#define FIX_0_541196100 ((int64_t)4433)
+#define FIX_0_765366865 ((int64_t)6270)
+#define FIX_0_899976223 ((int64_t)7373)
+#define FIX_1_175875602 ((int64_t)9633)
+#define FIX_1_501321110 ((int64_t)12299)
+#define FIX_1_847759065 ((int64_t)15137)
+#define FIX_1_961570560 ((int64_t)16069)
+#define FIX_2_053119869 ((int64_t)16819)
+#define FIX_2_562915447 ((int64_t)20995)
+#define FIX_3_072711026 ((int64_t)25172)
+
+inline int64_t descale(int64_t x, int n) {
+  return (x + ((int64_t)1 << (n - 1))) >> n;
+}
+
+// jidctint.c's jpeg_idct_islow on one block, into an 8x8 window of `out`.
+void idct_islow(const int16_t* in, const int* q, uint8_t* out, int stride) {
+  const int CB = 13, P1 = 2;
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* ip = in + c;
+    const int* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
+        !ip[56]) {
+      const int dc = (ip[0] * qp[0]) * (1 << P1);
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = ip[0] * qp[0];
+    z3 = ip[32] * qp[32];
+    int64_t tmp0 = (z2 + z3) * (1 << CB);
+    int64_t tmp1 = (z2 - z3) * (1 << CB);
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    tmp0 = ip[56] * qp[56];
+    tmp1 = ip[40] * qp[40];
+    tmp2 = ip[24] * qp[24];
+    tmp3 = ip[8] * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    wp[0] = (int)descale(t10 + tmp3, CB - P1);
+    wp[56] = (int)descale(t10 - tmp3, CB - P1);
+    wp[8] = (int)descale(t11 + tmp2, CB - P1);
+    wp[48] = (int)descale(t11 - tmp2, CB - P1);
+    wp[16] = (int)descale(t12 + tmp1, CB - P1);
+    wp[40] = (int)descale(t12 - tmp1, CB - P1);
+    wp[24] = (int)descale(t13 + tmp0, CB - P1);
+    wp[32] = (int)descale(t13 - tmp0, CB - P1);
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + (size_t)r * stride;
+    // The zero-row shortcut gives the same values as the full pass.
+    int64_t z2 = wp[2], z3 = wp[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = ((int64_t)wp[0] + wp[4]) * (1 << CB);
+    int64_t tmp1 = ((int64_t)wp[0] - wp[4]) * (1 << CB);
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int S = CB + P1 + 3;
+    op[0] = kRange.t[(int)descale(t10 + tmp3, S) & 1023];
+    op[7] = kRange.t[(int)descale(t10 - tmp3, S) & 1023];
+    op[1] = kRange.t[(int)descale(t11 + tmp2, S) & 1023];
+    op[6] = kRange.t[(int)descale(t11 - tmp2, S) & 1023];
+    op[2] = kRange.t[(int)descale(t12 + tmp1, S) & 1023];
+    op[5] = kRange.t[(int)descale(t12 - tmp1, S) & 1023];
+    op[3] = kRange.t[(int)descale(t13 + tmp0, S) & 1023];
+    op[4] = kRange.t[(int)descale(t13 - tmp0, S) & 1023];
+  }
+}
+
+// A component's samples: its blocks through the IDCT, bw*8 x bh*8.
+std::vector<uint8_t> component_plane(const Component& c) {
+  const int stride = c.bw * 8;
+  std::vector<uint8_t> plane((size_t)stride * c.bh * 8);
+  // Only the blocks that hold samples of the image are needed.
+  for (int by = 0; by < c.bh && by * 8 < c.dh; ++by)
+    for (int bx = 0; bx < c.bw && bx * 8 < c.dw; ++bx)
+      idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.quant,
+                 &plane[(size_t)by * 8 * stride + (size_t)bx * 8], stride);
+  return plane;
+}
+
+// The component upsampled to width x height (jdsample.c, fancy).
+std::vector<uint8_t> upsample(const Component& c, const uint8_t* plane,
+                              int width, int height, int max_h, int max_v) {
+  const int stride = c.bw * 8;
+  const int rh = max_h / c.h, rv = max_v / c.v;
+  std::vector<uint8_t> out((size_t)width * height);
+  auto at = [&](int y, int x) -> int {
+    y = y < 0 ? 0 : (y >= c.dh ? c.dh - 1 : y);
+    x = x < 0 ? 0 : (x >= c.dw ? c.dw - 1 : x);
+    return plane[(size_t)y * stride + x];
+  };
+  if (rh == 1 && rv == 1) {
+    for (int y = 0; y < height; ++y)
+      std::memcpy(&out[(size_t)y * width], plane + (size_t)y * stride,
+                  width);
+    return out;
+  }
+  const bool fancy_h = rh == 2 && c.dw > 2;
+  if (rh == 2 && rv == 1 && fancy_h) {  // h2v1
+    for (int y = 0; y < height; ++y)
+      for (int x = 0; x < width; ++x) {
+        const int i = x >> 1;
+        const int v3 = at(y, i) * 3;
+        out[(size_t)y * width + x] =
+            (x & 1) ? (uint8_t)((v3 + at(y, i + 1) + 2) >> 2)
+                    : (uint8_t)((v3 + at(y, i - 1) + 1) >> 2);
+      }
+    return out;
+  }
+  if (rh == 1 && rv == 2) {  // h1v2
+    for (int y = 0; y < height; ++y) {
+      const int i = y >> 1;
+      const int nb = (y & 1) ? i + 1 : i - 1;
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < width; ++x)
+        out[(size_t)y * width + x] =
+            (uint8_t)((at(i, x) * 3 + at(nb, x) + bias) >> 2);
+    }
+    return out;
+  }
+  if (rh == 2 && rv == 2 && fancy_h) {  // h2v2
+    for (int y = 0; y < height; ++y) {
+      const int i = y >> 1;
+      const int nb = (y & 1) ? i + 1 : i - 1;
+      for (int x = 0; x < width; ++x) {
+        const int j = x >> 1;
+        const int cur = at(i, j) * 3 + at(nb, j);
+        const int side = (x & 1) ? at(i, j + 1) * 3 + at(nb, j + 1)
+                                 : at(i, j - 1) * 3 + at(nb, j - 1);
+        out[(size_t)y * width + x] =
+            (x & 1) ? (uint8_t)((cur * 3 + side + 7) >> 4)
+                    : (uint8_t)((cur * 3 + side + 8) >> 4);
+      }
+    }
+    return out;
+  }
+  // Box replication (int_upsample, h2v1_upsample, h2v2_upsample).
+  for (int y = 0; y < height; ++y)
+    for (int x = 0; x < width; ++x)
+      out[(size_t)y * width + x] = plane[(size_t)(y / rv) * stride + x / rh];
+  return out;
+}
+
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int SB = 16;
+    const int64_t half = (int64_t)1 << (SB - 1);
+    auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + half) >> SB);
+      cb_b[i] = (int)((fix(1.77200) * x + half) >> SB);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+  }
+};
+const YccTables kYcc;
+
+inline uint8_t clamp255(int v) {
+  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+std::vector<uint8_t> decode(const uint8_t* data, size_t n, int* h, int* w) {
+  Decoder d(data, n);
+  d.parse();
+  const int W = d.width, H = d.height;
+  std::vector<std::vector<uint8_t>> planes;
+  for (auto& c : d.comps) {
+    const std::vector<uint8_t> p = component_plane(c);
+    planes.push_back(upsample(c, p.data(), W, H, d.max_h, d.max_v));
+  }
+  std::vector<uint8_t> rgb((size_t)W * H * 3);
+  const size_t np = (size_t)W * H;
+  if (planes.size() == 1) {
+    for (size_t i = 0; i < np; ++i)
+      rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = planes[0][i];
+  } else {
+    const uint8_t *Y = planes[0].data(), *Cb = planes[1].data(),
+                  *Cr = planes[2].data();
+    for (size_t i = 0; i < np; ++i) {
+      const int y = Y[i], cb = Cb[i], cr = Cr[i];
+      rgb[3 * i] = clamp255(y + kYcc.cr_r[cr]);
+      rgb[3 * i + 1] =
+          clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+      rgb[3 * i + 2] = clamp255(y + kYcc.cb_b[cb]);
+    }
+  }
+  *h = H;
+  *w = W;
+  return rgb;
+}
+
+// ---------------------------------------------------------------- encoder
+
+const unsigned kStdLuma[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const unsigned kStdChroma[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1,
+                                 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1,
+                                   1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3,
+                                 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4,
+                                   7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+HuffSpec spec_of(const uint8_t* bits, const uint8_t* vals) {
+  HuffSpec s;
+  std::memcpy(s.bits, bits, 17);
+  for (int l = 1; l <= 16; ++l) s.count += bits[l];
+  std::memcpy(s.vals, vals, s.count);
+  s.defined = true;
+  return s;
+}
+
+struct HuffEnc {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+HuffEnc encoder_of(const HuffSpec& s) {
+  HuffEnc e;
+  std::memset(e.size, 0, sizeof e.size);
+  std::vector<uint16_t> code;
+  std::vector<uint8_t> size;
+  canonical_codes(s, code, size);
+  for (int i = 0; i < s.count; ++i) {
+    e.code[s.vals[i]] = code[i];
+    e.size[s.vals[i]] = size[i];
+  }
+  return e;
+}
+
+// jcparam.c: jpeg_quality_scaling + jpeg_add_quant_table(force_baseline).
+void quant_table(const unsigned* basic, int quality, int* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = ((long)basic[i] * scale + 50L) / 100L;
+    if (t <= 0L) t = 1L;
+    if (t > 32767L) t = 32767L;
+    if (t > 255L) t = 255L;
+    out[i] = (int)t;
+  }
+}
+
+// jcdctmgr.c's compute_reciprocal with a 16-bit DCTELEM (a SIMD build),
+// for the islow divisors (quantval << 3, never 1).
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(unsigned divisor) {
+  Divisor d;
+  int b = 0;
+  while ((divisor >> (b + 1)) != 0) ++b;  // flss(divisor) - 1
+  int r = 16 + b;
+  uint32_t fq = (uint32_t)((1ull << r) / divisor);
+  const uint32_t fr = (uint32_t)((1ull << r) % divisor);
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= divisor / 2u) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  d.recip = fq & 0xFFFF;
+  d.corr = c & 0xFFFF;
+  d.shift = r - 16;
+  return d;
+}
+
+// jfdctint.c's jpeg_fdct_islow, in place, 16-bit elements.
+void fdct_islow(int16_t* data) {
+  const int CB = 13, P1 = 2;
+  for (int r = 0; r < 8; ++r) {
+    int16_t* d = data + 8 * r;
+    int64_t tmp0 = d[0] + d[7], tmp7 = d[0] - d[7];
+    int64_t tmp1 = d[1] + d[6], tmp6 = d[1] - d[6];
+    int64_t tmp2 = d[2] + d[5], tmp5 = d[2] - d[5];
+    int64_t tmp3 = d[3] + d[4], tmp4 = d[3] - d[4];
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    d[0] = (int16_t)((t10 + t11) * (1 << P1));
+    d[4] = (int16_t)((t10 - t11) * (1 << P1));
+    int64_t z1 = (t12 + t13) * FIX_0_541196100;
+    d[2] = (int16_t)descale(z1 + t13 * FIX_0_765366865, CB - P1);
+    d[6] = (int16_t)descale(z1 + t12 * -FIX_1_847759065, CB - P1);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    d[7] = (int16_t)descale(tmp4 + z1 + z3, CB - P1);
+    d[5] = (int16_t)descale(tmp5 + z2 + z4, CB - P1);
+    d[3] = (int16_t)descale(tmp6 + z2 + z3, CB - P1);
+    d[1] = (int16_t)descale(tmp7 + z1 + z4, CB - P1);
+  }
+  for (int c = 0; c < 8; ++c) {
+    int16_t* d = data + c;
+    int64_t tmp0 = d[0] + d[56], tmp7 = d[0] - d[56];
+    int64_t tmp1 = d[8] + d[48], tmp6 = d[8] - d[48];
+    int64_t tmp2 = d[16] + d[40], tmp5 = d[16] - d[40];
+    int64_t tmp3 = d[24] + d[32], tmp4 = d[24] - d[32];
+    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    d[0] = (int16_t)descale(t10 + t11, P1);
+    d[32] = (int16_t)descale(t10 - t11, P1);
+    int64_t z1 = (t12 + t13) * FIX_0_541196100;
+    d[16] = (int16_t)descale(z1 + t13 * FIX_0_765366865, CB + P1);
+    d[48] = (int16_t)descale(z1 + t12 * -FIX_1_847759065, CB + P1);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    d[56] = (int16_t)descale(tmp4 + z1 + z3, CB + P1);
+    d[40] = (int16_t)descale(tmp5 + z2 + z4, CB + P1);
+    d[24] = (int16_t)descale(tmp6 + z2 + z3, CB + P1);
+    d[8] = (int16_t)descale(tmp7 + z1 + z4, CB + P1);
+  }
+}
+
+struct Writer {
+  std::vector<uint8_t> out;
+  uint64_t buf = 0;
+  int bits = 0;
+  void byte(int b) { out.push_back((uint8_t)b); }
+  void word(int w) {
+    byte(w >> 8);
+    byte(w & 0xFF);
+  }
+  void marker(int m) {
+    byte(0xFF);
+    byte(m);
+  }
+  void put(uint32_t code, int size) {
+    if (!size) return;
+    buf = (buf << size) | (code & ((1u << size) - 1));
+    bits += size;
+    while (bits >= 8) {
+      const uint8_t b = (uint8_t)(buf >> (bits - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      bits -= 8;
+    }
+  }
+  void flush() {  // the partial byte filled with ones
+    if (bits) put(0x7F, 8 - bits);
+  }
+};
+
+struct EncComponent {
+  int id, h, v, tbl;          // tbl: quantization and Huffman table
+  int wib, hib;             // blocks holding samples
+  int sw;                   // sample plane width (wib * 8)
+  std::vector<uint8_t> s;   // samples, (hib*8 rows padded to iMCU) x sw
+  int rows;                 // rows in s
+  Divisor div[64];
+  int dc_pred = 0;
+};
+
+void encode_block(Writer& w, const int16_t* coef, int& dc_pred,
+                  const HuffEnc& dc, const HuffEnc& ac) {
+  int temp = coef[0] - dc_pred, temp2 = temp;
+  dc_pred = coef[0];
+  if (temp < 0) {
+    temp = -temp;
+    --temp2;
+  }
+  int nbits = 0;
+  while (temp) {
+    ++nbits;
+    temp >>= 1;
+  }
+  if (nbits > 11) throw Error("DC coefficient out of range");
+  w.put(dc.code[nbits], dc.size[nbits]);
+  w.put((uint32_t)temp2, nbits);
+  int r = 0;
+  for (int k = 1; k < 64; ++k) {
+    int v = coef[kNatural[k]];
+    if (v == 0) {
+      ++r;
+      continue;
+    }
+    while (r > 15) {
+      w.put(ac.code[0xF0], ac.size[0xF0]);
+      r -= 16;
+    }
+    int t2 = v;
+    if (v < 0) {
+      v = -v;
+      --t2;
+    }
+    nbits = 0;
+    while (v) {
+      ++nbits;
+      v >>= 1;
+    }
+    if (nbits > 10) throw Error("AC coefficient out of range");
+    const int i = (r << 4) + nbits;
+    w.put(ac.code[i], ac.size[i]);
+    w.put((uint32_t)t2, nbits);
+    r = 0;
+  }
+  if (r > 0) w.put(ac.code[0], ac.size[0]);
+}
+
+void forward_block(const EncComponent& c, int by, int bx, int16_t* coef) {
+  int16_t ws[64];
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x)
+      ws[8 * y + x] =
+          (int16_t)(c.s[(size_t)(by * 8 + y) * c.sw + bx * 8 + x] - 128);
+  fdct_islow(ws);
+  for (int i = 0; i < 64; ++i) {
+    int t = ws[i];
+    const Divisor& d = c.div[i];
+    const bool neg = t < 0;
+    if (neg) t = -t;
+    uint32_t product = (uint32_t)(t + (int)d.corr) * d.recip;
+    product >>= d.shift + 16;
+    t = (int16_t)product;
+    coef[i] = (int16_t)(neg ? -t : t);
+  }
+}
+
+std::vector<uint8_t> encode(const uint8_t* img, int H, int W, int quality) {
+  if (H < 1 || W < 1 || H > 65535 || W > 65535)
+    throw Error("image size out of JPEG's range");
+  int qt[2][64];
+  quant_table(kStdLuma, quality, qt[0]);
+  quant_table(kStdChroma, quality, qt[1]);
+  const int max_h = 2, max_v = 2, nc = 3;
+  std::vector<EncComponent> comps;
+  for (int ci = 0; ci < nc; ++ci) {
+    EncComponent c;
+    c.id = ci + 1;
+    c.h = ci == 0 ? max_h : 1;
+    c.v = ci == 0 ? max_v : 1;
+    c.tbl = ci == 0 ? 0 : 1;
+    c.wib = (int)(((int64_t)W * c.h + 8 * max_h - 1) / (8 * max_h));
+    c.hib = (int)(((int64_t)H * c.v + 8 * max_v - 1) / (8 * max_v));
+    c.sw = c.wib * 8;
+    for (int i = 0; i < 64; ++i) c.div[i] = reciprocal(qt[c.tbl][i] << 3);
+    comps.push_back(std::move(c));
+  }
+  const int mcus_per_row = (W + 8 * max_h - 1) / (8 * max_h);
+  const int mcu_rows = (H + 8 * max_v - 1) / (8 * max_v);
+
+  // Colour conversion (jccolor.c) into full-size planes.
+  std::vector<std::vector<uint8_t>> full(nc,
+                                         std::vector<uint8_t>((size_t)H * W));
+  const int64_t half = (int64_t)1 << 15, cbcr = (int64_t)128 << 16;
+  auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+  const int64_t ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+  const int64_t rcb = -fix(0.16874), gcb = -fix(0.33126), bcb = fix(0.5);
+  const int64_t gcr = -fix(0.41869), bcr = -fix(0.08131);
+  for (size_t i = 0; i < (size_t)H * W; ++i) {
+    const int64_t r = img[3 * i], g = img[3 * i + 1], b = img[3 * i + 2];
+    full[0][i] = (uint8_t)((ry * r + gy * g + by * b + half) >> 16);
+    full[1][i] =
+        (uint8_t)((rcb * r + gcb * g + bcb * b + cbcr + half - 1) >> 16);
+    full[2][i] =
+        (uint8_t)((bcb * r + gcr * g + bcr * b + cbcr + half - 1) >> 16);
+  }
+
+  // Downsampling with edge replication (jcprepct.c, jcsample.c), padded
+  // at the bottom to whole iMCU rows.
+  for (int ci = 0; ci < nc; ++ci) {
+    EncComponent& c = comps[ci];
+    c.rows = mcu_rows * c.v * 8;
+    c.s.assign((size_t)c.rows * c.sw, 0);
+    const uint8_t* f = full[ci].data();
+    if (c.h == max_h && c.v == max_v) {
+      for (int y = 0; y < c.rows; ++y) {
+        const int sy = y < H ? y : H - 1;
+        for (int x = 0; x < c.sw; ++x)
+          c.s[(size_t)y * c.sw + x] = f[(size_t)sy * W + (x < W ? x : W - 1)];
+      }
+    } else {  // h2v2_downsample
+      const int real = (H + 1) / 2;
+      for (int y = 0; y < c.rows; ++y) {
+        const int oy = y < real ? y : real - 1;
+        const int r0 = 2 * oy, r1 = 2 * oy + 1 < H ? 2 * oy + 1 : H - 1;
+        int bias = 1;
+        for (int x = 0; x < c.sw; ++x) {
+          const int c0 = 2 * x < W ? 2 * x : W - 1;
+          const int c1 = 2 * x + 1 < W ? 2 * x + 1 : W - 1;
+          c.s[(size_t)y * c.sw + x] =
+              (uint8_t)((f[(size_t)r0 * W + c0] + f[(size_t)r0 * W + c1] +
+                         f[(size_t)r1 * W + c0] + f[(size_t)r1 * W + c1] +
+                         bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+  }
+
+  Writer w;
+  w.out.reserve((size_t)H * W + 1024);
+  w.marker(0xD8);
+  // JFIF APP0 1.01, no units, density 1:1, no thumbnail.
+  w.marker(0xE0);
+  w.word(16);
+  for (char ch : std::string("JFIF")) w.byte(ch);
+  w.byte(0);
+  w.byte(1);
+  w.byte(1);
+  w.byte(0);
+  w.word(1);
+  w.word(1);
+  w.byte(0);
+  w.byte(0);
+  for (int t = 0; t < 2; ++t) {
+    w.marker(0xDB);
+    w.word(67);
+    w.byte(t);
+    for (int i = 0; i < 64; ++i) w.byte(qt[t][kNatural[i]]);
+  }
+  w.marker(0xC0);
+  w.word(8 + 3 * nc);
+  w.byte(8);
+  w.word(H);
+  w.word(W);
+  w.byte(nc);
+  for (auto& c : comps) {
+    w.byte(c.id);
+    w.byte((c.h << 4) | c.v);
+    w.byte(c.tbl);
+  }
+  const HuffSpec specs[2][2] = {
+      {spec_of(kDcLumaBits, kDcVals), spec_of(kAcLumaBits, kAcLumaVals)},
+      {spec_of(kDcChromaBits, kDcVals),
+       spec_of(kAcChromaBits, kAcChromaVals)}};
+  for (int t = 0; t < 2; ++t)
+    for (int k = 0; k < 2; ++k) {
+      const HuffSpec& s = specs[t][k];
+      w.marker(0xC4);
+      w.word(2 + 1 + 16 + s.count);
+      w.byte(t | (k << 4));
+      for (int l = 1; l <= 16; ++l) w.byte(s.bits[l]);
+      for (int i = 0; i < s.count; ++i) w.byte(s.vals[i]);
+    }
+  w.marker(0xDA);
+  w.word(6 + 2 * nc);
+  w.byte(nc);
+  for (auto& c : comps) {
+    w.byte(c.id);
+    w.byte((c.tbl << 4) | c.tbl);
+  }
+  w.byte(0);
+  w.byte(63);
+  w.byte(0);
+
+  const HuffEnc enc[2][2] = {
+      {encoder_of(specs[0][0]), encoder_of(specs[0][1])},
+      {encoder_of(specs[1][0]), encoder_of(specs[1][1])}};
+  int16_t blocks[10][64];
+  for (int my = 0; my < mcu_rows; ++my)
+    for (int mx = 0; mx < mcus_per_row; ++mx) {
+      int blkn = 0;
+      for (auto& c : comps) {
+        const int last_col = c.wib % c.h ? c.wib % c.h : c.h;
+        const int last_row = c.hib % c.v ? c.hib % c.v : c.v;
+        const int blockcnt = mx < mcus_per_row - 1 ? c.h : last_col;
+        for (int y = 0; y < c.v; ++y) {
+          if (my < mcu_rows - 1 || y < last_row) {
+            for (int x = 0; x < blockcnt; ++x)
+              forward_block(c, my * c.v + y, mx * c.h + x,
+                            blocks[blkn + x]);
+            for (int x = blockcnt; x < c.h; ++x) {  // right-edge dummy
+              std::memset(blocks[blkn + x], 0, sizeof blocks[0]);
+              blocks[blkn + x][0] = blocks[blkn + x - 1][0];
+            }
+          } else {  // a row of dummy blocks at the bottom
+            for (int x = 0; x < c.h; ++x) {
+              std::memset(blocks[blkn + x], 0, sizeof blocks[0]);
+              blocks[blkn + x][0] = blocks[blkn - 1][0];
+            }
+          }
+          blkn += c.h;
+        }
+      }
+      blkn = 0;
+      for (auto& c : comps)
+        for (int b = 0; b < c.h * c.v; ++b, ++blkn)
+          encode_block(w, blocks[blkn], c.dc_pred, enc[c.tbl][0],
+                       enc[c.tbl][1]);
+    }
+  w.flush();
+  w.marker(0xD9);
+  return w.out;
+}
+
+void set_error(const char* msg, char* err, int errlen) {
+  if (err && errlen > 0) {
+    std::strncpy(err, msg, (size_t)errlen - 1);
+    err[errlen - 1] = 0;
+  }
+}
+
+uint8_t* to_malloc(const std::vector<uint8_t>& v) {
+  uint8_t* p = (uint8_t*)std::malloc(v.size() ? v.size() : 1);
+  if (!p) throw Error("out of memory");
+  std::memcpy(p, v.data(), v.size());
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode `n` bytes to a malloc'd (h, w, 3) RGB buffer (free it with
+// hj_free); NULL on failure with the reason in `err`.
+uint8_t* hj_decode(const uint8_t* data, size_t n, int* h, int* w, char* err,
+                   int errlen) {
+  try {
+    return to_malloc(decode(data, n, h, w));
+  } catch (const std::exception& e) {
+    set_error(e.what(), err, errlen);
+    return nullptr;
+  }
+}
+
+// Encode an (h, w, 3) uint8 RGB image at `quality`; the malloc'd bytes
+// and their count in `size`, or NULL.
+uint8_t* hj_encode(const uint8_t* img, int h, int w, int quality,
+                   size_t* size, char* err, int errlen) {
+  try {
+    const std::vector<uint8_t> out = encode(img, h, w, quality);
+    *size = out.size();
+    return to_malloc(out);
+  } catch (const std::exception& e) {
+    set_error(e.what(), err, errlen);
+    return nullptr;
+  }
+}
+
+void hj_free(void* p) { std::free(p); }
+
+}  // extern "C"

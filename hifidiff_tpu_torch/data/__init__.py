@@ -1,10 +1,13 @@
 """Datasets and the prefetching loader (counterpart of hifidiff_tpu/data/):
 the numpy `Dataset` protocol, `Loader`, the procedural face family, and the
-Multi-PIE and CelebA-HQ datasets on PNG trees (K-Face, all JPEG, waits for
-the codec slice: ROADMAP §A9.2, step 3)."""
+K-Face, Multi-PIE and CelebA-HQ datasets on JPEG and PNG trees."""
 
 from hifidiff_tpu_torch.data.core import (ArrayDataset, ConcatDataset,
                                           Dataset, Loader, Sample)
+from hifidiff_tpu_torch.data.kface import (KFaceCropDataset,
+                                           KFaceCropHRDataset,
+                                           KFaceCropIDCDataset, KFaceDataset,
+                                           KFaceHRDataset, KFaceIDCDataset)
 from hifidiff_tpu_torch.data.multipie import (MultiPIEDataset,
                                               MultiPIEIDCDataset,
                                               MultiPIEInferenceDataset,
@@ -15,6 +18,8 @@ from hifidiff_tpu_torch.data.procedural import ProceduralFaceDataset
 
 __all__ = ["ArrayDataset", "ConcatDataset", "Dataset", "Loader", "Sample",
            "ProceduralFaceDataset",
+           "KFaceDataset", "KFaceCropDataset", "KFaceIDCDataset",
+           "KFaceCropIDCDataset", "KFaceHRDataset", "KFaceCropHRDataset",
            "MultiPIEDataset", "MultiPIESingleViewDataset",
            "MultiPIEInferenceDataset", "MultiPIEIDCDataset",
            "MultiPIEHQDataset", "CelebAHQDataset"]

@@ -10,9 +10,15 @@ channelwise but `to_gray3`, which weighs the channels as cv2's
 `filter2d` is cv2's `filter2D(img, -1, kernel)`: a correlation with the
 anchor at the kernel's centre and `BORDER_REFLECT_101` borders.
 
-The JPEG round trip, and with it the blind branch, needs a JPEG codec the
-port does not have yet: `jpeg_roundtrip` and `blind_degrade` raise before
-they draw anything (ROADMAP §A9.2, step 3: the codec slice).
+The JPEG round trip runs the port's codec (`data/jpeg.py`), which writes
+the bytes `cv2.imencode` writes and reads back what `cv2.imdecode` reads;
+the RGB image goes in as RGB, as cv2 takes the JAX package's BGR, so both
+see the same YCbCr. `blind_degrade` takes the JAX package's cv2 path by
+default (`filter2d`, `resize_cv2` linear, float64 normals) and its native
+path (`data/native.py`: the fused C++ stage, Xorshift128+ noise from one
+drawn seed) when asked with `native=True`; the two draw differently, as in
+the JAX package, where the native path is taken whenever its library is
+built.
 """
 
 from __future__ import annotations
@@ -21,10 +27,8 @@ import math
 
 import numpy as np
 
-from hifidiff_tpu_torch.data.resize import bgr2gray
-
-CODEC_SLICE = ("the JPEG codec is not in the port yet (ROADMAP §A9.2, step "
-               "3: the codec slice)")
+from hifidiff_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+from hifidiff_tpu_torch.data.resize import bgr2gray, resize_cv2
 
 
 def bivariate_gaussian_kernel(kernel_size: int, sigma_x: float,
@@ -84,9 +88,12 @@ def add_gaussian_noise(rng: np.random.Generator, img: np.ndarray,
 
 def jpeg_roundtrip(rng: np.random.Generator, img: np.ndarray,
                    quality_range=(80, 100)) -> np.ndarray:
-    """The JAX package's JPEG round trip at a random quality: refused,
-    before any draw."""
-    raise NotImplementedError(f"jpeg_roundtrip: {CODEC_SLICE}")
+    """Encode/decode through JPEG at a random quality (80-99 by default:
+    `int` truncates the uniform draw); img float32 [0,1] RGB, truncated to
+    uint8 before encoding, as the JAX package does."""
+    q = int(rng.uniform(*quality_range))
+    enc = encode_jpeg((img * 255.0).clip(0, 255).astype(np.uint8), q)
+    return decode_jpeg(enc).astype(np.float32) / 255.0
 
 
 def color_jitter_pair(rng: np.random.Generator, a: np.ndarray, b: np.ndarray,
@@ -106,10 +113,36 @@ def to_gray3(img: np.ndarray) -> np.ndarray:
 
 
 def blind_degrade(rng: np.random.Generator, img: np.ndarray,
-                  size: int = 128) -> np.ndarray:
-    """The blind branch (blur, downsample, noise, JPEG, resize back):
-    refused, before any draw, until the codec slice brings its JPEG."""
-    raise NotImplementedError(f"blind_degrade: {CODEC_SLICE}")
+                  size: int = 128, native: bool = False) -> np.ndarray:
+    """The full blind branch on a float32 [0,1] RGB image: blur ->
+    downsample U(1,8) -> noise -> JPEG -> resize back
+    (`dataset_multipie.py:104-146`; jitter and grey are the caller's).
+
+    `native=False` is the JAX package's cv2 path; `native=True` its native
+    path. Either draws what the JAX package's draws from `rng`, and the
+    noise lands on the channel it lands on in the JAX package's BGR image
+    (the native stage runs on the BGR form)."""
+    ksize = int(rng.integers(4, 6)) * 2 + 1  # 9 or 11
+    kernel = random_mixed_kernel(rng, ksize)
+    scale = rng.uniform(1.0, 8.0)
+    small = int(128 // scale)
+    sigma = rng.uniform(0.0, 5.0) / 255.0
+
+    if native:
+        from hifidiff_tpu_torch.data import native as hn
+
+        bgr = np.ascontiguousarray(img[..., ::-1])
+        img = hn.degrade_stage1(bgr, kernel, (small, small), sigma,
+                                int(rng.integers(0, 2 ** 62)))[..., ::-1]
+        img = jpeg_roundtrip(rng, np.ascontiguousarray(img))
+        return hn.resize(img, (size, size), cubic=False)
+
+    img = filter2d(img, kernel)
+    img = resize_cv2(img, (small, small), "linear")
+    noise = rng.standard_normal(img.shape).astype(np.float32)[..., ::-1]
+    img = np.clip(img + noise * sigma, 0.0, 1.0)
+    img = jpeg_roundtrip(rng, img)
+    return resize_cv2(img, (size, size), "linear")
 
 
 def quantize_8bit(img: np.ndarray) -> np.ndarray:

@@ -1,6 +1,8 @@
 """The port's PNG decoder, in numpy and `zlib`: the inverse of
 `utils/logging.png_bytes`, for the image files the Multi-PIE and CelebA-HQ
-datasets, `infer_cr` and the server read.
+datasets, `infer_cr` and the server read; and `imread_rgb`, which reads a
+PNG with it and a JPEG with the port's codec (`data/jpeg.py`), by the
+file's signature.
 
 It reads colour types 0 (grey), 2 (RGB), 3 (palette, with a `PLTE` of any
 length up to 256), 4 (grey + alpha) and 6 (RGBA) at bit depth 8, and grey
@@ -11,8 +13,8 @@ three channels and alpha is dropped, as `cv2.imread(path, IMREAD_COLOR)`
 (flipped to RGB) and PIL's `convert("RGB")` give it.
 
 Interlaced (Adam7) files and 16-bit samples raise `PNGError` naming them;
-so does anything that is not a PNG. JPEG and the other formats wait for the
-codec slice (ROADMAP §A9.2, step 3).
+so does anything that is not a PNG. `imread_rgb` refuses a file that is
+neither PNG nor JPEG (BMP, WebP, ...), naming the two it reads.
 
 Sub and Up are vectorised over a row; Average and Paeth depend on the pixel
 to the left and run along the row in Python, so a file whose rows are
@@ -23,7 +25,10 @@ from __future__ import annotations
 
 import struct
 import zlib
+
 import numpy as np
+
+from hifidiff_tpu_torch.data.jpeg import JPEG_SIGNATURE, JPEGError, decode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -35,9 +40,7 @@ class PNGError(ValueError):
 
 def _chunks(data: bytes):
     if data[:8] != PNG_SIGNATURE:
-        raise PNGError("not a PNG file (no PNG signature); only PNG is read "
-                       "until the codec slice brings JPEG (ROADMAP §A9.2, "
-                       "step 3)")
+        raise PNGError("not a PNG file (no PNG signature)")
     pos = 8
     while pos + 12 <= len(data):
         n, = struct.unpack(">I", data[pos:pos + 4])
@@ -190,12 +193,19 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """The PNG file at `path` as an (H, W, 3) uint8 RGB array; raises
-    `PNGError` on what the decoder cannot read (`decode_png`) and
+    """The PNG or JPEG file at `path` as an (H, W, 3) uint8 RGB array;
+    raises `PNGError` or `JPEGError` on what the decoders cannot read, and
     FileNotFoundError where there is no file."""
     with open(path, "rb") as f:
         data = f.read()
+    if data[:2] == JPEG_SIGNATURE:
+        decode, error = decode_jpeg, JPEGError
+    elif data[:8] == PNG_SIGNATURE:
+        decode, error = decode_png, PNGError
+    else:
+        raise PNGError(f"{path}: neither PNG nor JPEG (the two formats the "
+                       "port reads)")
     try:
-        return decode_png(data)
-    except PNGError as e:
-        raise PNGError(f"{path}: {e}") from None
+        return decode(data)
+    except error as e:
+        raise error(f"{path}: {e}") from None

@@ -7,14 +7,17 @@ and GT angle sets, the GT angle by which half of the angle list the input
 comes from; 8-bit quantization of the LR input; optional
 `<light>_patch.png` GT component images.
 
-The images are read by the port's PNG decoder (`image_io.imread_rgb`)
-straight into RGB, and stay RGB: the JAX package reads BGR with cv2 and
-flips at the end, and every op between is channelwise. Its cv2 resizes are
+The images are read by the port's decoders (`image_io.imread_rgb`, PNG or
+JPEG by the file's signature) straight into RGB, and stay RGB: the JAX
+package reads BGR with cv2 and flips at the end, and every op between is
+channelwise but the blind branch's noise and to-gray, which
+`degradations` lays out as on the BGR image. Its cv2 resizes are
 `resize.resize_cv2`, its PIL resizes `resize.resize_pil`.
 
-The blind branch (`use_blind=True`, the JAX default) JPEG-encodes every
-input and is refused at construction until the codec slice (ROADMAP
-§A9.2, step 3).
+The blind branch (`use_blind=True`, the JAX default) draws as the JAX
+package's: the flips, `blind_degrade`, jitter at 0.5, grey at 0.008, then
+the cv2-cubic resizes. `native=True` takes `blind_degrade`'s native path,
+which the JAX package takes whenever its native library is built.
 
 Reference quirk kept configurable: the reference flips input and GT
 *independently* (`dataset_multipie.py:94-99`); `joint_flip=False`
@@ -28,7 +31,9 @@ import os
 import numpy as np
 
 from hifidiff_tpu_torch.data.core import Dataset, Sample
-from hifidiff_tpu_torch.data.degradations import CODEC_SLICE, quantize_8bit
+from hifidiff_tpu_torch.data.degradations import (blind_degrade,
+                                                  color_jitter_pair,
+                                                  quantize_8bit, to_gray3)
 from hifidiff_tpu_torch.data.image_io import imread_rgb
 from hifidiff_tpu_torch.data.resize import resize_cv2, resize_pil
 
@@ -53,7 +58,7 @@ def _angle_sets(model_type: str):
 
 
 def imread_f32(path: str) -> np.ndarray:
-    """A PNG as float32 RGB in [0, 1]."""
+    """An image file as float32 RGB in [0, 1]."""
     return imread_rgb(path).astype(np.float32) / 255.0
 
 
@@ -70,14 +75,10 @@ class MultiPIEDataset(Dataset):
                  model_type: str = "uni", size: int = 128,
                  use_blind: bool = True, use_patch: bool = False,
                  augment_flip: bool = True, joint_flip: bool = False,
-                 seed: int = 0):
-        if use_blind:
-            raise NotImplementedError(
-                "MultiPIEDataset(use_blind=True): the blind branch "
-                f"JPEG-encodes every input and {CODEC_SLICE}; pass "
-                "use_blind=False")
+                 seed: int = 0, native: bool = False):
         self.size = size
         self.use_blind = use_blind
+        self.native = native
         self.use_patch = use_patch
         self.augment_flip = augment_flip
         self.joint_flip = joint_flip
@@ -120,8 +121,17 @@ class MultiPIEDataset(Dataset):
         inp = np.ascontiguousarray(inp)
         gt = np.ascontiguousarray(gt)
 
+        if self.use_blind:
+            inp = blind_degrade(rng, inp, self.size, native=self.native)
+            if rng.uniform() < 0.5:
+                inp, gt = color_jitter_pair(rng, inp, gt)
+            if rng.uniform() < 0.008:
+                inp = to_gray3(inp)
+        else:
+            inp = resize_cv2(inp, (32, 32), "cubic")
+
         size = (self.size, self.size)
-        inp = resize_cv2(resize_cv2(inp, (32, 32), "cubic"), size, "cubic")
+        inp = resize_cv2(inp, size, "cubic")
         out: Sample = {
             "lr": quantize_8bit(inp),
             "gt": resize_cv2(gt, size, "cubic"),

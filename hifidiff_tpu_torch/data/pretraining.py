@@ -4,10 +4,10 @@ Multi-PIE frontal+moderate crops (cv2-bicubic resize) and flat-directory
 CelebA-HQ (PIL-bicubic resize), both returning float32 [0,1] NHWC RGB under
 key "image".
 
-`CelebAHQDataset` lists the JAX module's `IMG_EXTS`. The port decodes PNG
-only: a directory that holds a `.jpg`, `.jpeg`, `.bmp` or `.webp` file is
-refused at construction (ROADMAP §A9.2, step 3: the codec slice); no file
-is skipped.
+`CelebAHQDataset` lists the JAX module's `IMG_EXTS`. The port reads PNG
+and JPEG (`.png`, `.jpg`, `.jpeg`): a directory that also holds a `.bmp` or
+`.webp` file is refused at construction, naming them (ROADMAP §A); no
+file is skipped.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from hifidiff_tpu_torch.data.multipie import (ANGLES_MODERATE,
 from hifidiff_tpu_torch.data.resize import resize_cv2
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+READ_EXTS = (".png", ".jpg", ".jpeg")
 
 
 class MultiPIEHQDataset(Dataset):
@@ -53,12 +54,12 @@ class CelebAHQDataset(Dataset):
             if os.path.isfile(os.path.join(root, f))
             and f.lower().endswith(IMG_EXTS)
         ]
-        other = [p for p in self.paths if not p.lower().endswith(".png")]
+        other = [p for p in self.paths if not p.lower().endswith(READ_EXTS)]
         if other:
             raise NotImplementedError(
-                f"CelebAHQDataset({root!r}): {len(other)} files the port "
-                f"cannot decode yet, e.g. {other[:3]}; only PNG is read "
-                "until the codec slice brings JPEG (ROADMAP §A9.2, step 3)")
+                f"CelebAHQDataset({root!r}): {len(other)} BMP / WebP files "
+                f"the port does not decode, e.g. {other[:3]}; it reads PNG "
+                "and JPEG (ROADMAP §A)")
 
     def __len__(self):
         return len(self.paths)

@@ -457,15 +457,18 @@ def test_test_refiner_procedural():
 
 
 @pytest.mark.parametrize("flags, match", [
-    (dict(dataroot="/data/kface", synthetic=4), "§A9"),
+    pytest.param(dict(TINY_CLI, dataroot="/data/kface"), "/data/kface/val",
+                 id="flags0-§A9"),
     (dict(niqe_model="niqe.npz", synthetic=4), "no file at niqe.npz"),
     (dict(vgg16_ckpt="vgg.pt", lpips_ckpt="lpips.pt", synthetic=4),
      "no file at vgg.pt"),
     (dict(), "--synthetic"),
 ])
 def test_test_refiner_refusals(flags, match):
-    """The K-Face dataset is refused (ROADMAP §A9.2), and so are metric
-    files that do not exist (the JAX CLI skips NIQE silently then)."""
+    """`--dataroot` reads the K-Face val split (here one that is not
+    there, named in the error); metric files that do not exist are refused
+    (the JAX CLI skips NIQE silently then); without data the CLI asks for
+    it."""
     with pytest.raises((NotImplementedError, ValueError, FileNotFoundError),
                        match=match):
         test_refiner.main(cli_flags(device="cpu", **flags))

@@ -1,10 +1,10 @@
-"""Guards of the port's boundaries: it imports without jax, chip_smoke.py
-refuses to run without CUDA, the sampler, the train steps, the server and
-every CLI target the card unless asked for the CPU, the training CLIs refuse
-the flags of what is not ported yet, the inference-only
-kernels raise where a gradient is wanted, and a CUDA tensor reaching a
-kernel wrapper whose library cannot be built raises rather than falling
-back."""
+"""Guards of the port's boundaries: it imports without jax, cv2 or PIL,
+chip_smoke.py refuses to run without CUDA, the sampler, the train steps,
+the server and every CLI target the card unless asked for the CPU and take
+every dataset flag, the JPEG decoder refuses progressive, CMYK and
+truncated files, the inference-only kernels raise where a gradient is
+wanted, and a CUDA tensor reaching a kernel wrapper whose library cannot be
+built raises rather than falling back."""
 
 import os
 import pathlib
@@ -63,12 +63,16 @@ def test_port_imports_with_jax_blocked():
         "eval.vgg", "eval.lpips", "eval.niqe", "train.distill")} \
         <= _port_modules()
     assert {f"hifidiff_tpu_torch.{m}" for m in PNG_PATH} <= _port_modules()
+    assert {f"hifidiff_tpu_torch.{m}" for m in JPEG_PATH} <= _port_modules()
 
 
 # the PNG data path: the port's own resizes and decoder in place of cv2 and
 # PIL
 PNG_PATH = ("data.resize", "data.image_io", "data.degradations",
             "data.multipie", "data.pretraining", "ops.resize", "cli.infer_cr")
+# the JPEG codec slice: the host library's loader, the codec, the native
+# data-path core and the K-Face datasets
+JPEG_PATH = ("data.host", "data.jpeg", "data.native", "data.kface")
 
 
 def test_port_imports_with_cv2_and_pil_blocked():
@@ -265,7 +269,8 @@ JPEG_DIR = "<a directory holding a JPEG>"
 @pytest.fixture(scope="module")
 def jpeg_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("celeba_jpeg")
-    (root / "00001.jpg").write_bytes(b"\xff\xd8\xff")
+    (root / "00001.jpg").write_bytes(
+        (FIXTURES / "pil_420_q75_80x96.jpg").read_bytes())
     return str(root)
 
 
@@ -291,19 +296,39 @@ def jpeg_dir(tmp_path_factory):
 ])
 def test_training_cli_refusals(monkeypatch, tmp_path, jpeg_dir, name, flags,
                                item):
-    """What still needs the JPEG codec is refused, naming JPEG and the
-    ROADMAP item that brings it, before anything is written: `--dataroot`
-    of the CLIs whose Multi-PIE train split takes the blind branch, K-Face,
-    and a CelebA-HQ directory holding a JPEG."""
+    """Nothing is refused for want of JPEG: `--dataroot` of the CLIs whose
+    Multi-PIE train split takes the blind branch, K-Face, and a CelebA-HQ
+    directory holding a JPEG are accepted; without generated data the CLI
+    goes on to look for the card and raises only for the want of one,
+    before anything is written."""
     import importlib
 
     main = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}").main
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     flags = {k: jpeg_dir if v == JPEG_DIR else v for k, v in flags.items()}
-    with pytest.raises(NotImplementedError, match=item) as exc:
-        main(_real_data_flags(name, device="cpu", **flags))
-    assert "JPEG" in str(exc.value)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(_real_data_flags(name, **flags))
     assert not list(tmp_path.rglob("*"))
+
+
+FIXTURES = REPO / "tests" / "fixtures" / "jpeg"
+
+
+@pytest.mark.parametrize("name, cut, match", [
+    ("pil_progressive_32x32.jpg", 0, "progressive JPEG"),
+    ("pil_cmyk_16x16.jpg", 0, "CMYK"),
+    ("pil_420_q75_80x96.jpg", 40, "truncated"),
+])
+def test_jpeg_decoder_refusals(name, cut, match):
+    """No unsupported JPEG is decoded approximately: a progressive file, a
+    CMYK file and a file cut `cut` bytes short (tests/fixtures/jpeg) are
+    each refused, naming what they are."""
+    from hifidiff_tpu_torch.data.jpeg import JPEGError, decode_jpeg
+
+    data = (FIXTURES / name).read_bytes()
+    with pytest.raises(JPEGError, match=match):
+        decode_jpeg(data[:len(data) - cut])
 
 
 @pytest.mark.parametrize("name, flags", [
