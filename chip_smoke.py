@@ -90,7 +90,7 @@ raises at once):
      plain version to phase 3's limits; every launch while serving a replay
      (the sampler's `replays` rise by the launches, no kernel launched from
      Python); then the load generator (`cli/serve_bench.py`) at
-     concurrencies 1, 4, 16 and 32, 16 requests a client (p50 / p95 ms,
+     concurrencies 1, 4, 16 and 32, 8 requests a client (p50 / p95 ms,
      faces/s, launches, mean fill, errors, which must be 0), the cold
      start by part, the card's memory after the warm-up, and the host's ms
      a launch outside the replay with what `_state_key` costs of it; with
@@ -181,6 +181,19 @@ raises at once):
      sampler call on the val split) and `test_idc --dataroot` (2 batches of
      the test split's triplets) with their launches; every map that
      reached a kernel against its plain version (twice, for equal bits);
+  17. (run after 16, before anything is profiled) data parallelism over
+     `torch.distributed`, f32 with TF32 off: `train_refiner`'s step (batch
+     32, EMA) and `pretrain_idc`'s (24) at full width, two steps each, in a
+     world-1 NCCL group in this process against the same steps without a
+     group, bit for bit; two processes of this script (`--dp-child`) on
+     the card over gloo, 16 + 16 and 12 + 12 rows, against one process on
+     the concatenated batch to the CPU tests' limits (the IDC aligned each
+     step, ROADMAP §C2), the ranks' states bit-equal after each step, the
+     gradient all-reduce's ms a step, every map that reached `ln_film`,
+     `ln_film_bwd` or the warp on either rank held to its plain version;
+     `test_refiner` on the two processes against one, and `serve
+     --mesh-devices 0` serving on the one card (see the constants of phase
+     17 for why its steps run without cuDNN's convolutions);
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -226,7 +239,8 @@ step and `affine_warp_bwd` on a CR train step; under "paths" the same sums
 for every path that launched the kernel, the train steps included; under
 "phase14_launches_per_step" and "phase16_launches_per_step" a step's
 launches in each of phase 14's and phase 16's training stages that
-launched it); the last line is
+launched it, under "phase17_launches_per_step_a_rank" a step's launches on
+one of phase 17's two ranks); the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -252,8 +266,11 @@ import torch.nn.functional as F
 SEED = 0
 BATCH = 128
 STEPS = 50
-TIMED_CALLS = 10         # the default path
-TIMED_CALLS_INT8 = 5     # each int8 configuration
+# cut from 10 and 5 (and phase 10's depth, phase 12's requests) in PR 13 to
+# keep the whole script, phase 17 added, inside its time limit on slower
+# hosts
+TIMED_CALLS = 6          # the default path
+TIMED_CALLS_INT8 = 4     # each int8 configuration
 
 KERNELS = {
     "ln_film": ("hifidiff_tpu_torch/csrc/ln_film.cu",
@@ -351,7 +368,7 @@ INT8_LIMITS = (7e-3, 6)
 # run that leaves out what the path adds (the path's option ignored: the
 # exact DDIM run; for the paths whose math equals the exact one's, the FiLM
 # left out).
-NEW_PATH_STEPS = 10
+NEW_PATH_STEPS = 4
 UNCOND_TOL = 1e-4
 # The graphs (phase 6): a replay's scan must take at most this many times
 # the card's own time in it (the kernels' sum under torch.profiler).
@@ -370,7 +387,7 @@ TIMED_REPLAYS = 5
 # held-out split of this many procedural faces (a quarter of it: 2 batches).
 SERVE_BUCKETS = "1,4"
 SERVE_CONCURRENCIES = (1, 4, 16, 32)
-SERVE_REQUESTS = 16
+SERVE_REQUESTS = 8
 SERVE_EAGER_CHECKS = 3
 SERVE_TIMED = 10
 EVAL_PROCEDURAL = 32
@@ -3845,6 +3862,975 @@ def check_codec_path(dev, g, stats, smi, keep, mp):
                 if isinstance(n, dict) and "launches_per_step" in n}
     return out, per_step
 
+# -- phase 17: data parallelism over torch.distributed ------------------------
+# Phase 17's train steps run on deterministic algorithms with cuDNN's
+# convolutions off (torch's own, which compute a row at a time): cuDNN's
+# convolutions give other bits at 16 rows a rank than at 32 in one process
+# (4 of a refiner step's 1306 calls, 3e-6), which moves the HCA blocks'
+# gradients by 1e-2. (b) holds that path too, and witnesses the cause.
+# (a) A process group of world size 1 on NCCL in this process against the
+#     same steps without a group: losses, parameters, BatchNorm statistics
+#     and EMA bit for bit (the gradient all-reduce and the global-mean loss
+#     run; BatchNorm takes its own batch's statistics at world size 1).
+# (b) Two processes on the one card over gloo (NCCL refuses two ranks on one
+#     device; gloo takes `all_reduce`, `broadcast` and `barrier` on CUDA
+#     tensors), each on its half of the batch, against one process without
+#     a group on the concatenated batch (rank 0's rows first), recomputed
+#     in rank 0 and identified with (a)'s by its digest; f32, TF32 off; to
+#     the limits of tests/test_torch_parallel.py. The refiner: the losses
+#     1e-5 relative; the first step's gradients, the worst tensor's largest
+#     difference 5e-4 of its largest value (1e-4 of the model's largest
+#     gradient as the floor; a tensor under it on both sides is rounding
+#     noise and left out of the parameter readings); after the steps at
+#     most 1e-3 of the trained entries (parameters and EMA) more than 5e-2
+#     of a learning rate per update apart and none a whole rate; BatchNorm
+#     statistics 1e-3 of the tensor's largest value. The IDC (ROADMAP §C2:
+#     its float32 gradient is ill-conditioned, Adam's first updates
+#     sign-like, so an entry whose gradient is rounding noise moves by +-lr):
+#     both runs set to the one-process run's state after each step; the
+#     losses 1e-4, the first step's gradient at a cosine of 0.99 or more, at
+#     most a tenth of the trained entries more than 5e-2 of a rate apart (an
+#     update of the wrong sign moves nearly all of them by two), the
+#     statistics 1e-3. Its witness in float64 ("idc64": the IDC and its
+#     optimizer in float64, the frozen CR's faces made a row at a time so
+#     that they do not depend on the batch's size): losses 1e-10, gradients
+#     1e-8 of a tensor's largest, cosine 1 - 1e-10, 1e-4 of the entries
+#     past 5e-2 of a rate, statistics 1e-10; and, for the cause of the
+#     float32 gap, one process with BatchNorm's statistics summed by the
+#     data-parallel formula without a group against torch's own (logged).
+#     For scale (not for the float64 witness), the same readings of one
+#     process on the batch shuffled (a seeded permutation of its rows and
+#     draws) against one process. The
+#     two ranks' states are equal bit for bit after every step (digests),
+#     and every map that reached `ln_film`, `ln_film_bwd` or the warp on
+#     either rank is held to its plain version (`check_recorded_shapes`).
+#     The refiner on cuDNN's deterministic convolutions (the users' path):
+#     two ranks against one process to DP_CUDNN_LIMITS. The witnesses, each
+#     against one process and the two ranks against each (logged): one
+#     process whose convolutions on the 32 rows are each made as two calls
+#     on 16 (what each rank runs), one with BatchNorm's statistics by the
+#     data-parallel formula, and one with both; and every such call's two
+#     halves against the 32-row call, with cuDNN and without. Held: the
+#     halves alone read at least half the two ranks' gap to one process
+#     (loss, gradients, share of entries), BatchNorm's formula a tenth or
+#     less.
+#     Then `train_refiner` (batch 16 a rank, 64 synthetic faces: two steps,
+#     and validation on 16) and `pretrain_idc` (12 a rank, 24: one step, and
+#     validation on 6; at a learning rate of 0, so that its validation reads
+#     the same parameters: (b) holds its update) run by their `main` on the
+#     two ranks, against one process at the global batch whose Loaders
+#     yield the ranks' batches concatenated (`ConcatShards`): logged train
+#     losses, val metrics and the checkpoint rank 0 wrote, to DP_CLI_LIMITS
+#     (the IDC's losses at ten times (b)'s limit: a fault of the wiring moves
+#     them by the data's spread, 1e-2 and more).
+# (c) `test_refiner` on the two processes (batch 1 each) against one process
+#     at batch 2 (1e-5 relative), and the server with `--mesh-devices 0`
+#     serving on the one card.
+DP_BATCH = {"refiner": 32, "idc": 24, "idc64": 24}
+DP_STEPS = 2
+DP_EMA = 0.9
+# upper limits, but the gradient's cosine: a lower one
+DP_LIMITS = {"refiner": {"loss_rel": 1e-5, "grad_rel": 5e-4,
+                         "param_share": 1e-3, "param_far_lr": 1.0,
+                         "stats_rel": 1e-3},
+             "idc": {"loss_rel": 1e-4, "grad_cosine": 0.99,
+                     "param_share": 0.1, "stats_rel": 1e-3},
+             "idc64": {"loss_rel": 1e-10, "grad_rel": 1e-8,
+                       "grad_cosine": 1 - 1e-10, "param_share": 1e-4,
+                       "stats_rel": 1e-10}}
+# the refiner on cuDNN's convolutions, two ranks against one process: a
+# bound on the users' path (readings 1.4e-5, 1.3e-2, 3.5e-2 and 3.0e-4
+# before it was set, PR 13)
+DP_CUDNN_LIMITS = {"loss_rel": 1e-4, "grad_rel": 5e-2, "param_share": 0.1,
+                   "stats_rel": 3e-3}
+DP_GRAD_FLOOR, DP_PARAM_LR = 1e-4, 5e-2
+DP_EVAL_REL = 1e-5
+DP_TIMEOUT = 600
+DP_EVAL_ARGV = ["--procedural", "8", "--num-inference-steps", "10",
+                "--grid-every", "0", "--seed", str(SEED)]
+# the training CLIs on two ranks: (the JSONL's project, flags, the global
+# batch, the learning rate)
+DP_CLI = {"train_refiner": ("hifi_refiner",
+                            ["--synthetic", "64", "--num-epochs", "1",
+                             "--warmup-steps", "0", "--ema-decay", "0.9",
+                             "--num-inference-steps", "2"], 32, 1e-4),
+          "pretrain_idc": ("hifi_idc", ["--synthetic", "24", "--num-epochs",
+                                        "1", "--lr", "0"], 24, 0.0)}
+DP_CLI_LIMITS = {"train_refiner": {"loss_rel": 1e-5, "val_rel": 1e-4,
+                                   "param_share": 1e-3, "stats_rel": 1e-3},
+                 "pretrain_idc": {"loss_rel": 1e-3, "val_rel": 1e-3,
+                                  "param_abs": 0.0, "stats_rel": 1e-3}}
+
+
+@contextlib.contextmanager
+def deterministic(cudnn=False):
+    """Torch's deterministic mode (warning, not raising, where an operator
+    has none) with cuDNN's convolutions off (`cudnn`: cuDNN's deterministic
+    ones) while the block runs; yields the warnings' texts."""
+    import warnings
+
+    was = (torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.enabled = cudnn
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            texts = []
+            yield texts
+            texts.extend(sorted({str(w.message).split("\n")[0][:160]
+                                 for w in caught
+                                 if "deterministic" in str(w.message)}))
+    finally:
+        torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = \
+            was[:2]
+        torch.use_deterministic_algorithms(was[2])
+
+
+class RowwiseCast(torch.nn.Module):
+    """A frozen float32 module whose output is made a row at a time (so
+    that it does not depend on the batch's size) and cast to `dtype`."""
+
+    def __init__(self, module, dtype):
+        super().__init__()
+        self.module, self.dtype = module, dtype
+
+    def forward(self, x):
+        return torch.cat([self.module(r[None].float())
+                          for r in x]).to(self.dtype)
+
+
+@contextlib.contextmanager
+def bn_by_formula():
+    """BatchNorm's training statistics by the data-parallel formula
+    (`BatchNorm2d._forward_global`: the sum, then the squared deviations)
+    over this process's batch, in place of torch's own, while the block
+    runs."""
+    from hifidiff_tpu_torch.nn.layers import BatchNorm2d
+
+    real = BatchNorm2d.forward
+
+    def forward(self, x):
+        return self._forward_global(x, None) if self.training \
+            else real(self, x)
+
+    with patched(BatchNorm2d, "forward", forward):
+        yield
+
+
+@contextlib.contextmanager
+def conv_in_halves(rows, seen):
+    """Every `F.conv2d` on `rows` rows made as two calls on half the rows
+    each (what each of two ranks runs) while the block runs; for each, the
+    two halves' largest difference from the whole call, relative to its
+    largest value, is appended to `seen` (the whole call is made for it,
+    without gradient)."""
+    import torch.nn.functional as F
+
+    real = F.conv2d
+
+    def conv2d(x, *a, **k):
+        if x.shape[0] != rows:
+            return real(x, *a, **k)
+        out = torch.cat([real(h, *a, **k) for h in x.chunk(2)])
+        with torch.no_grad():
+            whole = real(x, *a, **k)
+            seen.append(float((out - whole).abs().max()
+                              / whole.abs().max().clamp_min(1e-30)))
+        return out
+
+    with patched(F, "conv2d", conv2d):
+        yield
+
+
+def halves_summary(seen):
+    return {"calls": len(seen), "differ": sum(v > 0 for v in seen),
+            "max_rel": max(seen, default=0.0)}
+
+
+class ConcatShards:
+    """One process's view of a `world`-process run's sharded `Loader`s: each
+    batch is the processes' batches concatenated, rank 0's rows first.
+    Takes `Loader`'s arguments, `batch_size` being the global batch; stands
+    in for a CLI's `Loader` in the one-process run that the two ranks are
+    held to."""
+
+    def __init__(self, dataset, batch_size, world=2, shard_index=0,
+                 num_shards=1, **kw):
+        from hifidiff_tpu_torch.data.core import Loader
+
+        self.parts = [Loader(dataset, batch_size // world, shard_index=r,
+                             num_shards=world, **kw) for r in range(world)]
+
+    def __len__(self):
+        return len(self.parts[0])
+
+    @property
+    def epoch(self):
+        return self.parts[0].epoch
+
+    @epoch.setter
+    def epoch(self, epoch):
+        for part in self.parts:
+            part.epoch = epoch
+
+    def __iter__(self):
+        for batches in zip(*self.parts):
+            yield {k: np.concatenate([b[k] for b in batches])
+                   for k in batches[0]}
+
+
+def dp_cli_argv(who, root, batch):
+    """A training CLI's argv for phase 17 at `batch` a process, writing its
+    log, checkpoints and grids into `root`."""
+    argv = DP_CLI[who][1] + ["--seed", str(SEED), "--name", "dp",
+                             "--log-dir", root, "--batch-size", str(batch),
+                             "--ckpt-dir", os.path.join(root, "ck")]
+    return argv + (["--out-dir", root] if who == "train_refiner" else [])
+
+
+def dp_cli_run(who, root):
+    """The CLI's logged rows and the state of its latest checkpoint."""
+    from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
+
+    with open(os.path.join(root, f"{DP_CLI[who][0]}.dp.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ckpt = CheckpointManager(os.path.join(root, "ck", "dp"), create=False)
+    return rows, torch.load(ckpt.path(ckpt.latest_step()),
+                            map_location="cpu", weights_only=False)["state"]
+
+
+def dp_cli_readings(who, ranks_root, one_root):
+    """The two ranks' run of a CLI against one process's: the logged train
+    losses and val metrics (largest relative difference), the steps, and
+    the checkpoint's trained entries (parameters and EMA: the share more
+    than 5e-2 of a learning rate per update apart, or at a learning rate of
+    0 the largest difference) and running statistics."""
+    (got_rows, got), (want_rows, want) = (dp_cli_run(who, r)
+                                          for r in (ranks_root, one_root))
+
+    def logged(rows, key):
+        return [r[key] for r in rows if key in r]
+
+    def rel(key):
+        a, b = logged(got_rows, key), logged(want_rows, key)
+        if len(a) != len(b) or not b:
+            return math.inf
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    vals = [k for k in ("val_psnr", "val_ssim", "val_loss")
+            if logged(want_rows, k)]
+    lr = DP_CLI[who][3]
+    over = total = 0
+    far = stats = 0.0
+    for n, b in want["module"].items():
+        a = got["module"][n]
+        if n.endswith(("running_mean", "running_var")):
+            stats = max(stats, float((a - b).abs().max()
+                                     / b.abs().max().clamp_min(1e-30)))
+            continue
+        if not b.is_floating_point():
+            continue
+        pairs = [(a, b)]
+        if want["ema_params"] and n in want["ema_params"]:
+            pairs.append((got["ema_params"][n], want["ema_params"][n]))
+        for x, y in pairs:
+            diff = (x - y).abs()
+            if lr:
+                diff = diff / (lr * want["step"])
+                over += int((diff > DP_PARAM_LR).sum())
+            total += diff.numel()
+            far = max(far, float(diff.max()))
+    out = {"steps": [got["step"], want["step"]],
+           "train_losses": [logged(got_rows, "train_loss"),
+                            logged(want_rows, "train_loss")],
+           "val": {k: [logged(got_rows, k), logged(want_rows, k)]
+                   for k in vals},
+           "loss_rel": rel("train_loss"),
+           "val_rel": max((rel(k) for k in vals), default=math.inf),
+           "stats_rel": stats}
+    if lr:
+        out.update(param_share=over / max(total, 1), param_far_lr=far)
+    else:
+        out["param_abs"] = far
+    return out
+
+
+def dp_stack():
+    """(refiner with the freeze mask, frozen CR, frozen VAE, IDC): phase 4's
+    seeded perturbed stack and a seeded perturbed ResNet-50 IDC, float32 on
+    the CPU."""
+    from hifidiff_tpu_torch.models.idc import IDCEncoder
+    from hifidiff_tpu_torch.random_weights import perturb_
+    from hifidiff_tpu_torch.train import optim
+
+    refiner, cr, vae = build_models()
+    optim.apply_freeze_mask_(refiner, optim.refiner_freeze_mask(refiner))
+    torch.manual_seed(SEED + 17)
+    idc = perturb_(IDCEncoder(), torch.Generator().manual_seed(SEED + 17))
+    return refiner, cr, vae, idc
+
+
+def dp_batch(kind, i):
+    """Step i's global batch (NCHW float32 on the CPU)."""
+    rng = np.random.default_rng((SEED + 17, i, len(kind)))
+    keys = ("lr", "gt") if kind == "refiner" else ("lr", "pos", "other")
+    return {k: torch.from_numpy(rng.uniform(
+        0, 1, (DP_BATCH[kind], 3, 128, 128)).astype(np.float32))
+        for k in keys}
+
+
+def dp_draws(i, dev):
+    """What the refiner step draws from `seeded_generator(SEED + 17, i)`
+    for the global batch, in its order: both posteriors' noise, the noise,
+    the timesteps."""
+    from hifidiff_tpu_torch.cli.common import seeded_generator
+
+    g = seeded_generator(SEED + 17, i, dev)
+    b = DP_BATCH["refiner"]
+    normal = [torch.randn(b, 4, LATENT, LATENT, generator=g, device=dev)
+              for _ in range(3)]
+    return (*normal, torch.randint(0, 1000, (b,), generator=g, device=dev))
+
+
+def dp_digest(state):
+    """A digest of the bits of the state's parameters, buffers and EMA (an
+    int64 sum of each tensor's words weighted by position, on the card)."""
+    import hashlib
+
+    ts = list(state.module.state_dict().values()) + list(
+        (state.ema_params or {}).values())
+    sums = []
+    for t in ts:
+        t = t.detach().contiguous().reshape(-1)
+        w = t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[t.element_size()]).long()
+        mult = torch.arange(w.numel(), device=w.device) % 65521 * 2 + 1
+        sums.append((w * mult).sum())
+    return hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes()) \
+        .hexdigest()[:16]
+
+
+def dp_run(kind, stack, dev, group=None, rows=slice(None), maps=None,
+           launches=None, collective=None, order=None, after_step=None):
+    """DP_STEPS steps of the refiner or the IDC step ("idc64": in float64)
+    on `rows` of each global batch, through `TrainState.create(...,
+    group=group)`, the state's storage held in place across each step
+    (`utils.checks.assert_in_place`); the
+    refiner's draws from `seeded_generator(SEED + 17, i)` on the card (with
+    `order`, a permutation of the global batch's rows, the batch and the
+    same draws reordered and handed to the step). Returns the state and
+    {"losses", "digests" after each step, "step_s", "grads" of the first
+    step on the card}. With `maps` the maps that reached the kernels are
+    counted into it (`recording`); with `launches` each step's kernel
+    launches are appended; with `collective` each gradient all-reduce's ms
+    are appended; `after_step(i, state)` runs after each step but the
+    last."""
+    import functools
+
+    from hifidiff_tpu_torch.cli.common import seeded_generator
+    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.train import optim, steps
+
+    from hifidiff_tpu_torch.utils import checks
+
+    refiner, cr, vae, idc = stack
+    cr = copy.deepcopy(cr)
+    dtype = torch.float64 if kind == "idc64" else torch.float32
+    if kind == "idc64":
+        cr = RowwiseCast(cr, dtype)
+    if kind == "refiner":
+        refiner, vae = copy.deepcopy(refiner), copy.deepcopy(vae)
+        module, ema = refiner, DP_EMA
+        step = steps.make_refiner_train_step(cr, vae, device=dev)
+        make = functools.partial(optim.adamw_cosine, warmup_steps=0,
+                                 total_steps=1000)
+    else:
+        module, ema = copy.deepcopy(idc).to(dtype), 0.0
+        step = steps.make_idc_train_step(cr, device=dev)
+        make = optim.adam
+    state = steps.TrainState.create(module, make, ema_decay=ema, device=dev,
+                                    group=group)
+    grads, applied = {}, state.optimizer.step
+
+    def spy(*a, **k):
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in module.named_parameters()
+                          if p.grad is not None})
+        return applied(*a, **k)
+
+    state.optimizer.step = spy
+    real = steps.all_reduce_gradients
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        collective.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    out = {"losses": [], "digests": [], "step_s": []}
+    with contextlib.ExitStack() as stack_:
+        if maps is not None:
+            seen = stack_.enter_context(recording(training=True))
+        if collective is not None:
+            stack_.enter_context(patched(steps, "all_reduce_gradients",
+                                         timed))
+        for i in range(DP_STEPS):
+            full = dp_batch("idc" if kind == "idc64" else kind, i)
+            if order is not None:
+                full = {k: v[order] for k, v in full.items()}
+            batch = {k: v[rows].to(dev, dtype) for k, v in full.items()}
+            storage = checks.storage_of(state)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind != "refiner":
+                _, m = step(state, batch)
+            elif order is None:
+                _, m = step(state, batch, generator=seeded_generator(
+                    SEED + 17, i, dev))
+            else:
+                _, m = step(state, batch, *(d[order.to(dev)]
+                                            for d in dp_draws(i, dev)))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            checks.assert_in_place(state, storage)
+            if launches is not None:
+                launches.append({k: n for k, n in kernels.LAUNCHES.items()
+                                 if n})
+            out["losses"].append(float(m["loss"]))
+            out["digests"].append(dp_digest(state))
+            if after_step is not None and i + 1 < DP_STEPS:
+                after_step(i, state)
+    if maps is not None:
+        for kernel, counts in seen.items():
+            maps[kernel].update(counts)
+    out["grads"] = grads
+    return state, out
+
+
+def dp_keep(kept, i, state):
+    """`after_step` of the one-process IDC run: keep a copy of its module's
+    state after step i."""
+    kept[i] = {k: v.clone() for k, v in state.module.state_dict().items()}
+
+
+def dp_align(kept, group, i, state):
+    """`after_step` that sets the module's parameters and buffers to the
+    one-process run's after step i (`kept`, held by rank 0 of `group`,
+    which broadcasts them; `group` None: this process holds them)."""
+    with torch.no_grad():
+        for k, v in state.module.state_dict().items():
+            if k in kept.get(i, {}):
+                v.copy_(kept[i][k])
+            if group is not None:
+                torch.distributed.broadcast(v, 0, group=group)
+
+
+def dp_readings(got_state, got, ref_state, ref, updates=DP_STEPS):
+    """How far `got` is from `ref` (both from `dp_run`, `updates` optimizer
+    steps apart: DP_STEPS, or 1 where the runs were aligned after each
+    step), with the worst tensors: phase 17's readings (see the constants
+    above)."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       ref["losses"]))
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    floor = DP_GRAD_FLOOR * top
+    noise, errs = set(), {}
+    for n, g in ref["grads"].items():
+        mine = got["grads"][n]
+        size = max(float(mine.abs().max()), float(g.abs().max()))
+        if size < floor:
+            noise.add(n)
+            continue
+        errs[n] = float((mine - g).abs().max()) / max(float(g.abs().max()),
+                                                      floor)
+    lr = ref_state.optimizer.param_groups[0]["lr"]
+    mine_sd, ref_sd = got_state.module.state_dict(), \
+        ref_state.module.state_dict()
+    over = total = 0
+    far, by_tensor = 0.0, {}
+    for n in ref["grads"]:
+        if n in noise:
+            continue
+        pairs = [(mine_sd[n], ref_sd[n])]
+        if ref_state.ema_params is not None:
+            pairs.append((got_state.ema_params[n], ref_state.ema_params[n]))
+        for a, b in pairs:
+            diff = (a - b).abs() / (lr * updates)
+            k = int((diff > DP_PARAM_LR).sum())
+            over += k
+            total += diff.numel()
+            far = max(far, float(diff.max()))
+            by_tensor[n] = by_tensor.get(n, 0) + k
+    frozen = max((float((mine_sd[n] - p).abs().max())
+                  for n, p in ref_sd.items() if n not in ref["grads"]
+                  and p.is_floating_point()
+                  and not n.endswith(("running_mean", "running_var"))),
+                 default=0.0)
+    stats = max((float((mine_sd[n] - b).abs().max()
+                       / b.abs().max().clamp_min(1e-30))
+                 for n, b in ref_sd.items()
+                 if n.endswith(("running_mean", "running_var"))),
+                default=0.0)
+    dot = sum(float((got["grads"][n].double() * g.double()).sum())
+              for n, g in ref["grads"].items())
+    norms = [math.sqrt(sum(float(t.double().square().sum())
+                           for t in d["grads"].values())) for d in (got, ref)]
+    worst_g = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    worst_p = sorted(by_tensor.items(), key=lambda kv: -kv[1])[:4]
+    return {"loss_rel": loss_rel, "grad_rel": max(errs.values()),
+            "grad_cosine": dot / (norms[0] * norms[1]),
+            "noise_tensors": len(noise), "grad_tensors": len(ref["grads"]),
+            "param_share": over / max(total, 1), "param_far_lr": far,
+            "frozen": frozen, "stats_rel": stats,
+            "worst_grads": [[n, e, float(ref["grads"][n].abs().max()) / top]
+                            for n, e in worst_g],
+            "worst_params": worst_p}
+
+
+def dp_child(rank, work):
+    """One of phase 17's two ranks on the card (gloo): the refiner and IDC
+    steps (and the IDC's float64 witness) on its half of each batch, the
+    refiner again on cuDNN, `test_refiner` at batch 1, then `train_refiner`
+    and `pretrain_idc` by their `main`; rank 0 also runs the steps without a
+    group on the whole batches, on them shuffled, and the witnesses, and
+    takes the readings. Writes rank<rank>.json into `work`."""
+    import functools
+
+    from hifidiff_tpu_torch.cli import (pretrain_idc, test_refiner,
+                                        train_refiner)
+    from hifidiff_tpu_torch.parallel import maybe_initialize
+    from hifidiff_tpu_torch.parallel.distributed import barrier
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=2, rank=rank, backend="gloo", local_rank=0,
+                     device="cuda")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    stack = dp_stack()
+    out = {"build_s": time.perf_counter() - t0, "kinds": {}}
+    go = os.path.join(work, "go")
+    while not os.path.exists(go):     # (a) has the card until then
+        time.sleep(0.1)
+    group = torch.distributed.group.WORLD
+    with deterministic() as warned:
+        for kind in ("refiner", "idc", "idc64"):
+            b = DP_BATCH[kind] // 2
+            maps = {k: collections.Counter() for k in KERNELS}
+            launches, collective = [], []
+            align, updates = None, DP_STEPS
+            if kind != "refiner":
+                # ROADMAP §C2: the IDC's float32 gradient is ill-conditioned
+                # and Adam's first updates are sign-like, so each run is set
+                # to the one-process run's state after every step (rank 0
+                # runs that first and broadcasts it)
+                aligned = {}
+                if rank == 0:
+                    ref_state, ref = dp_run(kind, stack, dev,
+                                            after_step=functools.partial(
+                                                dp_keep, aligned))
+                align = functools.partial(dp_align, aligned, group)
+                updates = 1
+            t0 = time.perf_counter()
+            state, got = dp_run(kind, stack, dev, group,
+                                slice(rank * b, (rank + 1) * b),
+                                maps if kind != "idc64" else None,
+                                launches, collective, after_step=align)
+            res = {"seconds": time.perf_counter() - t0,
+                   "step_s": got["step_s"], "losses": got["losses"],
+                   "digests": got["digests"], "launches": launches,
+                   "collective_ms": collective,
+                   "grad_bytes": sum(g.numel() * g.element_size()
+                                     for g in got["grads"].values()),
+                   "maps": {k: [[list(s), n] for s, n in c.items()]
+                            for k, c in maps.items() if c}}
+            barrier()
+            if rank == 0:
+                if kind == "refiner":
+                    ref_state, ref = dp_run(kind, stack, dev)
+                res["reference_step_s"] = ref["step_s"]
+                res["reference_digests"] = ref["digests"]
+                res["reference_losses"] = ref["losses"]
+                res["readings"] = dp_readings(state, got, ref_state, ref,
+                                              updates)
+                del state, got
+                torch.cuda.empty_cache()
+                res["baseline_losses"] = res["baseline"] = None
+                if kind != "idc64":     # its limits are float64 rounding's
+                    shuffled = torch.from_numpy(np.random.default_rng(
+                        SEED + 17).permutation(DP_BATCH[kind]))
+                    base_state, base = dp_run(
+                        kind, stack, dev, order=shuffled,
+                        after_step=align and functools.partial(
+                            dp_align, aligned, None))
+                    res["baseline_losses"] = base["losses"]
+                    res["baseline"] = dp_readings(base_state, base,
+                                                  ref_state, ref, updates)
+                    del base_state, base
+                if kind == "idc":
+                    # the cause of the float32 gap: BatchNorm's statistics
+                    # rounded otherwise, in one process on the same rows
+                    with bn_by_formula():
+                        w_state, w = dp_run(kind, stack, dev,
+                                            after_step=functools.partial(
+                                                dp_align, aligned, None))
+                    res["bn_formula"] = dp_readings(w_state, w, ref_state,
+                                                    ref, updates)
+                    del w_state, w
+                del ref_state, ref
+            else:
+                del state, got
+            torch.cuda.empty_cache()
+            barrier()
+            out["kinds"][kind] = res
+    out["nondeterministic_ops"] = warned
+    # the refiner on cuDNN's convolutions, and the witness of its gap
+    b = DP_BATCH["refiner"] // 2
+    with deterministic(cudnn=True):
+        state, got = dp_run("refiner", stack, dev, group,
+                            slice(rank * b, (rank + 1) * b))
+        barrier()
+        if rank == 0:
+            # one process: as is; its convolutions in halves; BatchNorm by
+            # the data-parallel formula; both
+            ref_state, ref = dp_run("refiner", stack, dev)
+            seen, found = [], {}
+            for label, halves, formula in (
+                    ("halves", True, False), ("formula", False, True),
+                    ("formula_halves", True, True)):
+                with contextlib.ExitStack() as ctx:
+                    if halves:
+                        ctx.enter_context(conv_in_halves(
+                            DP_BATCH["refiner"], seen if not formula
+                            else []))
+                    if formula:
+                        ctx.enter_context(bn_by_formula())
+                    w_state, w = dp_run("refiner", stack, dev)
+                found[f"{label}_vs_one"] = dp_readings(w_state, w,
+                                                       ref_state, ref)
+                found[f"ranks_vs_{label}"] = dp_readings(state, got,
+                                                         w_state, w)
+                del w_state, w
+                torch.cuda.empty_cache()
+            out["cudnn"] = {
+                "ranks_vs_one": dp_readings(state, got, ref_state, ref),
+                **found, "conv_halves": halves_summary(seen)}
+            del ref_state, ref
+        del state, got
+        torch.cuda.empty_cache()
+    if rank == 0:
+        seen = []
+        with deterministic(), conv_in_halves(DP_BATCH["refiner"], seen):
+            dp_run("refiner", stack, dev)
+        out["cudnn"]["conv_halves_without_cudnn"] = halves_summary(seen)
+        torch.cuda.empty_cache()
+    barrier()
+    t0 = time.perf_counter()
+    out["test_refiner"] = test_refiner.main(DP_EVAL_ARGV
+                                            + ["--batch-size", "1"])
+    out["test_refiner_s"] = time.perf_counter() - t0
+    # the training CLIs on the two ranks; the parent runs the one-process
+    # runs they are held to meanwhile
+    del stack
+    open(os.path.join(work, f"cli{rank}"), "w").close()
+    out["cli_s"] = {}
+    with deterministic():
+        for who, cli in (("train_refiner", train_refiner),
+                         ("pretrain_idc", pretrain_idc)):
+            t0 = time.perf_counter()
+            cli.main(dp_cli_argv(who, os.path.join(work, f"{who}_ranks"),
+                                 DP_CLI[who][2] // 2))
+            out["cli_s"][who] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_hold(what, got, limits, base=None):
+    """Fail for each reading of `got` past its limit (`grad_cosine`: below
+    it)."""
+    for key, limit in limits.items():
+        if not (got[key] >= limit if key == "grad_cosine"
+                else got[key] <= limit):
+            fail(f"{what}: {key} {got[key]:.3e} past its limit {limit:.3e}"
+                 + (f" (the shuffled batch reads {base[key]:.3e})"
+                    if base else ""))
+
+
+def check_data_parallel(dev, g, stats, smi):
+    """Phase 17 (see the constants above). Returns its numbers for the log
+    and each kind's launches of one step on a rank."""
+    import tempfile
+    import threading
+
+    from hifidiff_tpu_torch.cli import (pretrain_idc, serve, test_refiner,
+                                        train_refiner)
+    from hifidiff_tpu_torch.parallel import maybe_initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory() as work:
+        # (b)'s two ranks start first and build their models on the host
+        # while (a) runs here
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-child",
+             str(r), work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            # (a) world size 1 on NCCL, here
+            maybe_initialize(init_method=f"file://{work}/a_store",
+                             world_size=1, rank=0, backend="nccl",
+                             local_rank=0, device="cuda")
+            stack = dp_stack()
+            group = torch.distributed.group.WORLD
+            ref_digests, wants = {}, {}
+            frozen_cr = copy.deepcopy(stack[1]).requires_grad_(False)
+            with deterministic() as warned:
+                for kind in ("refiner", "idc"):
+                    wants[kind] = expected_train_launches(
+                        stack[0] if kind == "refiner" else stack[3],
+                        frozen_cr)
+                    t0 = time.perf_counter()
+                    s1, one = dp_run(kind, stack, dev, group)
+                    s0, none = dp_run(kind, stack, dev)
+                    same = one["losses"] == none["losses"] \
+                        and one["digests"] == none["digests"] and all(
+                            torch.equal(a, b) for a, b in zip(
+                                s1.module.state_dict().values(),
+                                s0.module.state_dict().values()))
+                    ref_digests[kind] = none["digests"]
+                    log(f"phase 17 (a) {kind}: batch {DP_BATCH[kind]}, "
+                        f"{DP_STEPS} steps in a world-1 NCCL group vs no "
+                        f"group: losses {one['losses']} / {none['losses']}, "
+                        f"digests {one['digests']} / {none['digests']}, bit "
+                        f"for bit {same} ({time.perf_counter() - t0:.1f} s)"
+                        f" [{smi}]")
+                    if not same:
+                        fail(f"phase 17 (a) {kind}: the world-1 NCCL run is "
+                             "not the run without a group bit for bit; "
+                             + json.dumps(dp_readings(s1, one, s0, none)))
+                    del s1, s0, one, none
+                    torch.cuda.empty_cache()
+            log(f"phase 17: operators without a deterministic algorithm: "
+                f"{warned or 'none'}")
+            torch.distributed.destroy_process_group()
+            del stack, frozen_cr
+            torch.cuda.empty_cache()
+            report["a_s"] = time.perf_counter() - t_start
+            with open(os.path.join(work, "go"), "w"):
+                pass
+            # the one-process runs of the training CLIs, on the ranks'
+            # batches concatenated, while the ranks run theirs
+            deadline = time.monotonic() + DP_TIMEOUT
+            while not all(os.path.exists(os.path.join(work, f"cli{r}"))
+                          for r in range(2)):
+                if any(p.poll() is not None for p in procs) \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+            else:
+                t0 = time.perf_counter()
+                with deterministic():
+                    for who, cli in (("train_refiner", train_refiner),
+                                     ("pretrain_idc", pretrain_idc)):
+                        with patched(cli, "Loader", ConcatShards):
+                            cli.main(dp_cli_argv(
+                                who, os.path.join(work, f"{who}_one"),
+                                DP_CLI[who][2]))
+                        torch.cuda.empty_cache()
+                report["cli_one_process_s"] = time.perf_counter() - t0
+            outs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"phase 17 (b) rank {r} failed (rc {p.returncode}): "
+                     + out[-3000:])
+                return report, {}
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if "cli_one_process_s" not in report:
+            fail("phase 17 (b): the ranks never reached the training CLIs")
+            return report, {}
+        clis = {who: dp_cli_readings(who,
+                                     os.path.join(work, f"{who}_ranks"),
+                                     os.path.join(work, f"{who}_one"))
+                for who in DP_CLI}
+    report["b_s"] = time.perf_counter() - t_start - report["a_s"]
+    seen = {k: collections.Counter() for k in KERNELS}
+    per_step = {}
+    for kind in ("refiner", "idc", "idc64"):
+        a, b = (rank["kinds"][kind] for rank in ranks)
+        got, base = a["readings"], a["baseline"]
+        ms = a["collective_ms"]
+        log(f"phase 17 (b) {kind}: 2 ranks x {DP_BATCH[kind] // 2} over gloo "
+            f"on the card: losses {a['losses']} (rank 1 {b['losses']}), one "
+            f"process {a['reference_losses']}, one process on the shuffled "
+            f"batch {a['baseline_losses']}; two ranks vs one process "
+            f"{json.dumps(got)}; shuffled vs one process {json.dumps(base)}"
+            f"; gradient all-reduce {a['grad_bytes'] / 1e9:.3f} GB a step "
+            f"in {statistics.mean(ms):.1f} ms (mean of {len(ms)} steps; gloo "
+            f"through the host, the test rig's rate, not NCCL's); a rank's "
+            f"steps {a['step_s']} s, one process's "
+            f"{a['reference_step_s']} s; launches of a step on a rank "
+            f"{a['launches'][0]} [{smi}]")
+        if kind == "idc":
+            log("phase 17 (b) idc, the cause of its gap: one process with "
+                "BatchNorm's statistics by the data-parallel formula "
+                "(without a group) vs torch's own, on the same rows "
+                + json.dumps(a["bn_formula"]))
+        report[kind] = {"losses": a["losses"],
+                        "reference_losses": a["reference_losses"],
+                        **{k: v for k, v in got.items()
+                           if not k.startswith("worst")},
+                        "baseline": base and {
+                            k: v for k, v in base.items()
+                            if not k.startswith("worst")},
+                        "collective_ms_per_step": statistics.mean(ms),
+                        "grad_gb": a["grad_bytes"] / 1e9,
+                        "step_s_rank": a["step_s"],
+                        "step_s_one_process": a["reference_step_s"]}
+        if a["digests"] != b["digests"]:
+            fail(f"phase 17 (b) {kind}: the ranks' states differ after a "
+                 f"step: {a['digests']} vs {b['digests']}")
+        if kind in ref_digests \
+                and a["reference_digests"] != ref_digests[kind]:
+            fail(f"phase 17 (b) {kind}: rank 0's one-process run is not "
+                 f"(a)'s: {a['reference_digests']} vs {ref_digests[kind]}")
+        dp_hold(f"phase 17 (b) {kind}: two ranks vs one process", got,
+                DP_LIMITS[kind], base)
+        if got["frozen"] != 0 or (
+                base and got["noise_tensors"] > base["noise_tensors"]):
+            fail(f"phase 17 (b) {kind}: frozen parameters moved, or more "
+                 f"tensors of rounding noise than the shuffled batch: "
+                 f"{got}")
+        if kind == "idc64":
+            continue
+        want = wants[kind]
+        for rank in (a, b):
+            for step_launches in rank["launches"]:
+                if {k: step_launches.get(k, 0) for k in want} != want:
+                    fail(f"phase 17 (b) {kind}: a step launched "
+                         f"{step_launches}, the module tree gives {want}")
+        per_step[kind] = a["launches"][0]
+        for rank in (a, b):
+            for kernel, items in rank["maps"].items():
+                for shape, n in items:
+                    seen[kernel][tuple(shape)] += n
+    cudnn = ranks[0]["cudnn"]
+    log("phase 17 (b) refiner on cuDNN's deterministic convolutions: two "
+        "ranks vs one process " + json.dumps(cudnn["ranks_vs_one"]))
+    for label, what in (("halves", "its 32-row convolutions made as two "
+                         "16-row calls"),
+                        ("formula", "BatchNorm's statistics by the "
+                         "data-parallel formula"),
+                        ("formula_halves", "both")):
+        log(f"phase 17 (b) refiner on cuDNN, the witness: one process with "
+            f"{what} vs one process "
+            + json.dumps(cudnn[f"{label}_vs_one"]) + "; the two ranks vs it "
+            + json.dumps(cudnn[f"ranks_vs_{label}"]))
+    log("phase 17 (b) refiner: the 16-row calls vs the 32-row call, with "
+        "cuDNN " + json.dumps(cudnn["conv_halves"]) + ", without "
+        + json.dumps(cudnn["conv_halves_without_cudnn"]) + f" [{smi}]")
+    report["refiner_on_cudnn"] = {
+        k: ({n: x for n, x in v.items() if not n.startswith("worst")}
+            if k != "conv_halves" and k != "conv_halves_without_cudnn"
+            else v) for k, v in cudnn.items()}
+    dp_hold("phase 17 (b) refiner on cuDNN: two ranks vs one process",
+            cudnn["ranks_vs_one"], DP_CUDNN_LIMITS)
+    # the witness held: the 16-row convolutions alone move one process as
+    # far as the two ranks are from it, BatchNorm's formula a tenth or less
+    for key in ("loss_rel", "grad_rel", "param_share"):
+        gap = cudnn["ranks_vs_one"][key]
+        if not cudnn["halves_vs_one"][key] >= gap / 2 \
+                or not cudnn["formula_vs_one"][key] <= gap / 10:
+            fail(f"phase 17 (b) refiner on cuDNN: the witness no longer "
+                 f"accounts for the gap's {key} {gap:.3e}: the convolutions "
+                 f"in halves read {cudnn['halves_vs_one'][key]:.3e} (at "
+                 f"least half), BatchNorm's formula "
+                 f"{cudnn['formula_vs_one'][key]:.3e} (a tenth or less)")
+    for who, r in clis.items():
+        log(f"phase 17 (b) {who} by its main, 2 ranks x "
+            f"{DP_CLI[who][2] // 2} vs one process x {DP_CLI[who][2]} on "
+            f"the concatenated batches: {json.dumps(r)} (the ranks "
+            f"{ranks[0]['cli_s'][who]:.1f} s)")
+        if r["steps"][0] != r["steps"][1] or not r["train_losses"][0]:
+            fail(f"phase 17 (b) {who}: steps {r['steps']}, losses "
+                 f"{r['train_losses']}")
+        dp_hold(f"phase 17 (b) {who}: two ranks vs one process", r,
+                DP_CLI_LIMITS[who])
+    report["clis"] = {who: {k: v for k, v in r.items()
+                            if k.endswith(("_rel", "_share", "_abs",
+                                           "_lr"))}
+                      for who, r in clis.items()}
+    report["cli_s"] = ranks[0]["cli_s"]
+    log("phase 17 (b): operators without a deterministic algorithm on the "
+        f"ranks: {ranks[0]['nondeterministic_ops'] or 'none'}; maps that "
+        "reached the kernels on either rank: "
+        + json.dumps({k: {str(s): n for s, n in c.items()}
+                      for k, c in seen.items() if c}))
+    check_recorded_shapes(dev, g, stats, seen, phase="phase 17")
+    # (c) one process: test_refiner at batch 2, against the two ranks
+    t0 = time.perf_counter()
+    single = test_refiner.main(DP_EVAL_ARGV + ["--batch-size", "2"])
+    report["test_refiner_1_rank_s"] = time.perf_counter() - t0
+    got = ranks[0]["test_refiner"]
+    rel = max(abs(got[k] - single[k]) / abs(single[k]) for k in single)
+    log(f"phase 17 (c) test_refiner (f32, DDIM-10, 8 procedural faces): 2 "
+        f"ranks x batch 1 {got} ({ranks[0]['test_refiner_s']:.1f} s), 1 "
+        f"process x batch 2 {single} ({report['test_refiner_1_rank_s']:.1f} "
+        f"s): rel {rel:.2e} (limit {DP_EVAL_REL:.0e})")
+    report["test_refiner_rel"] = rel
+    if ranks[1]["test_refiner"] != got or not rel <= DP_EVAL_REL:
+        fail(f"phase 17 (c) test_refiner: 2 ranks {got} / "
+             f"{ranks[1]['test_refiner']} vs 1 process {single}")
+    # the server over every local card (--mesh-devices 0): the one card
+    cfg = serve.Config(port=0, mesh_devices=0, batch=2, buckets="1",
+                       num_inference_steps=2, seed=SEED)
+    t0 = time.perf_counter()
+    httpd, batcher = serve.create_server(cfg)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        run = batcher.run_fn
+        replays = run.sampler.replays
+        img = np.random.default_rng(SEED).integers(0, 256, (128, 128, 3),
+                                                   np.uint8)
+        face = _post_raw(*httpd.server_address[:2], img)
+        ok = run.devices == [torch.device("cuda", 0)] \
+            and run.sampler.replays == replays + 1 \
+            and int(face.max()) > int(face.min())
+        log(f"phase 17 (c) serve --mesh-devices 0: devices {run.devices}, "
+            f"buckets {run.buckets}, one face served as a replay {ok} "
+            f"({time.perf_counter() - t0:.1f} s with the cold start)")
+        if not ok:
+            fail("phase 17 (c): serve --mesh-devices 0 did not serve on the "
+                 "one card from its graphs")
+    finally:
+        httpd.shutdown()
+        batcher.stop()
+    del run, batcher, httpd
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    report["seconds"] = time.perf_counter() - t_start
+    return report, per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4225,6 +5211,13 @@ def main() -> int:
     log(f"JPEG codec slice [{smi}]: " + json.dumps(codec_stats))
     log(f"[{time.perf_counter() - t_start:.0f} s] JPEG codec slice checked")
 
+    # -- 17. data parallelism: world-1 NCCL, two ranks over gloo, the eval
+    # -- CLI on two ranks and the server over every local card ------------
+    dp_stats, phase17_launches = check_data_parallel(dev, g, stats, smi)
+    log(f"data parallelism [{smi}]: " + json.dumps(dp_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] data parallelism checked "
+        f"({dp_stats.get('seconds', float('nan')):.0f} s)")
+
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The
     # -- card's own time in one train step of each kind and in one scan of
@@ -4312,6 +5305,12 @@ def main() -> int:
                         if n.get(entry["name"])}
             if by_stage:
                 entry["phase16_launches_per_step"] = by_stage
+            # phase 17: a step's launches on one of the two ranks
+            by_stage = {stage: n[entry["name"]]
+                        for stage, n in phase17_launches.items()
+                        if n.get(entry["name"])}
+            if by_stage:
+                entry["phase17_launches_per_step_a_rank"] = by_stage
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
     if FAILURES:
         print("chip_smoke failed:\n  " + "\n  ".join(FAILURES),
@@ -4325,4 +5324,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:     # one of phase 17's two ranks
+        dp_child(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -1,8 +1,10 @@
 """Shared CLI machinery (counterpart of hifidiff_tpu/cli/common.py): typed
 dataclass configs -> argparse flags, the smoke datasets, the model stack
 built from a config's size knobs, its weights read from checkpoint files, and
-what the training CLIs share (the refusals, the host-to-card batch copy,
-resume, the module to evaluate).
+what the training CLIs share (the refusals, resume, the module to
+evaluate, and under torchrun the process group, the dataset's shard and the
+sampler's global noise; the batch copy to the card is
+`parallel.mesh.to_device`, the global metrics `parallel.global_means`).
 
 Checkpoints the port reads:
   * torch files (`.pt` / `.pth`) holding a state dict in the HifiDiff
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.data.core import Dataset, Sample
+from hifidiff_tpu_torch.devices import resolve_device
 
 T = TypeVar("T")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -138,19 +141,54 @@ def hq_datasets(cfg):
     return ConcatDataset(parts)
 
 
-def to_device(batch: Dict[str, np.ndarray],
-              device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
-    """A loader's batch on `device`: NHWC image arrays (B, H, W, C) become
-    NCHW tensors, patch stacks (B, P, H, W, C) become (B, P, C, H, W); the
-    counterpart of the JAX CLIs' `device_prefetch` / `shard_batch` on one
-    card."""
-    out = {}
-    for k, a in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        if t.ndim in (4, 5):
-            t = t.movedim(-1, -3).contiguous()
-        out[k] = t
-    return out
+def data_parallel(cfg, who: str):
+    """A CLI's start under `torchrun --nproc_per_node N` (or alone): start
+    the process group where the launcher asks for one
+    (`parallel.maybe_initialize`, nccl on the card, gloo with `--device
+    cpu`), then resolve the device: the rank's card `cuda:LOCAL_RANK`
+    unless `--device cpu`, raising without a card. Returns (device, group):
+    the data-parallel group, None for a single process."""
+    from hifidiff_tpu_torch.parallel.distributed import maybe_initialize
+
+    up = maybe_initialize(device=cfg.device)
+    device = resolve_device(cfg.device, who)
+    group = torch.distributed.group.WORLD if up else None
+    return device, group
+
+
+def shard() -> Dict[str, int]:
+    """`Loader` arguments for this process's shard of a dataset: disjoint
+    stride-slices of one seeded order, padded so that every process yields
+    the same batches (`batch_size` stays per process, the JAX CLIs'
+    convention). One process: the whole dataset."""
+    from hifidiff_tpu_torch.parallel.distributed import (process_count,
+                                                         process_index)
+
+    return {"shard_index": process_index(), "num_shards": process_count()}
+
+
+def sampler_noise(sampler, batch: int, generator: torch.Generator,
+                  group) -> Dict[str, Optional[torch.Tensor]]:
+    """The noise a `RefinerSampler` call on `batch` rows draws from
+    `generator` (posterior noise first, where the sampler samples it), as
+    keyword arguments of the call. Under data parallelism each process
+    draws the global batch's noise and takes its rows, so that the run's
+    faces are one process's on the concatenated batch; without a group the
+    sampler draws its own from the generator."""
+    if group is None:
+        return {"generator": generator}
+    from hifidiff_tpu_torch.parallel.distributed import global_rows
+
+    inputs = sampler._inputs
+    size = inputs.config.latent_size
+    shape = (batch, size, size, inputs.channels)
+
+    def draw():
+        return global_rows(lambda s: torch.randn(
+            s, generator=generator, device=generator.device), shape, group)
+
+    post = draw() if inputs.needs_posterior else None
+    return {"posterior_noise": post, "latents_noise": draw()}
 
 
 def to_nhwc(images: torch.Tensor) -> np.ndarray:
@@ -164,7 +202,10 @@ def resume(cfg, ckpt, state, loader) -> int:
     `state`. Returns the epoch to start at, and sets the loader's epoch to
     it, so that a resumed run draws the uninterrupted run's shuffles (the
     JAX CLIs leave their loader at epoch 0, ROADMAP §C)."""
+    from hifidiff_tpu_torch.parallel.distributed import barrier
+
     start = 0
+    barrier()   # rank 0 has written what the other ranks read
     if cfg.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         start = state.step // max(1, len(loader))

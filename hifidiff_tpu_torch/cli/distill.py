@@ -39,13 +39,14 @@ import os
 
 import torch
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack,
+from hifidiff_tpu_torch.cli.common import (data_parallel, load_refiner_stack,
                                            multipie_datasets, parse_config,
                                            parse_ints, require_data,
-                                           seeded_generator, smoke_datasets,
-                                           to_device)
+                                           sampler_noise, seeded_generator,
+                                           shard, smoke_datasets)
+from hifidiff_tpu_torch.parallel.mesh import to_device
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.distributed import gather_rows
 from hifidiff_tpu_torch.eval.metrics import (min_max_normalize, psnr,
                                              psnr_pyiqa)
 from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
@@ -105,17 +106,21 @@ class Config:
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "Progressive sampler distillation")
     require_data(cfg, ("dataroot",))
-    device = resolve_device(cfg.device, "distill")
+    device, group = data_parallel(cfg, "distill")
     cr, vae, teacher, latent = load_refiner_stack(cfg, device)
     teacher.requires_grad_(False)
 
     train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
                         or multipie_datasets(cfg))
-    loader = Loader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed)
+    loader = Loader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                    **shard())
     val_loader = Loader(val_ds, min(cfg.eval_batch, len(val_ds)),
-                        shuffle=False)
+                        shuffle=False, **shard())
     val_batch = {k: torch.from_numpy(v).to(device)    # NHWC, as sampled
                  for k, v in next(iter(val_loader)).items()}
+    # the metrics are the global batch's, as the JAX CLI's over its
+    # process-sharded batch (the normalization takes its min and max)
+    val_gt = gather_rows(val_batch["gt"], group)
 
     def sample_psnrs(refiner, steps, reference_pred):
         """(the prediction, PSNR against `reference_pred`, PSNR against the
@@ -126,12 +131,13 @@ def main(argv=None) -> dict:
                 num_inference_steps=steps, latent_size=latent,
                 io_uint8=False, clip_sample=True,
                 clip_sample_range=cfg.clip_sample_range), device=device)
-        pred = sampler(val_batch["lr"], generator=seeded_generator(
-            cfg.seed, 10_000, device))
+        pred = gather_rows(sampler(val_batch["lr"], **sampler_noise(
+            sampler, len(val_batch["lr"]),
+            seeded_generator(cfg.seed, 10_000, device), group)), group)
         vs_ref = (float(psnr(pred, reference_pred))
                   if reference_pred is not None else float("nan"))
         pred_n = min_max_normalize(pred, per_sample=False)
-        gt_n = min_max_normalize(val_batch["gt"], per_sample=False)
+        gt_n = min_max_normalize(val_gt, per_sample=False)
         return pred, vs_ref, float(psnr_pyiqa(pred_n, gt_n).mean())
 
     # the distillation target: the exact teacher at its full step count
@@ -164,7 +170,7 @@ def main(argv=None) -> dict:
             student, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                        warmup_steps=cfg.warmup_steps,
                                        total_steps=cfg.steps_per_round),
-            device=device)
+            device=device, group=group)
         step_fn = make_distill_train_step(
             cr, vae, num_student_steps=student_steps, substeps=substeps,
             clip_sample=True, clip_sample_range=cfg.clip_sample_range,

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.cli.common import (build_cr, load_weights,
-                                           parse_config, seeded, to_device,
-                                           to_nhwc)
+                                           parse_config, seeded, to_nhwc)
+from hifidiff_tpu_torch.parallel.mesh import to_device
 from hifidiff_tpu_torch.data.image_io import imread_rgb
 from hifidiff_tpu_torch.data.resize import resize_pil
 from hifidiff_tpu_torch.devices import resolve_device

@@ -32,13 +32,14 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
-                                           parse_config, parse_ints,
-                                           require_data, resume, seeded,
-                                           seeded_generator, smoke_datasets,
-                                           to_device)
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+                                           hq_datasets, load_vae, parse_config,
+                                           parse_ints, require_data, resume,
+                                           seeded, seeded_generator, shard,
+                                           smoke_datasets)
 from hifidiff_tpu_torch.data.core import ArrayDataset, Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.distributed import is_main_process
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.models.denoiser import Denoiser
 from hifidiff_tpu_torch.pipeline import build_unconditional_sampler
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
@@ -110,7 +111,7 @@ def cache_moments(vae: AutoencoderKL, dataset, batch_size: int,
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-3 denoiser pretraining")
     require_data(cfg, ("multipie_root", "celeba_root"))
-    device = resolve_device(cfg.device, "pretrain_denoiser")
+    device, group = data_parallel(cfg, "pretrain_denoiser")
     train_ds = (smoke_datasets(cfg, ("image",)) or (hq_datasets(cfg),))[0]
 
     vae_blocks = parse_ints(cfg.vae_blocks)
@@ -136,7 +137,7 @@ def main(argv=None) -> None:
         def train_step(state, batch, generator):
             return image_step(state, batch["image"], generator=generator)
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
+                          seed=cfg.seed, **shard())
 
     total_steps = len(train_loader) * cfg.num_epochs
     state = TrainState.create(
@@ -144,7 +145,7 @@ def main(argv=None) -> None:
                                     warmup_steps=cfg.warmup_steps,
                                     total_steps=total_steps,
                                     accumulate_steps=cfg.accum_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     evaluated = EvalModule(state)
@@ -158,9 +159,9 @@ def main(argv=None) -> None:
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
         losses = []
-        for batch in train_loader:
+        for batch in device_prefetch(train_loader, device):
             state, metrics = train_step(
-                state, to_device(batch, device),
+                state, batch,
                 generator=seeded_generator(cfg.seed, step, device))
             timer.tick()
             losses.append(float(metrics["loss"]))
@@ -171,7 +172,8 @@ def main(argv=None) -> None:
 
         if epoch % cfg.save_model_epoch == 0 or epoch == cfg.num_epochs - 1:
             ckpt.save(step, state)
-        if epoch % cfg.save_image_epoch == 0 or epoch == cfg.num_epochs - 1:
+        if is_main_process() and (epoch % cfg.save_image_epoch == 0
+                                  or epoch == cfg.num_epochs - 1):
             evaluated()
             grid = sampler(generator=seeded_generator(
                 cfg.seed, 10_000 + epoch, device))

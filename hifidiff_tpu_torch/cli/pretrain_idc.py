@@ -28,13 +28,14 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (build_cr, load_weights,
-                                           parse_config, parse_ints,
-                                           require_data, resume, seeded,
-                                           smoke_datasets, to_device)
+from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel,
+                                           load_weights, parse_config,
+                                           parse_ints, require_data, resume,
+                                           seeded, shard, smoke_datasets)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.data.multipie import MultiPIEIDCDataset
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.models.idc import IDCEncoder
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.losses import triplet_margin_loss
@@ -97,19 +98,19 @@ def embeddings(cr, idc, batch):
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-2 IDC pretraining")
     require_data(cfg, ("dataroot",))
-    device = resolve_device(cfg.device, "pretrain_idc")
+    device, group = data_parallel(cfg, "pretrain_idc")
     train_ds, val_ds = smoke_datasets(cfg, KEYS) or (
         MultiPIEIDCDataset(cfg.dataroot, split=split, size=cfg.size,
                            seed=cfg.seed) for split in ("train", "test"))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     cr = frozen_cr(cfg, device)
     with seeded(cfg.seed):
         idc = IDCEncoder(stage_sizes=parse_ints(cfg.idc_stages))
     state = TrainState.create(idc, functools.partial(adam, lr=cfg.lr),
-                              device=device)
+                              device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_idc_train_step(cr, device=device)
@@ -119,14 +120,15 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
-            state, metrics = train_step(state, to_device(batch, device))
+        for batch in device_prefetch(train_loader, device):
+            state, metrics = train_step(state, batch)
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
                         "step_time": timer.mean, "epoch": epoch}, step)
             step += 1
-        val_losses = [float(triplet_margin_loss(*embeddings(
-            cr, state.module, to_device(b, device)))) for b in val_loader]
+        val_losses = [global_means({"loss": float(triplet_margin_loss(
+            *embeddings(cr, state.module, to_device(b, device))))},
+            len(b["lr"]), group)["loss"] for b in val_loader]
         logger.log({"val_loss": float(np.mean(val_losses))}, step)
         if epoch % cfg.save_epoch == 0 or epoch == cfg.num_epochs - 1:
             ckpt.save(step, state)

@@ -42,11 +42,22 @@ Noise: each launch draws its latents and posterior noise from a
 the JAX server's does, so launch n of a server draws the same stream in
 every run.
 
+Data-parallel serving (`--mesh-devices`, the JAX server's meaning): 0 means
+every local card, n means n cards; the launch batch and the buckets round up
+to a multiple of the card count. Each card holds its own replica of the
+models and its own captured graphs; a launch splits its rows into
+contiguous slices, one a card, replays each card's graphs (they run at once,
+the host only enqueues them) and concatenates the faces. The noise of a
+launch is drawn for the whole batch on the first card, as one card would
+draw it, and split with the rows, so that the faces do not depend on the
+card count.
+
 Differences from the JAX server's `Config`:
   * `platform` is `device`: "cuda" (the default; raises without a card) or
     "cpu";
-  * `mesh_devices` is 1, one card; data-parallel serving over several cards
-    is ROADMAP §A8, and any other value raises;
+  * `mesh_devices` beyond `torch.cuda.device_count()` raises, where the JAX
+    server takes the minimum (it does so only for 0, every card); with
+    `device="cpu"` n counts replicas on the CPU (tests);
   * `dtype` is "bf16" or "f32"; anything else raises.
 There is no overlapped ahead-of-time compile: a CUDA graph captures real
 tensors, so the capture follows the weights' load.
@@ -93,7 +104,7 @@ class Config:
     max_fill_wait_ms: float = 500.0  # ... up to this cap from the first
     # request: a padded partial launch costs the same device time as a full
     # one, so merging stragglers pays until the cap bounds the added latency
-    mesh_devices: int = 1       # one card; more is ROADMAP §A8
+    mesh_devices: int = 0       # data-parallel cards: 0 = every local card
     # sampling mode
     num_inference_steps: int = 50
     cache_interval: int = 1
@@ -232,6 +243,23 @@ class _Batcher:
                     s["event"].set()
 
 
+def mesh_devices(cfg: Config) -> list:
+    """The devices of `--mesh-devices`: 0 means every local card, n means
+    the first n, and more than `torch.cuda.device_count()` raises. With
+    `device="cpu"`, n (at least 1) replicas on the CPU."""
+    base = resolve_device(cfg.device, "serve")
+    n = cfg.mesh_devices
+    if n < 0:
+        raise ValueError(f"mesh_devices must be >= 0, got {n}")
+    if base.type != "cuda":
+        return [base] * max(1, n)
+    count = torch.cuda.device_count()
+    if n > count:
+        raise ValueError(f"mesh_devices={n}: this host has {count} CUDA "
+                         "card(s)")
+    return [torch.device("cuda", i) for i in range(n or count)]
+
+
 class Runner:
     """What `build_runner` returns as `run`: `run(imgs, generator=None,
     latents_noise=None, posterior_noise=None) -> uint8 NHWC numpy`, the
@@ -239,52 +267,91 @@ class Runner:
     launch: it advances `counter`, moves the batch to the card through a
     pinned host buffer, calls the split sampler (noise from
     `seeded_generator(seed, counter)` unless given) and returns the faces on
-    the host.
+    the host. Over several devices (`devices`, by default
+    `mesh_devices(cfg)`) each takes a contiguous slice of the rows, and the
+    noise is drawn for the whole batch on the first device.
 
-    `sampler` is the `RefinerSampler`, `models` its (refiner, cr, vae),
-    `captured` each bucket's `CapturedStages` after `warmup` (empty on the
-    CPU), `timings` the cold start's seconds by part. The captures hold for
+    `sampler` is the first device's `RefinerSampler` (`samplers` every
+    device's), `models` its (refiner, cr, vae), `captured` each bucket's
+    `CapturedStages` on the first device after `warmup` (empty on the CPU;
+    `replica_captures` every device's), `timings` the cold start's seconds
+    by part. The captures hold for
     the models as they were at the warm-up: moving or casting them (`.to()`,
     also through building another sampler over them) or loading new weights
     drops them. Once anything is captured, a launch that did not replay
     (dropped captures, or a batch size that is not a bucket) raises
     RuntimeError after it ran."""
 
-    def __init__(self, cfg: Config):
-        if cfg.mesh_devices != 1:
-            raise ValueError(
-                f"mesh_devices={cfg.mesh_devices}: the port serves on one "
-                "card; data-parallel serving is ROADMAP §A8")
+    def __init__(self, cfg: Config, devices=None):
         dtype = model_dtype(cfg.dtype)
-        self.device = resolve_device(cfg.device, "serve")
+        self.devices = [torch.device(d) for d in
+                        (devices or mesh_devices(cfg))]
+        self.device = self.devices[0]
+        n = len(self.devices)
         self.size, self.seed = cfg.size, cfg.seed
-        self.buckets = sorted({min(b, cfg.batch) for b in
+        if cfg.batch % n:
+            cfg.batch += -cfg.batch % n
+            print(f"[serve] batch rounded up to {cfg.batch} ({n}-device "
+                  "multiple)", flush=True)
+        self.buckets = sorted({min(b + (-b % n), cfg.batch) for b in
                                parse_ints(cfg.buckets) + (cfg.batch,)
                                if b > 0})
         if len(self.buckets) > 1:
             print(f"[serve] launch buckets: {self.buckets}", flush=True)
+        if n > 1:
+            print(f"[serve] {n}-device data-parallel replicas "
+                  f"({cfg.batch // n} faces/device/launch)", flush=True)
         self.timings = {}
         if self.device.type == "cuda":
             t0 = time.perf_counter()
             kernels.library()
             self.timings["kernel_build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cr, vae, refiner, self.latent = load_refiner_stack(cfg, self.device,
-                                                           dtype)
-        seams = load_tiny_seams(cfg, self.latent, self.device, dtype)
+        self.samplers, self.replicas = [], []
+        for device in self.devices:
+            cr, vae, refiner, self.latent = load_refiner_stack(cfg, device,
+                                                               dtype)
+            seams = load_tiny_seams(cfg, self.latent, device, dtype)
+            self.replicas.append((refiner, cr, vae))
+            self.samplers.append(build_refiner_sampler_split(
+                refiner, cr, vae,
+                RefinerPipelineConfig(
+                    num_inference_steps=cfg.num_inference_steps,
+                    latent_size=self.latent, sampler=cfg.sampler,
+                    cache_interval=cfg.cache_interval, io_uint8=True,
+                    clip_sample=True,
+                    clip_sample_range=cfg.clip_sample_range),
+                device=device, **seams))
         self.timings["load_s"] = time.perf_counter() - t0
-        self.models = (refiner, cr, vae)
-        self.sampler = build_refiner_sampler_split(
-            refiner, cr, vae,
-            RefinerPipelineConfig(
-                num_inference_steps=cfg.num_inference_steps,
-                latent_size=self.latent, sampler=cfg.sampler,
-                cache_interval=cfg.cache_interval, io_uint8=True,
-                clip_sample=True, clip_sample_range=cfg.clip_sample_range),
-            device=self.device, **seams)
-        self.captured = {}
+        self.models, self.sampler = self.replicas[0], self.samplers[0]
+        self.captured, self.replica_captures = {}, {}
         self.counter = 0
         self._pinned = {}
+
+    def _upload(self, x: torch.Tensor, device: torch.device) -> torch.Tensor:
+        if device.type != "cuda":
+            return x
+        key = (tuple(x.shape), device)
+        pinned = self._pinned.get(key)
+        if pinned is None:
+            pinned = self._pinned[key] = torch.empty(
+                x.shape, dtype=x.dtype, pin_memory=True)
+        # the last launch's output copy has synchronized the stream, so the
+        # buffer's previous upload has ended
+        pinned.copy_(x)
+        return pinned.to(device, non_blocking=True)
+
+    def _noise(self, b: int, generator, latents_noise, posterior_noise):
+        """The launch's noise for all `b` rows, drawn on the first device
+        as its sampler would draw it (posterior noise first)."""
+        shape = (b, self.latent, self.latent, 4)
+        if posterior_noise is None and self.sampler._inputs.needs_posterior:
+            posterior_noise = torch.randn(shape, generator=generator,
+                                          device=self.device)
+        if latents_noise is None:
+            latents_noise = torch.randn(shape, generator=generator,
+                                        device=self.device)
+        return latents_noise, posterior_noise
 
     def __call__(self, imgs: np.ndarray,
                  generator: torch.Generator = None,
@@ -295,42 +362,58 @@ class Runner:
             generator = seeded_generator(self.seed, self.counter,
                                          self.device)
         x = torch.from_numpy(np.ascontiguousarray(imgs))
-        if self.device.type == "cuda":
-            pinned = self._pinned.get(x.shape)
-            if pinned is None:
-                pinned = self._pinned[x.shape] = torch.empty(
-                    x.shape, dtype=x.dtype, pin_memory=True)
-            # the last launch's output copy has synchronized the stream, so
-            # the buffer's previous upload has ended
-            pinned.copy_(x)
-            x = pinned.to(self.device, non_blocking=True)
-        replays = self.sampler.replays
-        out = self.sampler(x, generator, latents_noise, posterior_noise)
-        if self.captured and self.sampler.replays != replays + 1:
+        n = len(self.devices)
+        if n > 1:
+            latents_noise, posterior_noise = self._noise(
+                len(imgs), generator, latents_noise, posterior_noise)
+            generator = None
+        per = len(imgs) // n
+        samplers = [self.sampler] + self.samplers[1:]
+        replays = [s.replays for s in samplers]
+        outs = []
+        for k, (device, sampler) in enumerate(zip(self.devices, samplers)):
+            rows = slice(k * per, (k + 1) * per)
+
+            def part(t):
+                return None if t is None or n == 1 else t[rows].to(device)
+
+            outs.append(sampler(
+                self._upload(x[rows] if n > 1 else x, device), generator,
+                part(latents_noise) if n > 1 else latents_noise,
+                part(posterior_noise) if n > 1 else posterior_noise))
+        if self.captured and any(s.replays != r + 1 for s, r in
+                                 zip(samplers, replays)):
             raise RuntimeError(
                 f"launch {self.counter} (batch {len(imgs)}) ran eagerly, "
                 f"not as a replay of the warm-up's CUDA graphs (captured "
                 f"buckets {sorted(self.captured)}): the batch is not a "
                 "bucket, or the models were moved, cast or reloaded since "
                 "the warm-up and the captures dropped")
-        return out.cpu().numpy()
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def warmup(self) -> float:
-        """Capture each bucket's three stages on a zero batch (on the card),
-        then launch each bucket once; returns the seconds taken."""
+        """Capture each bucket's three stages on a zero batch (on every
+        card, its slice of the bucket), then launch each bucket once;
+        returns the seconds taken."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
+            n = len(self.devices)
             for b in self.buckets:
-                zeros = torch.zeros((b, self.size, self.size, 3),
-                                    dtype=torch.uint8, device=self.device)
-                noise = torch.zeros((b, self.latent, self.latent, 4),
-                                    device=self.device)
-                self.captured[b] = self.sampler.warm_compile(
-                    zeros, latents_noise=noise, posterior_noise=noise)
-            torch.cuda.synchronize(self.device)
+                self.replica_captures[b] = []
+                for device, sampler in zip(self.devices, self.samplers):
+                    zeros = torch.zeros((b // n, self.size, self.size, 3),
+                                        dtype=torch.uint8, device=device)
+                    noise = torch.zeros((b // n, self.latent, self.latent, 4),
+                                        device=device)
+                    self.replica_captures[b].append(sampler.warm_compile(
+                        zeros, latents_noise=noise, posterior_noise=noise))
+                self.captured[b] = self.replica_captures[b][0]
+            for device in self.devices:
+                torch.cuda.synchronize(device)
             self.timings["capture_s"] = time.perf_counter() - t0
-            print(f"[serve] {len(self.buckets)} buckets x 3 stages captured "
-                  f"in {self.timings['capture_s']:.1f}s", flush=True)
+            print(f"[serve] {len(self.buckets)} buckets x 3 stages x "
+                  f"{n} device(s) captured in "
+                  f"{self.timings['capture_s']:.1f}s", flush=True)
         t1 = time.perf_counter()
         for b in self.buckets:
             self(np.zeros((b, self.size, self.size, 3), np.uint8))

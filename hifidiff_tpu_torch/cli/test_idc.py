@@ -21,7 +21,8 @@ import dataclasses
 
 from hifidiff_tpu_torch.cli.common import (load_weights, parse_config,
                                            parse_ints, require_data, seeded,
-                                           smoke_datasets, to_device)
+                                           smoke_datasets)
+from hifidiff_tpu_torch.parallel.mesh import to_device
 from hifidiff_tpu_torch.cli.pretrain_idc import KEYS, embeddings, frozen_cr
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.devices import resolve_device

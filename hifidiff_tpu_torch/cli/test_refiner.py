@@ -30,11 +30,14 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
-                                           parse_config, require_data,
-                                           seeded_generator, smoke_datasets)
+from hifidiff_tpu_torch.cli.common import (data_parallel, load_refiner_stack,
+                                           load_tiny_seams, parse_config,
+                                           require_data, sampler_noise,
+                                           seeded_generator, shard,
+                                           smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.distributed import (global_means,
+                                                     is_main_process)
 from hifidiff_tpu_torch.eval.metrics import reference_eval_metrics
 from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
                                          build_refiner_sampler_split)
@@ -128,7 +131,7 @@ def perceptual_metrics(cfg: Config, device):
 def main(argv=None) -> dict:
     cfg = parse_config(Config, argv, "Full-pipeline eval")
     _check_flags(cfg)
-    device = resolve_device(cfg.device, "test_refiner")
+    device, group = data_parallel(cfg, "test_refiner")
     cr, vae, refiner, latent = load_refiner_stack(cfg, device)
     sampler = build_refiner_sampler_split(
         refiner, cr, vae,
@@ -145,19 +148,22 @@ def main(argv=None) -> dict:
         from hifidiff_tpu_torch.data.kface import KFaceDataset
 
         ds = KFaceDataset(cfg.dataroot, split="val", size=cfg.size)
-    loader = Loader(ds, cfg.batch_size, shuffle=False)
+    loader = Loader(ds, cfg.batch_size, shuffle=False, **shard())
     lpips_fn, niqe_fn = perceptual_metrics(cfg, device)
 
     psnrs, ssims, lpipss, niqes = [], [], [], []
     for i, batch in enumerate(loader):
         lr = torch.from_numpy(batch["lr"]).to(device)
         gt = torch.from_numpy(batch["gt"]).to(device)
-        pred = sampler(lr, generator=seeded_generator(cfg.seed, i, device))
-        m, pred_n, gt_n = reference_eval_metrics(pred, gt)
+        pred = sampler(lr, **sampler_noise(
+            sampler, len(lr), seeded_generator(cfg.seed, i, device), group))
+        m, pred_n, gt_n = reference_eval_metrics(pred, gt, group)
         psnrs.append(float(m["psnr"]))
         ssims.append(float(m["ssim"]))
         if lpips_fn is not None:
-            lpipss.append(lpips_fn(pred_n, gt_n))
+            lpipss.append(global_means(
+                {"lpips": float(lpips_fn(pred_n, gt_n))}, len(lr),
+                group)["lpips"])
         if niqe_fn is not None:
             niqes.extend(niqe_fn(p) for p in pred_n.cpu().numpy())
         if cfg.grid_every and i % cfg.grid_every == 0:
@@ -165,8 +171,9 @@ def main(argv=None) -> dict:
                 side_by_side(batch["lr"], pred.float().cpu().numpy(),
                              batch["gt"]),
                 os.path.join(cfg.out_dir, f"batch_{i}.png"))
-        print(f"({i + 1}/{len(loader)}) psnr={psnrs[-1]:.3f} "
-              f"ssim={ssims[-1]:.4f}", flush=True)
+        if is_main_process():
+            print(f"({i + 1}/{len(loader)}) psnr={psnrs[-1]:.3f} "
+                  f"ssim={ssims[-1]:.4f}", flush=True)
 
     print(f"PSNR: {np.mean(psnrs):.4f}")
     print(f"SSIM: {np.mean(ssims):.4f}")
@@ -174,9 +181,10 @@ def main(argv=None) -> dict:
     if lpipss:
         print(f"LPIPS: {np.mean(lpipss):.4f}")
         out["lpips"] = float(np.mean(lpipss))
-    if niqes:
-        print(f"NIQE: {np.mean(niqes):.4f}")
-        out["niqe"] = float(np.mean(niqes))
+    if niqes:   # per face, over every process's faces
+        out["niqe"] = global_means({"niqe": float(np.mean(niqes))},
+                                   len(niqes), group)["niqe"]
+        print(f"NIQE: {out['niqe']:.4f}")
     return out
 
 

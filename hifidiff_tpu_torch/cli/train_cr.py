@@ -27,12 +27,14 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (build_cr, multipie_datasets,
-                                           parse_config, read_state_dict,
-                                           require_data, resume, seeded,
-                                           smoke_datasets, to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel,
+                                           multipie_datasets, parse_config,
+                                           read_state_dict, require_data,
+                                           resume, seeded, shard,
+                                           smoke_datasets, to_nhwc)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.eval.vgg import make_vgg_features_fn
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.losses import composite_cr_loss
@@ -85,17 +87,17 @@ def main(argv=None) -> None:
     if cfg.loss not in ("cr", "composite"):
         raise ValueError(f"--loss must be 'cr' or 'composite', got "
                          f"{cfg.loss!r}")
-    device = resolve_device(cfg.device, "train_cr")
+    device, group = data_parallel(cfg, "train_cr")
     train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt", "patches"))
                         or multipie_datasets(cfg, use_patch=True))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     with seeded(cfg.seed):
         model = build_cr(cfg.width, cfg.size, cfg.enc_depths, cfg.mid_depth)
     state = TrainState.create(model, functools.partial(adam, lr=cfg.lr),
-                              device=device)
+                              device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
 
@@ -114,7 +116,8 @@ def main(argv=None) -> None:
 
     def dump(batch, pred, kind, epoch, i):
         save_image_grid(
-            side_by_side(batch["lr"], to_nhwc(pred), batch["gt"]),
+            side_by_side(to_nhwc(batch["lr"]), to_nhwc(pred),
+                         to_nhwc(batch["gt"])),
             os.path.join(cfg.out_dir, cfg.name, f"{kind}_e{epoch}_b{i}.png"))
 
     logger = MetricsLogger(cfg.log_dir, "hifi_cr", cfg.name,
@@ -122,21 +125,22 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for i, batch in enumerate(train_loader):
-            on_device = to_device(batch, device)
+        for i, on_device in enumerate(device_prefetch(train_loader, device)):
             state, metrics = train_step(state, on_device)
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
                         "step_time": timer.mean, "epoch": epoch}, step)
             if cfg.dump_every and i % cfg.dump_every == 0:
-                dump(batch, eval_step(state.module, on_device)[0], "train",
-                     epoch, i)
+                dump(on_device, eval_step(state.module, on_device)[0],
+                     "train", epoch, i)
             step += 1
 
         val_losses = []
         for i, batch in enumerate(val_loader):
-            pred, m = eval_step(state.module, to_device(batch, device))
-            val_losses.append(float(m["loss"]))
+            batch = to_device(batch, device)
+            pred, m = eval_step(state.module, batch)
+            val_losses.append(global_means(
+                {"loss": float(m["loss"])}, len(pred), group)["loss"])
             if cfg.dump_every and i % cfg.dump_every == 0:
                 dump(batch, pred, "val", epoch, i)
         logger.log({"val_loss": float(np.mean(val_losses))}, step)

@@ -37,13 +37,15 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, build_refiner_models,
+                                           data_parallel,
                                            load_vae, load_weights,
                                            multipie_datasets, parse_config,
                                            read_state_dict, require_data,
-                                           resume, seeded_generator,
-                                           smoke_datasets, to_device)
+                                           resume, sampler_noise,
+                                           seeded_generator, shard,
+                                           smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch
 from hifidiff_tpu_torch.eval.metrics import reference_eval_metrics
 from hifidiff_tpu_torch.pipeline import (RefinerPipelineConfig,
                                          build_refiner_sampler_split)
@@ -119,12 +121,12 @@ def compose(cfg, refiner) -> dict:
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-4 refiner training")
     require_data(cfg, ("dataroot",))
-    device = resolve_device(cfg.device, "train_refiner")
+    device, group = data_parallel(cfg, "train_refiner")
     train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
                         or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     # frozen stage-1 CR and VAE; the refiner composed from stages 2 and 3
     cr, vae, refiner, latent = build_refiner_models(cfg)
@@ -139,7 +141,7 @@ def main(argv=None) -> None:
                                    warmup_steps=cfg.warmup_steps,
                                    total_steps=total_steps,
                                    accumulate_steps=cfg.accum_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_refiner_train_step(cr, vae, device=device)
@@ -155,9 +157,9 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
+        for batch in device_prefetch(train_loader, device):
             state, metrics = train_step(
-                state, to_device(batch, device),
+                state, batch,
                 generator=seeded_generator(cfg.seed, step, device))
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
@@ -170,9 +172,10 @@ def main(argv=None) -> None:
         for i, batch in enumerate(val_loader):
             lr, gt = (torch.from_numpy(batch[k]).to(device)
                       for k in ("lr", "gt"))   # NHWC, as the sampler takes
-            pred = sampler(lr, generator=seeded_generator(
-                cfg.seed, 50_000 + i, device))
-            m = reference_eval_metrics(pred, gt)[0]
+            pred = sampler(lr, **sampler_noise(
+                sampler, len(lr), seeded_generator(cfg.seed, 50_000 + i,
+                                                   device), group))
+            m = reference_eval_metrics(pred, gt, group)[0]
             psnrs.append(float(m["psnr"]))
             ssims.append(float(m["ssim"]))
             if i == 0:

@@ -36,13 +36,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets, load_vae,
-                                           parse_config, parse_ints,
-                                           require_data, resume, seeded,
-                                           seeded_generator, smoke_datasets,
-                                           to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+                                           hq_datasets, load_vae, parse_config,
+                                           parse_ints, require_data, resume,
+                                           seeded, seeded_generator, shard,
+                                           smoke_datasets, to_nhwc)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.distill import make_tae_train_step
 from hifidiff_tpu_torch.train.optim import adamw_cosine
@@ -93,30 +94,36 @@ def _db(mse: float) -> float:
 
 
 @torch.no_grad()
-def recon(pair: nn.Module, vae: AutoencoderKL, images: torch.Tensor):
+def recon(pair: nn.Module, vae: AutoencoderKL, images: torch.Tensor,
+          group=None):
     """The tiny pair's reconstruction of [0, 1] images (B, 3, H, W) in
     [0, 1], its PSNR against them, and the PSNR of the tiny decoder against
-    the teacher's on the teacher's posterior mean, both clipped to [0, 1]."""
+    the teacher's on the teacher's posterior mean, both clipped to [0, 1]
+    (with a data-parallel `group`, of the global batch's mean squared
+    errors)."""
     x01 = images.clamp(0.0, 1.0)
     x = x01 * 2.0 - 1.0
     rec01 = (pair["dec"](pair["enc"](x)) * 0.5 + 0.5).clamp(0.0, 1.0)
     z = vae.encode(x)
     teacher = (vae.decode(z) * 0.5 + 0.5).clamp(0.0, 1.0)
     student = (pair["dec"](z) * 0.5 + 0.5).clamp(0.0, 1.0)
-    return (rec01, _db(float((rec01 - x01).square().mean())),
-            _db(float((student - teacher).square().mean())))
+    mse = global_means(
+        {"rec": float((rec01 - x01).square().mean()),
+         "dec": float((student - teacher).square().mean())},
+        len(images), group)
+    return rec01, _db(mse["rec"]), _db(mse["dec"])
 
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-autoencoder distillation")
     require_data(cfg, ("multipie_root", "celeba_root"))
-    device = resolve_device(cfg.device, "train_tae")
+    device, group = data_parallel(cfg, "train_tae")
     # the real data's train and val sets are one, as the JAX CLI has them
     train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (
         hq_datasets(cfg),) * 2
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     vae_blocks = parse_ints(cfg.vae_blocks)
     with seeded(cfg.seed):
@@ -134,7 +141,7 @@ def main(argv=None) -> None:
         pair, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                 warmup_steps=cfg.warmup_steps,
                                 total_steps=total_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_tae_train_step(vae, gt_weight=cfg.gt_weight,
@@ -152,12 +159,16 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
-            if extra_z is not None:
-                batch = dict(batch, extra_z=extra_z[rng.integers(
-                    0, len(extra_z), size=batch["image"].shape[0])])
+        def with_extra(loader):
+            for batch in loader:
+                if extra_z is not None:
+                    batch = dict(batch, extra_z=extra_z[rng.integers(
+                        0, len(extra_z), size=batch["image"].shape[0])])
+                yield batch
+
+        for batch in device_prefetch(with_extra(train_loader), device):
             state, metrics = train_step(
-                state, to_device(batch, device),
+                state, batch,
                 generator=seeded_generator(cfg.seed, step, device))
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
@@ -170,7 +181,7 @@ def main(argv=None) -> None:
         model = evaluated()
         for i, batch in enumerate(val_loader):
             rec, p, dp = recon(model, vae,
-                               to_device(batch, device)["image"])
+                               to_device(batch, device)["image"], group)
             psnrs.append(p)
             dec_psnrs.append(dp)
             if i == 0 and epoch % cfg.save_image_epoch == 0:

@@ -32,12 +32,14 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, build_cr, load_weights,
-                                           multipie_datasets, parse_config,
-                                           require_data, resume, seeded,
-                                           smoke_datasets, to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (EvalModule, build_cr, data_parallel,
+                                           load_weights, multipie_datasets,
+                                           parse_config, require_data, resume,
+                                           seeded, shard, smoke_datasets,
+                                           to_nhwc)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.models.tiny_cr import TinyCR
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.distill import make_tiny_cr_train_step
@@ -86,19 +88,19 @@ class Config:
     device: str = "cuda"        # "cpu" only when asked for
 
 
-def _db(a: torch.Tensor, b: torch.Tensor) -> float:
-    return -10.0 * math.log10(max(float((a - b).square().mean()), 1e-12))
+def _db(mse: float) -> float:
+    return -10.0 * math.log10(max(mse, 1e-12))
 
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-CR distillation")
     require_data(cfg, ("dataroot",))
-    device = resolve_device(cfg.device, "train_tiny_cr")
+    device, group = data_parallel(cfg, "train_tiny_cr")
     train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
                         or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     with seeded(cfg.seed):
         cr = build_cr(cfg.cr_width, cfg.size, cfg.cr_enc_depths,
@@ -114,7 +116,7 @@ def main(argv=None) -> None:
         tiny, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                 warmup_steps=cfg.warmup_steps,
                                 total_steps=total_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_tiny_cr_train_step(cr, gt_weight=cfg.gt_weight,
@@ -126,8 +128,8 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
-            state, metrics = train_step(state, to_device(batch, device))
+        for batch in device_prefetch(train_loader, device):
+            state, metrics = train_step(state, batch)
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
                         "teacher_loss": metrics["teacher_loss"],
@@ -142,8 +144,12 @@ def main(argv=None) -> None:
             with torch.no_grad():
                 out = model(on["lr"]).clamp(0.0, 1.0)
                 teacher = cr(on["lr"]).clamp(0.0, 1.0)
-            t_psnrs.append(_db(out, teacher))
-            g_psnrs.append(_db(out, on["gt"]))
+            mse = global_means(
+                {"teacher": float((out - teacher).square().mean()),
+                 "gt": float((out - on["gt"]).square().mean())},
+                len(out), group)
+            t_psnrs.append(_db(mse["teacher"]))
+            g_psnrs.append(_db(mse["gt"]))
             if i == 0 and epoch % cfg.save_image_epoch == 0:
                 save_image_grid(
                     side_by_side(batch["lr"], to_nhwc(out), batch["gt"]),

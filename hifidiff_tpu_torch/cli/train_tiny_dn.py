@@ -37,13 +37,13 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (load_refiner_stack,
+from hifidiff_tpu_torch.cli.common import (data_parallel, load_refiner_stack,
                                            multipie_datasets, parse_config,
                                            parse_ints, require_data, resume,
-                                           seeded, seeded_generator,
-                                           smoke_datasets, to_device)
+                                           seeded, seeded_generator, shard,
+                                           smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.models.refiner import FacialRefiner
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.distill import make_tiny_dn_train_step
@@ -119,12 +119,12 @@ def build_student(cfg, latent: int, teacher: FacialRefiner) -> FacialRefiner:
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Tiny-denoiser width distillation")
     require_data(cfg, ("dataroot",))
-    device = resolve_device(cfg.device, "train_tiny_dn")
+    device, group = data_parallel(cfg, "train_tiny_dn")
     train_ds, val_ds = (smoke_datasets(cfg, ("lr", "gt"))
                         or multipie_datasets(cfg))
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     cr, vae, teacher, latent = load_refiner_stack(cfg, device)
     teacher.requires_grad_(False)
@@ -134,7 +134,7 @@ def main(argv=None) -> None:
         student, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                    warmup_steps=cfg.warmup_steps,
                                    total_steps=total_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_tiny_dn_train_step(
@@ -146,9 +146,9 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
+        for batch in device_prefetch(train_loader, device):
             state, metrics = train_step(
-                state, teacher, to_device(batch, device),
+                state, teacher, batch,
                 generator=seeded_generator(cfg.seed, step, device))
             timer.tick()
             logger.log({"train_loss": metrics["loss"],

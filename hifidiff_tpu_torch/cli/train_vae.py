@@ -27,13 +27,14 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, hq_datasets,
-                                           parse_config, parse_ints,
-                                           require_data, resume, seeded,
-                                           seeded_generator, smoke_datasets,
-                                           to_device, to_nhwc)
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+                                           hq_datasets, parse_config,
+                                           parse_ints, require_data, resume,
+                                           seeded, seeded_generator, shard,
+                                           smoke_datasets, to_nhwc)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
-from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
 from hifidiff_tpu_torch.train.checkpoint import CheckpointManager
 from hifidiff_tpu_torch.train.optim import adamw_cosine
 from hifidiff_tpu_torch.train.steps import TrainState, make_vae_train_step
@@ -75,26 +76,28 @@ class Config:
 
 
 @torch.no_grad()
-def recon_psnr(vae: AutoencoderKL, images: torch.Tensor):
+def recon_psnr(vae: AutoencoderKL, images: torch.Tensor, group=None):
     """The posterior-mean reconstruction of [0, 1] images (B, 3, H, W) and
-    its PSNR in the [0, 1] domain."""
+    its PSNR in the [0, 1] domain; with a data-parallel `group` the PSNR of
+    the global batch's mean squared error."""
     target = images.clamp(0.0, 1.0)
     rec = vae.decode(vae.encode(target * 2.0 - 1.0))
     rec01 = (rec * 0.5 + 0.5).clamp(0.0, 1.0)
-    mse = float((rec01 - target).square().mean())
+    mse = global_means({"mse": float((rec01 - target).square().mean())},
+                             len(images), group)["mse"]
     return rec01, -10.0 * math.log10(max(mse, 1e-12))
 
 
 def main(argv=None) -> None:
     cfg = parse_config(Config, argv, "Stage-0 VAE training")
     require_data(cfg, ("multipie_root", "celeba_root"))
-    device = resolve_device(cfg.device, "train_vae")
+    device, group = data_parallel(cfg, "train_vae")
     # the real data's train and val sets are one, as the JAX CLI has them
     train_ds, val_ds = smoke_datasets(cfg, ("image",)) or (
         hq_datasets(cfg),) * 2
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
-                          seed=cfg.seed)
-    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False)
+                          seed=cfg.seed, **shard())
+    val_loader = Loader(val_ds, cfg.batch_size, shuffle=False, **shard())
 
     with seeded(cfg.seed):   # drawn as the JAX CLI's `vae.init` draws it
         vae = flax_default_init_(AutoencoderKL(
@@ -106,7 +109,7 @@ def main(argv=None) -> None:
                                warmup_steps=cfg.warmup_steps,
                                total_steps=total_steps,
                                accumulate_steps=cfg.accum_steps),
-        ema_decay=cfg.ema_decay, device=device)
+        ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
     train_step = make_vae_train_step(beta_kl=cfg.beta_kl, device=device)
@@ -117,9 +120,9 @@ def main(argv=None) -> None:
     timer = StepTimer()
     step = state.step
     for epoch in range(start_epoch, cfg.num_epochs):
-        for batch in train_loader:
+        for batch in device_prefetch(train_loader, device):
             state, metrics = train_step(
-                state, to_device(batch, device),
+                state, batch,
                 generator=seeded_generator(cfg.seed, step, device))
             timer.tick()
             logger.log({"train_loss": metrics["loss"],
@@ -131,7 +134,8 @@ def main(argv=None) -> None:
         psnrs = []
         model = evaluated()
         for i, batch in enumerate(val_loader):
-            rec, p = recon_psnr(model, to_device(batch, device)["image"])
+            rec, p = recon_psnr(model, to_device(batch, device)["image"],
+                                group)
             psnrs.append(p)
             if i == 0 and epoch % cfg.save_image_epoch == 0:
                 save_image_grid(

@@ -89,30 +89,49 @@ def ssim_pyiqa(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return ssim_map.mean(dim=(1, 2, 3))
 
 
-def min_max_normalize(x: torch.Tensor,
-                      per_sample: bool = True) -> torch.Tensor:
+def min_max_normalize(x: torch.Tensor, per_sample: bool = True,
+                      group=None) -> torch.Tensor:
     """Min-max to [0, 1], applied to prediction and ground truth before the
     metrics (`test_refiner.py:113-119`). The reference's `result.min()` is
     the min over the WHOLE batch tensor: per_sample=False replicates that
-    (the eval CLI does); per_sample=True normalizes each image on its own."""
+    (the eval CLI does); per_sample=True normalizes each image on its own.
+    With per_sample=False and a data-parallel `group` the min and max are
+    the global batch's."""
     x = x.float()
     dims = (1, 2, 3) if per_sample else (0, 1, 2, 3)
     lo = x.amin(dim=dims, keepdim=True)
     hi = x.amax(dim=dims, keepdim=True)
+    if group is not None and not per_sample:
+        from hifidiff_tpu_torch.parallel.distributed import gather_rows
+
+        every = gather_rows(torch.stack([lo.reshape(()), hi.reshape(())])
+                            [None], group)
+        lo = every[:, 0].amin().reshape(lo.shape)
+        hi = every[:, 1].amax().reshape(hi.shape)
     return (x - lo) / (hi - lo).clamp_min(1e-12)
 
 
-def reference_eval_metrics(pred: torch.Tensor, gt: torch.Tensor
+def reference_eval_metrics(pred: torch.Tensor, gt: torch.Tensor, group=None
                            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                       torch.Tensor]:
     """The reference's eval convention: batch-global min-max normalization
     of prediction and ground truth (`test_refiner.py:113-119`), then pyiqa
     'psnr' (per image, RGB, data range 1, batch mean) and pyiqa 'ssim'
-    (BT.601 Y). Returns ({"psnr", "ssim"}, pred_n, gt_n)."""
-    pred_n = min_max_normalize(pred, per_sample=False)
-    gt_n = min_max_normalize(gt, per_sample=False)
-    return ({"psnr": psnr_pyiqa(pred_n, gt_n).mean(),
-             "ssim": ssim_pyiqa(pred_n, gt_n).mean()}, pred_n, gt_n)
+    (BT.601 Y). Returns ({"psnr", "ssim"}, pred_n, gt_n). With a
+    data-parallel `group` each process holds its rows of the batch: the
+    normalization takes the global batch's min and max and the means are
+    the global batch's (each process's rows count once), as the JAX
+    package computes them over its process-sharded batch."""
+    pred_n = min_max_normalize(pred, per_sample=False, group=group)
+    gt_n = min_max_normalize(gt, per_sample=False, group=group)
+    psnr_s, ssim_s = psnr_pyiqa(pred_n, gt_n), ssim_pyiqa(pred_n, gt_n)
+    if group is None:
+        return ({"psnr": psnr_s.mean(), "ssim": ssim_s.mean()}, pred_n,
+                gt_n)
+    from hifidiff_tpu_torch.parallel.distributed import global_means
+
+    return (global_means({"psnr": psnr_s.mean(), "ssim": ssim_s.mean()},
+                         len(psnr_s), group), pred_n, gt_n)
 
 
 def identity_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

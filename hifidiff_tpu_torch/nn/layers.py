@@ -40,19 +40,50 @@ class LayerNorm2d(nn.Module):
         return layer_norm_2d(x, self.weight, self.bias, self.eps)
 
 
+class _Shared:
+    """Holds a process group; a deep copy of the module shares it (a group
+    cannot be copied)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32, or in float64 where it is."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` (eps 1e-5, momentum 0.1) whose training mode follows
     the JAX package's flax BatchNorm (momentum 0.9): the running variance is
     updated with the *biased* batch variance, where torch's own uses the
     unbiased one (the two differ by n / (n - 1), much at a 1x1 bottleneck
     with a small batch). Normalisation, the running mean and eval mode are
-    torch's. State-dict names are `nn.BatchNorm2d`'s."""
+    torch's. State-dict names are `nn.BatchNorm2d`'s.
+
+    Under data parallelism (`parallel.sync_batch_norm(module, group)`, a
+    group of more than one process) training mode takes its statistics over
+    the global batch, as the JAX package's BatchNorm does inside a jit over
+    the mesh: two autograd-aware all-reduces, the sum (with the row count)
+    giving the mean, then the sum of squared deviations from it giving the
+    biased variance (sum and sum of squares would cancel in float32 at a
+    1x1 map). `torch.nn.SyncBatchNorm` would update the running variance
+    with the unbiased estimate."""
+
+    _sync = _Shared(None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = self._sync.group
+        if group is not None \
+                and torch.distributed.get_world_size(group) > 1:
+            return self._forward_global(x, group)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+            var, mean = torch.var_mean(_at_least_f32(x), dim=(0, 2, 3),
                                        unbiased=False)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype),
                                     self.momentum)
@@ -61,6 +92,34 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _forward_global(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Training mode over `group`'s global batch (None: this process's
+        own batch, by the same formula)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        def reduce(t):
+            return t if group is None else all_reduce(t, group=group)
+
+        xf = _at_least_f32(x)
+        c = xf.shape[1]
+        rows = xf.new_full((1,), xf.numel() // c)
+        sums = reduce(torch.cat([xf.sum((0, 2, 3)), rows]))
+        count = sums[c].detach()
+        mean = sums[:c] / count
+        dev = xf - mean[None, :, None, None]
+        var = reduce(dev.square().sum((0, 2, 3))) / count
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        y = dev * torch.rsqrt(var + self.eps)[None, :, None, None]
+        if self.affine:
+            y = y * self.weight[None, :, None, None] \
+                + self.bias[None, :, None, None]
+        return y.to(x.dtype)
 
 
 class _W8Module(nn.Module):

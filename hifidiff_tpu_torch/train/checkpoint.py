@@ -75,6 +75,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              extra: Optional[Dict] = None) -> None:
+        """Write step `step`; in a multi-process run only the main process
+        writes (the reference's `accelerator.is_main_process` gating)."""
+        from hifidiff_tpu_torch.parallel.distributed import is_main_process
+
+        if not is_main_process():
+            return
         save_state(self.path(step), state, extra)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))

@@ -43,10 +43,12 @@ from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.diffusion.sampling import ddim_timesteps
 from hifidiff_tpu_torch.diffusion.schedule import (ALPHAS_CUMPROD,
                                                    NUM_TRAIN_TIMESTEPS)
+from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.train.losses import mse_loss
 from hifidiff_tpu_torch.train.steps import (Device, Metrics, TrainState,
                                             _check_state, _finish, _frozen,
-                                            _normal, _timesteps, _to_range)
+                                            _normal, _rows, _timesteps,
+                                            _to_range)
 from hifidiff_tpu_torch.vae.model import SD_VAE_SCALING
 
 
@@ -110,12 +112,12 @@ def _f32(table: np.ndarray, device) -> torch.Tensor:
 
 
 def _conditioning(cr_model, vae, batch, hf_posterior_noise,
-                  cr_posterior_noise, generator, device, scaling):
+                  cr_posterior_noise, generator, device, scaling, group):
     """Without gradient: the target's latent, the CR face and its latent,
     the VAE posteriors sampled (the refiner step's conditioning)."""
     def encode(images, given, what):
         mean, logvar = vae.moments(_to_range(images))
-        eps = _normal(given, mean.shape, generator, device, what)
+        eps = _normal(given, mean.shape, generator, device, what, group)
         return (mean + torch.exp(0.5 * logvar) * eps) * scaling
 
     with torch.no_grad():
@@ -127,21 +129,25 @@ def _conditioning(cr_model, vae, batch, hf_posterior_noise,
 
 
 def _student_steps(given, batch: int, n: int, stratified: bool,
-                   generator, device) -> torch.Tensor:
+                   generator, device, group) -> torch.Tensor:
     if given is not None:
         return given.to(device).long()
     if generator is None:
         raise ValueError("pass the student steps or a torch.Generator to "
                          "draw them from")
     if stratified:
-        # as the JAX package draws it: a permutation of arange(b) % n, so
-        # with b < n the steps >= b are never drawn (ROADMAP §C)
-        base = torch.arange(batch) % n
-        perm = torch.randperm(batch, generator=generator,
-                              device=generator.device).cpu()
-        return base[perm].to(device)
-    return torch.randint(0, n, (batch,), generator=generator,
-                         device=generator.device).to(device)
+        # as the JAX package draws it: a permutation of arange(b) % n over
+        # the global batch b, so with b < n the steps >= b are never drawn
+        # (ROADMAP §C)
+        def draw(shape):
+            perm = torch.randperm(shape[0], generator=generator,
+                                  device=generator.device).cpu()
+            return (torch.arange(shape[0]) % n)[perm]
+    else:
+        def draw(shape):
+            return torch.randint(0, n, shape, generator=generator,
+                                 device=generator.device)
+    return _rows(draw, (batch,), group).to(device)
 
 
 def make_distill_train_step(cr_model: nn.Module, vae: nn.Module,
@@ -176,13 +182,14 @@ def make_distill_train_step(cr_model: nn.Module, vae: nn.Module,
         teacher = teacher.eval()
         hf_latent, cr_face, cr_latent = _conditioning(
             cr_model, vae, batch, hf_posterior_noise, cr_posterior_noise,
-            generator, device, scaling)
+            generator, device, scaling, state.group)
         b, nd = hf_latent.shape[0], hf_latent.dim()
         i = _student_steps(student_steps, b, num_student_steps, stratified,
-                           generator, device)
+                           generator, device, state.group)
         t, a_sub, t_sub = tab["t"][i], tab["alpha_sub"][i], tab["t_sub"][i]
         a_t, a_prev = a_sub[:, 0], a_sub[:, -1]
-        eps = _normal(noise, hf_latent.shape, generator, device, "noise")
+        eps = _normal(noise, hf_latent.shape, generator, device, "noise",
+                      state.group)
         x_t = (torch.sqrt(_per_sample(a_t, nd)) * hf_latent
                + torch.sqrt(1.0 - _per_sample(a_t, nd)) * eps)
         with torch.no_grad():
@@ -196,7 +203,7 @@ def make_distill_train_step(cr_model: nn.Module, vae: nn.Module,
         w = torch.clamp(a_b / (1.0 - a_b), min=1.0)
         eps_s = state.module.train()(x_t, t, cr_face, cr_latent)
         x0_err = torch.sqrt(1.0 - a_b) / torch.sqrt(a_b) * (eps_s - target)
-        return _finish(state, (w * x0_err.square()).mean())
+        return _finish(state, (w * x0_err.square()).mean(), b)
 
     return step
 
@@ -241,12 +248,13 @@ def make_tiny_dn_train_step(cr_model: nn.Module, vae: nn.Module,
         teacher = teacher.eval()
         hf_latent, cr_face, cr_latent = _conditioning(
             cr_model, vae, batch, hf_posterior_noise, cr_posterior_noise,
-            generator, device, scaling)
+            generator, device, scaling, state.group)
         b, nd = hf_latent.shape[0], hf_latent.dim()
         x = _normal(latents_noise, hf_latent.shape, generator, device,
-                    "latents_noise")
-        t_fwd = _timesteps(fwd_timesteps, b, generator, device)
-        eps = _normal(noise, hf_latent.shape, generator, device, "noise")
+                    "latents_noise", state.group)
+        t_fwd = _timesteps(fwd_timesteps, b, generator, device, state.group)
+        eps = _normal(noise, hf_latent.shape, generator, device, "noise",
+                      state.group)
         with torch.no_grad():
             xs, eps_on = [], []
             for k in range(rollout_steps):
@@ -273,13 +281,14 @@ def make_tiny_dn_train_step(cr_model: nn.Module, vae: nn.Module,
                                 eps_fwd)
             loss = on_loss + fwd_weight * fwd_loss
         if update:
-            return _finish(state, loss, onpolicy_loss=on_loss,
+            return _finish(state, loss, b, onpolicy_loss=on_loss,
                            fwd_loss=fwd_loss)
         with torch.no_grad():
             for n, v in student.named_buffers():
                 v.copy_(saved[n])
-        return state, {"loss": loss, "onpolicy_loss": on_loss,
-                       "fwd_loss": fwd_loss}
+        return state, global_means(
+            {"loss": loss, "onpolicy_loss": on_loss, "fwd_loss": fwd_loss},
+            b, state.group, equal_rows=True)
 
     return step
 
@@ -302,7 +311,7 @@ def make_tiny_cr_train_step(cr_model: nn.Module, gt_weight: float = 0.3,
         t_loss = mse_loss(out, teacher)
         g_loss = mse_loss(out, batch["gt"].to(device)) if "gt" in batch \
             else torch.zeros((), device=device)
-        return _finish(state, t_loss + gt_weight * g_loss,
+        return _finish(state, t_loss + gt_weight * g_loss, len(lr),
                        teacher_loss=t_loss, gt_loss=g_loss)
 
     return step
@@ -330,7 +339,7 @@ def make_tae_train_step(vae: nn.Module, gt_weight: float = 0.3,
         with torch.no_grad():
             mean, logvar = vae.moments(x)
             eps = _normal(posterior_noise, mean.shape, generator, device,
-                          "posterior_noise")
+                          "posterior_noise", state.group)
             z = mean + torch.exp(0.5 * logvar) * eps
             teacher_img = vae.decode(z)
             if extra_z is not None:
@@ -342,7 +351,7 @@ def make_tae_train_step(vae: nn.Module, gt_weight: float = 0.3,
         if extra_z is not None:
             dec_loss = dec_loss + mse_loss(pair["dec"](extra_z), extra_img)
         enc_loss = mse_loss(pair["enc"](x), mean)
-        return _finish(state, dec_loss + enc_loss, dec_loss=dec_loss,
+        return _finish(state, dec_loss + enc_loss, len(x), dec_loss=dec_loss,
                        enc_loss=enc_loss)
 
     return step

@@ -28,6 +28,19 @@ raises without one; pass `device="cpu"` for the CPU, as the tests do. On the
 card `ln_film` and the warp run their hand-written forward and backward
 kernels. The steps compute in the dtype of the module under training,
 float32 as its parameters are made.
+
+Data parallelism (one process per card, `TrainState.create(...,
+group=mesh.data_group)`): each process steps on its own rows of the global
+batch, rank 0's rows first, and the run equals one process stepping on the
+concatenated batch, as the JAX steps jitted over a "data" mesh do. What
+makes it so: the parameters start equal (`parallel.replicate_global`);
+BatchNorm takes its training statistics over the global batch
+(`parallel.sync_batch_norm`); what a step draws from `generator` is drawn
+for the global batch on every process and each takes its rows
+(`parallel.global_rows`; given tensors are this process's rows); the
+optimizer step averages the gradients over the group in flat buckets
+(`parallel.all_reduce_gradients`, once per `accumulate_steps`); and the
+logged metrics are the global means.
 """
 
 from __future__ import annotations
@@ -38,6 +51,11 @@ import torch
 from torch import nn
 
 from hifidiff_tpu_torch.devices import resolve_device
+from hifidiff_tpu_torch.parallel.distributed import (all_reduce_gradients,
+                                                     global_means,
+                                                     global_rows,
+                                                     sync_batch_norm)
+from hifidiff_tpu_torch.parallel.mesh import replicate_global
 from hifidiff_tpu_torch.diffusion.schedule import (NUM_TRAIN_TIMESTEPS,
                                                    add_noise)
 from hifidiff_tpu_torch.train.losses import (cr_loss, mse_loss,
@@ -53,11 +71,13 @@ class TrainState:
     """The module under training with its optimizer, schedule, step count and
     optional EMA of the parameters (`ema_decay` 0 turns it off). `step`
     counts calls of `apply_gradients`, accumulation mini-steps included, as
-    the JAX package's state counts them."""
+    the JAX package's state counts them. `group` is the data-parallel
+    process group (None: this process alone)."""
 
     def __init__(self, module: nn.Module, optim: Optim,
-                 ema_decay: float = 0.0):
+                 ema_decay: float = 0.0, group=None):
         self.module = module
+        self.group = group
         self.optimizer, self.scheduler, self.accumulate_steps = optim
         self.step = 0
         self.mini_step = 0
@@ -70,15 +90,24 @@ class TrainState:
     @classmethod
     def create(cls, module: nn.Module,
                make_optim: Callable[[list], Optim], ema_decay: float = 0.0,
-               device: Device = None) -> "TrainState":
+               device: Device = None, group=None) -> "TrainState":
         """Move `module` to the device (the card unless `device="cpu"`), then
         build the optimizer over its trainable parameters with
         `make_optim(params)` (`optim.adam`, `optim.adamw_cosine` or a
-        `functools.partial` of them). Freeze parameters before this call."""
+        `functools.partial` of them). Freeze parameters before this call.
+        With a data-parallel `group`, every process of it must call this
+        with the same module: its BatchNorms then reduce over the group and
+        its parameters and buffers are checked equal and broadcast from the
+        group's first process. Every step then needs as many rows on every
+        process (the sharded `Loader` pads its shards so), and raises before
+        the optimizer step where they differ."""
         device = resolve_device(device, "TrainState.create")
         module.to(device)
+        if group is not None:
+            sync_batch_norm(module, group)
+            replicate_global(module, group)
         return cls(module, make_optim(trainable_parameters(module)),
-                   ema_decay)
+                   ema_decay, group)
 
     @property
     def device(self) -> torch.device:
@@ -105,6 +134,9 @@ class TrainState:
         follows the parameters after every call."""
         self.mini_step += 1
         if self.mini_step == self.accumulate_steps:
+            if self.group is not None:
+                all_reduce_gradients(trainable_parameters(self.module),
+                                     self.group)
             if self.accumulate_steps > 1:
                 for p in trainable_parameters(self.module):
                     if p.grad is not None:
@@ -156,9 +188,16 @@ def _check_state(state: TrainState, device: torch.device, who: str) -> None:
                          f"state's module is on {state.device}")
 
 
+def _rows(draw: Callable, shape, group) -> torch.Tensor:
+    """`draw(shape)`, or this process's rows of the global batch's draw."""
+    if group is None:
+        return draw(tuple(shape))
+    return global_rows(draw, shape, group)
+
+
 def _normal(given: Optional[torch.Tensor], shape,
             generator: Optional[torch.Generator], device: torch.device,
-            what: str) -> torch.Tensor:
+            what: str, group=None) -> torch.Tensor:
     if given is not None:
         if tuple(given.shape) != tuple(shape):
             raise ValueError(f"{what} must be {tuple(shape)}, got "
@@ -166,21 +205,23 @@ def _normal(given: Optional[torch.Tensor], shape,
         return given.to(device)
     if generator is None:
         raise ValueError(f"pass {what} or a torch.Generator to draw it from")
-    return torch.randn(tuple(shape), generator=generator,
-                       device=generator.device).to(device)
+    return _rows(lambda s: torch.randn(s, generator=generator,
+                                       device=generator.device),
+                 shape, group).to(device)
 
 
 def _timesteps(given: Optional[torch.Tensor], batch: int,
                generator: Optional[torch.Generator],
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, group=None) -> torch.Tensor:
     if given is not None:
         return given.to(device).long()
     if generator is None:
         raise ValueError("pass the timesteps or a torch.Generator to draw "
                          "them from")
-    return torch.randint(0, NUM_TRAIN_TIMESTEPS, (batch,),
-                         generator=generator,
-                         device=generator.device).to(device)
+    return _rows(lambda s: torch.randint(0, NUM_TRAIN_TIMESTEPS, s,
+                                         generator=generator,
+                                         device=generator.device),
+                 (batch,), group).to(device)
 
 
 def _to_range(images: torch.Tensor) -> torch.Tensor:
@@ -188,11 +229,17 @@ def _to_range(images: torch.Tensor) -> torch.Tensor:
     return images.clamp(0.0, 1.0) * 2.0 - 1.0
 
 
-def _finish(state: TrainState, loss: torch.Tensor, **more) -> Tuple:
+def _finish(state: TrainState, loss: torch.Tensor, rows: int,
+            **more) -> Tuple:
+    """Backward, the step's metrics as global-batch means over `rows` rows a
+    process (raising where the processes hold unequal batches), then the
+    optimizer step."""
     loss.backward()
+    metrics = global_means(
+        {"loss": loss.detach(), **{k: v.detach() for k, v in more.items()}},
+        rows, state.group, equal_rows=True)
     state.apply_gradients()
-    return state, {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in more.items()}}
+    return state, metrics
 
 
 def make_cr_train_step(loss_fn: Optional[Callable] = None,
@@ -209,7 +256,7 @@ def make_cr_train_step(loss_fn: Optional[Callable] = None,
         pred = state.module(batch["lr"].to(device))
         loss = loss_fn(pred, batch["gt"].to(device),
                        batch["patches"].to(device))
-        return _finish(state, loss)
+        return _finish(state, loss, len(pred))
 
     return step
 
@@ -247,14 +294,16 @@ def make_idc_train_step(cr_model: nn.Module,
         positive = idc(positive.to(device))
         negative = idc(batch["other"].to(device))
         loss = triplet_margin_loss(anchor, positive, negative)
-        return _finish(state, loss)
+        return _finish(state, loss, len(anchor))
 
     return step
 
 
 def _denoiser_loss(state, latents, noise, timesteps, generator, device):
-    noise = _normal(noise, latents.shape, generator, device, "noise")
-    t = _timesteps(timesteps, latents.shape[0], generator, device)
+    noise = _normal(noise, latents.shape, generator, device, "noise",
+                    state.group)
+    t = _timesteps(timesteps, latents.shape[0], generator, device,
+                   state.group)
     noisy = add_noise(latents, noise, t)
     state.module.train()
     return mse_loss(state.module(noisy, t.float()), noise)
@@ -277,11 +326,11 @@ def make_denoiser_train_step(vae: nn.Module,
         with torch.no_grad():
             mean, logvar = vae.moments(_to_range(images.to(device)))
         eps = _normal(posterior_noise, mean.shape, generator, device,
-                      "posterior_noise")
+                      "posterior_noise", state.group)
         latents = (mean + torch.exp(0.5 * logvar) * eps) * scaling
         loss = _denoiser_loss(state, latents, noise, timesteps, generator,
                               device)
-        return _finish(state, loss)
+        return _finish(state, loss, len(latents))
 
     return step
 
@@ -301,11 +350,11 @@ def make_denoiser_train_step_cached(scaling: float = SD_VAE_SCALING,
         mean = batch["mean"].to(device).float()
         logvar = batch["logvar"].to(device).float()
         eps = _normal(posterior_noise, mean.shape, generator, device,
-                      "posterior_noise")
+                      "posterior_noise", state.group)
         latents = (mean + torch.exp(0.5 * logvar) * eps) * scaling
         loss = _denoiser_loss(state, latents, noise, timesteps, generator,
                               device)
-        return _finish(state, loss)
+        return _finish(state, loss, len(latents))
 
     return step
 
@@ -324,12 +373,12 @@ def make_vae_train_step(beta_kl: float = 1e-6,
         x = _to_range(batch["image"].to(device))
         mean, logvar = vae.moments(x)
         eps = _normal(posterior_noise, mean.shape, generator, device,
-                      "posterior_noise")
+                      "posterior_noise", state.group)
         rec = vae.decode(mean + torch.exp(0.5 * logvar) * eps)
         rec_loss = mse_loss(rec, x)
         kl = -0.5 * (1.0 + logvar - mean.square() - logvar.exp()).mean()
         loss = rec_loss + beta_kl * kl
-        return _finish(state, loss, rec=rec_loss, kl=kl)
+        return _finish(state, loss, len(x), rec=rec_loss, kl=kl)
 
     return step
 
@@ -355,7 +404,8 @@ def make_refiner_train_step(cr_model: nn.Module, vae: nn.Module,
 
         def encode(images, given, what):
             mean, logvar = vae.moments(_to_range(images))
-            eps = _normal(given, mean.shape, generator, device, what)
+            eps = _normal(given, mean.shape, generator, device, what,
+                          state.group)
             return (mean + torch.exp(0.5 * logvar) * eps) * scaling
 
         with torch.no_grad():
@@ -364,11 +414,13 @@ def make_refiner_train_step(cr_model: nn.Module, vae: nn.Module,
             cr_face = cr_model(batch["lr"].to(device))
             cr_latent = encode(cr_face, cr_posterior_noise,
                                "cr_posterior_noise")
-        eps = _normal(noise, hf_latent.shape, generator, device, "noise")
-        t = _timesteps(timesteps, hf_latent.shape[0], generator, device)
+        eps = _normal(noise, hf_latent.shape, generator, device, "noise",
+                      state.group)
+        t = _timesteps(timesteps, hf_latent.shape[0], generator, device,
+                       state.group)
         noisy = add_noise(hf_latent, eps, t)
         refiner = state.module.train()
         loss = mse_loss(refiner(noisy, t.float(), cr_face, cr_latent), eps)
-        return _finish(state, loss)
+        return _finish(state, loss, len(noisy))
 
     return step

@@ -1,2 +1,2 @@
-"""Logging, image grids and profiling hooks (counterpart of
-hifidiff_tpu/utils/)."""
+"""Logging, image grids and profiling hooks, device-side timing and the
+execution-discipline checks (counterpart of hifidiff_tpu/utils/)."""

@@ -76,7 +76,11 @@ def save_image_grid(images: np.ndarray, path: str,
                     nrow: Optional[int] = None, pad: int = 2) -> None:
     """(B, H, W, C) float [0,1] -> one grid PNG (save_image equivalent), 8
     bits a channel, RGB for C 3 and grey for C 1: the JAX package's grid,
-    written without PIL."""
+    written without PIL. In a `torch.distributed` run only rank 0 writes,
+    as the reference's image dumps are gated on the main process."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
     b, h, w, c = images.shape
     nrow = nrow or max(1, int(np.ceil(np.sqrt(b))))
     ncol = int(np.ceil(b / nrow))

@@ -192,13 +192,13 @@ def _defaults(cls):
 
 
 @pytest.mark.parametrize("port, ref, renamed, extra", [
-    (serve.Config, jserve.Config, {"platform": "device"}, {"mesh_devices"}),
+    (serve.Config, jserve.Config, {"platform": "device"}, set()),
     (test_refiner.Config, jtest_refiner.Config, {}, {"device"}),
 ], ids=["serve", "test_refiner"])
 def test_config_fields_match_jax(port, ref, renamed, extra):
-    """Every field of the JAX Config has a counterpart with an equal default;
-    the deliberate differences are only these: `platform` -> `device`, and
-    `mesh_devices` (1 card, where JAX's 0 means every local device)."""
+    """Every field of the JAX Config has a counterpart with an equal default
+    (`mesh_devices` 0, every local card, in both); the deliberate
+    difference is only `platform` -> `device`."""
     p, j = _defaults(port), _defaults(ref)
     for name, default in j.items():
         if name in renamed:

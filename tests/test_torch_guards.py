@@ -473,3 +473,82 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path):
         assert kernels.LAUNCHES["ln_film"] == before
     finally:
         kernels.library.cache_clear()
+
+
+# the CLIs that run data-parallel under `torchrun`, as the JAX package's run
+# under `jax.distributed` (the server's replicas are in one process)
+DP_CLIS = ("train_vae", "train_cr", "pretrain_idc", "pretrain_denoiser",
+           "train_refiner", "train_tae", "train_tiny_cr", "train_tiny_dn",
+           "distill", "test_refiner")
+PARALLEL = ("parallel.distributed", "parallel.mesh", "parallel.tp",
+            "parallel.mp_dryrun", "utils.timing", "utils.checks")
+
+
+def test_only_the_launcher_module_reads_the_environment():
+    """torchrun's variables are read in `parallel/distributed.py` alone; no
+    other module of the port reads the environment."""
+    root = REPO / "hifidiff_tpu_torch"
+    readers = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
+                     if any(w in p.read_text() for w in ("os.environ",
+                                                         "os.getenv",
+                                                         "getenv(")))
+    assert readers == ["parallel/distributed.py"]
+
+
+def test_parallel_modules_import_without_jax_cv2_pil():
+    res = _run([sys.executable, "-c", BLOCKED_IMPORT, "jax", "jaxlib",
+                "flax", "optax", "hifidiff_tpu", "cv2", "PIL"], REPO)
+    assert res.returncode == 0, res.stderr
+    assert {f"hifidiff_tpu_torch.{m}" for m in PARALLEL} <= _port_modules()
+
+
+TORCHRUN_DEVICE = """
+import importlib, sys, torch
+mode = sys.argv[1]
+torch.cuda.is_available = lambda: mode == "card"
+current = {}
+torch.cuda.set_device = lambda i: current.update(index=i)
+torch.cuda.current_device = lambda: current["index"]
+from hifidiff_tpu_torch.parallel import maybe_initialize
+assert maybe_initialize(backend="gloo")     # the variables torchrun sets
+
+
+class Stop(Exception):
+    pass
+
+
+for name in sys.argv[2:]:
+    cli = importlib.import_module("hifidiff_tpu_torch.cli." + name)
+
+    def spy(cfg, who, real=cli.data_parallel, name=name):
+        device, group = real(cfg, who)
+        print(name, device, group is not None)
+        raise Stop
+
+    cli.data_parallel = spy
+    try:
+        cli.main(["--synthetic", "4"]
+                 + (["--device", "cpu"] if mode == "cpu" else []))
+    except Stop:
+        pass
+    except RuntimeError as e:
+        print(name, "raised" if "no CUDA device" in str(e) else e)
+"""
+
+
+@pytest.mark.parametrize("mode, want", [("card", "cuda:3 True"),
+                                        ("none", "raised"),
+                                        ("cpu", "cpu True")])
+def test_clis_under_torchrun_target_the_ranks_card(mode, want):
+    """Under torchrun's variables (one process, LOCAL_RANK 3, a world-1
+    group on an ephemeral port) each data-parallel CLI's `data_parallel`
+    starts from the group and resolves to `cuda:LOCAL_RANK` with a card
+    (`torch.cuda` stubbed), raises without one, and takes the CPU with
+    `--device cpu`."""
+    res = _run([sys.executable, "-c", TORCHRUN_DEVICE, mode, *DP_CLIS], REPO,
+               {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "3",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "0"})
+    assert res.returncode == 0, res.stderr
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.split(" ")[0] in DP_CLIS]
+    assert lines == [f"{name} {want}" for name in DP_CLIS], res.stdout

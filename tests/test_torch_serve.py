@@ -329,15 +329,43 @@ def test_bucketed_launches():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh_devices=2), "§A8"),
-    (dict(mesh_devices=0), "§A8"),
+    (dict(mesh_devices=2, device="cuda"), "has 1 CUDA card"),
+    (dict(mesh_devices=-1), ">= 0"),
     (dict(dtype="fp16"), "dtype"),
 ])
-def test_config_refusals(kw, match):
-    """One card only (the JAX server's data-parallel mesh is ROADMAP §A8),
-    and bf16 or f32 only."""
+def test_config_refusals(kw, match, monkeypatch):
+    """More cards than the host has (here one, `torch.cuda` stubbed so that
+    the count is read before any model is built) and a negative count are
+    refused by name, where the JAX server takes the minimum; bf16 or f32
+    only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match=match):
         create_server(Config(port=0, **dict(TINY, **kw)))
+
+
+def test_split_and_merge_over_two_devices():
+    """`--mesh-devices` over ["cpu", "cpu"]: the batch and the buckets round
+    up to the device multiple, each replica takes a contiguous half of a
+    launch's rows with its half of the noise drawn for the whole batch, and
+    the merged faces equal one device's launch on the same generator bit
+    for bit."""
+    from hifidiff_tpu_torch.cli.serve import Runner
+
+    one = Runner(Config(batch=4, **TINY), devices=["cpu"])
+    cfg = Config(batch=3, buckets="1", **TINY)
+    two = Runner(cfg, devices=["cpu", "cpu"])
+    assert cfg.batch == 4 and two.buckets == [2, 4]
+    assert len(two.samplers) == 2 and two.samplers[0] is not two.samplers[1]
+    imgs = np.stack(_images(4, seed=5))
+    want = one(imgs, seeded_generator(0, 7, "cpu"))
+    got = two(imgs, seeded_generator(0, 7, "cpu"))
+    np.testing.assert_array_equal(got, want)
+    # the halves came from different replicas, not from one device twice
+    np.testing.assert_array_equal(two(imgs[:2], seeded_generator(0, 8,
+                                                                "cpu")),
+                                  one(imgs[:2], seeded_generator(0, 8,
+                                                                "cpu")))
 
 
 def test_runner_buckets_and_counter(monkeypatch):
