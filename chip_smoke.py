@@ -148,15 +148,17 @@ raises at once):
      angles, 2 lights, patches on the frontal; 160 x 160) and a flat
      CelebA-HQ directory (968 files, 256 x 256) of procedural faces written
      by `png_filtered`, its rows through the five PNG filters in turn,
-     colour types 2 and 6; the decoder's time a file on the host (160 x 160
-     and 640 x 480, the filter mix stated); `infer_cr` at its defaults on
+     colour types 2 and 6; the decoder's time a file on the host, through
+     the host library and plain (160 x 160, 256 x 256 and 640 x 480, the
+     filter mix stated); `infer_cr` at its defaults on
      the `train_cr` directory, on the card and on the host CPU (f32, TF32
      off; phase 4's limits), 9 warp launches; `pretrain_idc --dataroot`,
      `pretrain_denoiser --multipie-root --celeba-root` (two steps of 512)
      and `train_tae --multipie-root` (two epochs) at their defaults, every
      step's launches held to the module tree, the loader's wait as a share
-     of the steps' wall; every map that reached a kernel against its plain
-     version (twice, for equal bits). On phase 12's server, one PNG request
+     of the steps' wall, the first batch of each pass apart from the rest;
+     every map that reached a kernel against its plain version (twice, for
+     equal bits). On phase 12's server, one PNG request
      (a 160 x 160 face): 200, the launched batch equal to the port's decode
      and PIL-bicubic resize, its face equal to the eager call on that batch
      with the launch's generator. Phase 13 prints the resize the procedural
@@ -177,7 +179,8 @@ raises at once):
      `train_refiner` (2 at 32), `train_tiny_cr`, `train_tiny_dn` and
      `distill` (1 each) with `--dataroot` through the blind branch at their
      defaults, every step's launches held to the module tree, the loader's
-     wait as a share of the steps' wall; `test_refiner --dataroot` (one
+     wait as a share of the steps' wall (first batch apart); `test_refiner
+     --dataroot` (one
      sampler call on the val split) and `test_idc --dataroot` (2 batches of
      the test split's triplets) with their launches; every map that
      reached a kernel against its plain version (twice, for equal bits);
@@ -194,6 +197,17 @@ raises at once):
      `test_refiner` on the two processes against one, and `serve
      --mesh-devices 0` serving on the one card (see the constants of phase
      17 for why its steps run without cuDNN's convolutions);
+  18. (run after 16, on phase 15's trees) the host image library
+     (csrc/host/image.cc: the PNG row filters, cv2's and PIL's resizes,
+     filter2D) on the card's host: its build log (each source's g++ flags
+     and seconds), every function against its plain numpy version bit for
+     bit over a sweep of shapes, kernels and PNG files (a mismatch fails the
+     run), ms a call of each operation at the datasets' shapes through the
+     library and plain, and items a second of the Multi-PIE (blind branch
+     and not), Multi-PIE HQ, CelebA-HQ and K-Face crop datasets through
+     the Loader with 4 threads and with 1, one item of each first with the
+     library's calls counted and the plain versions made to fail (a
+     dataset that does not reach the library fails the run);
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -3281,20 +3295,25 @@ def write_png_trees(root):
 
 
 def time_decodes(smi):
-    """`imread_rgb` on the host: ms per file for a MP_SIDE^2 face and for
-    640 x 480 (Multi-PIE's uncropped frame), rows through the five filters
-    in turn, and the 640 x 480 frame with every row Sub (cv2's choice when
-    it writes a PNG) and every row Paeth. Returns {label: ms}."""
+    """`imread_rgb` on the host, through the host library, beside the plain
+    decoder (`decode_png_plain`) on the same bytes: ms per file for a
+    MP_SIDE^2 and a CELEBA_SIDE^2 face and for 640 x 480 (Multi-PIE's
+    uncropped frame), rows through the five filters in turn, and the 640 x
+    480 frame with every row Sub (cv2's choice when it writes a PNG) and
+    every row Paeth. Returns {label: {"ms", "plain_ms"}}."""
     import tempfile
 
     from hifidiff_tpu_torch.data import procedural as proc
-    from hifidiff_tpu_torch.data.image_io import imread_rgb
+    from hifidiff_tpu_torch.data.image_io import decode_png_plain, imread_rgb
 
     idp = proc._identity_params(SEED, 0)
     small = (proc.render_face(idp, 0.3, MP_SIDE) * 255).astype(np.uint8)
+    mid = (proc.render_face(idp, 0.3, CELEBA_SIDE) * 255).astype(np.uint8)
     frame = (proc.render_face(idp, 0.3, 640)[80:560] * 255).astype(np.uint8)
     frame = np.ascontiguousarray(frame)
     cases = {f"{MP_SIDE}x{MP_SIDE}, the five filters in turn": (small, None),
+             f"{CELEBA_SIDE}x{CELEBA_SIDE}, the five filters in turn":
+                 (mid, None),
              "640x480, the five filters in turn": (frame, None),
              "640x480, Sub rows only": (frame, (1,)),
              "640x480, Paeth rows only": (frame, (4,))}
@@ -3302,23 +3321,28 @@ def time_decodes(smi):
     with tempfile.TemporaryDirectory() as tmp:
         for label, (img, filters) in cases.items():
             path = os.path.join(tmp, "x.png")
+            data = png_filtered(img, filters or (0, 1, 2, 3, 4))
             with open(path, "wb") as f:
-                f.write(png_filtered(img, filters or (0, 1, 2, 3, 4)))
-            if not np.array_equal(imread_rgb(path), img):
+                f.write(data)
+            if not np.array_equal(imread_rgb(path), img) or not \
+                    np.array_equal(decode_png_plain(data), img):
                 fail(f"imread_rgb: {label} does not read back bit for bit")
-            out[label] = median_ms(lambda: imread_rgb(path), 5)
-            log(f"imread_rgb on the host, {label}: {out[label]:.2f} ms a "
-                f"file [{smi}]")
+            out[label] = dict(ms=median_ms(lambda: imread_rgb(path), 11),
+                              plain_ms=median_ms(
+                                  lambda: decode_png_plain(data), 3))
+            log(f"imread_rgb on the host, {label}: {out[label]['ms']:.3f} "
+                f"ms a file through the host library, "
+                f"{out[label]['plain_ms']:.2f} ms plain [{smi}]")
     return out
 
 
 @contextlib.contextmanager
 def timed_loader(cli, waits=None, train_batches=None, eval_batches=None):
     """`data.core.Loader` (and `cli.Loader` where the CLI imported it by
-    name) made to add, for its shuffled (training) loaders, the seconds the
-    consumer waits for each batch to `waits`, and, where given, to give at
-    most `train_batches` batches when shuffled and `eval_batches`
-    otherwise."""
+    name) made to add, for its shuffled (training) loaders, (k, seconds)
+    to `waits` for the k-th batch of each pass, the seconds the consumer
+    waited for it, and, where given, to give at most `train_batches`
+    batches when shuffled and `eval_batches` otherwise."""
     from hifidiff_tpu_torch.data import core
 
     real = core.Loader
@@ -3336,14 +3360,14 @@ def timed_loader(cli, waits=None, train_batches=None, eval_batches=None):
 
         def __iter__(self):
             batches = super().__iter__()
-            while True:
+            for k in range(len(self) + 1):
                 t0 = time.perf_counter()
                 try:
                     batch = next(batches)
                 except StopIteration:
                     return
                 if self.shuffle and waits is not None:
-                    waits.append(time.perf_counter() - t0)
+                    waits.append((k, time.perf_counter() - t0))
                 yield batch
 
     with contextlib.ExitStack() as stack:
@@ -3351,6 +3375,27 @@ def timed_loader(cli, waits=None, train_batches=None, eval_batches=None):
         if getattr(cli, "Loader", None) is real:
             stack.enter_context(patched(cli, "Loader", Timed))
         yield
+
+
+def loader_waits(label, numbers, waits, smi, how=""):
+    """Adds to `numbers` the loader's wait from `timed_loader`'s `waits`:
+    in all, for the first batch of each pass (built by one thread while
+    the others start) and for the other batches, and in all as a share of
+    the steps' wall; logs them."""
+    step_s = sum(numbers["step_ms"]) / 1e3
+    total = sum(t for _, t in waits)
+    first = sum(t for k, t in waits if k == 0)
+    numbers.update(loader_wait_s=total, first_batch_wait_s=first,
+                   other_batches_wait_s=total - first,
+                   loader_wait_share=total / max(total + step_s, 1e-9))
+    firsts = sum(k == 0 for k, _ in waits)
+    log(f"{label}: {numbers['steps']} steps{how}; the training loop waited "
+        f"{total:.2f} s for its {len(waits)} batches ({first:.2f} s for the "
+        f"first batch of each of its {firsts} passes, {total - first:.2f} s "
+        f"for the other {len(waits) - firsts}) against {step_s:.2f} s in "
+        f"the steps: the loader's wait is "
+        f"{numbers['loader_wait_share']:.3f} of the steps' wall "
+        f"({numbers['wall_s']:.1f} s for the stage) [{smi}]")
 
 
 def check_infer_cr(dev, tmp, keep, smi, image=None, dataroot=None):
@@ -3444,7 +3489,7 @@ def check_png_data_path(dev, g, stats, smi, keep, tmp):
         f"{procedural.LR_RESIZE}")
     t0 = time.perf_counter()
     mp, celeba, files, nbytes = write_png_trees(tmp)
-    out["multipie_root"] = mp
+    out["multipie_root"], out["celeba_root"] = mp, celeba
     log(f"phase 15: {files} PNG files ({nbytes / 1e6:.1f} MB) written "
         f"in {time.perf_counter() - t0:.1f} s")
     out["decode_ms"] = time_decodes(smi)
@@ -3476,17 +3521,7 @@ def check_png_data_path(dev, g, stats, smi, keep, tmp):
                                      smi)
             rows = finite_log(label, os.path.join(tmp, "logs"), project,
                               "t", numbers["steps"])
-            step_s = sum(numbers["step_ms"]) / 1e3
-            numbers.update(loader_wait_s=sum(waits),
-                           loader_wait_share=sum(waits)
-                           / max(sum(waits) + step_s, 1e-9))
-            log(f"{label}: {numbers['steps']} steps; the training "
-                f"loop waited {sum(waits):.2f} s for its "
-                f"{len(waits)} batches against {step_s:.2f} s in the "
-                f"steps: the loader's wait is "
-                f"{numbers['loader_wait_share']:.3f} of the steps' "
-                f"wall ({numbers['wall_s']:.1f} s for the stage) "
-                f"[{smi}]")
+            loader_waits(label, numbers, waits, smi)
             if numbers["steps"] < 2 or not rows:
                 fail(f"{label}: {numbers['steps']} steps")
             out[label] = numbers
@@ -3726,16 +3761,9 @@ def run_blind_clis(tmp, keep, mp, smi):
                                  expected=expected)
         rows = finite_log(label, os.path.join(tmp, "logs"), project, "p16",
                           0 if name == "distill" else numbers["steps"])
-        step_s = sum(numbers["step_ms"]) / 1e3
-        numbers.update(loader_wait_s=sum(waits),
-                       loader_wait_share=sum(waits)
-                       / max(sum(waits) + step_s, 1e-9))
-        log(f"{label}: {numbers['steps']} steps at batch "
-            f"{cli.Config.batch_size} through the blind branch; the "
-            f"training loop waited {sum(waits):.2f} s for its {len(waits)} "
-            f"batches against {step_s:.2f} s in the steps: the loader's "
-            f"wait is {numbers['loader_wait_share']:.3f} of the steps' wall "
-            f"({numbers['wall_s']:.1f} s for the stage) [{smi}]")
+        loader_waits(label, numbers, waits, smi,
+                     f" at batch {cli.Config.batch_size} through the blind "
+                     "branch")
         if numbers["steps"] != P16_STEPS[name] or not rows:
             fail(f"{label}: {numbers['steps']} steps, not "
                  f"{P16_STEPS[name]}")
@@ -3861,6 +3889,328 @@ def check_codec_path(dev, g, stats, smi, keep, mp):
     per_step = {label: n["launches_per_step"] for label, n in out.items()
                 if isinstance(n, dict) and "launches_per_step" in n}
     return out, per_step
+
+# -- phase 18: the host image library ----------------------------------------
+
+# random (source, output) shape pairs of sides 1-300 a resize of the sweep
+IMG_SWEEP_PAIRS = 16
+# the datasets' items timed through a Loader, at its batch
+IMG_DS_ITEMS = 256
+IMG_DS_BATCH = 16
+# the K-Face crop tree's angles besides the frontal
+KF_CROP_ANGLES = (1, 3, 10, 20)
+
+
+@contextlib.contextmanager
+def counting_host_image():
+    """`data.host.library` made to count the image path's calls (`hi_*`)
+    into the yielded Counter, with the four plain versions made to fail
+    the run where anything calls them."""
+    from hifidiff_tpu_torch.data import degradations, host, image_io, resize
+
+    lib = host.library()
+    calls = collections.Counter()
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if not name.startswith("hi_"):
+                return fn
+
+            def call(*args):
+                calls[name] += 1
+                return fn(*args)
+
+            call.__name__ = name
+            return call
+
+    def plain_called(name):
+        def stub(*a, **k):
+            fail(f"phase 18: {name} reached")
+            raise RuntimeError(f"{name} reached")
+        return stub
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(host, "library", lambda: Counting()))
+        for module, name in ((resize, "resize_cv2_plain"),
+                             (resize, "resize_pil_plain"),
+                             (image_io, "decode_png_plain"),
+                             (degradations, "filter2d_plain")):
+            stack.enter_context(patched(module, name, plain_called(name)))
+        yield calls
+
+
+def image_sweep():
+    """Every host image function against its plain version, bit for bit
+    (equal bytes): `resize_cv2` cubic / linear float32 and cubic uint8, and
+    `resize_pil` bicubic / nearest, over the ratios 4/3 and 6/5, 1-pixel
+    edges, the datasets' shapes and IMG_SWEEP_PAIRS random pairs of sides
+    1-300 with 2-D arrays and 1-4 channels; `filter2d` with 9 x 9, 11 x 11
+    and a (7, 4) kernel of negative taps on images smaller and larger than
+    the kernel; `decode_png` on files of colour types 0, 2, 4 and 6 (rows
+    through the five filters, IDAT in 64-byte chunks, and through Average
+    or Paeth alone). Returns (cases, labels of the mismatches)."""
+    from hifidiff_tpu_torch.data import degradations as deg
+    from hifidiff_tpu_torch.data import image_io, resize
+
+    rng = np.random.default_rng(SEED + 18)
+    pairs = [((160, 120), (120, 90), None), ((120, 90), (160, 120), 1),
+             ((150, 125), (125, 150), 3), ((125, 150), (150, 125), 4),
+             ((1, 1), (5, 7), 3), ((7, 5), (1, 1), None), ((1, 9), (4, 1), 2),
+             ((300, 300), (1, 300), 1), ((160, 160), (128, 128), 3),
+             ((256, 256), (128, 128), 3), ((128, 128), (32, 32), 3),
+             ((32, 32), (128, 128), 3)]
+    for _ in range(IMG_SWEEP_PAIRS):
+        src, dst = (tuple(int(v) for v in rng.integers(1, 301, 2))
+                    for _ in range(2))
+        pairs.append((src, dst, [None, 1, 2, 3, 4][int(rng.integers(5))]))
+    bad, n = [], 0
+
+    def same(label, got, want):
+        nonlocal n
+        n += 1
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or got.tobytes() != want.tobytes():
+            bad.append(label)
+
+    for src, dst, ch in pairs:
+        shape = src if ch is None else (*src, ch)
+        f32 = rng.uniform(0, 1, shape).astype(np.float32)
+        u8 = rng.integers(0, 256, shape, dtype=np.uint8)
+        size = (dst[1], dst[0])
+        for label, img, fn, plain, mode in (
+                ("cv2 cubic f32", f32, resize.resize_cv2,
+                 resize.resize_cv2_plain, "cubic"),
+                ("cv2 linear f32", f32, resize.resize_cv2,
+                 resize.resize_cv2_plain, "linear"),
+                ("cv2 cubic u8", u8, resize.resize_cv2,
+                 resize.resize_cv2_plain, "cubic"),
+                ("pil bicubic", u8, resize.resize_pil,
+                 resize.resize_pil_plain, "bicubic"),
+                ("pil nearest", u8, resize.resize_pil,
+                 resize.resize_pil_plain, "nearest")):
+            same(f"{label} {shape} -> {dst}", fn(img, size, mode),
+                 plain(img, size, mode))
+    kernels = {"9x9": deg.random_mixed_kernel(rng, 9),
+               "11x11": deg.random_mixed_kernel(rng, 11),
+               "7x4": rng.normal(size=(7, 4)).astype(np.float32)}
+    for shape in ((1, 1), (2, 3, 3), (4, 9, 1), (5, 5), (10, 10, 4),
+                  (40, 33, 3), (MP_SIDE, MP_SIDE, 3)):
+        img = rng.uniform(0, 1, shape).astype(np.float32)
+        for name, k in kernels.items():
+            same(f"filter2d {name} on {shape}", deg.filter2d(img, k),
+                 deg.filter2d_plain(img, k))
+    for ch in (1, 2, 3, 4):
+        img = rng.integers(0, 256, (23, 37, ch), dtype=np.uint8)
+        img[:11] = np.arange(37, dtype=np.uint8)[None, :, None] * 7
+        for filters in ((0, 1, 2, 3, 4), (3,), (4,)):
+            data = png_filtered(img if ch > 1 else img[..., 0], filters,
+                                idat_size=64)
+            same(f"decode_png {ch} channels, filters {filters}",
+                 image_io.decode_png(data), image_io.decode_png_plain(data))
+    return n, bad
+
+
+def time_image_ops(smi, decode_ms):
+    """ms a call of each host image operation at the datasets' shapes,
+    through the host library and plain: the resizes (MP_SIDE and
+    CELEBA_SIDE to 128, 128 -> 32 -> 128, the blind branch's linear ones),
+    the 11 x 11 and 9 x 9 blurs of a MP_SIDE^2 face, and `blind_degrade`'s
+    cv2 path an item (its blur and resizes plain in the plain row), beside
+    phase 15's decode times (`decode_ms`). Returns {label: {"ms",
+    "plain_ms"}}."""
+    from hifidiff_tpu_torch.data import degradations as deg
+    from hifidiff_tpu_torch.data import procedural as proc
+    from hifidiff_tpu_torch.data import resize
+
+    rng = np.random.default_rng(SEED)
+    face = {side: proc.render_face(proc._identity_params(SEED, 0), 0.3, side)
+            for side in (MP_SIDE, CELEBA_SIDE, 128, 32, 20)}
+    u8 = {side: (f * 255).astype(np.uint8) for side, f in face.items()}
+    k11, k9 = (deg.random_mixed_kernel(rng, k) for k in (11, 9))
+    cv2_ops = [(f"resize_cv2 cubic f32 {a}->{b}", face[a], (b, b), "cubic")
+               for a, b in ((MP_SIDE, 128), (CELEBA_SIDE, 128), (128, 32),
+                            (32, 128))]
+    cv2_ops += [(f"resize_cv2 linear f32 {a}->{b}", face[a], (b, b),
+                 "linear") for a, b in ((MP_SIDE, 20), (20, 128))]
+    cv2_ops += [(f"resize_cv2 cubic u8 {MP_SIDE}->128", u8[MP_SIDE],
+                 (128, 128), "cubic")]
+    pil_ops = [(f"resize_pil bicubic {a}->{b}", u8[a], (b, b), "bicubic")
+               for a, b in ((MP_SIDE, 128), (CELEBA_SIDE, 128), (128, 32),
+                            (32, 128))]
+    pil_ops += [(f"resize_pil nearest {MP_SIDE}->128", u8[MP_SIDE],
+                 (128, 128), "nearest")]
+    ops = {label: (lambda a=a, sz=sz, m=m: resize.resize_cv2(a, sz, m),
+                   lambda a=a, sz=sz, m=m: resize.resize_cv2_plain(a, sz, m))
+           for label, a, sz, m in cv2_ops}
+    ops.update({label: (lambda a=a, sz=sz, m=m: resize.resize_pil(a, sz, m),
+                        lambda a=a, sz=sz, m=m: resize.resize_pil_plain(
+                            a, sz, m))
+                for label, a, sz, m in pil_ops})
+    for name, k in (("11x11", k11), ("9x9", k9)):
+        ops[f"filter2d {name} on {MP_SIDE}x{MP_SIDE}x3"] = (
+            lambda k=k: deg.filter2d(face[MP_SIDE], k),
+            lambda k=k: deg.filter2d_plain(face[MP_SIDE], k))
+
+    def blind(plain):
+        g = np.random.default_rng(SEED)
+        if not plain:
+            return lambda: deg.blind_degrade(g, face[MP_SIDE], 128)
+
+        def run():
+            with patched(deg, "filter2d", deg.filter2d_plain), \
+                    patched(deg, "resize_cv2", resize.resize_cv2_plain):
+                deg.blind_degrade(g, face[MP_SIDE], 128)
+        return run
+
+    ops[f"blind_degrade, cv2 path, {MP_SIDE}x{MP_SIDE} -> 128"] = (
+        blind(False), blind(True))
+    out = {f"imread_rgb {k}": v for k, v in decode_ms.items()}
+    for label, (lib_fn, plain_fn) in ops.items():
+        out[label] = dict(ms=median_ms(lib_fn, 21),
+                          plain_ms=median_ms(plain_fn, 5))
+    for label, v in out.items():
+        log(f"phase 18 on the host: {label}: {v['ms']:.3f} ms through the "
+            f"host library, {v['plain_ms']:.3f} ms plain "
+            f"({v['plain_ms'] / v['ms']:.1f}x) [{smi}]")
+    return out
+
+
+def write_kface_crop_tree(root):
+    """A pre-cropped K-Face tree under `root/kface_crop` (the train split,
+    2 ids, lights L1 and L2, expressions E01-E03, the frontal C7 and the
+    angles of KF_CROP_ANGLES at KF_SIDE^2, each angle's 8 component patches
+    at 128^2), JPEGs written by the port's encoder at KF_QUALITY. Returns
+    the root."""
+    from hifidiff_tpu_torch.data import procedural as proc
+    from hifidiff_tpu_torch.data.jpeg import encode_jpeg
+
+    kf = os.path.join(root, "kface_crop")
+    for i in range(2):
+        idp = proc._identity_params(SEED + 18, i)
+        for light, gain in (("L1", 1.0), ("L2", 0.8)):
+            for e, expr in enumerate(KF_EXPRESSIONS):
+                d = os.path.join(kf, "train", f"k{i}", "S001", light, expr)
+                os.makedirs(d, exist_ok=True)
+                for angle in (KF_FRONTAL, *KF_CROP_ANGLES):
+                    pose = 0.0 if angle == KF_FRONTAL else -0.8 + 0.08 * angle
+                    img = proc.render_face(idp, pose, KF_SIDE) * gain
+                    img = (np.clip(np.roll(img, e, axis=1), 0, 1) * 255
+                           + 0.5).astype(np.uint8)
+                    with open(os.path.join(d, f"C{angle}.jpg"), "wb") as f:
+                        f.write(encode_jpeg(img, KF_QUALITY))
+                    if angle == KF_FRONTAL:
+                        continue
+                    for k in range(8):
+                        patch = np.ascontiguousarray(img[k * 4:k * 4 + 128,
+                                                         16:144])
+                        with open(os.path.join(d, f"C{angle}_{k}.jpg"),
+                                  "wb") as f:
+                            f.write(encode_jpeg(patch, KF_QUALITY))
+    return kf
+
+
+class FirstItems:
+    """`n` items of a dataset: its first ones, from the start again where
+    it has fewer."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i % len(self.dataset)]
+
+
+def time_datasets(smi, mp, celeba, kf):
+    """Items a second of the image datasets through the port's `Loader`
+    (batch IMG_DS_BATCH, IMG_DS_ITEMS items, one pass after one
+    warm item), with 4 threads (the CLIs' loaders) and with 1; before it,
+    one item of each with the host library's calls counted and the plain
+    versions made to fail: each must reach the calls it makes. Returns
+    {label: numbers}."""
+    from hifidiff_tpu_torch.data import kface, multipie, pretraining
+    from hifidiff_tpu_torch.data.core import Loader
+
+    png, blur, pil = "hi_png_rgb", "hi_filter2d", "hi_resize_pil"
+    cv2_f32 = "hi_resize_cv2_f32"
+    cases = {
+        "MultiPIEDataset (blind branch, patches)": (
+            lambda: multipie.MultiPIEDataset(mp, use_patch=True, seed=SEED),
+            {png, blur, cv2_f32, pil}),
+        "MultiPIEDataset (not blind, patches)": (
+            lambda: multipie.MultiPIEDataset(mp, use_blind=False,
+                                             use_patch=True, seed=SEED),
+            {png, cv2_f32, pil}),
+        "MultiPIEHQDataset": (lambda: pretraining.MultiPIEHQDataset(mp),
+                              {png, cv2_f32}),
+        "CelebAHQDataset": (lambda: pretraining.CelebAHQDataset(celeba),
+                            {png, pil}),
+        "KFaceCropDataset (patches)": (lambda: kface.KFaceCropDataset(kf),
+                                       {pil}),
+    }
+    out = {}
+    for label, (make, want) in cases.items():
+        with counting_host_image() as calls:
+            make()[0]
+        if set(calls) != want:
+            fail(f"phase 18: {label} made the host library calls "
+                 f"{dict(calls)}, not {sorted(want)}")
+        row = {"host_calls_an_item": dict(calls)}
+        for threads in (4, 1):
+            ds = FirstItems(make(), IMG_DS_ITEMS)
+            ds[0]
+            t0 = time.perf_counter()
+            n = sum(len(next(iter(b.values())))
+                    for b in Loader(ds, IMG_DS_BATCH, shuffle=False,
+                                    num_threads=threads))
+            row[f"items_s_{threads}_threads"] = n / (time.perf_counter() - t0)
+            row["items"] = n
+        log(f"phase 18: {label}: {row['items_s_4_threads']:.1f} items/s "
+            f"through a 4-thread Loader, {row['items_s_1_threads']:.1f} "
+            f"with 1 ({row['items']} items, batch {IMG_DS_BATCH}); host "
+            f"library calls an item {row['host_calls_an_item']} [{smi}]")
+        out[label] = row
+    return out
+
+
+def check_host_image(smi, png_stats, mp, celeba):
+    """Phase 18: the host image library (csrc/host/image.cc) on the card's
+    host: its build log (per-source flags, seconds), every function against
+    its plain version bit for bit (`image_sweep`), the ms of each operation
+    against the plain version's (`time_image_ops`, beside phase 15's
+    decodes) and the datasets' items a second through the Loader, each
+    dataset's item reaching the library (`time_datasets`, on phase 15's
+    Multi-PIE and CelebA-HQ trees and a K-Face crop tree written here).
+    Returns its numbers."""
+    import tempfile
+
+    from hifidiff_tpu_torch.data import host
+
+    t_phase = time.perf_counter()
+    log("phase 18: the host library's build (each source its own g++, at "
+        "once; seconds since the build began):\n" + host.library().build_log)
+    out = {}
+    t0 = time.perf_counter()
+    n, bad = image_sweep()
+    out["sweep"] = dict(cases=n, mismatches=bad, s=time.perf_counter() - t0)
+    log(f"phase 18: {n} calls of the host image library against the plain "
+        f"versions: {len(bad)} not bit for bit"
+        + (f" ({bad[:8]})" if bad else "")
+        + f", {out['sweep']['s']:.1f} s")
+    if bad:
+        fail(f"phase 18: {len(bad)} of {n} host image calls differ from "
+             f"the plain versions, e.g. {bad[:4]}")
+    out["ms"] = time_image_ops(smi, png_stats["decode_ms"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out["datasets"] = time_datasets(smi, mp, celeba,
+                                        write_kface_crop_tree(tmp))
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['wall_s']:.1f} s wall [{smi}]")
+    return out
+
 
 # -- phase 17: data parallelism over torch.distributed ------------------------
 # Phase 17's train steps run on deterministic algorithms with cuDNN's
@@ -5207,9 +5557,18 @@ def main() -> int:
             # -- 16. the JPEG codec slice, on 13's stage files and 15's tree
             codec_stats, phase16_launches = check_codec_path(
                 dev, g, stats, smi, keep, png_stats["multipie_root"])
-    torch.cuda.empty_cache()
-    log(f"JPEG codec slice [{smi}]: " + json.dumps(codec_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] JPEG codec slice checked")
+            torch.cuda.empty_cache()
+            log(f"JPEG codec slice [{smi}]: " + json.dumps(codec_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] JPEG codec slice "
+                "checked")
+
+            # -- 18. the host image library, on 15's trees ----------------
+            image_stats = check_host_image(smi, png_stats,
+                                           png_stats["multipie_root"],
+                                           png_stats["celeba_root"])
+    log(f"host image library [{smi}]: " + json.dumps(image_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] host image library "
+        "checked")
 
     # -- 17. data parallelism: world-1 NCCL, two ranks over gloo, the eval
     # -- CLI on two ranks and the server over every local card ------------

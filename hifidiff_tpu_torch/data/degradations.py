@@ -8,13 +8,17 @@ channelwise but `to_gray3`, which weighs the channels as cv2's
 `COLOR_BGR2GRAY` weighs the BGR image the JAX package holds.
 
 `filter2d` is cv2's `filter2D(img, -1, kernel)`: a correlation with the
-anchor at the kernel's centre and `BORDER_REFLECT_101` borders.
+anchor at the kernel's centre and `BORDER_REFLECT_101` borders, one call to
+the host library (`csrc/host/image.cc`, built by `data/host.py`), made
+without the GIL; `filter2d_plain` is its numpy version, bit for bit equal
+to it, called only by tests and chip_smoke.py.
 
 The JPEG round trip runs the port's codec (`data/jpeg.py`), which writes
 the bytes `cv2.imencode` writes and reads back what `cv2.imdecode` reads;
 the RGB image goes in as RGB, as cv2 takes the JAX package's BGR, so both
 see the same YCbCr. `blind_degrade` takes the JAX package's cv2 path by
-default (`filter2d`, `resize_cv2` linear, float64 normals) and its native
+default (`filter2d`, `resize_cv2` linear, float64 normals; the blur and
+the resizes in the host library's `image.cc`) and its native
 path (`data/native.py`: the fused C++ stage, Xorshift128+ noise from one
 drawn seed) when asked with `native=True`; the two draw differently, as in
 the JAX package, where the native path is taken whenever its library is
@@ -27,6 +31,7 @@ import math
 
 import numpy as np
 
+from hifidiff_tpu_torch.data import host
 from hifidiff_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from hifidiff_tpu_torch.data.resize import bgr2gray, resize_cv2
 
@@ -64,8 +69,29 @@ def random_mixed_kernel(rng: np.random.Generator, kernel_size: int,
 def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     """cv2's `filter2D(img, -1, kernel)` on a float32 (H, W) or (H, W, C)
     image: correlation with `kernel` (kh, kw), anchor at the centre,
-    `BORDER_REFLECT_101` borders, summed in float64 and returned as
-    float32."""
+    `BORDER_REFLECT_101` borders (as `np.pad(mode="reflect")` gives them,
+    reflected again where the image is smaller than the kernel), each
+    value summed in float64 over the kernel in row-major order and returned
+    as float32."""
+    if img.dtype != np.float32 or img.ndim not in (2, 3) \
+            or min(img.shape[:2]) < 1:
+        raise ValueError(f"filter2d takes a float32 (H, W) or (H, W, C) "
+                         f"image, got {img.shape} {img.dtype}")
+    kernel = np.ascontiguousarray(kernel, np.float64)
+    kh, kw = kernel.shape
+    if not kernel.size:
+        raise ValueError(f"filter2d takes a non-empty kernel, got {kh}x{kw}")
+    src = np.ascontiguousarray(img)
+    out = np.empty(img.shape, np.float32)
+    host.library().hi_filter2d(src.ctypes.data, out.ctypes.data,
+                               img.shape[0], img.shape[1],
+                               img.shape[2] if img.ndim == 3 else 1,
+                               kernel.ctypes.data, kh, kw)
+    return out
+
+
+def filter2d_plain(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """`filter2d` in numpy: its plain version."""
     kh, kw = kernel.shape
     ay, ax = kh // 2, kw // 2
     pad = [(ay, kh - 1 - ay), (ax, kw - 1 - ax)] + [(0, 0)] * (img.ndim - 2)

@@ -1,8 +1,7 @@
-"""The port's PNG decoder, in numpy and `zlib`: the inverse of
-`utils/logging.png_bytes`, for the image files the Multi-PIE and CelebA-HQ
-datasets, `infer_cr` and the server read; and `imread_rgb`, which reads a
-PNG with it and a JPEG with the port's codec (`data/jpeg.py`), by the
-file's signature.
+"""The port's PNG decoder: the inverse of `utils/logging.png_bytes`, for
+the image files the Multi-PIE and CelebA-HQ datasets, `infer_cr` and the
+server read; and `imread_rgb`, which reads a PNG with it and a JPEG with
+the port's codec (`data/jpeg.py`), by the file's signature.
 
 It reads colour types 0 (grey), 2 (RGB), 3 (palette, with a `PLTE` of any
 length up to 256), 4 (grey + alpha) and 6 (RGBA) at bit depth 8, and grey
@@ -16,18 +15,24 @@ Interlaced (Adam7) files and 16-bit samples raise `PNGError` naming them;
 so does anything that is not a PNG. `imread_rgb` refuses a file that is
 neither PNG nor JPEG (BMP, WebP, ...), naming the two it reads.
 
-Sub and Up are vectorised over a row; Average and Paeth depend on the pixel
-to the left and run along the row in Python, so a file whose rows are
-mostly those two decodes at host-loop speed.
+`decode_png` walks the chunks, checks their CRCs and inflates the image
+data in Python (`zlib`, C code that releases the GIL), then makes one call
+to the host library (`csrc/host/image.cc`, built by `data/host.py`) that
+unfilters the rows and writes the RGB pixels; ctypes releases the GIL for
+it too, so loader threads decode in parallel. `decode_png_plain` is the
+same decoder in numpy and Python, the library's plain version, bit for bit
+equal to it; only tests and chip_smoke.py call it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
+from hifidiff_tpu_torch.data import host
 from hifidiff_tpu_torch.data.jpeg import JPEG_SIGNATURE, JPEGError, decode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -49,7 +54,7 @@ def _chunks(data: bytes):
         if len(body) != n or pos + 12 + n > len(data):
             raise PNGError(f"truncated {kind!r} chunk")
         crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) != crc:
+        if zlib.crc32(body, zlib.crc32(kind)) != crc:
             raise PNGError(f"bad CRC in the {kind!r} chunk")
         yield kind, body
         if kind == b"IEND":
@@ -105,8 +110,7 @@ def _paeth(line: bytes, prior: bytes, bpp: int) -> bytearray:
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """The (height, stride) uint8 scanlines of the inflated IDAT stream."""
     if len(raw) < height * (stride + 1):
-        raise PNGError(f"image data holds {len(raw)} bytes, "
-                       f"{height * (stride + 1)} wanted")
+        raise _short(raw, height, stride)
     rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(
         height, stride + 1)
     out = np.empty((height, stride), np.uint8)
@@ -133,8 +137,9 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """A PNG file's bytes as an (H, W, 3) uint8 RGB array."""
+def _parse(data: bytes):
+    """The header's (width, height, depth, colour), the palette (or None)
+    and the inflated image data of a PNG file, every refusal raised."""
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -168,6 +173,47 @@ def decode_png(data: bytes) -> np.ndarray:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise PNGError(f"bad image data: {e}") from e
+    return (width, height, depth, color), palette, raw
+
+
+def _short(raw: bytes, height: int, stride: int) -> PNGError:
+    return PNGError(f"image data holds {len(raw)} bytes, "
+                    f"{height * (stride + 1)} wanted")
+
+
+def _palette_past(top: int, palette: np.ndarray) -> PNGError:
+    return PNGError(f"palette index {top} past the {len(palette)} entries "
+                    "of PLTE")
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file's bytes as an (H, W, 3) uint8 RGB array."""
+    (width, height, depth, color), palette, raw = _parse(data)
+    stride = (width * _CHANNELS[color] * depth + 7) // 8
+    if len(raw) < height * (stride + 1):
+        raise _short(raw, height, stride)
+    out = np.empty((height, width, 3), np.uint8)
+    if out.size == 0:
+        return out
+    pal = (np.zeros((1, 3), np.uint8) if palette is None
+           else np.ascontiguousarray(palette))
+    detail = (ctypes.c_int * 2)()
+    code = host.library().hi_png_rgb(
+        raw, len(raw), height, width, depth, color, pal.ctypes.data,
+        len(pal) if palette is not None else 0, out.ctypes.data, detail)
+    if code == 2:
+        raise PNGError(f"row {detail[0]}: unknown filter type {detail[1]}")
+    if code == 3:
+        raise _palette_past(detail[0], palette)
+    if code:
+        raise RuntimeError(f"hi_png_rgb returned {code} on a header "
+                           "_parse accepted")
+    return out
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
+    """`decode_png` in numpy and Python: its plain version."""
+    (width, height, depth, color), palette, raw = _parse(data)
     ch = _CHANNELS[color]
     stride = (width * ch * depth + 7) // 8
     rows = _unfilter(raw, height, stride, max(1, ch * depth // 8))
@@ -184,8 +230,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if color == 3:
         idx = pixels[..., 0]
         if int(idx.max(initial=0)) >= len(palette):
-            raise PNGError(f"palette index {int(idx.max())} past the "
-                           f"{len(palette)} entries of PLTE")
+            raise _palette_past(int(idx.max()), palette)
         return palette[idx]
     if color in (0, 4):
         return np.repeat(pixels[..., :1], 3, axis=2)

@@ -41,7 +41,8 @@ from hifidiff_tpu_torch.data.core import Dataset, Sample
 from hifidiff_tpu_torch.data.resize import resize_cv2
 
 # what `degrade_lr` resizes with, as `chip_smoke.py` reports it
-LR_RESIZE = "resize_cv2 cubic (cv2 INTER_CUBIC semantics, numpy)"
+LR_RESIZE = ("resize_cv2 cubic (cv2 INTER_CUBIC semantics, the host library's "
+             "image.cc)")
 
 
 def _identity_params(seed: int, ident: int,

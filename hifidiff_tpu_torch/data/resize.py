@@ -1,7 +1,13 @@
 """Host-side image resizes with the semantics of the two libraries the JAX
 package's data modules call: `cv2.resize` (INTER_CUBIC, INTER_LINEAR) and
-PIL's `Image.resize` (BICUBIC, NEAREST), in numpy on HWC arrays. The port
-carries no cv2 and no PIL; these are its counterparts.
+PIL's `Image.resize` (BICUBIC, NEAREST), on HWC arrays. The port carries no
+cv2 and no PIL; these are its counterparts.
+
+`resize_cv2` and `resize_pil` run in the host library (`csrc/host/image.cc`,
+built by `data/host.py`), one call each, which ctypes makes without the
+GIL. `resize_cv2_plain` and `resize_pil_plain` are the same resizes in
+numpy, their plain versions, bit for bit equal to them; only tests and
+chip_smoke.py call those. What follows describes both.
 
 `resize_cv2` (cv2's `resizeGeneric`):
   * the source coordinate of output pixel d is `(d + 0.5) * in/out - 0.5`,
@@ -39,6 +45,8 @@ import math
 from typing import Tuple
 
 import numpy as np
+
+from hifidiff_tpu_torch.data import host
 
 CV2_CUBIC_A = np.float32(-0.75)
 INTER_RESIZE_COEF_BITS = 11
@@ -96,11 +104,50 @@ def _check_hwc(img: np.ndarray, who: str) -> None:
                          f"shape {img.shape}")
 
 
+def _call(fn, img: np.ndarray, h_out: int, w_out: int, *mode) -> np.ndarray:
+    """`fn` of the host library from `img` into a new (h_out, w_out, ...)
+    array of its dtype."""
+    h, w = img.shape[:2]
+    if min(h, w, h_out, w_out) < 1:
+        raise ValueError(f"resize from {h}x{w} to {h_out}x{w_out}: every "
+                         "side must be at least 1")
+    src = np.ascontiguousarray(img)
+    out = np.empty((h_out, w_out) + img.shape[2:], img.dtype)
+    ch = img.shape[2] if img.ndim == 3 else 1
+    code = fn(src.ctypes.data, out.ctypes.data, h, w, ch, h_out, w_out,
+              *mode)
+    if code:
+        raise RuntimeError(f"{fn.__name__} returned {code}")
+    return out
+
+
 def resize_cv2(img: np.ndarray, size: Tuple[int, int],
                mode: str = "cubic") -> np.ndarray:
     """`cv2.resize(img, size, interpolation=INTER_CUBIC / INTER_LINEAR)`
     on an (H, W) or (H, W, C) float32 array (or uint8, cubic only), `size`
     given as cv2 takes it: (width, height)."""
+    _check_hwc(img, "resize_cv2")
+    w_out, h_out = int(size[0]), int(size[1])
+    if img.shape[:2] == (h_out, w_out):
+        return img.copy()
+    lib = host.library()
+    if img.dtype == np.uint8:
+        if mode != "cubic":
+            raise ValueError("resize_cv2 on uint8 is cubic only")
+        return _call(lib.hi_resize_cv2_u8_cubic, img, h_out, w_out)
+    if img.dtype != np.float32:
+        raise ValueError(f"resize_cv2 takes float32 or uint8, got "
+                         f"{img.dtype}")
+    if mode not in ("cubic", "linear"):
+        raise ValueError(f"resize_cv2: mode must be 'cubic' or 'linear', "
+                         f"got {mode!r}")
+    return _call(lib.hi_resize_cv2_f32, img, h_out, w_out,
+                 0 if mode == "cubic" else 1)
+
+
+def resize_cv2_plain(img: np.ndarray, size: Tuple[int, int],
+                     mode: str = "cubic") -> np.ndarray:
+    """`resize_cv2` in numpy: its plain version."""
     _check_hwc(img, "resize_cv2")
     w_out, h_out = int(size[0]), int(size[1])
     h, w = img.shape[:2]
@@ -217,6 +264,19 @@ def resize_pil(img: np.ndarray, size: Tuple[int, int],
     """`Image.fromarray(img).resize(size, BICUBIC / NEAREST)` on an (H, W)
     or (H, W, C) uint8 array, `size` given as PIL takes it: (width,
     height)."""
+    _check_hwc(img, "resize_pil")
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_pil takes uint8, got {img.dtype}")
+    if mode not in ("bicubic", "nearest"):
+        raise ValueError(f"resize_pil: mode must be 'bicubic' or 'nearest', "
+                         f"got {mode!r}")
+    return _call(host.library().hi_resize_pil, img, int(size[1]),
+                 int(size[0]), 0 if mode == "bicubic" else 1)
+
+
+def resize_pil_plain(img: np.ndarray, size: Tuple[int, int],
+                     mode: str = "bicubic") -> np.ndarray:
+    """`resize_pil` in numpy: its plain version."""
     _check_hwc(img, "resize_pil")
     if img.dtype != np.uint8:
         raise ValueError(f"resize_pil takes uint8, got {img.dtype}")

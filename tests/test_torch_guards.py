@@ -552,3 +552,161 @@ def test_clis_under_torchrun_target_the_ranks_card(mode, want):
     lines = [ln for ln in res.stdout.splitlines()
              if ln.split(" ")[0] in DP_CLIS]
     assert lines == [f"{name} {want}" for name in DP_CLIS], res.stdout
+
+
+# -- the host image library (csrc/host/image.cc) ------------------------------
+
+PLAIN_HOMES = ("data/resize.py", "data/image_io.py", "data/degradations.py")
+
+
+def test_plain_image_versions_named_only_in_their_modules():
+    """The host image path's plain versions (every `*_plain` function that
+    `data/resize.py`, `data/image_io.py` and `data/degradations.py` define)
+    are named by no other module of the port: only tests and chip_smoke.py
+    call them."""
+    import re
+
+    root = REPO / "hifidiff_tpu_torch"
+    plain = {name for home in PLAIN_HOMES for name in re.findall(
+        r"^def (\w+_plain)\(", (root / home).read_text(), re.M)}
+    assert plain == {"resize_cv2_plain", "resize_pil_plain",
+                     "decode_png_plain", "filter2d_plain"}
+    naming = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
+                    if any(re.search(rf"\b{n}\b", p.read_text())
+                           for n in plain))
+    assert naming == sorted(PLAIN_HOMES)
+
+
+def test_host_library_is_a_cdll_and_image_cc_has_its_flags(monkeypatch,
+                                                           tmp_path):
+    """The host library loads as `ctypes.CDLL` (each call releases the GIL;
+    `PyDLL` would hold it); `image.cc` compiles with -ffp-contract=off, and
+    `native.cc` and `jpeg.cc` with `native/build.sh`'s flags exactly; no
+    source with -ffast-math or -Ofast."""
+    import ctypes
+    import shlex
+
+    from hifidiff_tpu_torch.data import host
+
+    lib = host.library()
+    assert type(lib) is ctypes.CDLL and not isinstance(lib, ctypes.PyDLL)
+    assert "PyDLL" not in (REPO / "hifidiff_tpu_torch/data/host.py").read_text()
+    line = next(ln for ln in (REPO / "native/build.sh").read_text()
+                .splitlines() if ln.strip().startswith("g++"))
+    build_sh = [w for w in shlex.split(line.replace("\\", ""))
+                if w.startswith("-") and w != "-o"]
+    commands = []
+
+    def capture(cmds):
+        commands.extend(cmds)
+        raise RuntimeError("captured")
+
+    monkeypatch.setattr(host, "_run", capture)
+    monkeypatch.setattr(host, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="captured"):
+        host._build(tmp_path / "libx.so")
+    by_source = {pathlib.Path(c[-1]).name: c for c in commands}
+    assert set(by_source) == {"jpeg.cc", "native.cc", "image.cc"}
+    for name, cmd in by_source.items():
+        flags = [w for w in cmd[1:] if w.startswith("-") and w not in (
+            "-c", "-o")]
+        extra = ["-ffp-contract=off"] if name == "image.cc" else []
+        assert flags == build_sh + extra, name
+        assert not {"-ffast-math", "-Ofast"} & set(cmd)
+
+
+def _image_trees(root):
+    """A two-pid Multi-PIE tree (an extreme angle and the frontal with its
+    patch, 40 x 40 PNGs), a CelebA-HQ directory of two PNGs and a K-Face
+    crop tree of two JPEGs."""
+    from hifidiff_tpu_torch.data.jpeg import encode_jpeg
+    from hifidiff_tpu_torch.utils.logging import png_bytes
+
+    rng = np.random.default_rng(0)
+
+    def put(path, data):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+
+    for pid in ("p1", "p2"):
+        for angle in ("11_0", "05_1"):
+            for name in ("00.png", "00_patch.png"):
+                put(root / "mp" / "train" / pid / angle / name, png_bytes(
+                    rng.integers(0, 256, (40, 40, 3), np.uint8)))
+    for j in range(2):
+        put(root / "celeba" / f"{j}.png",
+            png_bytes(rng.integers(0, 256, (48, 48, 3), np.uint8)))
+    base = root / "kf" / "train" / "k1" / "S001" / "L1" / "E01"
+    for angle in (7, 1):
+        put(base / f"C{angle}.jpg", encode_jpeg(
+            rng.integers(0, 256, (48, 48, 3), np.uint8), 90))
+    return root
+
+
+def test_every_caller_reaches_the_host_image_library(monkeypatch, tmp_path):
+    """The datasets, `blind_degrade`'s cv2 path and `infer_cr` decode,
+    resize and blur through the host library (its `hi_*` calls counted),
+    with the plain versions made to raise: no path falls back to them."""
+    import collections
+
+    from hifidiff_tpu_torch.cli import infer_cr
+    from hifidiff_tpu_torch.data import (degradations, host, image_io, kface,
+                                         multipie, pretraining, procedural,
+                                         resize)
+
+    for module, name in ((resize, "resize_cv2_plain"),
+                         (resize, "resize_pil_plain"),
+                         (image_io, "decode_png_plain"),
+                         (degradations, "filter2d_plain")):
+        monkeypatch.setattr(module, name, lambda *a, _n=name, **k: (
+            _ for _ in ()).throw(AssertionError(f"{_n} called")))
+    lib = host.library()
+    calls = collections.Counter()
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if not name.startswith("hi_"):
+                return fn
+
+            def call(*args):
+                calls[name] += 1
+                return fn(*args)
+
+            call.__name__ = name
+            return call
+
+    monkeypatch.setattr(host, "library", lambda: Counting())
+    root = _image_trees(tmp_path)
+    mp, png = str(root / "mp"), "hi_png_rgb"
+    cv2_f32, cv2_u8, pil, blur = ("hi_resize_cv2_f32",
+                                  "hi_resize_cv2_u8_cubic", "hi_resize_pil",
+                                  "hi_filter2d")
+    cases = {
+        "MultiPIEDataset": (lambda: multipie.MultiPIEDataset(
+            mp, size=32, use_blind=False, use_patch=True)[0],
+            {png, cv2_f32, pil}),
+        "MultiPIEDataset, blind": (lambda: multipie.MultiPIEDataset(
+            mp, size=32)[0], {png, blur, cv2_f32}),
+        "MultiPIEIDCDataset": (lambda: multipie.MultiPIEIDCDataset(
+            mp, size=32)[0], {png, cv2_u8, cv2_f32}),
+        "MultiPIEInferenceDataset": (lambda: multipie.MultiPIEInferenceDataset(
+            mp, size=32)[0], {png, pil}),
+        "MultiPIEHQDataset": (lambda: pretraining.MultiPIEHQDataset(
+            mp, size=32)[0], {png, cv2_f32}),
+        "CelebAHQDataset": (lambda: pretraining.CelebAHQDataset(
+            str(root / "celeba"), size=32)[0], {png, pil}),
+        "KFaceCropDataset": (lambda: kface.KFaceCropDataset(
+            str(root / "kf"), size=32, include_patches=False)[0], {pil}),
+        "ProceduralFaceDataset": (lambda: procedural.ProceduralFaceDataset(
+            2, 32, keys=("lr",))[0], {cv2_f32}),
+        "infer_cr": (lambda: infer_cr.main([
+            "--image", str(root / "mp/train/p1/11_0/00.png"), "--size", "32",
+            "--width", "8", "--enc-depths", "1", "--mid-depth", "1",
+            "--output", str(tmp_path / "out.png"), "--device", "cpu"]),
+            {png, pil}),
+    }
+    for label, (run, want) in cases.items():
+        calls.clear()
+        run()
+        assert set(calls) == want, (label, dict(calls))
