@@ -98,57 +98,66 @@ raises at once):
      same weight files, the eval CLI (`cli/test_refiner.py`) at its
      defaults (f32, batch 4, DDIM-50, clip 3.0) on procedural faces: finite
      PSNR and SSIM, and its kernels launched as the module tree gives;
-  13. (run after 9's timed steps, before anything is profiled) the
+  13. (run after 17 (a), before anything is profiled) the
      training CLIs through their `main`, eager, at their default widths and
      batches, each on `--procedural` two of its batches for one epoch,
      chained through their checkpoint directories in a temporary directory:
      `train_vae` (batch 64), `train_cr` (8), `pretrain_idc --cr-ckpt` (24),
      `test_idc` on both stage files, `pretrain_denoiser --vae-ckpt` (512)
      on images and then on cached latents without and with `--remat`, and
-     `train_refiner` (32) on the four files. Checked: every logged value
+     `train_refiner` (32) on the four files for two epochs (its stage file
+     is phase 14's). Checked: every logged value
      finite; every step's kernel launches as the module tree gives them
      (`--remat` runs each block's two `ln_film` once more); the refiner as
      `train_refiner` composed it holding the IDC and denoiser files'
      tensors bit for bit; the `--remat` run's first loss and gradients
      against the plain run's to phase 8's limits and its steps adding less
      memory; `train_refiner` stopped after epoch 0 and resumed reaching the
-     uninterrupted two epochs' step count and learning rate; then
+     uninterrupted two epochs' step count and learning rate;
      `cli/convergence_demo.py` at its defaults (32 px, narrow widths, every
-     stage's epochs) with every check of its `check_summary` (each stage
-     learns; the trained stack beats a random one by at least 1 dB); every
-     map that reached `ln_film`, `ln_film_bwd`, the warp or its backward in
-     the phase against the plain version (twice, for equal bits). Printed by
-     stage: each step's ms, the median and images/s, the memory a step adds,
-     the run's peak and its wall seconds; the demo's summary and wall
-     seconds;
+     stage's epochs), in a process of its own (`--demo-child`) beside the
+     phase and joined after 17, with every check of its `check_summary`
+     (each stage learns; the trained stack beats a random one by at least 1
+     dB) and its launches held to its recorded calls; every map that
+     reached `ln_film`, `ln_film_bwd`, the warp or its backward in the phase
+     or the demo against the plain version (twice, for equal bits). Printed
+     by stage: each step's ms, the median and images/s, the memory a step
+     adds, the run's peak and its wall seconds; the demo's summary and wall
+     seconds. The demo and, from `train_refiner` on, phase 17's two ranks
+     share the card with the phase (and 14), whose times are so for the
+     record;
   14. (run after 13, on the stage files of its `train_vae`, `train_cr` and
-     first `train_refiner` run) the perceptual metrics and the
-     distillation CLIs, eager, at their default widths, with TF32, the
-     launch counts set to 0 before and read after: `test_refiner` at its
-     defaults (f32, batch 4) with `--vgg16-ckpt --lpips-ckpt --niqe-model`
-     (a VGG16 and lpips heads drawn at random under torchvision's and
-     lpips' names, a NIQE model fitted on procedural faces): every metric
-     finite, its launches as the module tree gives, and one LPIPS call on
-     the card against the host CPU's (TF32 off, LPIPS_REL); `train_cr` at
-     its defaults with `--loss composite --lambda-vgg 0.1 --vgg19-ckpt` (a
-     random torchvision-named VGG19), two steps, through the kernels and
-     through their plain versions, and with `--lambda-vgg 0`: the first
-     step's loss and gradients against the plain run's, its gradients
-     against the run without the term, to phase 8's limits, 9 warp and 9
-     warp-backward launches a step; `train_tae` (batch 64), `train_tiny_cr`
-     (64), `train_tiny_dn` (16) and `distill` (16, 50 -> 10 steps, 5
-     sub-steps), two steps each, every step's launches as the module tree
-     gives them (`distill_launches`: the teacher's and the student's
-     forwards, the student's backward); the distilled student, the tiny
-     denoiser and the two tiny seams each through `test_refiner` for one
-     sampler call; every map that reached a kernel in the phase against
-     its plain version (twice, for equal bits). Printed by stage as in 13;
-  15. (run after 14, on phase 13's `train_vae` and `train_cr` directories)
+     `train_refiner` runs) the perceptual metrics and the distillation CLIs,
+     eager, at their default widths, with TF32, the launch counts set to 0
+     before and read after: `test_refiner` at its defaults (f32, batch 4)
+     with `--vgg16-ckpt --lpips-ckpt --niqe-model` (a VGG16 and lpips heads
+     drawn at random under torchvision's and lpips' names, a NIQE model
+     fitted on procedural faces): every metric finite, its launches as the
+     module tree gives, and one LPIPS call on the card against the host
+     CPU's (TF32 off, LPIPS_REL); `train_cr` at its defaults with `--loss
+     composite --lambda-vgg 0.1 --vgg19-ckpt` (a random torchvision-named
+     VGG19), two steps, through the kernels and through their plain
+     versions, and with `--lambda-vgg 0`: the first step's loss and
+     gradients against the plain run's, its gradients against the run
+     without the term, to phase 8's limits, 9 warp and 9 warp-backward
+     launches a step; `train_tae` (batch 64), `train_tiny_cr` (64),
+     `train_tiny_dn` (16) and `distill` (16, 50 -> 10 steps, 5 sub-steps),
+     two steps each, every step's launches as the module tree gives them
+     (`distill_launches`: the teacher's and the student's forwards, the
+     student's backward); the distilled student, the tiny denoiser and the
+     two tiny seams each through `test_refiner` for one sampler call; every
+     map that reached a kernel in the phase against its plain version
+     (twice, for equal bits). Printed by stage as in 13;
+  15. (run after 17 and the demo, with nothing beside it on the card, on
+     phase 13's `train_vae` and `train_cr` directories)
      the PNG data path: a Multi-PIE tree (train and test, 4 pids, 15
-     angles, 2 lights, patches on the frontal; 160 x 160) and a flat
-     CelebA-HQ directory (968 files, 256 x 256) of procedural faces written
-     by `png_filtered`, its rows through the five PNG filters in turn,
-     colour types 2 and 6; the decoder's time a file on the host, through
+     angles, 2 lights, patches on the frontal; 160 x 160) of procedural
+     faces written by `png_filtered`, its rows through the five PNG
+     filters in turn, and a flat CelebA-HQ directory (968 files, 256 x
+     256) in the formats of `celeba_file` in turn (since phase 19: 8-bit
+     PNG of colour types 2 and 6, Adam7 PNG, 16-bit RGBA and grey PNG, the
+     160 x 160 progressive JPEG fixture, 24-bit and RLE8 BMP); the
+     decoder's time a file on the host, through
      the host library and plain (160 x 160, 256 x 256 and 640 x 480, the
      filter mix stated); `infer_cr` at its defaults on
      the `train_cr` directory, on the card and on the host CPU (f32, TF32
@@ -184,19 +193,21 @@ raises at once):
      sampler call on the val split) and `test_idc --dataroot` (2 batches of
      the test split's triplets) with their launches; every map that
      reached a kernel against its plain version (twice, for equal bits);
-  17. (run after 16, before anything is profiled) data parallelism over
-     `torch.distributed`, f32 with TF32 off: `train_refiner`'s step (batch
-     32, EMA) and `pretrain_idc`'s (24) at full width, two steps each, in a
-     world-1 NCCL group in this process against the same steps without a
-     group, bit for bit; two processes of this script (`--dp-child`) on
-     the card over gloo, 16 + 16 and 12 + 12 rows, against one process on
-     the concatenated batch to the CPU tests' limits (the IDC aligned each
-     step, ROADMAP §C2), the ranks' states bit-equal after each step, the
-     gradient all-reduce's ms a step, every map that reached `ln_film`,
-     `ln_film_bwd` or the warp on either rank held to its plain version;
-     `test_refiner` on the two processes against one, and `serve
-     --mesh-devices 0` serving on the one card (see the constants of phase
-     17 for why its steps run without cuDNN's convolutions);
+  17. ((a) after 12, alone on the card; its two ranks started before 13's
+     `train_refiner` runs; the rest after 14; before anything is profiled)
+     data parallelism over `torch.distributed`, f32 with TF32 off:
+     `train_refiner`'s step (batch 32, EMA) and `pretrain_idc`'s (24) at
+     full width, two steps each, in a world-1 NCCL group in this process
+     against the same steps without a group, bit for bit; two processes of
+     this script (`--dp-child`) on the card over gloo, 16 + 16 and 12 + 12
+     rows, against one process on the concatenated batch to the CPU tests'
+     limits (the IDC aligned each step, ROADMAP §C2), the ranks' states
+     bit-equal after each step, the gradient all-reduce's ms a step, every
+     map that reached `ln_film`, `ln_film_bwd` or the warp on either rank
+     held to its plain version; `test_refiner` on the two processes against
+     one, and `serve --mesh-devices 0` serving on the one card (see the
+     constants of phase 17 for why its steps run without cuDNN's
+     convolutions);
   18. (run after 16, on phase 15's trees) the host image library
      (csrc/host/image.cc: the PNG row filters, cv2's and PIL's resizes,
      filter2D) on the card's host: its build log (each source's g++ flags
@@ -208,6 +219,25 @@ raises at once):
      the Loader with 4 threads and with 1, one item of each first with the
      library's calls counted and the plain versions made to fail (a
      dataset that does not reach the library fails the run);
+  19. (run after 18, on phase 13's `train_cr` directory) the image
+     formats the decoders gained (progressive JPEG, Adam7-interlaced and
+     16-bit PNG, BMP) on the card's host, which has neither PIL nor cv2:
+     the files of tests/fixtures/png and tests/fixtures/bmp decoded by the
+     host library and by the plain versions to their golden digests (PIL's
+     and cv2's decodes, with `sixteen_bit` naming the library), the
+     refused ones refused, and the coefficients of every progressive JPEG
+     fixture (phase 16 holds their RGB to tests/fixtures/jpeg) equal to
+     the plain decoder's; the host library against its plain versions on
+     PNG files of every colour type, depth and interlace and BMP files of
+     every layout written here (a mismatch fails the run); the host ms a
+     file, library and plain, of the 160 x 160 and 1920 x 1080
+     progressive fixtures, and of a 160 x 160 Adam7 PNG, 16-bit PNG and
+     BMP; `infer_cr --image` on a progressive JPEG and on a BMP, card vs
+     host CPU to phase 4's limits with 9 warp launches a call. On phase
+     12's server, an Adam7 16-bit RGB PNG body and a 16-bit grey one (the
+     launched batch equal to the port's decode, as PIL reads them, and
+     PIL-bicubic resize; the face equal to the eager call); phase 15's
+     `pretrain_denoiser --celeba-root` reads the mixed CelebA-HQ files;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -242,7 +272,9 @@ raises at once):
      cached-denoiser and VAE steps at full width for a finite loss.
 
 Whatever runs under `torch.profiler` runs after every timing of the run is
-taken: no timed launch follows a profiler trace in the same process.
+taken: no timed launch follows a profiler trace in the same process. A map
+that reached a kernel in phases 13-19 is held to its plain version by the
+first phase that recorded it (`HELD_MAPS`); a later one counts it as held.
 
 The line before the last is a JSON object with one entry per kernel (times
 are sums over the launches of one call of the kernel's path: `ln_film` and
@@ -277,14 +309,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hifidiff_tpu_torch.data.image_files import (CELEBA_PROGRESSIVE,
+                                                 bmp_file, celeba_file,
+                                                 golden_input, png_file,
+                                                 png_filtered)
+
 SEED = 0
 BATCH = 128
 STEPS = 50
 # cut from 10 and 5 (and phase 10's depth, phase 12's requests) in PR 13 to
 # keep the whole script, phase 17 added, inside its time limit on slower
-# hosts
-TIMED_CALLS = 6          # the default path
-TIMED_CALLS_INT8 = 4     # each int8 configuration
+# hosts; from 6 and 4 (with phase 11's replays and phase 12's requests) to
+# pay for phase 19 (8 s) and phase 12's two more requests: on a slow host
+# the script ran 1167 s of its 1200 with them
+TIMED_CALLS = 5          # the default path
+TIMED_CALLS_INT8 = 3     # each int8 configuration
 
 KERNELS = {
     "ln_film": ("hifidiff_tpu_torch/csrc/ln_film.cu",
@@ -392,7 +431,7 @@ GRAPH_SAMPLERS = {"dpmpp, 20 steps": dict(sampler="dpmpp",
                                           num_inference_steps=20),
                   "cached DDIM-50, interval 2": dict(cache_interval=2),
                   "cached DDIM-50, interval 3": dict(cache_interval=3)}
-TIMED_REPLAYS = 5
+TIMED_REPLAYS = 4        # 5 before phase 19 (see TIMED_CALLS)
 # Phase 12: the server at its defaults (batch 16, bf16, exact DDIM-50, clip
 # 3.0) with buckets 1 and 4; the load generator's concurrencies and requests
 # per client; the requests at concurrency 1 held to eager calls; the calls
@@ -401,7 +440,7 @@ TIMED_REPLAYS = 5
 # held-out split of this many procedural faces (a quarter of it: 2 batches).
 SERVE_BUCKETS = "1,4"
 SERVE_CONCURRENCIES = (1, 4, 16, 32)
-SERVE_REQUESTS = 8
+SERVE_REQUESTS = 6       # 8 before phase 19 (see TIMED_CALLS)
 SERVE_EAGER_CHECKS = 3
 SERVE_TIMED = 10
 EVAL_PROCEDURAL = 32
@@ -411,6 +450,9 @@ EVAL_BATCHES = 2
 REFINER_BATCH, CR_BATCH, CHECK_BATCH = 32, 8, 4
 # phase 13: each training CLI on `--procedural` this many of its batches
 STAGE_BATCHES = 2
+# phase 13's convergence demo runs in a process of its own beside the
+# training CLIs (96 s alone on an H100); the seconds it may take
+DEMO_TIMEOUT = 900
 # phase 14: the faces the NIQE model is fitted on, LPIPS card vs host CPU,
 # and distill's procedural faces (its held-out quarter is one eval batch)
 NIQE_FACES = 48
@@ -457,6 +499,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16_mma": 989e12, "f32": 67e12}
 
 FAILURES = []
+# (kernel, map) pairs `check_recorded_shapes` has held to the plain version
+HELD_MAPS = set()
 
 
 def log(*a):
@@ -2053,46 +2097,66 @@ def _post_raw(host, port, img):
 
 
 def check_png_request(host, port, cfg, sample, batcher, launched,
-                      eager_call, smi):
-    """One PNG request (a MP_SIDE^2 procedural face written by
-    `png_filtered`) to the server: answered 200 with a PNG; the batch the
-    server launched equal to the port's decode and PIL-bicubic resize of
-    the body (`image_io`, `resize_pil`); the face equal to an eager call on
-    that batch with the launch's generator, which is the face a raw
-    request of those pixels gets from that launch."""
+                      eager_call, smi, body=None, label=None):
+    """One image request sent as image/png to the server: by default a
+    MP_SIDE^2 procedural face written by `png_filtered` (phase 15), or
+    `body` (phase 19's Adam7 and 16-bit files): answered 200 with a PNG;
+    the batch the server launched equal to the port's decode (as the JAX
+    handler's PIL reads it) and PIL-bicubic resize of the body
+    (`image_io.decode_image`, `resize_pil`); the face equal to an eager
+    call on that batch with the launch's generator, which is the face a
+    raw request of those pixels gets from that launch."""
     import http.client
 
     from hifidiff_tpu_torch.data import procedural as proc
-    from hifidiff_tpu_torch.data.image_io import decode_png
+    from hifidiff_tpu_torch.data.image_io import decode_image, decode_png
     from hifidiff_tpu_torch.data.resize import resize_pil
 
-    face = (proc.render_face(proc._identity_params(SEED, 5), 0.4, MP_SIDE)
-            * 255).astype(np.uint8)
-    png = png_filtered(face)
+    if body is None:
+        face = (proc.render_face(proc._identity_params(SEED, 5), 0.4,
+                                 MP_SIDE) * 255).astype(np.uint8)
+        body = png_filtered(face)
+        label = f"a {MP_SIDE}x{MP_SIDE} PNG request (phase 15)"
     before = serving_counts(sample, batcher)
     conn = http.client.HTTPConnection(host, port, timeout=300)
     try:
-        conn.request("POST", "/infer", png, {"Content-Type": "image/png"})
+        conn.request("POST", "/infer", body, {"Content-Type": "image/png"})
         resp = conn.getresponse()
-        status, ctype, body = (resp.status, resp.getheader("Content-Type"),
-                               resp.read())
+        status, ctype, answer = (resp.status, resp.getheader("Content-Type"),
+                                 resp.read())
     finally:
         conn.close()
-    check_no_eager("the PNG request", sample, batcher, before)
+    check_no_eager(label, sample, batcher, before)
     counter, batch = launched[-1]
-    pixels = resize_pil(decode_png(png), (cfg.size, cfg.size), "bicubic")
-    served = decode_png(body) if status == 200 else None
+    pixels = resize_pil(decode_image(body, sixteen_bit="pil"),
+                        (cfg.size, cfg.size), "bicubic")
+    served = decode_png(answer) if status == 200 else None
     ref = eager_call(batch, counter)[0]
     same_in = np.array_equal(batch[0], pixels)
     same_out = served is not None and np.array_equal(served, ref)
-    log(f"server, a {MP_SIDE}x{MP_SIDE} PNG request (phase 15): {status} "
-        f"{ctype}, {len(body)} bytes; the launched batch (bucket "
-        f"{batch.shape[0]}) holds the port's decode and PIL-bicubic resize "
-        f"{same_in}; the face equal to the eager call on that batch with "
-        f"launch {counter}'s generator {same_out} [{smi}]")
+    log(f"server, {label}: {status} {ctype}, {len(answer)} bytes; the "
+        f"launched batch (bucket {batch.shape[0]}) holds the port's decode "
+        f"and PIL-bicubic resize {same_in}; the face equal to the eager "
+        f"call on that batch with launch {counter}'s generator {same_out} "
+        f"[{smi}]")
     if status != 200 or ctype != "image/png" or not (same_in and same_out):
-        fail(f"server: the PNG request answered {status} {body[:200]!r}, "
-             f"input equal {same_in}, face equal {same_out}")
+        fail(f"server: {label} answered {status} {answer[:200]!r}, input "
+             f"equal {same_in}, face equal {same_out}")
+
+
+def format_bodies():
+    """Phase 19's two bodies for the server: a CELEBA_SIDE^2 procedural
+    face as an Adam7 16-bit RGB PNG, and as a 16-bit grey PNG whose
+    samples stay below 256 (PIL reads them as they are; cv2 would read
+    their high byte, 0)."""
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    face = (proc.render_face(proc._identity_params(SEED, 6), -0.2,
+                             CELEBA_SIDE) * 255).astype(np.int64)
+    return {"an Adam7 16-bit RGB PNG request (phase 19)":
+                png_file(face * 257, 16, 2, interlace=1),
+            "a 16-bit grey PNG request (phase 19)":
+                png_file(face[..., 1:2], 16, 0)}
 
 
 @contextlib.contextmanager
@@ -2339,6 +2403,11 @@ def check_server(models, dev, smi, stats):
         # pixels with the launch's generator
         check_png_request(host, port, cfg, sample, batcher, launched,
                           eager_call, smi)
+        # -- phase 19 on this server: an Adam7 16-bit colour body and a
+        # 16-bit grey one, read as the JAX handler's PIL reads them
+        for label, body in format_bodies().items():
+            check_png_request(host, port, cfg, sample, batcher, launched,
+                              eager_call, smi, body, label)
 
         # -- ln_film and the warp against their plain versions at bucket 1 -
         with held_to_plain(stats) as seen:
@@ -2511,6 +2580,7 @@ def run_cli(label, cli, argv, factories, batch, smi,
         + f"; a step adds at most {out['step_peak_gb'] or 0:.2f} GB, the run "
         f"peaks {out['run_peak_gb']:.2f} GB over what was resident; "
         f"{wall:.1f} s wall [{smi}]")
+    torch.cuda.empty_cache()    # the card is shared from phase 13 on
     for i, r in enumerate(records):
         what = "validation pass" if r["val"] else "step"
         log(f"  {label} {what} {i}: launches {r['launches']}, the module "
@@ -2562,9 +2632,17 @@ def check_recorded_shapes(dev, g, stats, seen, phase="phase 13"):
     its plain version and run twice for equal bits: `ln_film` and its
     backward with per-sample FiLM rows 4C apart and with a shared (1, C)
     row, the backward with and without dw and db; the warp and its backward
-    at every theta (the forward in f32 bit for bit)."""
+    at every theta (the forward in f32 bit for bit). A map that an earlier
+    call held (`HELD_MAPS`) is not held again."""
     from hifidiff_tpu_torch.ops import norm, warp
 
+    kernels_ = ("ln_film", "ln_film_bwd", "affine_warp", "affine_warp_bwd")
+    again = sum(1 for k in kernels_ for m in seen[k] if (k, m) in HELD_MAPS)
+    seen = {k: {m for m in seen[k] if (k, m) not in HELD_MAPS}
+            for k in kernels_}
+    HELD_MAPS.update((k, m) for k in kernels_ for m in seen[k])
+    log(f"{phase}: {sum(map(len, seen.values()))} maps held to the plain "
+        f"versions, {again} held before")
     for key in sorted(set(seen["ln_film"]) | set(seen["ln_film_bwd"])):
         dn, b, c, h, w = key
         dtype = getattr(torch, dn)
@@ -2632,55 +2710,113 @@ def check_recorded_shapes(dev, g, stats, seen, phase="phase 13"):
     torch.cuda.empty_cache()
 
 
-def run_convergence_demo(tmp, smi):
-    """`cli/convergence_demo.py` on the card at its defaults, `--check`
-    included, in `tmp`: its summary, its wall seconds, and a failure where a
-    check of `check_summary` does not hold."""
+def demo_child(work):
+    """Phase 13's `cli/convergence_demo.py` in a process of its own (this
+    script with `--demo-child`), on the card at its defaults, `--check`
+    included, in `work`, the maps that reach the kernels recorded. Writes
+    demo.json there: the check of `check_summary` that failed (or None),
+    the wall seconds, the summary, the launches and the maps."""
     from hifidiff_tpu_torch.cli import convergence_demo
     from hifidiff_tpu_torch.data import procedural
+    from hifidiff_tpu_torch.ops import kernels
 
     log(f"convergence_demo: the procedural faces' LR protocol resizes with "
         f"{procedural.LR_RESIZE}")
+    kernels.reset_launches()
     t0 = time.perf_counter()
     failed = None
-    try:
-        convergence_demo.main([
-            "--out-dir", os.path.join(tmp, "demo"),
-            "--log-dir", os.path.join(tmp, "demo_logs"), "--device", "cuda"])
-    except AssertionError as e:
-        failed = str(e)
+    with recording(training=True) as seen:
+        try:
+            convergence_demo.main([
+                "--out-dir", os.path.join(work, "demo"),
+                "--log-dir", os.path.join(work, "demo_logs"),
+                "--device", "cuda"])
+        except AssertionError as e:
+            failed = str(e)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with open(os.path.join(tmp, "demo", "convergence.json")) as f:
+    with open(os.path.join(work, "demo", "convergence.json")) as f:
         summary = json.load(f)
-    log(f"convergence_demo at its defaults: {wall:.1f} s wall, "
+    with open(os.path.join(work, "demo.json"), "w") as f:
+        json.dump({"failed": failed, "wall_s": wall, "summary": summary,
+                   "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                   "launches": dict(kernels.LAUNCHES),
+                   "maps": {k: [[list(m), n] for m, n in c.items()]
+                            for k, c in seen.items() if c}}, f)
+
+
+def start_demo(work):
+    """`demo_child` started in `work` beside this process (its output into
+    demo.log there); returns the process."""
+    with open(os.path.join(work, "demo.log"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--demo-child", work],
+            stdout=out, stderr=subprocess.STDOUT)
+
+
+def join_demo(proc, work, dev, g, stats, smi):
+    """Waits for `start_demo`'s process and prints its output. Fails where
+    the process failed, a check of `check_summary` failed, or its launches
+    are not its recorded calls; holds the maps that reached the kernels to
+    the plain versions."""
+    try:
+        rc = proc.wait(timeout=DEMO_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    with open(os.path.join(work, "demo.log")) as f:
+        log(f.read().rstrip("\n"))
+    path = os.path.join(work, "demo.json")
+    if rc != 0 or not os.path.exists(path):
+        fail(f"convergence_demo: its process ended with rc {rc}")
+        return
+    with open(path) as f:
+        demo = json.load(f)
+    failed = demo["failed"]
+    log(f"convergence_demo at its defaults: {demo['wall_s']:.1f} s wall "
+        "in a process of its own, beside phase 13's training CLIs (the "
+        f"card's memory it reserved at most {demo['peak_reserved_gb']:.2f} "
+        "GB), "
         + ("every check passed" if failed is None else
            f"check failed: {failed}") + f" [{smi}]")
-    log("convergence summary: " + json.dumps(summary))
+    log("convergence summary: " + json.dumps(demo["summary"]))
     if failed is not None:
         fail(f"convergence_demo: {failed}")
-    return dict(wall_s=wall, summary=summary)
+    seen = {k: collections.Counter() for k in KERNELS}
+    for kernel, items in demo["maps"].items():
+        for shape, n in items:
+            seen[kernel][tuple(shape)] += n
+    for k, n in demo["launches"].items():
+        if n != sum(seen[k].values()):
+            fail(f"convergence_demo: {k} launched {n} times, the recorded "
+                 f"calls {sum(seen[k].values())}")
+    log("convergence_demo maps (dtype, B, C, H, W) -> calls: "
+        + json.dumps({k: {"x".join(map(str, m)): n for m, n in v.items()}
+                      for k, v in seen.items() if v}))
+    check_recorded_shapes(dev, g, stats, seen, phase="convergence_demo")
 
 
-def check_training_clis(dev, g, stats, smi, keep):
+def check_training_clis(dev, g, stats, smi, keep, before_refiner=None):
     """Phase 13: the five training stages through their CLIs' `main` at
     their default widths and batches, on the card, chained through their
     checkpoint directories in a temporary directory: `train_vae`,
     `train_cr`, `pretrain_idc --cr-ckpt`, `test_idc` on both stage files,
     `pretrain_denoiser --vae-ckpt` (on images, then on cached latents, with
     and without `--remat`), and `train_refiner` on the four files; each on
-    `--procedural` two of its batches, one epoch, so two steps. Checked:
-    every logged value finite; every step's kernel launches as the module
-    tree gives them; the refiner as `train_refiner` composed it holding the
-    stage files' tensors bit for bit; the `--remat` run's first loss and
-    gradients against the plain run's to phase 8's limits, and a step of it
-    adding less memory; `train_refiner` stopped after its first epoch and
-    resumed reaching the uninterrupted run's step count and learning rate
-    (these three runs validate with 2 sampler steps); then
-    `convergence_demo` at its defaults, every check of `check_summary`
-    (`run_convergence_demo`); every map that reached a kernel in all of it
-    against the plain version. The stage directories of `train_vae`,
-    `train_cr` and the first `train_refiner` run are moved to `keep` (phase
-    14 reads them). Returns the numbers by stage."""
+    `--procedural` two of its batches, one epoch, so two steps
+    (`train_refiner` two epochs). Checked: every logged value finite; every
+    step's kernel launches as the module tree gives them; the refiner as
+    `train_refiner` composed it holding the stage files' tensors bit for
+    bit; the `--remat` run's first loss and gradients against the plain
+    run's to phase 8's limits, and a step of it adding less memory;
+    `train_refiner` stopped after its first epoch and resumed reaching the
+    two epochs' step count and learning rate (these three runs validate
+    with 2 sampler steps); every map that reached a kernel in all of it
+    against the plain version. `before_refiner()` runs, with the card's
+    cache emptied, after the denoiser's runs (the phase's largest) and
+    before the refiner's. The stage directories of `train_vae`, `train_cr`
+    and the two epochs of `train_refiner` are moved to `keep` (phase 14
+    reads them). Returns the numbers by stage."""
     import shutil
     import tempfile
 
@@ -2768,8 +2904,9 @@ def check_training_clis(dev, g, stats, smi, keep):
         if not remat["step_peak_gb"] < plain["step_peak_gb"]:
             fail("pretrain_denoiser --remat: a step does not add less memory")
 
-        # the refiner over the four stage files; the composed refiner
-        # against them
+        # the refiner over the four stage files for two epochs: the
+        # composed refiner against them; then one epoch with
+        # --stop-after-epoch and --resume against it
         composed = {}
         real_compose = train_refiner.compose
 
@@ -2782,11 +2919,35 @@ def check_training_clis(dev, g, stats, smi, keep):
         files = dict(cr_ckpt=ck("train_cr"), idc_ckpt=ck("pretrain_idc"),
                      denoiser_ckpt=ck("pretrain_denoiser"),
                      vae_ckpt=ck("train_vae"))
+        if before_refiner is not None:
+            torch.cuda.empty_cache()
+            before_refiner()
+
+        def final(name, kept=None):
+            """The run's last state on the host. Its directory is removed
+            (a full-width refiner's state is 5.9 GB a file), or with `kept`
+            moved to `keep` holding its last file alone."""
+            mgr = checkpoint.CheckpointManager(ck("train_refiner", name),
+                                               create=False)
+            last = mgr.latest_step()
+            state = torch.load(mgr.path(last), map_location="cpu",
+                               weights_only=True)
+            if kept is None:
+                shutil.rmtree(ck("train_refiner", name))
+            else:
+                for step in mgr.steps():
+                    if step != last:
+                        os.remove(mgr.path(step))
+                shutil.move(ck("train_refiner", name),
+                            os.path.join(keep, kept))
+            return state["state"]
+
+        resume_runs = dict(num_epochs=2, num_inference_steps=2, **files)
         with patched(train_refiner, "compose", spy):
-            stage("train_refiner", train_refiner,
-                  ["make_refiner_train_step"], **files)
-        finite_log("train_refiner", logs, "hifi_refiner", "t",
-                   STAGE_BATCHES)
+            stage("train_refiner, two epochs", train_refiner,
+                  ["make_refiner_train_step"], name="whole", **resume_runs)
+        finite_log("train_refiner", logs, "hifi_refiner", "whole",
+                   2 * STAGE_BATCHES)
         held = 0
         for prefix, path in (("idc.", files["idc_ckpt"]),
                              ("denoiser.", files["denoiser_ckpt"])):
@@ -2798,24 +2959,7 @@ def check_training_clis(dev, g, stats, smi, keep):
         log(f"train_refiner: the composed refiner holds the {held} tensors "
             "of the IDC and denoiser files bit for bit")
         del composed
-        shutil.move(ck("train_refiner"), os.path.join(keep, "train_refiner"))
-
-        # resume: one epoch and --stop-after-epoch, then --resume, against
-        # the uninterrupted two epochs
-        def final(name):
-            """The run's last state on the host; its files are removed (a
-            full-width refiner's state is 5.9 GB a file)."""
-            mgr = checkpoint.CheckpointManager(ck("train_refiner", name),
-                                               create=False)
-            state = torch.load(mgr.path(mgr.latest_step()),
-                               map_location="cpu", weights_only=True)
-            shutil.rmtree(ck("train_refiner", name))
-            return state["state"]
-
-        resume_runs = dict(num_epochs=2, num_inference_steps=2, **files)
-        stage("train_refiner, two epochs", train_refiner,
-              ["make_refiner_train_step"], name="whole", **resume_runs)
-        whole = final("whole")
+        whole = final("whole", kept="train_refiner")
         stage("train_refiner, stopped after epoch 0", train_refiner,
               ["make_refiner_train_step"], name="split", stop_after_epoch=0,
               **resume_runs)
@@ -2841,7 +2985,6 @@ def check_training_clis(dev, g, stats, smi, keep):
         for kept in ("train_vae", "train_cr"):
             shutil.move(ck(kept), os.path.join(keep, kept))
         shutil.rmtree(os.path.join(tmp, "ckpt"))   # the stage files
-        out["convergence_demo"] = run_convergence_demo(tmp, smi)
 
         launched = dict(kernels.LAUNCHES)
     for k, n in launched.items():
@@ -3190,48 +3333,6 @@ def check_eval_and_distillation(dev, g, stats, smi, keep):
 
 # -- phase 15: the PNG data path ----------------------------------------------
 
-def png_filtered(img, filters=(0, 1, 2, 3, 4), idat_size=8192, level=6):
-    """A uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4) array as a PNG
-    file's bytes (colour type 0, 4, 2 or 6, bit depth 8), row y filtered
-    with `filters[y % len(filters)]` (0 None, 1 Sub, 2 Up, 3 Average,
-    4 Paeth), the image data split over IDAT chunks of `idat_size` bytes:
-    files that take every path of the port's decoder."""
-    import struct
-    import zlib
-
-    img = img if img.ndim == 3 else img[..., None]
-    h, w, ch = img.shape
-    color = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
-    rows = img.reshape(h, w * ch).astype(np.int16)
-    up = np.zeros_like(rows)
-    up[1:] = rows[:-1]
-    left = np.zeros_like(rows)
-    left[:, ch:] = rows[:, :-ch]
-    corner = np.zeros_like(rows)
-    corner[1:, ch:] = rows[:-1, :-ch]
-    p = left + up - corner
-    pa, pb, pc = abs(p - left), abs(p - up), abs(p - corner)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, corner))
-    pred = (np.zeros_like(rows), left, up, (left + up) // 2, paeth)
-    kinds = np.array([filters[y % len(filters)] for y in range(h)])
-    raw = np.empty((h, w * ch + 1), np.uint8)
-    raw[:, 0] = kinds
-    for k in range(5):
-        raw[kinds == k, 1:] = (rows[kinds == k] - pred[k][kinds == k]) % 256
-    data = zlib.compress(raw.tobytes(), level)
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + b"".join(chunk(b"IDAT", data[i:i + idat_size])
-                       for i in range(0, len(data), idat_size))
-            + chunk(b"IEND", b""))
-
-
 MP_ANGLES = ("11_0", "12_0", "09_0", "19_1", "08_1", "20_0", "01_0", "24_0",
              "08_0", "13_0", "14_0", "05_0", "04_1", "19_0", "05_1")
 MP_PIDS = 4
@@ -3246,17 +3347,17 @@ CELEBA_LOOKS = 64
 def write_png_trees(root):
     """A Multi-PIE tree (`train/` and `test/`, MP_PIDS pids each, the 15
     angles, lights 00 and 01, `_patch.png` on 05_1) of MP_SIDE^2 procedural
-    faces, and a flat CelebA-HQ directory of CELEBA_FACES CELEBA_SIDE^2
-    ones, written by `png_filtered` (rows through the five filters in
-    turn): Multi-PIE in colour type 2, CelebA in types 2 and 6 in turn.
-    Returns (Multi-PIE root, CelebA root, files, bytes)."""
+    faces written by `png_filtered` (rows through the five filters in
+    turn, colour type 2), and a flat CelebA-HQ directory of CELEBA_FACES
+    CELEBA_SIDE^2 ones in the formats of `celeba_file` in turn (since
+    phase 19). Returns (Multi-PIE root, CelebA root, files, bytes)."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     mp, celeba = os.path.join(root, "multipie"), os.path.join(root, "celeba")
     written = [0, 0]
 
     def put(path, img):
-        data = png_filtered(img, level=1)
+        data = img if isinstance(img, bytes) else png_filtered(img, level=1)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
@@ -3285,12 +3386,13 @@ def write_png_trees(root):
     looks = [u8(proc.render_face(proc._identity_params(SEED + 1, j),
                                  -0.5 + j / CELEBA_LOOKS, CELEBA_SIDE))
              for j in range(CELEBA_LOOKS)]
+    with open(os.path.join(JPEG_FIXTURES, CELEBA_PROGRESSIVE), "rb") as f:
+        progressive = f.read()
     for j in range(CELEBA_FACES):
         img = looks[j % CELEBA_LOOKS]
         img = np.roll(img, j // CELEBA_LOOKS, axis=1)   # a file of its own
-        if j % 2:
-            img = np.concatenate([img, np.full_like(img[..., :1], 255)], -1)
-        put(os.path.join(celeba, f"{j:05d}.png"), img)
+        data, ext = celeba_file(img, j, progressive)
+        put(os.path.join(celeba, f"{j:05d}{ext}"), data)
     return mp, celeba, written[0], written[1]
 
 
@@ -3490,7 +3592,7 @@ def check_png_data_path(dev, g, stats, smi, keep, tmp):
     t0 = time.perf_counter()
     mp, celeba, files, nbytes = write_png_trees(tmp)
     out["multipie_root"], out["celeba_root"] = mp, celeba
-    log(f"phase 15: {files} PNG files ({nbytes / 1e6:.1f} MB) written "
+    log(f"phase 15: {files} image files ({nbytes / 1e6:.1f} MB) written "
         f"in {time.perf_counter() - t0:.1f} s")
     out["decode_ms"] = time_decodes(smi)
     out["infer_cr"] = check_infer_cr(
@@ -3563,17 +3665,6 @@ P16_STEPS = {"train_cr": 2, "train_refiner": 2, "train_tiny_cr": 1,
 P16_EVAL_BATCHES = 1
 P16_IDC_BATCHES = 2
 ROUNDTRIP_SIDES = (16, 32, 64, 128)
-
-
-def golden_input(seed, h, w):
-    """The seeded (h, w, 3) uint8 RGB image behind a golden encoder digest
-    of tests/fixtures/jpeg/digests.json: three ramps with noise."""
-    rng = np.random.default_rng(seed)
-    y, x = np.mgrid[:h, :w]
-    base = np.stack([x * 255 // max(1, w - 1), y * 255 // max(1, h - 1),
-                     (x + y) * 255 // max(1, h + w - 2)], -1)
-    return np.clip(base + rng.integers(-24, 25, base.shape), 0,
-                   255).astype(np.uint8)
 
 
 def sha256_hex(data):
@@ -4212,6 +4303,259 @@ def check_host_image(smi, png_stats, mp, celeba):
     return out
 
 
+# -- phase 19: the image formats the decoders gained --------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+# the progressive fixtures of tests/fixtures/jpeg, and the two phase 19
+# times on the host
+PROGRESSIVE_FACE = "pil_prog_face_q95_160x160.jpg"
+PROGRESSIVE_FRAME = "pil_prog_frame_q95_1920x1080.jpg"
+
+
+def same_coefficients(data, plain=None):
+    """Whether the host library's coefficients of a JPEG file
+    (`jpeg.coefficients`) equal the Python decoder's
+    (`jpeg.coefficients_plain`, or `plain` where it was computed),
+    bit for bit."""
+    from hifidiff_tpu_torch.data import jpeg
+
+    lib = jpeg.coefficients(data)
+    plain = jpeg.coefficients_plain(data) if plain is None else plain
+    return len(lib) == len(plain) and all(
+        (a["h"], a["v"]) == (b["h"], b["v"])
+        and a["quant"].tobytes() == b["quant"].tobytes()
+        and a["coef"].shape == b["coef"].shape
+        and a["coef"].tobytes() == b["coef"].tobytes()
+        for a, b in zip(lib, plain))
+
+
+def check_format_golden(smi):
+    """tests/fixtures/png and tests/fixtures/bmp against their digests.json
+    (PIL's and cv2's decodes, written where both exist): every file decoded
+    by the host library and by the plain version to the SHA-256 of each
+    library's decode, with `sixteen_bit` set to that library for PNG; each
+    refused file refused by both with the message the digests name; and
+    the coefficients of every progressive JPEG fixture (phase 16 holds
+    their RGB to the digests) equal to the plain decoder's, but the 1920 x
+    1080 frame's, which `time_formats` checks as it times it. Returns the
+    counts and the mismatches."""
+    import re
+
+    from hifidiff_tpu_torch.data import image_io
+
+    bad, n = [], collections.Counter()
+    for sub in ("png", "bmp"):
+        root = os.path.join(FIXTURES, sub)
+        with open(os.path.join(root, "digests.json")) as f:
+            golden = json.load(f)
+
+        def read(name):
+            with open(os.path.join(root, name), "rb") as f:
+                return f.read()
+
+        for name, by_how in golden["decode"].items():
+            data = read(name)
+            for how, want in by_how.items():
+                for fn in ((image_io.decode_png, image_io.decode_png_plain)
+                           if sub == "png" else
+                           (image_io.decode_bmp, image_io.decode_bmp_plain)):
+                    rgb = (fn(data, sixteen_bit=how) if sub == "png"
+                           else fn(data))
+                    n[f"{sub} decodes"] += 1
+                    if [list(rgb.shape), sha256_hex(rgb.tobytes())] != [
+                            want["shape"], want["sha256"]]:
+                        bad.append(f"{fn.__name__} {name} ({how})")
+        for name, what in golden["refuse"].items():
+            for fn in ((image_io.decode_png, image_io.decode_png_plain)
+                       if sub == "png" else
+                       (image_io.decode_bmp, image_io.decode_bmp_plain)):
+                n[f"{sub} refusals"] += 1
+                try:
+                    fn(read(name), **({"sixteen_bit": "cv2"}
+                                      if sub == "png" else {}))
+                    bad.append(f"{fn.__name__} {name} decoded")
+                except ValueError as e:
+                    if not re.search(what, str(e)):
+                        bad.append(f"{fn.__name__} {name}: {e}")
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        progressive = [k for k in json.load(f)["decode"]
+                       if "prog" in k and k != PROGRESSIVE_FRAME]
+    for name in progressive:
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        n["progressive coefficients"] += 1
+        if not same_coefficients(data):
+            bad.append(f"coefficients {name}")
+    log(f"phase 19: golden digests of tests/fixtures/png and bmp: "
+        f"{dict(n)}; mismatches: {bad or 'none'} [{smi}]")
+    if bad:
+        fail(f"phase 19: the decoders disagree with the golden digests or "
+             f"their plain versions: {bad}")
+    return dict(n, mismatches=len(bad))
+
+
+def format_sweep():
+    """The host library against its plain versions on the new paths, over
+    files written here: PNG of every colour type and bit depth, Adam7 and
+    not, at sizes that leave passes empty and at 64 x 48, with both 16-bit
+    readings; BMP of every layout (palettes of 1, 4 and 8 bits, PIL's grey
+    ramps, 16-bit 5-5-5 / 5-6-5, 24 and 32 bits, bitfields, RLE8 and RLE4,
+    top-down) at three sizes. Returns (calls, mismatches)."""
+    from hifidiff_tpu_torch.data import image_io
+
+    rng = np.random.default_rng(SEED)
+    calls, bad = 0, []
+    depths = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+              6: (8, 16)}
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+    for color, ds in depths.items():
+        for depth in ds:
+            for h, w in ((1, 1), (1, 9), (9, 1), (7, 5), (48, 64)):
+                for lace in (0, 1):
+                    top = min(1 << depth, 200 if color == 3 else 1 << depth)
+                    samples = rng.integers(0, top, (h, w, channels[color]))
+                    pal = (rng.integers(0, 256, (top, 3)) if color == 3
+                           else None)
+                    data = png_file(samples, depth, color, lace, palette=pal)
+                    for how in ("cv2", "pil"):
+                        calls += 1
+                        got = image_io.decode_png(data, sixteen_bit=how)
+                        plain = image_io.decode_png_plain(data,
+                                                          sixteen_bit=how)
+                        if got.tobytes() != plain.tobytes():
+                            bad.append(f"png c{color} d{depth} {h}x{w} "
+                                       f"lace {lace} {how}")
+    # (bits, a grey-ramp palette, bmp_file's options)
+    layouts = [(1, False, {}), (4, False, {}), (8, False, {}),
+               (4, False, dict(rle=True)), (8, False, dict(rle=True)),
+               (4, True, {}), (8, True, {}), (16, False, {}),
+               (16, False, dict(fields="565")), (24, False, {}),
+               (24, False, dict(topdown=True)), (32, False, {}),
+               (32, False, dict(fields="BGRA")),
+               (32, False, dict(fields="XBGR"))]
+
+    def decoded(fn, data):
+        try:
+            return fn(data).tobytes()
+        except image_io.BMPError as e:   # refused by both, one message
+            return str(e)
+
+    for bits, grey, kw in layouts:
+        for h, w in ((1, 1), (3, 4), (37, 29)):
+            if bits <= 8:
+                colors = 1 << bits
+                idx = rng.integers(0, colors, (h, w))
+                idx[:, ::2] = idx[:, :1]           # runs for RLE
+                pal = (np.repeat(np.arange(colors)[:, None], 3, 1) if grey
+                       else rng.integers(0, 256, (colors, 3)))
+                data = bmp_file(idx, bits, palette=pal, **kw)
+            else:
+                data = bmp_file(rng.integers(0, 256, (h, w, 3), np.uint8),
+                                bits, **kw)
+            calls += 1
+            if decoded(image_io.decode_bmp, data) != decoded(
+                    image_io.decode_bmp_plain, data):
+                bad.append(f"bmp {bits} grey {grey} {kw} {h}x{w}")
+    return calls, bad
+
+
+def time_formats(smi):
+    """Host ms a file of the new formats, through the host library and
+    plain: the progressive JPEG fixtures (160 x 160 and 1920 x 1080; the
+    library's whole decode, its entropy decoding alone
+    (`jpeg.coefficients`) and the plain entropy decoding), and a 160 x 160
+    procedural face as an Adam7 8-bit RGB PNG, a 16-bit RGB PNG (Adam7)
+    and a 24-bit BMP. Returns {label: {"ms", "plain_ms"[, "entropy_ms"]}}."""
+    from hifidiff_tpu_torch.data import image_io, jpeg
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    out = {}
+    for name, n_lib, n_plain in ((PROGRESSIVE_FACE, 21, 3),
+                                 (PROGRESSIVE_FRAME, 5, 1)):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        size = name.rsplit("_", 1)[1][:-4]
+        t0 = time.perf_counter()
+        plain = jpeg.coefficients_plain(data)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not same_coefficients(data, plain):
+            fail(f"phase 19: the coefficients of {name} differ from the "
+                 "plain decoder's")
+        out[f"progressive JPEG {size}"] = dict(
+            ms=median_ms(lambda: jpeg.decode_jpeg(data), n_lib),
+            entropy_ms=median_ms(lambda: jpeg.coefficients(data), n_lib),
+            plain_ms=plain_ms if n_plain == 1 else median_ms(
+                lambda: jpeg.coefficients_plain(data), n_plain))
+    face = (proc.render_face(proc._identity_params(SEED, 2), 0.1, MP_SIDE)
+            * 255).astype(np.uint8)
+    files = {f"Adam7 8-bit RGB PNG {MP_SIDE}x{MP_SIDE}":
+                 (png_file(face, 8, 2, interlace=1), image_io.decode_png,
+                  image_io.decode_png_plain),
+             f"Adam7 16-bit RGB PNG {MP_SIDE}x{MP_SIDE}":
+                 (png_file(face.astype(np.int64) * 257, 16, 2, interlace=1),
+                  image_io.decode_png, image_io.decode_png_plain),
+             f"24-bit BMP {MP_SIDE}x{MP_SIDE}":
+                 (bmp_file(face, 24), image_io.decode_bmp,
+                  image_io.decode_bmp_plain)}
+    for label, (data, lib, plain) in files.items():
+        kw = {"sixteen_bit": "pil"} if lib is image_io.decode_png else {}
+        if lib(data, **kw).tobytes() != plain(data, **kw).tobytes() \
+                or not np.array_equal(lib(data, **kw), face):
+            fail(f"phase 19: {label} does not read back bit for bit")
+        out[label] = dict(ms=median_ms(lambda: lib(data, **kw), 21),
+                          plain_ms=median_ms(lambda: plain(data, **kw), 5))
+    for label, v in out.items():
+        log(f"phase 19 on the host: {label}: {v['ms']:.3f} ms a file "
+            "through the host library"
+            + (f" ({v['entropy_ms']:.3f} ms its entropy decoding alone)"
+               if "entropy_ms" in v else "")
+            + f", {v['plain_ms']:.2f} ms plain"
+            + (" (the entropy decoding)" if "entropy_ms" in v else "")
+            + f" [{smi}]")
+    return out
+
+
+def check_image_formats(dev, smi, keep, tmp):
+    """Phase 19: the image formats the decoders gained (progressive JPEG,
+    Adam7 and 16-bit PNG, BMP), after 18, with phase 13's stage files in
+    `keep` and a directory `tmp`: the golden digests of tests/fixtures
+    (`check_format_golden`), the host library against its plain versions
+    (`format_sweep`), host times (`time_formats`), and `infer_cr --image`
+    on the card and on the host CPU on one progressive JPEG and one BMP
+    (`check_infer_cr`: phase 4's limits, 9 warp launches a call). Phase
+    12's server took its two bodies (`format_bodies`) and phase 15's
+    `pretrain_denoiser --celeba-root` its mixed CelebA-HQ files
+    (`celeba_file`). Returns the numbers."""
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    t_phase = time.perf_counter()
+    out = {"golden": check_format_golden(smi)}
+    t0 = time.perf_counter()
+    n, bad = format_sweep()
+    out["sweep"] = dict(cases=n, mismatches=bad, s=time.perf_counter() - t0)
+    log(f"phase 19: {n} calls of the host library on the new formats "
+        f"against the plain versions: {len(bad)} not bit for bit"
+        + (f" ({bad[:8]})" if bad else "")
+        + f", {out['sweep']['s']:.1f} s")
+    if bad:
+        fail(f"phase 19: {len(bad)} of {n} decodes differ from the plain "
+             f"versions, e.g. {bad[:4]}")
+    out["ms"] = time_formats(smi)
+    face = (proc.render_face(proc._identity_params(SEED, 7), 0.25, MP_SIDE)
+            * 255).astype(np.uint8)
+    bmp = os.path.join(tmp, "face.bmp")
+    with open(bmp, "wb") as f:
+        f.write(bmp_file(face, 24))
+    for label, path in (("progressive JPEG", os.path.join(
+            JPEG_FIXTURES, PROGRESSIVE_FACE)), ("BMP", bmp)):
+        out[f"infer_cr {label}"] = check_infer_cr(dev, tmp, keep, smi,
+                                                  image=path)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['wall_s']:.1f} s wall [{smi}]")
+    return out
+
+
 # -- phase 17: data parallelism over torch.distributed ------------------------
 # Phase 17's train steps run on deterministic algorithms with cuDNN's
 # convolutions off (torch's own, which compute a row at a time): cuDNN's
@@ -4766,9 +5110,6 @@ def dp_child(rank, work):
     t0 = time.perf_counter()
     stack = dp_stack()
     out = {"build_s": time.perf_counter() - t0, "kinds": {}}
-    go = os.path.join(work, "go")
-    while not os.path.exists(go):     # (a) has the card until then
-        time.sleep(0.1)
     group = torch.distributed.group.WORLD
     with deterministic() as warned:
         for kind in ("refiner", "idc", "idc64"):
@@ -4886,10 +5227,9 @@ def dp_child(rank, work):
     out["test_refiner"] = test_refiner.main(DP_EVAL_ARGV
                                             + ["--batch-size", "1"])
     out["test_refiner_s"] = time.perf_counter() - t0
-    # the training CLIs on the two ranks; the parent runs the one-process
-    # runs they are held to meanwhile
+    # the training CLIs on the two ranks (the parent runs the one-process
+    # runs they are held to)
     del stack
-    open(os.path.join(work, f"cli{rank}"), "w").close()
     out["cli_s"] = {}
     with deterministic():
         for who, cli in (("train_refiner", train_refiner),
@@ -4899,6 +5239,8 @@ def dp_child(rank, work):
                                  DP_CLI[who][2] // 2))
             out["cli_s"][who] = time.perf_counter() - t0
             torch.cuda.empty_cache()
+    out["peak_gb"] = [torch.cuda.max_memory_allocated() / 1e9,
+                      torch.cuda.max_memory_reserved() / 1e9]
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4915,8 +5257,14 @@ def dp_hold(what, got, limits, base=None):
 
 
 def check_data_parallel(dev, g, stats, smi):
-    """Phase 17 (see the constants above). Returns its numbers for the log
-    and each kind's launches of one step on a rank."""
+    """Phase 17 (see the constants above), in three parts, as a generator,
+    so that the caller's other work runs while the ranks run: the first
+    `next` runs (a) here; the second starts (b)'s two ranks; the third runs
+    (c) and the one-process runs of the training CLIs here, waits for the
+    ranks, takes the readings and yields (its numbers for the log, each
+    kind's launches of one step on a rank). Its ranks share the card with
+    whatever the caller runs in between: their times are for the record.
+    (a) holds two refiner states, rank 0 three: (a) runs alone."""
     import tempfile
     import threading
 
@@ -4924,103 +5272,148 @@ def check_data_parallel(dev, g, stats, smi):
                                         train_refiner)
     from hifidiff_tpu_torch.parallel import maybe_initialize
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    report = {}
+    report, procs = {}, []
     with tempfile.TemporaryDirectory() as work:
-        # (b)'s two ranks start first and build their models on the host
-        # while (a) runs here
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-child",
-             str(r), work], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
         try:
             # (a) world size 1 on NCCL, here
+            t_start = time.perf_counter()
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
             maybe_initialize(init_method=f"file://{work}/a_store",
                              world_size=1, rank=0, backend="nccl",
                              local_rank=0, device="cuda")
-            stack = dp_stack()
-            group = torch.distributed.group.WORLD
-            ref_digests, wants = {}, {}
-            frozen_cr = copy.deepcopy(stack[1]).requires_grad_(False)
-            with deterministic() as warned:
-                for kind in ("refiner", "idc"):
-                    wants[kind] = expected_train_launches(
-                        stack[0] if kind == "refiner" else stack[3],
-                        frozen_cr)
-                    t0 = time.perf_counter()
-                    s1, one = dp_run(kind, stack, dev, group)
-                    s0, none = dp_run(kind, stack, dev)
-                    same = one["losses"] == none["losses"] \
-                        and one["digests"] == none["digests"] and all(
-                            torch.equal(a, b) for a, b in zip(
-                                s1.module.state_dict().values(),
-                                s0.module.state_dict().values()))
-                    ref_digests[kind] = none["digests"]
-                    log(f"phase 17 (a) {kind}: batch {DP_BATCH[kind]}, "
-                        f"{DP_STEPS} steps in a world-1 NCCL group vs no "
-                        f"group: losses {one['losses']} / {none['losses']}, "
-                        f"digests {one['digests']} / {none['digests']}, bit "
-                        f"for bit {same} ({time.perf_counter() - t0:.1f} s)"
-                        f" [{smi}]")
-                    if not same:
-                        fail(f"phase 17 (a) {kind}: the world-1 NCCL run is "
-                             "not the run without a group bit for bit; "
-                             + json.dumps(dp_readings(s1, one, s0, none)))
-                    del s1, s0, one, none
-                    torch.cuda.empty_cache()
-            log(f"phase 17: operators without a deterministic algorithm: "
-                f"{warned or 'none'}")
-            torch.distributed.destroy_process_group()
-            del stack, frozen_cr
-            torch.cuda.empty_cache()
-            report["a_s"] = time.perf_counter() - t_start
-            with open(os.path.join(work, "go"), "w"):
-                pass
-            # the one-process runs of the training CLIs, on the ranks'
-            # batches concatenated, while the ranks run theirs
-            deadline = time.monotonic() + DP_TIMEOUT
-            while not all(os.path.exists(os.path.join(work, f"cli{r}"))
-                          for r in range(2)):
-                if any(p.poll() is not None for p in procs) \
-                        or time.monotonic() > deadline:
-                    break
-                time.sleep(0.2)
-            else:
-                t0 = time.perf_counter()
-                with deterministic():
-                    for who, cli in (("train_refiner", train_refiner),
-                                     ("pretrain_idc", pretrain_idc)):
-                        with patched(cli, "Loader", ConcatShards):
-                            cli.main(dp_cli_argv(
-                                who, os.path.join(work, f"{who}_one"),
-                                DP_CLI[who][2]))
+            try:
+                stack = dp_stack()
+                group = torch.distributed.group.WORLD
+                ref_digests, wants = {}, {}
+                frozen_cr = copy.deepcopy(stack[1]).requires_grad_(False)
+                with deterministic() as warned:
+                    for kind in ("refiner", "idc"):
+                        wants[kind] = expected_train_launches(
+                            stack[0] if kind == "refiner" else stack[3],
+                            frozen_cr)
+                        t0 = time.perf_counter()
+                        s1, one = dp_run(kind, stack, dev, group)
+                        s0, none = dp_run(kind, stack, dev)
+                        same = one["losses"] == none["losses"] \
+                            and one["digests"] == none["digests"] and all(
+                                torch.equal(a, b) for a, b in zip(
+                                    s1.module.state_dict().values(),
+                                    s0.module.state_dict().values()))
+                        ref_digests[kind] = none["digests"]
+                        log(f"phase 17 (a) {kind}: batch {DP_BATCH[kind]}, "
+                            f"{DP_STEPS} steps in a world-1 NCCL group vs no"
+                            f" group: losses {one['losses']} / "
+                            f"{none['losses']}, digests {one['digests']} / "
+                            f"{none['digests']}, bit for bit {same} "
+                            f"({time.perf_counter() - t0:.1f} s) [{smi}]")
+                        if not same:
+                            fail(f"phase 17 (a) {kind}: the world-1 NCCL run "
+                                 "is not the run without a group bit for "
+                                 "bit; "
+                                 + json.dumps(dp_readings(s1, one, s0, none)))
+                        del s1, s0, one, none
                         torch.cuda.empty_cache()
-                report["cli_one_process_s"] = time.perf_counter() - t0
-            outs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+                log(f"phase 17: operators without a deterministic algorithm: "
+                    f"{warned or 'none'}")
+                del stack, frozen_cr
+            finally:
+                # an NCCL group left at exit holds the process for minutes
+                torch.distributed.destroy_process_group()
+            torch.cuda.empty_cache()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            report["a_s"] = time.perf_counter() - t_start
+            yield
+            # (b) the two ranks, beside whatever the caller runs next; their
+            # caching allocators on expandable segments, so that what they
+            # reserve stays near what they hold (rank 0 reserved 59 GB
+            # without them on an H100)
+            t_go = time.perf_counter()
+            env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+                   **os.environ}
+            for r in range(2):     # their output into files: nothing reads
+                # a pipe while the caller works
+                with open(os.path.join(work, f"rank{r}.log"), "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--dp-child", str(r), work], stdout=f,
+                        stderr=subprocess.STDOUT, env=env))
+            yield
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            t_start = time.perf_counter()
+            # (c) one process: test_refiner at batch 2, held to the two
+            # ranks below
+            t0 = time.perf_counter()
+            single = test_refiner.main(DP_EVAL_ARGV + ["--batch-size", "2"])
+            report["test_refiner_1_rank_s"] = time.perf_counter() - t0
+            # the server over every local card (--mesh-devices 0): the one
+            # card
+            cfg = serve.Config(port=0, mesh_devices=0, batch=2, buckets="1",
+                               num_inference_steps=2, seed=SEED)
+            t0 = time.perf_counter()
+            httpd, batcher = serve.create_server(cfg)
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                run = batcher.run_fn
+                replays = run.sampler.replays
+                img = np.random.default_rng(SEED).integers(
+                    0, 256, (128, 128, 3), np.uint8)
+                face = _post_raw(*httpd.server_address[:2], img)
+                ok = run.devices == [torch.device("cuda", 0)] \
+                    and run.sampler.replays == replays + 1 \
+                    and int(face.max()) > int(face.min())
+                log(f"phase 17 (c) serve --mesh-devices 0: devices "
+                    f"{run.devices}, buckets {run.buckets}, one face served "
+                    f"as a replay {ok} ({time.perf_counter() - t0:.1f} s "
+                    "with the cold start)")
+                if not ok:
+                    fail("phase 17 (c): serve --mesh-devices 0 did not "
+                         "serve on the one card from its graphs")
+            finally:
+                httpd.shutdown()
+                batcher.stop()
+            del run, batcher, httpd
+            torch.cuda.empty_cache()
+            # the one-process runs of the training CLIs, on the ranks'
+            # batches concatenated
+            t0 = time.perf_counter()
+            with deterministic():
+                for who, cli in (("train_refiner", train_refiner),
+                                 ("pretrain_idc", pretrain_idc)):
+                    with patched(cli, "Loader", ConcatShards):
+                        cli.main(dp_cli_argv(
+                            who, os.path.join(work, f"{who}_one"),
+                            DP_CLI[who][2]))
+                    torch.cuda.empty_cache()
+            report["cli_one_process_s"] = time.perf_counter() - t0
+            for p in procs:
+                p.wait(timeout=DP_TIMEOUT)
+            report["ranks_s"] = time.perf_counter() - t_go
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        for r, (p, out) in enumerate(zip(procs, outs)):
+        for r, p in enumerate(procs):
             if p.returncode != 0:
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    out = f.read()
                 fail(f"phase 17 (b) rank {r} failed (rc {p.returncode}): "
                      + out[-3000:])
-                return report, {}
+                yield report, {}
+                return
         ranks = []
         for r in range(2):
             with open(os.path.join(work, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-        if "cli_one_process_s" not in report:
-            fail("phase 17 (b): the ranks never reached the training CLIs")
-            return report, {}
         clis = {who: dp_cli_readings(who,
                                      os.path.join(work, f"{who}_ranks"),
                                      os.path.join(work, f"{who}_one"))
                 for who in DP_CLI}
-    report["b_s"] = time.perf_counter() - t_start - report["a_s"]
     seen = {k: collections.Counter() for k in KERNELS}
     per_step = {}
     for kind in ("refiner", "idc", "idc64"):
@@ -5128,16 +5521,15 @@ def check_data_parallel(dev, g, stats, smi):
                                            "_lr"))}
                       for who, r in clis.items()}
     report["cli_s"] = ranks[0]["cli_s"]
+    # each rank's peak of the card's memory, held and reserved
+    report["ranks_peak_gb"] = [r["peak_gb"] for r in ranks]
     log("phase 17 (b): operators without a deterministic algorithm on the "
         f"ranks: {ranks[0]['nondeterministic_ops'] or 'none'}; maps that "
         "reached the kernels on either rank: "
         + json.dumps({k: {str(s): n for s, n in c.items()}
                       for k, c in seen.items() if c}))
     check_recorded_shapes(dev, g, stats, seen, phase="phase 17")
-    # (c) one process: test_refiner at batch 2, against the two ranks
-    t0 = time.perf_counter()
-    single = test_refiner.main(DP_EVAL_ARGV + ["--batch-size", "2"])
-    report["test_refiner_1_rank_s"] = time.perf_counter() - t0
+    # (c) the one process's test_refiner at batch 2 against the two ranks
     got = ranks[0]["test_refiner"]
     rel = max(abs(got[k] - single[k]) / abs(single[k]) for k in single)
     log(f"phase 17 (c) test_refiner (f32, DDIM-10, 8 procedural faces): 2 "
@@ -5148,37 +5540,12 @@ def check_data_parallel(dev, g, stats, smi):
     if ranks[1]["test_refiner"] != got or not rel <= DP_EVAL_REL:
         fail(f"phase 17 (c) test_refiner: 2 ranks {got} / "
              f"{ranks[1]['test_refiner']} vs 1 process {single}")
-    # the server over every local card (--mesh-devices 0): the one card
-    cfg = serve.Config(port=0, mesh_devices=0, batch=2, buckets="1",
-                       num_inference_steps=2, seed=SEED)
-    t0 = time.perf_counter()
-    httpd, batcher = serve.create_server(cfg)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    try:
-        run = batcher.run_fn
-        replays = run.sampler.replays
-        img = np.random.default_rng(SEED).integers(0, 256, (128, 128, 3),
-                                                   np.uint8)
-        face = _post_raw(*httpd.server_address[:2], img)
-        ok = run.devices == [torch.device("cuda", 0)] \
-            and run.sampler.replays == replays + 1 \
-            and int(face.max()) > int(face.min())
-        log(f"phase 17 (c) serve --mesh-devices 0: devices {run.devices}, "
-            f"buckets {run.buckets}, one face served as a replay {ok} "
-            f"({time.perf_counter() - t0:.1f} s with the cold start)")
-        if not ok:
-            fail("phase 17 (c): serve --mesh-devices 0 did not serve on the "
-                 "one card from its graphs")
-    finally:
-        httpd.shutdown()
-        batcher.stop()
-    del run, batcher, httpd
-    torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    report["seconds"] = time.perf_counter() - t_start
-    return report, per_step
+    # this process's own seconds in the phase, the caller's work between
+    # the parts left out
+    report["seconds"] = report["a_s"] + time.perf_counter() - t_start
+    yield report, per_step
 
 
 def main() -> int:
@@ -5527,24 +5894,56 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.0f} s] samplers and train steps "
         "timed")
 
-    # -- 13. the training CLIs, eager, before anything is profiled ----------
+    # -- 17 (a): world-1 NCCL, here, alone on the card ----------------------
+    dp = check_data_parallel(dev, g, stats, smi)
+    next(dp)
+    log(f"[{time.perf_counter() - t_start:.0f} s] data parallelism (a) "
+        "checked")
+
+    # -- 13. the training CLIs, eager, before anything is profiled; the
+    # -- convergence demo in a process of its own beside them, and phase
+    # -- 17's two ranks from the refiner's runs on to 14's end ---------------
     import tempfile
 
-    with tempfile.TemporaryDirectory() as keep:
-        cli_stats = check_training_clis(dev, g, stats, smi, keep)
-        torch.cuda.empty_cache()
-        log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
-        log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs checked")
+    with tempfile.TemporaryDirectory() as keep, \
+            tempfile.TemporaryDirectory() as demo_dir:
+        demo = start_demo(demo_dir)
+        try:
+            cli_stats = check_training_clis(
+                dev, g, stats, smi, keep, before_refiner=lambda: next(dp))
+            torch.cuda.empty_cache()
+            log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs "
+                "checked")
 
-        # -- 14. the metrics and the distillation CLIs, on 13's stage files
-        t14 = time.perf_counter()
-        eval_stats, phase14_launches = check_eval_and_distillation(
-            dev, g, stats, smi, keep)
-        torch.cuda.empty_cache()
-        log(f"metrics and distillation CLIs [{smi}]: "
-            + json.dumps(eval_stats))
-        log(f"[{time.perf_counter() - t_start:.0f} s] metrics and "
-            f"distillation CLIs checked ({time.perf_counter() - t14:.0f} s)")
+            # -- 14. the metrics and the distillation CLIs, on 13's stage
+            # -- files, the ranks running -------------------------------------
+            t14 = time.perf_counter()
+            eval_stats, phase14_launches = check_eval_and_distillation(
+                dev, g, stats, smi, keep)
+            torch.cuda.empty_cache()
+            log(f"metrics and distillation CLIs [{smi}]: "
+                + json.dumps(eval_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] metrics and "
+                f"distillation CLIs checked ({time.perf_counter() - t14:.0f} "
+                "s)")
+
+            # -- 17 (c), the one-process CLIs, the ranks' readings; then the
+            # -- demo's: nothing runs beside the host timings from here on --
+            dp_stats, phase17_launches = next(dp)
+            log(f"data parallelism [{smi}]: " + json.dumps(dp_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] data parallelism "
+                f"checked ({dp_stats.get('seconds', float('nan')):.0f} s "
+                "here, the ranks "
+                f"{dp_stats.get('ranks_s', float('nan')):.0f} s)")
+            join_demo(demo, demo_dir, dev, g, stats, smi)
+            log(f"[{time.perf_counter() - t_start:.0f} s] convergence demo "
+                "checked")
+        finally:
+            dp.close()      # the ranks stopped, where a phase raised
+            if demo.poll() is None:
+                demo.kill()
+                demo.wait()
 
         # -- 15. the PNG data path, on 13's stage files ----------------------
         with tempfile.TemporaryDirectory() as data:
@@ -5566,16 +5965,16 @@ def main() -> int:
             image_stats = check_host_image(smi, png_stats,
                                            png_stats["multipie_root"],
                                            png_stats["celeba_root"])
-    log(f"host image library [{smi}]: " + json.dumps(image_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] host image library "
-        "checked")
+            log(f"host image library [{smi}]: " + json.dumps(image_stats))
+            log(f"[{time.perf_counter() - t_start:.0f} s] host image "
+                "library checked")
 
-    # -- 17. data parallelism: world-1 NCCL, two ranks over gloo, the eval
-    # -- CLI on two ranks and the server over every local card ------------
-    dp_stats, phase17_launches = check_data_parallel(dev, g, stats, smi)
-    log(f"data parallelism [{smi}]: " + json.dumps(dp_stats))
-    log(f"[{time.perf_counter() - t_start:.0f} s] data parallelism checked "
-        f"({dp_stats.get('seconds', float('nan')):.0f} s)")
+            # -- 19. the image formats the decoders gained, on 13's stage
+            # -- files (12's server and 15's CelebA-HQ run took theirs) ---
+            format_stats = check_image_formats(dev, smi, keep, data)
+            torch.cuda.empty_cache()
+    log(f"image formats [{smi}]: " + json.dumps(format_stats))
+    log(f"[{time.perf_counter() - t_start:.0f} s] image formats checked")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The
@@ -5685,5 +6084,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:     # one of phase 17's two ranks
         dp_child(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--demo-child"]:   # phase 13's convergence demo
+        demo_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -12,9 +12,12 @@ behind a dependency-free HTTP interface with dynamic batching:
     renews a `--max-wait-ms` window, up to `--max-fill-wait-ms` from the
     first request;
   * POST /infer with a raw uint8 RGB body (size*size*3 bytes,
-    Content-Type: application/octet-stream) or a PNG (image/png: decoded by
-    `data/image_io`, PIL-bicubic resized to `--size` by `data/resize`; a
-    body the decoder refuses gets 400 "bad image" with its reason) -> the
+    Content-Type: application/octet-stream) or a PNG (image/png, or a body
+    with the PNG signature: decoded by `data/image_io.decode_image` as PIL
+    decodes it, 16-bit samples and Adam7 too, and, as the JAX server's
+    PIL, a JPEG or BMP body sent as image/png; PIL-bicubic resized to
+    `--size` by `data/resize`; a body the decoder refuses gets 400 "bad
+    image" with its reason) -> the
     restored face in the same format (the PNG written by
     `utils/logging.png_bytes`);
   * GET /healthz -> JSON {status, batch, buckets, steps, cache_interval,
@@ -82,7 +85,7 @@ import torch
 from hifidiff_tpu_torch.cli.common import (load_refiner_stack, load_tiny_seams,
                                            model_dtype, parse_config,
                                            parse_ints, seeded_generator)
-from hifidiff_tpu_torch.data.image_io import PNG_SIGNATURE, decode_png
+from hifidiff_tpu_torch.data.image_io import PNG_SIGNATURE, decode_image
 from hifidiff_tpu_torch.data.resize import resize_pil
 from hifidiff_tpu_torch.devices import resolve_device
 from hifidiff_tpu_torch.ops import kernels
@@ -475,8 +478,8 @@ def make_handler(batcher: _Batcher, cfg: Config):
                                      "application/octet-stream")
             try:
                 if ctype == "image/png" or body[:8] == PNG_SIGNATURE:
-                    img = resize_pil(decode_png(body), (cfg.size, cfg.size),
-                                     "bicubic")
+                    img = resize_pil(decode_image(body, sixteen_bit="pil"),
+                                     (cfg.size, cfg.size), "bicubic")
                     png = True
                 else:
                     expect = cfg.size * cfg.size * 3

@@ -1,6 +1,7 @@
-// The port's host image path: the PNG row filters and pixel layouts, cv2's
-// and PIL's resizes and cv2's filter2D, each computing what the numpy
-// version in hifidiff_tpu_torch/data (image_io.decode_png_plain,
+// The port's host image path: the PNG row filters, passes and pixel
+// layouts, the BMP pixel layouts and RLE, cv2's and PIL's resizes and cv2's
+// filter2D, each computing what the numpy version in hifidiff_tpu_torch/data
+// (image_io.decode_png_plain, image_io.decode_bmp_plain,
 // resize.resize_cv2_plain / resize_pil_plain, degradations.filter2d_plain)
 // computes, bit for bit. Host code with a plain C interface, bound with
 // ctypes by those modules; ctypes releases the GIL for the call, so loader
@@ -261,22 +262,29 @@ int reflect101(int i, int n) {
 
 extern "C" {
 
+// Every hi_* entry point returns kNoMemory where an allocation failed: no
+// exception may leave the C interface (it would abort the calling process).
+enum { kNoMemory = 99 };
+
 // Return codes of hi_png_rgb.
 enum { kPngShort = 1, kPngFilter = 2, kPngPalette = 3, kPngArgs = 4 };
 
-// The inflated IDAT stream `raw` (n bytes) of a non-interlaced PNG of
-// `height` x `width`, bit depth `depth` and colour type `color`, as
-// (height, width, 3) uint8 RGB into `out`: rows unfiltered, samples of 1, 2
-// or 4 bits unpacked (grey scaled to 8 bits), palette entries looked up,
-// grey repeated over three channels and alpha dropped. Returns 0;
-// kPngShort when `raw` holds fewer than height * (stride + 1) bytes;
-// kPngFilter with detail = {row, filter type} at the first row of an
-// unknown filter; kPngPalette with detail[0] = the largest index when an
-// index reaches past the palette's `palette_n` entries; kPngArgs for a
-// colour type and depth the decoder does not take.
+// The inflated IDAT stream `raw` (n bytes) of a PNG of `height` x `width`,
+// bit depth `depth`, colour type `color` and interlace method `interlace`
+// (0 none, 1 Adam7), as (height, width, 3) uint8 RGB into `out`: each pass
+// (one, or Adam7's seven; a pass with no columns or no rows has no bytes)
+// unfiltered on its own rows from a zero prior row, samples of 1, 2 or 4
+// bits unpacked (grey scaled to 8 bits), 16-bit samples cut to 8 (the high
+// byte, or, with `saturate16`, the sample clamped to 255), palette entries
+// looked up, grey repeated over three channels and alpha dropped. Returns
+// 0; kPngShort when `raw` holds fewer bytes than the passes' rows; kPngFilter
+// with detail = {pass, row, filter type} at the first row of an unknown
+// filter; kPngPalette with detail[0] = the largest index when an index
+// reaches past the palette's `palette_n` entries; kPngArgs for a colour
+// type, depth or interlace method the decoder does not take.
 int hi_png_rgb(const uint8_t* raw, size_t n, int height, int width,
                int depth, int color, const uint8_t* palette, int palette_n,
-               uint8_t* out, int* detail) {
+               int interlace, int saturate16, uint8_t* out, int* detail) try {
   int ch;
   switch (color) {
     case 0: case 3: ch = 1; break;
@@ -285,66 +293,279 @@ int hi_png_rgb(const uint8_t* raw, size_t n, int height, int width,
     case 6: ch = 4; break;
     default: return kPngArgs;
   }
-  if (!(depth == 8 || ((color == 0 || color == 3) &&
-                       (depth == 1 || depth == 2 || depth == 4))))
+  if (!(depth == 8 || (depth == 16 && color != 3) ||
+        ((color == 0 || color == 3) &&
+         (depth == 1 || depth == 2 || depth == 4))))
     return kPngArgs;
-  if (height < 0 || width < 0) return kPngArgs;
-  const size_t stride = (size_t(width) * ch * depth + 7) / 8;
-  if (n < size_t(height) * (stride + 1)) return kPngShort;
+  if (height < 0 || width < 0 || (interlace != 0 && interlace != 1))
+    return kPngArgs;
+  // (x0, y0, dx, dy) of each pass
+  static const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
+                                   {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
+                                   {0, 1, 1, 2}};
+  static const int kWhole[1][4] = {{0, 0, 1, 1}};
+  const int (*passes)[4] = interlace ? kAdam7 : kWhole;
+  const int npass = interlace ? 7 : 1;
+  auto pass_size = [&](int p, int& pw, int& ph) {
+    pw = (width - passes[p][0] + passes[p][2] - 1) / passes[p][2];
+    ph = (height - passes[p][1] + passes[p][3] - 1) / passes[p][3];
+    if (pw <= 0 || ph <= 0) pw = ph = 0;
+  };
+  size_t need = 0;
+  for (int p = 0; p < npass; ++p) {
+    int pw, ph;
+    pass_size(p, pw, ph);
+    if (ph) need += size_t(ph) * ((size_t(pw) * ch * depth + 7) / 8 + 1);
+  }
+  if (n < need) return kPngShort;
   const int bpp = std::max(1, ch * depth / 8);
-  std::vector<uint8_t> rows(2 * stride + 1, 0);
-  uint8_t* prior = rows.data();
-  uint8_t* cur = rows.data() + stride;
   const int scale = color == 0 && depth < 8 ? 255 / ((1 << depth) - 1) : 1;
-  const int mask = (1 << depth) - 1;
+  const int mask = (1 << std::min(depth, 8)) - 1;
+  // a big-endian 16-bit sample cut to 8 bits
+  auto sample16 = [&](const uint8_t* s) -> uint8_t {
+    return saturate16 ? uint8_t(std::min((s[0] << 8) | s[1], 255)) : s[0];
+  };
+  std::vector<uint8_t> rows;
   int top = -1;
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* line = raw + size_t(y) * (stride + 1);
-    if (!unfilter_row(line[0], line + 1, prior, cur, stride, bpp)) {
-      detail[0] = y;
-      detail[1] = line[0];
-      return kPngFilter;
-    }
-    uint8_t* o = out + size_t(y) * width * 3;
-    if (depth < 8 || color == 3) {
-      for (int x = 0; x < width; ++x) {
-        int v;
-        if (depth == 8) {
-          v = cur[x];
-        } else {
-          const int bit = x * depth;
-          v = (cur[bit >> 3] >> (8 - depth - (bit & 7))) & mask;
+  const uint8_t* line = raw;
+  for (int p = 0; p < npass; ++p) {
+    int pw, ph;
+    pass_size(p, pw, ph);
+    if (!ph) continue;
+    const size_t stride = (size_t(pw) * ch * depth + 7) / 8;
+    rows.assign(2 * stride + 1, 0);
+    uint8_t* prior = rows.data();
+    uint8_t* cur = rows.data() + stride;
+    const int x0 = passes[p][0], y0 = passes[p][1];
+    const int dx = passes[p][2], dy = passes[p][3];
+    for (int y = 0; y < ph; ++y, line += stride + 1) {
+      if (!unfilter_row(line[0], line + 1, prior, cur, stride, bpp)) {
+        detail[0] = p;
+        detail[1] = y;
+        detail[2] = line[0];
+        return kPngFilter;
+      }
+      uint8_t* o = out + (size_t(y0 + y * dy) * width + x0) * 3;
+      const size_t step = size_t(dx) * 3;
+      if (depth < 8 || color == 3) {
+        for (int x = 0; x < pw; ++x, o += step) {
+          int v;
+          if (depth == 8) {
+            v = cur[x];
+          } else {
+            const int bit = x * depth;
+            v = (cur[bit >> 3] >> (8 - depth - (bit & 7))) & mask;
+          }
+          if (color == 3) {
+            top = std::max(top, v);
+            const uint8_t* e = v < palette_n ? palette + 3 * v : nullptr;
+            o[0] = e ? e[0] : 0;
+            o[1] = e ? e[1] : 0;
+            o[2] = e ? e[2] : 0;
+          } else {
+            o[0] = o[1] = o[2] = uint8_t(v * scale);
+          }
         }
-        if (color == 3) {
-          top = std::max(top, v);
-          const uint8_t* p = v < palette_n ? palette + 3 * v : nullptr;
-          o[3 * x] = p ? p[0] : 0;
-          o[3 * x + 1] = p ? p[1] : 0;
-          o[3 * x + 2] = p ? p[2] : 0;
+      } else if (depth == 8) {
+        if (ch <= 2) {
+          for (int x = 0; x < pw; ++x, o += step)
+            o[0] = o[1] = o[2] = cur[size_t(x) * ch];
+        } else if (ch == 3 && dx == 1) {
+          std::memcpy(o, cur, size_t(pw) * 3);
         } else {
-          const uint8_t g = uint8_t(v * scale);
-          o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g;
+          for (int x = 0; x < pw; ++x, o += step) {
+            const uint8_t* s = cur + size_t(x) * ch;
+            o[0] = s[0];
+            o[1] = s[1];
+            o[2] = s[2];
+          }
+        }
+      } else if (ch <= 2) {
+        for (int x = 0; x < pw; ++x, o += step)
+          o[0] = o[1] = o[2] = sample16(cur + 2 * size_t(x) * ch);
+      } else {
+        for (int x = 0; x < pw; ++x, o += step) {
+          const uint8_t* s = cur + 2 * size_t(x) * ch;
+          o[0] = sample16(s);
+          o[1] = sample16(s + 2);
+          o[2] = sample16(s + 4);
         }
       }
-    } else if (ch <= 2) {
-      for (int x = 0; x < width; ++x)
-        o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = cur[x * ch];
-    } else if (ch == 3) {
-      std::memcpy(o, cur, size_t(width) * 3);
-    } else {
-      for (int x = 0; x < width; ++x) {
-        o[3 * x] = cur[4 * x];
-        o[3 * x + 1] = cur[4 * x + 1];
-        o[3 * x + 2] = cur[4 * x + 2];
-      }
+      std::swap(prior, cur);
     }
-    std::swap(prior, cur);
   }
   if (color == 3 && top >= palette_n) {
     detail[0] = top;
     return kPngPalette;
   }
   return 0;
+} catch (...) {
+  return kNoMemory;
+}
+
+// Return codes of hi_bmp_rgb.
+enum { kBmpShort = 1, kBmpRleShort = 2, kBmpRleDelta = 3, kBmpArgs = 4 };
+// Its pixel layouts: palette indices of `bits` bits; PIL's "1" and "L" raw
+// modes, which it reads a file of a grey palette with whatever its bit
+// count (1 bit a pixel to 0 / 255, a byte a pixel as grey); 16-bit 5-5-5 and
+// 5-6-5 (each field times 255 over its maximum, rounded down); 24 or 32 bits
+// with the red, green and blue bytes at given places in the pixel.
+enum { kBmpIndex = 0, kBmpBit = 1, kBmpByte = 2, kBmp555 = 3, kBmp565 = 4,
+       kBmpBytes = 5 };
+
+// The pixel data of a BMP file (all `n` bytes of it, pixels from `offset`)
+// of `width` x `height` as (height, width, 3) uint8 RGB into `out`, as PIL
+// 12.1 decodes it (BmpImagePlugin.py): rows of ((width * bits + 31) >> 3) &
+// ~3 bytes, bottom-up unless `topdown`; or, with `rle` 1 (RLE8) or 2 (RLE4),
+// PIL's BmpRleDecoder: runs clipped at the row's end, end-of-line escapes
+// that pad the row with index 0, a delta escape that reads four bytes and
+// moves by its last two, absolute runs (RLE4: byte_count = count / 2 bytes)
+// realigned to an even position in the file, the image read from the
+// indices as raw rows. Indices past the palette's `palette_n` RGB entries
+// read black. Returns 0; kBmpShort with detail = {bytes there, bytes
+// wanted} when the rows run past the file; kBmpRleShort with detail =
+// {pixels, pixels wanted} when RLE data stops before the image is full;
+// kBmpRleDelta when the file ends inside a delta escape; kBmpArgs for a
+// layout the decoder does not take.
+int hi_bmp_rgb(const uint8_t* data, size_t n, size_t offset, int width,
+               int height, int topdown, int layout, int bits, int rpos,
+               int gpos, int bpos, const uint8_t* palette, int palette_n,
+               int rle, uint8_t* out, int* detail) try {
+  if (width <= 0 || height <= 0 || layout < 0 || layout > kBmpBytes)
+    return kBmpArgs;
+  const size_t w = size_t(width), h = size_t(height);
+  auto put_index = [&](uint8_t* o, int v) {
+    if (layout == kBmpByte) {
+      o[0] = o[1] = o[2] = uint8_t(v);
+      return;
+    }
+    const uint8_t* e = v < palette_n ? palette + 3 * v : nullptr;
+    o[0] = e ? e[0] : 0;
+    o[1] = e ? e[1] : 0;
+    o[2] = e ? e[2] : 0;
+  };
+  auto row_of = [&](size_t r) { return topdown ? r : h - 1 - r; };
+  if (rle) {
+    if (layout != kBmpIndex && layout != kBmpByte) return kBmpArgs;
+    const size_t dest = w * h;
+    std::vector<uint8_t> px;
+    px.reserve(dest);
+    size_t pos = offset, x = 0;
+    while (px.size() < dest) {
+      if (pos + 2 > n) break;
+      size_t count = data[pos];
+      const int byte = data[pos + 1];
+      pos += 2;
+      if (count) {
+        if (x + count > w) count = x < w ? w - x : 0;
+        for (size_t i = 0; i < count; ++i)
+          px.push_back(uint8_t(rle == 2 ? (i % 2 ? byte & 15 : byte >> 4)
+                                        : byte));
+        x += count;
+      } else if (byte == 0) {
+        while (px.size() % w) px.push_back(0);
+        x = 0;
+      } else if (byte == 1) {
+        break;
+      } else if (byte == 2) {
+        if (pos + 2 > n) break;
+        pos += 2;
+        if (pos + 2 > n) return kBmpRleDelta;
+        // the loop ends at dest and the indices are cut there, so growth
+        // past dest changes nothing: clamped, as a file's delta can ask for
+        // up to 255 rows of the widest image
+        px.resize(std::min(px.size() + data[pos] + size_t(data[pos + 1]) * w,
+                           dest), 0);
+        pos += 2;
+        x = px.size() % w;
+      } else {
+        const size_t want = rle == 2 ? size_t(byte) / 2 : size_t(byte);
+        const size_t got = pos < n ? std::min(want, n - pos) : 0;
+        for (size_t i = 0; i < got; ++i) {
+          const int b = data[pos + i];
+          if (rle == 2) {
+            px.push_back(uint8_t(b >> 4));
+            px.push_back(uint8_t(b & 15));
+          } else {
+            px.push_back(uint8_t(b));
+          }
+        }
+        pos += got;
+        if (got < want) break;
+        x += size_t(byte);
+        if (pos % 2) ++pos;
+      }
+    }
+    if (px.size() < dest) {
+      detail[0] = int(std::min(px.size(), size_t(1) << 30));
+      detail[1] = int(std::min(dest, size_t(1) << 30));
+      return kBmpRleShort;
+    }
+    for (size_t r = 0; r < h; ++r) {
+      uint8_t* o = out + row_of(r) * w * 3;
+      for (size_t c = 0; c < w; ++c) put_index(o + 3 * c, px[r * w + c]);
+    }
+    return 0;
+  }
+  const size_t stride = ((w * size_t(bits) + 31) >> 3) & ~size_t(3);
+  size_t row_bytes;
+  switch (layout) {
+    case kBmpIndex: row_bytes = (w * size_t(bits) + 7) / 8; break;
+    case kBmpBit: row_bytes = (w + 7) / 8; break;
+    case kBmpByte: row_bytes = w; break;
+    case kBmp555: case kBmp565: row_bytes = 2 * w; break;
+    default: row_bytes = w * size_t(bits / 8);
+  }
+  if (row_bytes > stride) return kBmpArgs;
+  const size_t wanted = (h - 1) * stride + row_bytes;
+  const size_t there = offset < n ? n - offset : 0;
+  if (there < wanted) {
+    detail[0] = int(std::min(there, size_t(1) << 30));
+    detail[1] = int(std::min(wanted, size_t(1) << 30));
+    return kBmpShort;
+  }
+  const int bpp = bits / 8;
+  for (size_t r = 0; r < h; ++r) {
+    const uint8_t* row = data + offset + r * stride;
+    uint8_t* o = out + row_of(r) * w * 3;
+    for (size_t c = 0; c < w; ++c, o += 3) {
+      switch (layout) {
+        case kBmpIndex: {
+          const size_t bit = c * size_t(bits);
+          const int v = bits == 8 ? row[c]
+                                  : (row[bit >> 3] >> (8 - bits - (bit & 7))) &
+                                        ((1 << bits) - 1);
+          put_index(o, v);
+          break;
+        }
+        case kBmpBit:
+          o[0] = o[1] = o[2] = (row[c >> 3] >> (7 - (c & 7))) & 1 ? 255 : 0;
+          break;
+        case kBmpByte:
+          o[0] = o[1] = o[2] = row[c];
+          break;
+        case kBmp555:
+        case kBmp565: {
+          const int v = row[2 * c] | (row[2 * c + 1] << 8);
+          const bool six = layout == kBmp565;
+          const int g = six ? (v >> 5) & 63 : (v >> 5) & 31;
+          o[0] = uint8_t(((six ? v >> 11 : v >> 10) & 31) * 255 / 31);
+          o[1] = uint8_t(g * 255 / (six ? 63 : 31));
+          o[2] = uint8_t((v & 31) * 255 / 31);
+          break;
+        }
+        default: {
+          const uint8_t* q = row + c * size_t(bpp);
+          o[0] = q[rpos];
+          o[1] = q[gpos];
+          o[2] = q[bpos];
+        }
+      }
+    }
+  }
+  return 0;
+} catch (...) {
+  return kNoMemory;
 }
 
 // cv2.resize(INTER_CUBIC (mode 0) / INTER_LINEAR (mode 1)) of a float32
@@ -354,7 +575,7 @@ int hi_png_rgb(const uint8_t* raw, size_t n, int height, int width,
 // b3*S3)), as cv2's 4-lane vector loop, and over the rest in order; for
 // linear, in order.
 int hi_resize_cv2_f32(const float* src, float* dst, int h, int w, int ch,
-                      int oh, int ow, int mode) {
+                      int oh, int ow, int mode) try {
   if (mode != 0 && mode != 1) return 1;
   const bool cubic = mode == 0;
   const int k = cubic ? 4 : 2;
@@ -382,6 +603,8 @@ int hi_resize_cv2_f32(const float* src, float* dst, int h, int w, int ch,
     }
   }
   return 0;
+} catch (...) {
+  return kNoMemory;
 }
 
 // cv2.resize(INTER_CUBIC) of a uint8 (h, w, ch) image: the coefficients
@@ -389,7 +612,7 @@ int hi_resize_cv2_f32(const float* src, float* dst, int h, int w, int ch,
 // vertical pass in float32 from the last tap, rounded half to even and
 // saturated, as cv2's vector code computes it.
 int hi_resize_cv2_u8_cubic(const uint8_t* src, uint8_t* dst, int h, int w,
-                           int ch, int oh, int ow) {
+                           int ch, int oh, int ow) try {
   const float one = float(1 << 11);
   std::vector<int> tx, ty;
   std::vector<float> cx, cy;
@@ -430,13 +653,15 @@ int hi_resize_cv2_u8_cubic(const uint8_t* src, uint8_t* dst, int h, int w,
     }
   }
   return 0;
+} catch (...) {
+  return kNoMemory;
 }
 
 // Image.resize(BICUBIC (mode 0) / NEAREST (mode 1)) of a uint8 (h, w, ch)
 // image to (oh, ow, ch). Bicubic: a horizontal pass, then a vertical one,
 // each skipped where its size does not change.
 int hi_resize_pil(const uint8_t* src, uint8_t* dst, int h, int w, int ch,
-                  int oh, int ow, int mode) {
+                  int oh, int ow, int mode) try {
   if (mode == 1) {
     std::vector<int> iy, ix;
     pil_nearest_index(h, oh, iy);
@@ -462,6 +687,8 @@ int hi_resize_pil(const uint8_t* src, uint8_t* dst, int h, int w, int ch,
     std::memcpy(dst, src, size_t(h) * w * ch);
   }
   return 0;
+} catch (...) {
+  return kNoMemory;
 }
 
 // cv2.filter2D(img, -1, kernel) of a float32 (h, w, ch) image with a
@@ -470,7 +697,7 @@ int hi_resize_pil(const uint8_t* src, uint8_t* dst, int h, int w, int ch,
 // value summed in double over (i, j) in row-major order from 0.0, then
 // rounded to float32.
 int hi_filter2d(const float* src, float* dst, int h, int w, int ch,
-                const double* kernel, int kh, int kw) {
+                const double* kernel, int kh, int kw) try {
   const int ay = kh / 2, ax = kw / 2;
   const int hp = h + kh - 1, wp = w + kw - 1;
   const size_t prow = size_t(wp) * ch;
@@ -520,6 +747,8 @@ int hi_filter2d(const float* src, float* dst, int h, int w, int ch,
     }
   }
   return 0;
+} catch (...) {
+  return kNoMemory;
 }
 
 }  // extern "C"

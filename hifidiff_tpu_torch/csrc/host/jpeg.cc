@@ -1,20 +1,31 @@
-// The port's JPEG codec: a baseline / extended-sequential 8-bit Huffman
-// decoder and a baseline encoder, each held bit for bit to libjpeg-turbo's
-// defaults (the library under cv2 and PIL). Host code with a plain C
-// interface, bound with ctypes by hifidiff_tpu_torch/data/jpeg.py.
+// The port's JPEG codec: a baseline / extended-sequential / progressive
+// 8-bit Huffman decoder and a baseline encoder, each held bit for bit to
+// libjpeg-turbo's defaults (the library under cv2 and PIL). Host code with a
+// plain C interface, bound with ctypes by hifidiff_tpu_torch/data/jpeg.py.
 //
-// Decoder (libjpeg-turbo's jdhuff.c, jidctint.c, jdsample.c, jdcolor.c):
+// Decoder (libjpeg-turbo's jdhuff.c, jdphuff.c, jdcoefct.c, jidctint.c,
+// jdsample.c, jdcolor.c):
 //   * SOF0 / SOF1 at 8 bits, interleaved and non-interleaved scans,
 //     restart intervals, any size, partial MCUs;
-//   * the islow IDCT with its masked range-limit table;
+//   * SOF2 (progressive) at 8 bits: DC first / refine scans, interleaved
+//     over the MCU grid with its padding blocks or over one component's
+//     blocks; AC first / refine scans of one component over its own blocks;
+//     EOB runs across blocks, reset at each restart marker; successive
+//     approximation. The scans fill a whole-image coefficient buffer, which
+//     then goes through the same IDCT, upsampling and colour conversion.
+//     A file whose coefficients libjpeg would smooth (do_block_smoothing:
+//     the first nine AC coefficients of a component not all refined to
+//     bit 0) is refused: its output is not the coefficients' own;
+//   * the islow IDCT as libjpeg-turbo's x86-64 SIMD code computes it
+//     (16-bit lanes; see idct_islow);
 //   * fancy upsampling: h2v1 / h1v2 / h2v2 triangle filters with their
 //     rounding biases and clamped edges (box replication where libjpeg
 //     takes it: h2v1 / h2v2 on a plane of at most two columns, and every
 //     other whole ratio); never the merged upsampler;
 //   * fixed-point YCbCr -> RGB; grey repeated over three channels.
-//   Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-//   samples, CMYK / YCCK / RGB-coded components and truncated data raise,
-//   naming what they are.
+//   Lossless, hierarchical and arithmetic-coded files, 12-bit samples, CMYK
+//   / YCCK / RGB-coded components and truncated data raise, naming what
+//   they are.
 //
 // Encoder (cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) as
 // libjpeg-turbo runs it: jcparam.c, jccolor.c, jcsample.c, jcprepct.c,
@@ -120,6 +131,9 @@ struct Component {
   int quant[64];               // natural order, latched at its first scan
   std::vector<int16_t> coef;   // bh x bw blocks of 64
   int dc_pred = 0;
+  // progressive: the bit each coefficient was last coded down to (its Al),
+  // -1 before any scan holds it (jdphuff.c's coef_bits)
+  int coef_bits[64];
 };
 
 struct BitReader {
@@ -213,6 +227,8 @@ struct Decoder {
   std::vector<Component> comps;
   int max_h = 1, max_v = 1, mcus_per_row = 0, mcu_rows = 0;
   int scans = 0;
+  bool progressive = false;
+  int eobrun = 0;  // progressive AC scans: blocks left in the current run
 
   Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
 
@@ -296,8 +312,9 @@ struct Decoder {
     pos += len;
   }
 
-  void read_sof() {
+  void read_sof(bool prog) {
     if (frame) throw Error("corrupt data: a second frame header");
+    progressive = prog;
     word();
     const int precision = byte();
     if (precision != 8)
@@ -338,6 +355,7 @@ struct Decoder {
       c.bw = mcus_per_row * c.h;
       c.bh = mcu_rows * c.v;
       c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     frame = true;
   }
@@ -365,6 +383,89 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c's four block decoders. Coefficients are JCOEF (int16_t);
+  // values are shifted left by Al as libjpeg's LEFT_SHIFT does.
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    const int s = huff_decode(br, dc_dec[c.dc_tbl]);
+    if (s > 16) throw Error("corrupt data: bad DC magnitude");
+    c.dc_pred += s ? extend(br.get(s), s) : 0;
+    blk[0] = (int16_t)(int)((unsigned)c.dc_pred << al);
+  }
+
+  void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, Component& c, int16_t* blk, int ss, int se,
+                int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const HuffDec& ac = ac_dec[c.ac_tbl];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = huff_decode(br, ac);
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] =
+            (int16_t)(int)((unsigned)extend(br.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // A correction bit for an already nonzero coefficient: set bit Al on its
+  // side of zero where it is not set yet.
+  static void correct(BitReader& br, int16_t& t, int p1, int m1) {
+    if (br.get(1) && (t & p1) == 0) t = (int16_t)(t >= 0 ? t + p1 : t + m1);
+  }
+
+  void ac_refine(BitReader& br, Component& c, int16_t* blk, int ss, int se,
+                 int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    int k = ss;
+    if (eobrun == 0) {
+      const HuffDec& ac = ac_dec[c.ac_tbl];
+      for (; k <= se; ++k) {
+        const int rs = huff_decode(br, ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;   // libjpeg takes any size as 1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;   // the rest of the band: the EOB run below
+        }
+        // over the nonzero coefficients (a correction bit each) and r
+        // zero ones, to the zero coefficient the new value goes to
+        do {
+          int16_t& t = blk[kNatural[k]];
+          if (t != 0) {
+            correct(br, t, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& t = blk[kNatural[k]];
+        if (t != 0) correct(br, t, p1, m1);
+      }
+      --eobrun;
+    }
+  }
+
   // Past the entropy-coded data of an interval or a scan: drop the bits
   // left over, check none was made up, and step to the marker.
   void finish_segment(BitReader& br) {
@@ -372,6 +473,33 @@ struct Decoder {
       throw Error("truncated data: the entropy-coded data ends early");
     pos = (size_t)(br.p - data);
     br.reset();
+  }
+
+  // The scan's parameters against jdphuff.c's start_pass_phuff_decoder
+  // (a progressive scan) or a sequential scan's fixed ones; the Huffman
+  // tables the scan reads defined; coef_bits updated as libjpeg updates it.
+  void check_scan(const std::vector<Component*>& sc, int ss, int se, int ah,
+                  int al) {
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        throw Error("corrupt data: a sequential scan with spectral "
+                    "selection or approximation");
+    } else if ((ss == 0 && se != 0) ||
+               (ss != 0 && (ss > se || se > 63 || sc.size() != 1)) ||
+               (ah != 0 && al != ah - 1) || al > 13) {
+      throw Error("corrupt data: bad progressive scan parameters Ss=" +
+                  std::to_string(ss) + " Se=" + std::to_string(se) +
+                  " Ah=" + std::to_string(ah) + " Al=" + std::to_string(al));
+    }
+    for (auto* c : sc) {
+      const bool dc = !progressive || (ss == 0 && ah == 0);
+      const bool ac = !progressive || ss != 0;
+      if ((dc && !dc_spec[c->dc_tbl].defined) ||
+          (ac && !ac_spec[c->ac_tbl].defined))
+        throw Error("corrupt data: a scan uses an undefined Huffman table");
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+    }
   }
 
   void read_sos() {
@@ -390,9 +518,7 @@ struct Decoder {
       if (!found) throw Error("corrupt data: a scan names no component");
       found->dc_tbl = t >> 4;
       found->ac_tbl = t & 15;
-      if (found->dc_tbl > 3 || found->ac_tbl > 3 ||
-          !dc_spec[found->dc_tbl].defined ||
-          !ac_spec[found->ac_tbl].defined)
+      if (found->dc_tbl > 3 || found->ac_tbl > 3)
         throw Error("corrupt data: a scan uses an undefined Huffman table");
       if (!found->latched) {
         if (!qt_defined[found->tq])
@@ -404,10 +530,10 @@ struct Decoder {
       sc.push_back(found);
     }
     const int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0)
-      throw Error("corrupt data: a sequential scan with spectral "
-                  "selection or approximation");
+    const int ah = ahal >> 4, al = ahal & 15;
+    check_scan(sc, ss, se, ah, al);
     for (auto* c : sc) c->dc_pred = 0;
+    eobrun = 0;
     BitReader br{data + pos, data + n};
     int next_rst = 0, todo = restart_interval;
     auto restart = [&]() {
@@ -419,19 +545,23 @@ struct Decoder {
                     std::to_string(next_rst) + " expected");
       next_rst = (next_rst + 1) & 7;
       for (auto* c : sc) c->dc_pred = 0;
+      eobrun = 0;
       br = BitReader{data + pos, data + n};
       todo = restart_interval;
     };
-    if (ns == 1) {
-      Component& c = *sc[0];
-      for (int by = 0; by < c.hib; ++by)
-        for (int bx = 0; bx < c.wib; ++bx) {
-          if (restart_interval && todo == 0) restart();
-          decode_block(br, c,
-                       &c.coef[((size_t)by * c.bw + bx) * 64]);
-          --todo;
-        }
-    } else {
+    // every block of the scan in order: one component's own blocks, or the
+    // MCU grid (padding blocks included) of an interleaved scan
+    auto each_block = [&](auto&& decode) {
+      if (ns == 1) {
+        Component& c = *sc[0];
+        for (int by = 0; by < c.hib; ++by)
+          for (int bx = 0; bx < c.wib; ++bx) {
+            if (restart_interval && todo == 0) restart();
+            decode(c, &c.coef[((size_t)by * c.bw + bx) * 64]);
+            --todo;
+          }
+        return;
+      }
       int blocks = 0;
       for (auto* c : sc) blocks += c->h * c->v;
       if (blocks > 10)
@@ -444,13 +574,47 @@ struct Decoder {
               for (int x = 0; x < c->h; ++x) {
                 const size_t b = (size_t)(my * c->v + y) * c->bw +
                                  (size_t)(mx * c->h + x);
-                decode_block(br, *c, &c->coef[b * 64]);
+                decode(*c, &c->coef[b * 64]);
               }
           --todo;
         }
+    };
+    if (!progressive) {
+      each_block([&](Component& c, int16_t* b) { decode_block(br, c, b); });
+    } else if (ss == 0 && ah == 0) {
+      each_block([&](Component& c, int16_t* b) { dc_first(br, c, b, al); });
+    } else if (ss == 0) {
+      each_block([&](Component&, int16_t* b) { dc_refine(br, b, al); });
+    } else if (ah == 0) {
+      each_block([&](Component& c, int16_t* b) {
+        ac_first(br, c, b, ss, se, al);
+      });
+    } else {
+      each_block([&](Component& c, int16_t* b) {
+        ac_refine(br, c, b, ss, se, al);
+      });
     }
     finish_segment(br);
     ++scans;
+  }
+
+  // jdcoefct.c's smoothing_ok at the end of the input: libjpeg smooths the
+  // coefficients of a progressive file (do_block_smoothing, its default)
+  // when every component's DC is known and its quantizers at the first
+  // nine AC positions are nonzero, and some component's first nine AC
+  // coefficients were not all coded down to bit 0.
+  bool libjpeg_would_smooth() const {
+    if (!progressive) return false;
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int p : kPos)
+        if (c.quant[p] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   void parse() {
@@ -465,20 +629,22 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_sof();
-          break;
         case 0xC2:
+          read_sof(m == 0xC2);
+          break;
         case 0xC6:
-          throw Error("progressive JPEG (SOF" + std::to_string(m - 0xC0) +
-                      ") is not supported");
+          throw Error("hierarchical JPEG (SOF6, differential progressive) "
+                      "is not supported");
         case 0xC3:
         case 0xC7:
           throw Error("lossless JPEG (SOF" + std::to_string(m - 0xC0) +
                       ") is not supported");
         case 0xC5:
           throw Error("hierarchical JPEG (SOF5) is not supported");
-        case 0xC9:
         case 0xCA:
+          throw Error("arithmetic-coded JPEG (SOF10, progressive) is not "
+                      "supported");
+        case 0xC9:
         case 0xCB:
         case 0xCD:
         case 0xCE:
@@ -514,6 +680,10 @@ struct Decoder {
     for (auto& c : comps)
       if (!c.latched) throw Error("truncated data: a component no scan "
                                   "holds");
+    if (libjpeg_would_smooth())
+      throw Error("incomplete progressive JPEG: libjpeg would smooth it "
+                  "(the first AC coefficients are not all refined to bit "
+                  "0)");
     if (comps.size() == 3) {
       if (!saw_jfif && saw_adobe && adobe_transform != 1)
         throw Error(adobe_transform == 0
@@ -529,23 +699,6 @@ struct Decoder {
     }
   }
 };
-
-// The post-IDCT range limit (jdmaster.c): x & 1023 indexes a table that
-// is x + 128 clamped to [0, 255] for |x| < 512 and wraps past it.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      int v;
-      if (i < 128) v = i + 128;
-      else if (i < 512) v = 255;
-      else if (i < 896) v = 0;
-      else v = i - 896;
-      t[i] = (uint8_t)v;
-    }
-  }
-};
-const RangeLimit kRange;
 
 #define FIX_0_298631336 ((int64_t)2446)
 #define FIX_0_390180644 ((int64_t)3196)
@@ -564,106 +717,103 @@ inline int64_t descale(int64_t x, int n) {
   return (x + ((int64_t)1 << (n - 1))) >> n;
 }
 
-// jidctint.c's jpeg_idct_islow on one block, into an 8x8 window of `out`.
-void idct_islow(const int16_t* in, const int* q, uint8_t* out, int stride) {
-  const int CB = 13, P1 = 2;
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] &&
-        !ip[56]) {
-      const int dc = (ip[0] * qp[0]) * (1 << P1);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
-      continue;
-    }
-    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CB);
-    int64_t tmp1 = (z2 - z3) * (1 << CB);
-    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
-    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = (int)descale(t10 + tmp3, CB - P1);
-    wp[56] = (int)descale(t10 - tmp3, CB - P1);
-    wp[8] = (int)descale(t11 + tmp2, CB - P1);
-    wp[48] = (int)descale(t11 - tmp2, CB - P1);
-    wp[16] = (int)descale(t12 + tmp1, CB - P1);
-    wp[40] = (int)descale(t12 - tmp1, CB - P1);
-    wp[24] = (int)descale(t13 + tmp0, CB - P1);
-    wp[32] = (int)descale(t13 - tmp0, CB - P1);
+// The islow IDCT of one block into an 8x8 window of `out`, as PIL and cv2
+// run it on x86-64: libjpeg-turbo's SIMD version (jidctint-sse2.asm and
+// -avx2.asm, which agree bit for bit), not jidctint.c. It is jidctint.c's
+// arithmetic with its products rearranged into pairs (the same sums), but
+// in 16-bit lanes: the dequantized coefficients and the sums and
+// differences of two inputs wrap at 16 bits, the products are summed in
+// 32 bits (wrapping), pass 1's outputs saturate to 16 bits and pass 2's to
+// [0, 255] (jidctint.c keeps every value in range and wraps the output
+// through its range-limit table). The two agree where nothing leaves its
+// range, as on every block an encoder writes; they part on blocks whose
+// dequantized values an encoder would never give (a quantization table
+// raised after the fact, a corrupt stream). Pass 1 takes its DC shortcut
+// only where rows 1-7 of the whole block are zero, in every column at once.
+namespace simd_idct {
+
+// [input or output k][transform l]: the eight 1-D transforms of a pass side
+// by side, as the SIMD code holds them (and as g++ vectorizes the loops).
+typedef int32_t Lanes[8][8];
+
+inline int32_t wrap16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+inline int32_t add32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+inline int32_t sat16(int32_t x) {
+  return x < -32768 ? -32768 : (x > 32767 ? 32767 : x);
+}
+// x + 2^(n-1) (wrapping at 32 bits), shifted right by n
+inline int32_t descale(int32_t x, int n) {
+  return add32(x, 1 << (n - 1)) >> n;
+}
+
+// One pass on 16-bit inputs: each output k the 32-bit sum before the
+// descale. Every product and pair of products fits 32 bits (inputs of 16,
+// constants of 15); only the last sums can wrap, as paddd does.
+void pass(const Lanes in, Lanes out) {
+  const int32_t F298 = FIX_0_298631336, F390 = FIX_0_390180644,
+                F541 = FIX_0_541196100, F765 = FIX_0_765366865,
+                F899 = FIX_0_899976223, F1175 = FIX_1_175875602,
+                F1501 = FIX_1_501321110, F1847 = FIX_1_847759065,
+                F1961 = FIX_1_961570560, F2053 = FIX_2_053119869,
+                F2562 = FIX_2_562915447, F3072 = FIX_3_072711026;
+  for (int l = 0; l < 8; ++l) {
+    const int32_t z2 = in[2][l], z3 = in[6][l];
+    const int32_t tmp3 = z2 * (F541 + F765) + z3 * F541;
+    const int32_t tmp2 = z2 * F541 + z3 * (F541 - F1847);
+    const int32_t tmp0 = wrap16(in[0][l] + in[4][l]) * 8192;
+    const int32_t tmp1 = wrap16(in[0][l] - in[4][l]) * 8192;
+    const int32_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const int32_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    const int32_t i7 = in[7][l], i5 = in[5][l], i3 = in[3][l], i1 = in[1][l];
+    const int32_t z3o = wrap16(i7 + i3), z4o = wrap16(i5 + i1);
+    const int32_t z3r = z3o * (F1175 - F1961) + z4o * F1175;
+    const int32_t z4r = z3o * F1175 + z4o * (F1175 - F390);
+    const int32_t o0 = add32(i7 * (F298 - F899) + i1 * -F899, z3r);
+    const int32_t o3 = add32(i7 * -F899 + i1 * (F1501 - F899), z4r);
+    const int32_t o1 = add32(i5 * (F2053 - F2562) + i3 * -F2562, z4r);
+    const int32_t o2 = add32(i5 * -F2562 + i3 * (F3072 - F2562), z3r);
+    out[0][l] = add32(t10, o3);
+    out[7][l] = sub32(t10, o3);
+    out[1][l] = add32(t11, o2);
+    out[6][l] = sub32(t11, o2);
+    out[2][l] = add32(t12, o1);
+    out[5][l] = sub32(t12, o1);
+    out[3][l] = add32(t13, o0);
+    out[4][l] = sub32(t13, o0);
   }
+}
+
+}  // namespace simd_idct
+
+void idct_islow(const int16_t* in, const int* q, uint8_t* out, int stride) {
+  using namespace simd_idct;
+  const int P1 = 2, CB = 13;
+  Lanes a, b;   // pass 1: a[row][column]; pass 2: b[column][row]
+  bool ac = false;
+  for (int k = 8; k < 64; ++k) ac |= in[k] != 0;
+  for (int k = 0; k < 64; ++k) a[k >> 3][k & 7] = wrap16(in[k] * q[k]);
+  if (!ac) {   // a DC shortcut, shifted in 16 bits
+    for (int c = 0; c < 8; ++c)
+      for (int r = 0; r < 8; ++r) b[c][r] = wrap16(a[0][c] * 4);
+  } else {
+    Lanes s;
+    pass(a, s);
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c) b[c][r] = sat16(descale(s[r][c], CB - P1));
+  }
+  Lanes s;
+  pass(b, s);
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
     uint8_t* op = out + (size_t)r * stride;
-    // The zero-row shortcut gives the same values as the full pass.
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = ((int64_t)wp[0] + wp[4]) * (1 << CB);
-    int64_t tmp1 = ((int64_t)wp[0] - wp[4]) * (1 << CB);
-    const int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
-    const int64_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int S = CB + P1 + 3;
-    op[0] = kRange.t[(int)descale(t10 + tmp3, S) & 1023];
-    op[7] = kRange.t[(int)descale(t10 - tmp3, S) & 1023];
-    op[1] = kRange.t[(int)descale(t11 + tmp2, S) & 1023];
-    op[6] = kRange.t[(int)descale(t11 - tmp2, S) & 1023];
-    op[2] = kRange.t[(int)descale(t12 + tmp1, S) & 1023];
-    op[5] = kRange.t[(int)descale(t12 - tmp1, S) & 1023];
-    op[3] = kRange.t[(int)descale(t13 + tmp0, S) & 1023];
-    op[4] = kRange.t[(int)descale(t13 - tmp0, S) & 1023];
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = sat16(descale(s[c][r], CB + P1 + 3));
+      op[c] = (uint8_t)((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
   }
 }
 
@@ -792,6 +942,31 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t n, int* h, int* w) {
   *h = H;
   *w = W;
   return rgb;
+}
+
+// The decoder's coefficients, for the tests and chip_smoke.py to hold to
+// data/jpeg.py's coefficients_plain: int32 count of components, then for
+// each its h, v, bw, bh and quantization table (64 int32, natural order),
+// then each component's bh x bw blocks of 64 int16 coefficients (natural
+// order), as the scans left them.
+std::vector<uint8_t> coefficients(const uint8_t* data, size_t n) {
+  Decoder d(data, n);
+  d.parse();
+  std::vector<int32_t> head{(int32_t)d.comps.size()};
+  size_t ncoef = 0;
+  for (const auto& c : d.comps) {
+    head.insert(head.end(), {c.h, c.v, c.bw, c.bh});
+    head.insert(head.end(), c.quant, c.quant + 64);
+    ncoef += c.coef.size();
+  }
+  std::vector<uint8_t> out(head.size() * 4 + ncoef * 2);
+  std::memcpy(out.data(), head.data(), head.size() * 4);
+  uint8_t* p = out.data() + head.size() * 4;
+  for (const auto& c : d.comps) {
+    std::memcpy(p, c.coef.data(), c.coef.size() * 2);
+    p += c.coef.size() * 2;
+  }
+  return out;
 }
 
 // ---------------------------------------------------------------- encoder
@@ -1280,6 +1455,20 @@ uint8_t* hj_decode(const uint8_t* data, size_t n, int* h, int* w, char* err,
                    int errlen) {
   try {
     return to_malloc(decode(data, n, h, w));
+  } catch (const std::exception& e) {
+    set_error(e.what(), err, errlen);
+    return nullptr;
+  }
+}
+
+// The coefficients (see `coefficients`) as malloc'd bytes, their count in
+// `size`; NULL on failure with the reason in `err`.
+uint8_t* hj_coefficients(const uint8_t* data, size_t n, size_t* size,
+                         char* err, int errlen) {
+  try {
+    const std::vector<uint8_t> out = coefficients(data, n);
+    *size = out.size();
+    return to_malloc(out);
   } catch (const std::exception& e) {
     set_error(e.what(), err, errlen);
     return nullptr;

@@ -83,10 +83,11 @@ def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
         raise ValueError(f"filter2d takes a non-empty kernel, got {kh}x{kw}")
     src = np.ascontiguousarray(img)
     out = np.empty(img.shape, np.float32)
-    host.library().hi_filter2d(src.ctypes.data, out.ctypes.data,
-                               img.shape[0], img.shape[1],
-                               img.shape[2] if img.ndim == 3 else 1,
-                               kernel.ctypes.data, kh, kw)
+    if host.library().hi_filter2d(src.ctypes.data, out.ctypes.data,
+                                  img.shape[0], img.shape[1],
+                                  img.shape[2] if img.ndim == 3 else 1,
+                                  kernel.ctypes.data, kh, kw):
+        raise MemoryError("filter2d: out of memory")
     return out
 
 

@@ -3,7 +3,8 @@
 The sources are `hifidiff_tpu_torch/csrc/host/*.cc`: the JPEG codec
 (`jpeg.cc`), the data-path core (`native.cc`, the port's copy of the JAX
 package's `native/src/hifidiff_native.cc`) and the image path (`image.cc`:
-the PNG row filters, cv2's and PIL's resizes, cv2's filter2D). g++ (no
+the PNG row filters and passes, the BMP layouts and RLE, cv2's and PIL's
+resizes, cv2's filter2D). g++ (no
 CUDA) compiles each into an object of its own with its own flags, all at
 once, at first use, and links them into one shared library with a plain C
 interface under `hifidiff_tpu_torch/_build/` (listed in .gitignore); it
@@ -45,6 +46,9 @@ FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
          "-pthread")
 # what a source adds to them
 EXTRA_FLAGS = {"image.cc": ("-ffp-contract=off",)}
+
+# what every hi_* function of image.cc returns where an allocation failed
+NO_MEMORY = 99
 
 
 def _gxx() -> str:
@@ -127,6 +131,8 @@ def _load() -> ctypes.CDLL:
     lib.hj_decode.restype = p
     lib.hj_encode.argtypes = [p, i, i, i, szp, cp, i]
     lib.hj_encode.restype = p
+    lib.hj_coefficients.argtypes = [p, sz, szp, cp, i]
+    lib.hj_coefficients.restype = p
     lib.hj_free.argtypes = [p]
     lib.hj_free.restype = None
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -142,13 +148,14 @@ def _load() -> ctypes.CDLL:
                  "hn_quantize8", "hn_degrade_stage1", "hn_resize_batch"):
         getattr(lib, name).restype = None
     # the image path (image.cc): every buffer a raw address
-    lib.hi_png_rgb.argtypes = [p, sz, i, i, i, i, p, i, p, ip]
+    lib.hi_png_rgb.argtypes = [p, sz, i, i, i, i, p, i, i, i, p, ip]
+    lib.hi_bmp_rgb.argtypes = [p, sz, sz] + [i] * 8 + [p, i, i, p, ip]
     lib.hi_resize_cv2_f32.argtypes = [p, p] + [i] * 6
     lib.hi_resize_cv2_u8_cubic.argtypes = [p, p] + [i] * 5
     lib.hi_resize_pil.argtypes = [p, p] + [i] * 6
     lib.hi_filter2d.argtypes = [p, p, i, i, i, p, i, i]
-    for name in ("hi_png_rgb", "hi_resize_cv2_f32", "hi_resize_cv2_u8_cubic",
-                 "hi_resize_pil", "hi_filter2d"):
-        getattr(lib, name).restype = i
+    for name in ("hi_png_rgb", "hi_bmp_rgb", "hi_resize_cv2_f32",
+                 "hi_resize_cv2_u8_cubic", "hi_resize_pil", "hi_filter2d"):
+        getattr(lib, name).restype = i   # 0, a refusal, or NO_MEMORY
     lib.build_log = log
     return lib

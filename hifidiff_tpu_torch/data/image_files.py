@@ -1,0 +1,275 @@
+"""Writers of small image files in every format the port's decoders read:
+PNG at any colour type, bit depth and filter, Adam7-interlaced or not;
+BMP at every header, bit count, bitfields layout and RLE; progressive
+JPEG cut after some of its scans; and the seeded inputs behind the golden
+digests of tests/fixtures. Only the tests and chip_smoke.py use them.
+
+numpy, `struct` and `zlib` only: PIL writes no interlaced PNG, and the
+card's host has neither PIL nor cv2. The format constants (Adam7's passes,
+the BMP bitfields masks) are the decoder's own, from `image_io`.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from hifidiff_tpu_torch.data.image_io import ADAM7, BMP_MASKS
+
+
+def golden_input(seed, h, w):
+    """The seeded (h, w, 3) uint8 RGB image behind a golden encoder digest
+    of tests/fixtures/jpeg/digests.json: three ramps with noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    base = np.stack([x * 255 // max(1, w - 1), y * 255 // max(1, h - 1),
+                     (x + y) * 255 // max(1, h + w - 2)], -1)
+    return np.clip(base + rng.integers(-24, 25, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def jpeg_scans(data):
+    """A JPEG file cut at its scans: (the bytes before the first SOS,
+    [each scan's bytes, from its SOS to the next marker that is not an
+    RSTn]); the file ends with EOI after them."""
+    def segment_end(at):   # a marker segment's end
+        return at + 2 + ((data[at + 2] << 8) | data[at + 3])
+
+    at = 2
+    while data[at + 1] != 0xDA:
+        at = segment_end(at)
+    head, scans = data[:at], []
+    while data[at + 1] == 0xDA:
+        end = segment_end(at)
+        while not (data[end] == 0xFF and data[end + 1] not in (
+                0x00, *range(0xD0, 0xD8))):
+            end += 1
+        scans.append(data[at:end])
+        at = end
+        while data[at + 1] not in (0xDA, 0xD9):   # DHT between scans
+            scans[-1] += data[at:segment_end(at)]
+            at = segment_end(at)
+    return head, scans
+
+
+def incomplete_progressive(data, keep=2):
+    """A progressive JPEG with only its first `keep` scans, then EOI: a
+    file libjpeg smooths, which the port refuses."""
+    head, scans = jpeg_scans(data)
+    return head + b"".join(scans[:keep]) + b"\xff\xd9"
+
+
+def png_filtered(img, filters=(0, 1, 2, 3, 4), idat_size=8192, level=6):
+    """A uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4) array as a PNG
+    file's bytes (colour type 0, 4, 2 or 6, bit depth 8), row y filtered
+    with `filters[y % len(filters)]` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), the image data split over IDAT chunks of `idat_size` bytes:
+    files that take every path of the port's decoder."""
+    img = img if img.ndim == 3 else img[..., None]
+    return png_file(img, 8, {1: 0, 2: 4, 3: 2, 4: 6}[img.shape[2]],
+                    filters=filters, idat_size=idat_size, level=level)
+
+
+def png_file(samples, depth, color, interlace=0, filters=(0, 1, 2, 3, 4),
+             palette=None, idat_size=8192, level=6):
+    """An (H, W, channels) array of sample values (palette indices for
+    colour type 3) as a PNG file's bytes at bit depth `depth` (1, 2, 4, 8
+    or 16) and colour type `color`, non-interlaced or (`interlace=1`)
+    Adam7: each pass's rows packed (16-bit samples big-endian) and filtered
+    as `png_filtered` filters them, row y of each pass with
+    `filters[y % len(filters)]`, a pass with no pixels left out. PIL writes
+    no interlaced PNG (its `interlace` option is ignored)."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    raw = []
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        part = samples[y0::dy, x0::dx]
+        ph, pw = part.shape[:2]
+        if not ph or not pw:
+            continue
+        flat = part.reshape(ph, pw * ch).astype(np.uint32)
+        if depth == 16:
+            rows = flat.astype(">u2").view(np.uint8).reshape(ph, -1)
+        elif depth == 8:
+            rows = flat.astype(np.uint8)
+        else:
+            bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.reshape(ph, -1).astype(np.uint8), axis=1)
+        rows = rows.astype(np.int16)
+        up = np.zeros_like(rows)
+        up[1:] = rows[:-1]
+        left = np.zeros_like(rows)
+        left[:, bpp:] = rows[:, :-bpp]
+        corner = np.zeros_like(rows)
+        corner[1:, bpp:] = rows[:-1, :-bpp]
+        p = left + up - corner
+        pa, pb, pc = abs(p - left), abs(p - up), abs(p - corner)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, corner))
+        pred = (np.zeros_like(rows), left, up, (left + up) // 2, paeth)
+        kinds = np.array([filters[y % len(filters)] for y in range(ph)])
+        out = np.empty((ph, rows.shape[1] + 1), np.uint8)
+        out[:, 0] = kinds
+        for k in range(5):
+            out[kinds == k, 1:] = (rows[kinds == k]
+                                   - pred[k][kinds == k]) % 256
+        raw.append(out.tobytes())
+    data = zlib.compress(b"".join(raw), level)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    plte = b"" if palette is None else chunk(
+        b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
+                                         interlace))
+            + plte
+            + b"".join(chunk(b"IDAT", data[i:i + idat_size])
+                       for i in range(0, len(data), idat_size))
+            + chunk(b"IEND", b""))
+
+
+def _rle_row(row, rle4):
+    """One row of palette indices as RLE8 / RLE4 codes, its end-of-line
+    escape included: runs of equal values as encoded runs, stretches of
+    four or more changing values as absolute runs (an even count of them
+    in RLE4, padded to a 16-bit word), the rest as runs of one (RLE4: of
+    one pair)."""
+    out, x, w = bytearray(), 0, len(row)
+    step = 2 if rle4 else 1
+    while x < w:
+        n = 1
+        while x + n < w and n < 255 and row[x + n] == row[x]:
+            n += 1
+        if n >= 2 * step or x + step > w:
+            out += bytes([n, row[x] * 17 if rle4 else row[x]])
+            x += n
+            continue
+        m = 0      # an absolute stretch: up to the next run of three
+        while x + m < w and m < 254 and not (
+                x + m + 2 < w and row[x + m] == row[x + m + 1]
+                == row[x + m + 2]):
+            m += 1
+        m -= m % step
+        if m >= 4:
+            vals = row[x:x + m]
+            body = (bytes(int(a) << 4 | int(b) for a, b in
+                          zip(vals[::2], vals[1::2])) if rle4
+                    else bytes(int(v) for v in vals))
+            out += bytes([0, m]) + body + b"\0" * (len(body) % 2)
+            x += m
+        elif rle4:
+            b = row[x + 1] if x + 1 < w else 0
+            out += bytes([min(2, w - x), int(row[x]) << 4 | int(b)])
+            x += 2
+        else:
+            out += bytes([1, row[x]])
+            x += 1
+    return bytes(out) + b"\0\0"
+
+
+def bmp_file(pixels, bits, header=40, topdown=False, palette=None,
+             fields=None, rle=False):
+    """A BMP file's bytes, as Windows and PIL write them: `pixels` is an
+    (H, W) array of palette indices (bits 1, 4, 8; `palette` (k, 3) RGB,
+    written BGRX, or BGR under the 12-byte core header), or (H, W, 3)
+    uint8 RGB (bits 16, 24, 32: 16 bits 5-5-5 BI_RGB unless `fields`
+    names a 16-bit layout of `image_io.BMP_MASKS`, written BI_BITFIELDS;
+    32 bits BGRX BI_RGB, or a 32-bit layout of BMP_MASKS with alpha 255).
+    `header` is 12, 40, 56, 108 or 124 bytes; `topdown` writes a negative
+    height; `rle` (8 or 4 bits) writes RLE8 / RLE4 with `_rle_row`."""
+    h, w = pixels.shape[:2]
+    masks = BMP_MASKS[fields][1] if fields else None
+    compression = 3 if masks else (1 if bits == 8 else 2) if rle else 0
+    stride = ((w * bits + 31) >> 3) & ~3
+    if rle:
+        body = b"".join(_rle_row(r, bits == 4)
+                        for r in (pixels if topdown else pixels[::-1]))
+        body += b"\0\1"
+    else:
+        if bits <= 8:
+            v = pixels.astype(np.uint32)
+            bitv = (v[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+            rows = np.packbits(bitv.reshape(h, -1).astype(np.uint8), axis=1)
+        elif bits == 16:
+            r, g, b = (pixels[..., k].astype(np.uint32) for k in range(3))
+            v = ((r >> 3) << 11 | (g >> 2) << 5 | b >> 3 if fields == "565"
+                 else (r >> 3) << 10 | (g >> 3) << 5 | b >> 3)
+            rows = v.astype("<u2").view(np.uint8).reshape(h, -1)
+        else:
+            nb = bits // 8
+            rows = np.zeros((h, w, nb), np.uint8)
+            m = masks or BMP_MASKS["BGRX"][1]
+            for k in range(3):
+                rows[..., m[k].bit_length() // 8 - 1] = pixels[..., k]
+            if m[3]:
+                rows[..., m[3].bit_length() // 8 - 1] = 255
+            rows = rows.reshape(h, -1)
+        padded = np.zeros((h, stride), np.uint8)
+        padded[:, :rows.shape[1]] = rows
+        body = (padded if topdown else padded[::-1]).tobytes()
+    pal = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            pal = np.concatenate([pal, np.zeros_like(pal[:, :1])], 1)
+        pal = pal.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if topdown else h,
+                           1, bits, compression, len(body), 2835, 2835,
+                           0 if palette is None else len(palette), 0)
+        if header > 40:
+            info += struct.pack("<IIII", *(masks or (0, 0, 0, 0)))
+            info += b"\0" * (header - 56)
+            info = info[:header]
+        elif masks:
+            info += struct.pack("<III", *masks[:3])
+    offset = 14 + len(info) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + info + pal + body)
+
+
+# the progressive JPEG of tests/fixtures/jpeg among `celeba_file`'s kinds
+CELEBA_PROGRESSIVE = "pil_prog_face_q95_160x160.jpg"
+
+
+def celeba_file(img, j, progressive):
+    """The j-th file of a CelebA-HQ directory that mixes every format the
+    port reads (chip_smoke.py phase 15's), (bytes, extension), of the uint8
+    RGB face `img`, by j % 12: an 8-bit PNG of colour type 2
+    (0, 6) or 6 (1, 7) through the five filters; an Adam7 8-bit RGB PNG
+    (2, 8); a 16-bit Adam7 RGBA PNG of the samples times 257 (3) or a
+    16-bit grey one of the green samples as they are (9); the progressive
+    JPEG fixture `progressive` (4, 10); a 24-bit BMP (5) or an RLE8 BMP of
+    the face on a 6 x 6 x 6 palette (11). CelebA-HQ is read as PIL reads
+    it: the grey 16-bit file is the green channel."""
+    k = j % 12
+    if k in (0, 6):
+        return png_filtered(img, level=1), ".png"
+    if k in (1, 7):
+        return png_filtered(np.concatenate(
+            [img, np.full_like(img[..., :1], 255)], -1), level=1), ".png"
+    if k in (2, 8):
+        return png_file(img, 8, 2, interlace=1, level=1), ".png"
+    if k == 3:
+        rgba = np.concatenate([img, np.full_like(img[..., :1], 255)], -1)
+        return png_file(rgba.astype(np.int64) * 257, 16, 6, interlace=1,
+                        level=1), ".png"
+    if k == 9:
+        return png_file(img[..., 1:2], 16, 0, level=1), ".png"
+    if k in (4, 10):
+        return progressive, ".jpg"
+    if k == 5:
+        return bmp_file(img, 24), ".bmp"
+    levels = (img.astype(np.int64) * 6) // 256
+    idx = levels[..., 0] * 36 + levels[..., 1] * 6 + levels[..., 2]
+    grid = np.arange(6) * 51
+    palette = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                       -1).reshape(216, 3)
+    return bmp_file(idx, 8, palette=palette, rle=True), ".bmp"

@@ -7,10 +7,12 @@ and GT angle sets, the GT angle by which half of the angle list the input
 comes from; 8-bit quantization of the LR input; optional
 `<light>_patch.png` GT component images.
 
-The images are read by the port's decoders (`image_io.imread_rgb`, PNG or
-JPEG by the file's signature) straight into RGB, and stay RGB: the JAX
-package reads BGR with cv2 and flips at the end, and every op between is
-channelwise but the blind branch's noise and to-gray, which
+The images are read by the port's decoders (`image_io.imread_rgb`, PNG,
+JPEG or BMP by the file's signature) straight into RGB, each as the JAX
+package reads it: `sixteen_bit="cv2"` where it calls `cv2.imread`
+(`imread_f32`, the IDC set), `"pil"` where it calls PIL. They stay RGB:
+the JAX package reads BGR with cv2 and flips at the end, and every op
+between is channelwise but the blind branch's noise and to-gray, which
 `degradations` lays out as on the BGR image. Its cv2 resizes are
 `resize.resize_cv2`, its PIL resizes `resize.resize_pil`.
 
@@ -58,8 +60,10 @@ def _angle_sets(model_type: str):
 
 
 def imread_f32(path: str) -> np.ndarray:
-    """An image file as float32 RGB in [0, 1]."""
-    return imread_rgb(path).astype(np.float32) / 255.0
+    """An image file as float32 RGB in [0, 1], read as `cv2.imread` reads
+    it (the JAX package's `_imread_f32`: 16-bit samples keep their high
+    byte)."""
+    return imread_rgb(path, sixteen_bit="cv2").astype(np.float32) / 255.0
 
 
 def pil_bicubic_f32(img: np.ndarray, *sizes: int) -> np.ndarray:
@@ -139,8 +143,8 @@ class MultiPIEDataset(Dataset):
         if self.use_patch:
             # single patch image -> (1, H, W, C) patch axis for the
             # key-region union mask
-            out["patches"] = pil_bicubic_f32(imread_rgb(patch_path),
-                                             self.size)[None]
+            out["patches"] = pil_bicubic_f32(
+                imread_rgb(patch_path, sixteen_bit="pil"), self.size)[None]
         return out
 
 
@@ -171,9 +175,11 @@ class MultiPIESingleViewDataset(Dataset):
         inp, gt, patch = self.items[index]
         size = self.size
         return {
-            "lr": pil_bicubic_f32(imread_rgb(inp), 32, size),
-            "gt": pil_bicubic_f32(imread_rgb(gt), size),
-            "patches": pil_bicubic_f32(imread_rgb(patch), size)[None],
+            "lr": pil_bicubic_f32(imread_rgb(inp, sixteen_bit="pil"), 32,
+                                  size),
+            "gt": pil_bicubic_f32(imread_rgb(gt, sixteen_bit="pil"), size),
+            "patches": pil_bicubic_f32(imread_rgb(patch, sixteen_bit="pil"),
+                                       size)[None],
             "angle": self.angle,
         }
 
@@ -198,7 +204,8 @@ class MultiPIEInferenceDataset(Dataset):
         return len(self.items)
 
     def __getitem__(self, index: int) -> Sample:
-        return {"lr": pil_bicubic_f32(imread_rgb(self.items[index]), 32,
+        return {"lr": pil_bicubic_f32(imread_rgb(self.items[index],
+                                                 sixteen_bit="pil"), 32,
                                       self.size),
                 "path": self.items[index]}
 
@@ -242,7 +249,8 @@ class MultiPIEIDCDataset(Dataset):
         size = self.size
 
         def base(p):
-            img = resize_cv2(imread_rgb(p), (size, size), "cubic")
+            img = resize_cv2(imread_rgb(p, sixteen_bit="cv2"), (size, size),
+                             "cubic")
             return img.astype(np.float32) / 255.0
 
         inp = resize_cv2(base(inp_path), (size // 4, size // 4), "cubic")

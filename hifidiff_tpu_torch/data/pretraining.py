@@ -4,10 +4,11 @@ Multi-PIE frontal+moderate crops (cv2-bicubic resize) and flat-directory
 CelebA-HQ (PIL-bicubic resize), both returning float32 [0,1] NHWC RGB under
 key "image".
 
-`CelebAHQDataset` lists the JAX module's `IMG_EXTS`. The port reads PNG
-and JPEG (`.png`, `.jpg`, `.jpeg`): a directory that also holds a `.bmp` or
-`.webp` file is refused at construction, naming them (ROADMAP §A); no
-file is skipped.
+`CelebAHQDataset` lists the JAX module's `IMG_EXTS`. The port reads PNG,
+JPEG and BMP (`.png`, `.jpg`, `.jpeg`, `.bmp`) as PIL reads them: a
+directory that also holds a `.webp` file is refused at construction,
+naming them (ROADMAP §A); no file is skipped. `MultiPIEHQDataset` reads
+as cv2 reads (`multipie.imread_f32`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from hifidiff_tpu_torch.data.multipie import (ANGLES_MODERATE,
 from hifidiff_tpu_torch.data.resize import resize_cv2
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-READ_EXTS = (".png", ".jpg", ".jpeg")
+READ_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
 class MultiPIEHQDataset(Dataset):
@@ -57,13 +58,13 @@ class CelebAHQDataset(Dataset):
         other = [p for p in self.paths if not p.lower().endswith(READ_EXTS)]
         if other:
             raise NotImplementedError(
-                f"CelebAHQDataset({root!r}): {len(other)} BMP / WebP files "
-                f"the port does not decode, e.g. {other[:3]}; it reads PNG "
-                "and JPEG (ROADMAP §A)")
+                f"CelebAHQDataset({root!r}): {len(other)} WebP files the "
+                f"port does not decode, e.g. {other[:3]}; it reads PNG, "
+                "JPEG and BMP (ROADMAP §A)")
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, index: int) -> Sample:
-        return {"image": pil_bicubic_f32(imread_rgb(self.paths[index]),
-                                         self.size)}
+        img = imread_rgb(self.paths[index], sixteen_bit="pil")
+        return {"image": pil_bicubic_f32(img, self.size)}

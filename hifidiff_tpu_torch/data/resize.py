@@ -116,6 +116,8 @@ def _call(fn, img: np.ndarray, h_out: int, w_out: int, *mode) -> np.ndarray:
     ch = img.shape[2] if img.ndim == 3 else 1
     code = fn(src.ctypes.data, out.ctypes.data, h, w, ch, h_out, w_out,
               *mode)
+    if code == host.NO_MEMORY:
+        raise MemoryError(f"{fn.__name__}: out of memory")
     if code:
         raise RuntimeError(f"{fn.__name__} returned {code}")
     return out

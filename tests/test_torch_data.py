@@ -34,7 +34,6 @@ Tolerances:
     of the values one level apart, none more.
 """
 
-import importlib.util
 import io
 import os
 import pathlib
@@ -53,21 +52,11 @@ from hifidiff_tpu.data import multipie as jmultipie  # noqa: E402
 from hifidiff_tpu.data import pretraining as jpretraining  # noqa: E402
 from hifidiff_tpu_torch.data import degradations as deg  # noqa: E402
 from hifidiff_tpu_torch.data import image_io, multipie, pretraining  # noqa: E402
+from hifidiff_tpu_torch.data.image_files import png_filtered  # noqa: E402
 from hifidiff_tpu_torch.data.resize import resize_cv2, resize_pil  # noqa: E402
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-png_filtered = _chip_smoke().png_filtered
 
 
 def _face(rng, h, w, channels=3):
@@ -465,19 +454,20 @@ def test_pretraining_datasets(tree):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".webp", ".bmp", ".JPG"])
 def test_celeba_refuses_what_it_cannot_decode(tmp_path, ext):
-    """JPEG files are read (every item bit-equal to the JAX class's); a
-    directory that holds a BMP or WebP file is refused, naming them."""
+    """JPEG and BMP files are read (every item bit-equal to the JAX
+    class's); a directory that holds a WebP file is refused, naming it."""
     rng = np.random.default_rng(11)
     _write(str(tmp_path / "a.png"), rng.integers(0, 256, (40, 36, 3),
                                                  np.uint8), "pil")
     img = rng.integers(0, 256, (37, 45, 3), np.uint8)
-    if ext.lower() in (".jpg", ".jpeg"):
-        Image.fromarray(img).save(tmp_path / f"b{ext}", "JPEG", quality=90)
+    if ext.lower() in (".jpg", ".jpeg", ".bmp"):
+        Image.fromarray(img).save(tmp_path / f"b{ext}", "JPEG" if ext.lower()
+                                  != ".bmp" else "BMP", quality=90)
         _compare(pretraining.CelebAHQDataset(str(tmp_path), size=32),
                  jpretraining.CelebAHQDataset(str(tmp_path), size=32))
     else:
         cv2.imwrite(str(tmp_path / f"b{ext}"), img)
-        with pytest.raises(NotImplementedError, match="BMP / WebP"):
+        with pytest.raises(NotImplementedError, match="1 WebP files"):
             pretraining.CelebAHQDataset(str(tmp_path))
 
 

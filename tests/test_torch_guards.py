@@ -321,12 +321,17 @@ FIXTURES = REPO / "tests" / "fixtures" / "jpeg"
     ("pil_420_q75_80x96.jpg", 40, "truncated"),
 ])
 def test_jpeg_decoder_refusals(name, cut, match):
-    """No unsupported JPEG is decoded approximately: a progressive file, a
-    CMYK file and a file cut `cut` bytes short (tests/fixtures/jpeg) are
-    each refused, naming what they are."""
+    """No unsupported JPEG is decoded approximately: an incomplete
+    progressive file (the progressive fixture, which decodes whole, cut
+    after its first two scans: libjpeg would smooth it), a CMYK file and a
+    file cut `cut` bytes short (tests/fixtures/jpeg) are each refused,
+    naming what they are."""
+    from hifidiff_tpu_torch.data.image_files import incomplete_progressive
     from hifidiff_tpu_torch.data.jpeg import JPEGError, decode_jpeg
 
     data = (FIXTURES / name).read_bytes()
+    if "progressive" in name:
+        data = incomplete_progressive(data, 2)
     with pytest.raises(JPEGError, match=match):
         decode_jpeg(data[:len(data) - cut])
 
@@ -556,21 +561,23 @@ def test_clis_under_torchrun_target_the_ranks_card(mode, want):
 
 # -- the host image library (csrc/host/image.cc) ------------------------------
 
-PLAIN_HOMES = ("data/resize.py", "data/image_io.py", "data/degradations.py")
+PLAIN_HOMES = ("data/resize.py", "data/image_io.py", "data/degradations.py",
+               "data/jpeg.py")
 
 
 def test_plain_image_versions_named_only_in_their_modules():
     """The host image path's plain versions (every `*_plain` function that
-    `data/resize.py`, `data/image_io.py` and `data/degradations.py` define)
-    are named by no other module of the port: only tests and chip_smoke.py
-    call them."""
+    `data/resize.py`, `data/image_io.py`, `data/degradations.py` and
+    `data/jpeg.py` define) are named by no other module of the port: only
+    tests and chip_smoke.py call them."""
     import re
 
     root = REPO / "hifidiff_tpu_torch"
     plain = {name for home in PLAIN_HOMES for name in re.findall(
         r"^def (\w+_plain)\(", (root / home).read_text(), re.M)}
     assert plain == {"resize_cv2_plain", "resize_pil_plain",
-                     "decode_png_plain", "filter2d_plain"}
+                     "decode_png_plain", "decode_bmp_plain", "filter2d_plain",
+                     "coefficients_plain"}
     naming = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
                     if any(re.search(rf"\b{n}\b", p.read_text())
                            for n in plain))

@@ -5,18 +5,20 @@ against cv2 and PIL as yardsticks.
 Every library function is held to its plain numpy version bit for bit
 (equal bytes, so -0.0 and 0.0 differ too): `resize_cv2` (cubic float32 and
 uint8, linear float32), `resize_pil` (bicubic, nearest), `filter2d` and
-`decode_png`, over sizes 1-300, up- and downscales, the ratios 4/3 and
-6/5, 1-4 channels and 2-D arrays; 9 x 9, 11 x 11 and uneven kernels on
-images smaller than the kernel; PNG files of every colour type and bit
-depth the decoder reads, rows through the five filters, the image data
-split over many IDAT chunks, and every refusal with the same message from
-both. The yardsticks, as tests/test_torch_data.py holds the plain versions
-to them: `cv2.resize` with IPP off (cv2's own algorithm) bit-equal for
-cubic float32, 5e-7 for linear, one level for uint8 cubic (bit-equal at
-the datasets' shapes, tests/test_torch_data.py; where an output row's bytes
-end past cv2's last full vector, cv2 rounds the rest in fixed point, and
-one value of the sweep falls one level apart); PIL bit-equal; `cv2.filter2D` 1e-6; PNG files
-decoded as PIL and cv2 decode them, bit-equal.
+`decode_png`, over sizes 1-300, up- and downscales, the ratios 4/3 and 6/5,
+1-4 channels and 2-D arrays; 9 x 9, 11 x 11 and uneven kernels on images
+smaller than the kernel; PNG files of every colour type and bit depth the
+decoder reads (Adam7 and 16-bit files, and BMP, in
+tests/test_torch_image_formats.py), rows through the five filters, the
+image data split over many IDAT chunks, and every refusal with the same
+message from both. The yardsticks, as tests/test_torch_data.py holds the
+plain versions to them: `cv2.resize` with IPP off (cv2's own algorithm)
+bit-equal for cubic float32, 5e-7 for linear, one level for uint8 cubic
+(bit-equal at the datasets' shapes, tests/test_torch_data.py; where an
+output row's bytes end past cv2's last full vector, cv2 rounds the rest in
+fixed point, and one value of the sweep falls one level apart); PIL
+bit-equal; `cv2.filter2D` 1e-6; PNG files decoded as PIL and cv2 decode
+them, bit-equal.
 """
 
 import io
@@ -319,10 +321,14 @@ def _refusals():
         ("no IHDR", good[:8] + good[33:], "no IHDR chunk"),
         ("colour type", _png(rgb, 8, 2, ihdr=dict(color=5)),
          "unknown colour type 5"),
+        # an interlaced header over a non-interlaced stream: Adam7's
+        # passes want 102 bytes of the 6 x 5 RGB image (rows of each pass
+        # with their filter bytes), the stream holds 6 * 16
         ("interlaced", _png(rgb, 8, 2, ihdr=dict(lace=1)),
-         r"interlaced \(Adam7\) PNG files are not supported"),
+         r"interlaced \(Adam7\) image data holds 96 bytes, 102 wanted"),
+        # a 16-bit file read without naming whose 16-bit reading to follow
         ("16-bit", _png(rgb, 8, 2, ihdr=dict(depth=16)),
-         "16-bit PNG files are not supported"),
+         r"a 16-bit PNG: pass sixteen_bit='cv2' or 'pil'"),
         ("depth", _png(rgb, 8, 2, ihdr=dict(depth=4)),
          "bit depth 4 with colour type 2 is not a valid PNG"),
         ("compression", _png(rgb, 8, 2, ihdr=dict(comp=1)),

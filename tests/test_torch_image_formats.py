@@ -1,0 +1,907 @@
+"""The image formats the port's decoders read beyond baseline JPEG and
+8-bit non-interlaced PNG, on the CPU: progressive JPEG (`data/jpeg.py`,
+`csrc/host/jpeg.cc`), Adam7-interlaced and 16-bit PNG and BMP
+(`data/image_io.py`, `csrc/host/image.cc`), held to PIL 12.1 and cv2 5.0
+and to their plain versions; `imread_rgb` / `decode_image` by signature;
+and the golden fixtures of tests/fixtures/{jpeg,png,bmp} that
+`chip_smoke.py` phase 19 holds the host library to on the card's host,
+where neither PIL nor cv2 exists.
+
+Tolerances: none. Every decode is bit-equal to its yardstick:
+  * progressive JPEG to `cv2.imdecode` (flipped to RGB) and PIL's
+    `convert("RGB")`, on files both write, and the coefficients the host
+    library's scans leave (`jpeg.coefficients`) equal to the Python
+    decoder's (`jpeg.coefficients_plain`), baseline files too;
+  * PNG at every colour type and bit depth, Adam7 or not: to PIL with
+    `sixteen_bit="pil"` and to cv2 with `sixteen_bit="cv2"`, and
+    `decode_png` to `decode_png_plain`;
+  * BMP at every variant it takes: to PIL, and `decode_bmp` to
+    `decode_bmp_plain`; seeded RLE8 / RLE4 streams, broken ones among them,
+    refused where PIL raises, with one message from both versions.
+
+`python tests/test_torch_image_formats.py` writes the PNG and BMP
+fixtures (by `data/image_files.py`'s writers), the progressive JPEG fixtures
+(by PIL and cv2) and the digests of all three directories; the tests
+rebuild the PNG and BMP files byte for byte and every digest with PIL and
+cv2.
+"""
+
+import ctypes
+import hashlib
+import io
+import json
+import pathlib
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+
+cv2 = pytest.importorskip("cv2")
+Image = pytest.importorskip("PIL.Image")
+
+from hifidiff_tpu_torch.data import host, image_io, jpeg  # noqa: E402
+from hifidiff_tpu_torch.data.image_files import (  # noqa: E402
+    CELEBA_PROGRESSIVE, bmp_file, celeba_file, golden_input,
+    incomplete_progressive, jpeg_scans, png_file)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FIXTURES = REPO / "tests" / "fixtures"
+
+
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+
+
+def _seed(*case):
+    return zlib.crc32(repr(case).encode())
+
+
+def _sha(rgb):
+    return hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+
+
+def _pil(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _cv2(data):
+    return cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR)[..., ::-1]
+
+
+def _same(got, want):
+    assert got.dtype == np.uint8 and got.shape == want.shape, (got.shape,
+                                                               want.shape)
+    assert got.tobytes() == want.tobytes(), int(np.abs(
+        got.astype(int) - want.astype(int)).max())
+
+
+# -- writers ------------------------------------------------------------------
+
+SAMPLING = {"444": 0, "422": 1, "420": 2}
+CV2_SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
+                "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
+
+
+def pil_progressive(img, quality, sampling="420"):
+    """PIL's progressive JPEG of an RGB (or 2-D grey) uint8 image."""
+    out = io.BytesIO()
+    kw = {} if img.ndim == 2 else {"subsampling": SAMPLING[sampling]}
+    Image.fromarray(img).save(out, "JPEG", quality=quality,
+                              progressive=True, **kw)
+    return out.getvalue()
+
+
+def pil_baseline(img, quality):
+    """PIL's baseline JPEG (4:2:0) of an RGB uint8 image."""
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "JPEG", quality=quality)
+    return out.getvalue()
+
+
+def cv2_progressive(img, quality, sampling="420", restart=0):
+    """cv2's progressive JPEG (IMWRITE_JPEG_PROGRESSIVE) of an RGB (or
+    2-D grey) uint8 image, with a restart interval of `restart` MCUs."""
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE,
+              1, cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    if img.ndim == 3:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, CV2_SAMPLING[sampling]]
+        img = img[..., ::-1]
+    return cv2.imencode(".jpg", np.ascontiguousarray(img), params)[1].tobytes()
+
+
+def png_case(color, depth, h, w, interlace, seed):
+    """A seeded PNG (png_file) of colour type `color` at bit
+    depth `depth`: smooth ramps with noise over the depth's range (palette
+    indices for type 3, with a PLTE one entry short of the depth's range
+    where it has one), rows through the five filters."""
+    rng = np.random.default_rng(seed)
+    top = (1 << depth) - 1
+    ch = CHANNELS[color]
+    y, x = np.mgrid[:h, :w]
+    ramps = np.stack([(x * 7 + y * 3 + 11 * k) % (w + h + 1) for k in
+                      range(ch)], -1) * top // (w + h)
+    noise = rng.integers(-(top // 8) - 1, top // 8 + 2, ramps.shape)
+    samples = np.clip(ramps + noise, 0, top)
+    palette = None
+    if color == 3:
+        entries = min(top + 1, 200)
+        samples = samples % entries
+        palette = rng.integers(0, 256, (entries, 3))
+    return png_file(samples, depth, color, interlace, palette=palette)
+
+
+# -- progressive JPEG ---------------------------------------------------------
+
+SIZES = [(161, 157), (1, 1), (2, 3), (9, 33), (16, 5), (37, 29)]
+
+
+def _check_jpeg(data):
+    got = jpeg.decode_jpeg(data)
+    _same(got, _pil(data))
+    _same(got, _cv2(data))
+    lib, plain = jpeg.coefficients(data), jpeg.coefficients_plain(data)
+    assert len(lib) == len(plain)
+    for a, b in zip(lib, plain):
+        assert (a["h"], a["v"]) == (b["h"], b["v"])
+        _same_array(a["quant"], b["quant"])
+        _same_array(a["coef"], b["coef"])
+
+
+def _same_array(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420"])
+@pytest.mark.parametrize("q", [75, 95])
+def test_progressive_pil_files(sampling, q):
+    for i, (h, w) in enumerate(SIZES):
+        _check_jpeg(pil_progressive(golden_input(_seed(i, q), h, w), q,
+                                    sampling))
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "440", "420", "411"])
+def test_progressive_cv2_files_with_restarts(sampling):
+    for i, (h, w) in enumerate(SIZES):
+        img = golden_input(_seed(i, sampling), h, w)
+        for restart in (0, 1 + i % 3):
+            _check_jpeg(cv2_progressive(img, 90, sampling, restart))
+
+
+@pytest.mark.parametrize("writer", ["pil", "cv2"])
+def test_progressive_grey(writer):
+    for i, (h, w) in enumerate(SIZES):
+        grey = np.ascontiguousarray(golden_input(i, h, w)[..., 1])
+        _check_jpeg(pil_progressive(grey, 85) if writer == "pil"
+                    else cv2_progressive(grey, 85, restart=i))
+
+
+def test_baseline_coefficients_equal_the_plain_decoder():
+    """The sequential scans through the Python decoder too: PIL's and
+    cv2's baseline files, optimized tables and restarts."""
+    img = golden_input(7, 37, 29)
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "JPEG", quality=90, optimize=True)
+    files = [out.getvalue(), cv2.imencode(".jpg", img, [
+        cv2.IMWRITE_JPEG_RST_INTERVAL, 2])[1].tobytes(),
+        jpeg.encode_jpeg(img, 95)]
+    for data in files:
+        _check_jpeg(data)
+
+
+def test_progressive_without_dc_refinement():
+    """A file without its DC refinement scan keeps every AC coefficient
+    whole: libjpeg does not smooth it, and its DC lacks the last bit in
+    the port's decode as in PIL's and cv2's."""
+    data = pil_progressive(golden_input(4, 37, 29), 90)
+    head, scans = jpeg_scans(data)
+    dc_refine = [i for i, s in enumerate(scans)
+                 if s[5 + 2 * s[4]] == 0 and s[7 + 2 * s[4]] >> 4]
+    assert len(dc_refine) == 1
+    cut = head + b"".join(s for i, s in enumerate(scans)
+                          if i != dc_refine[0]) + b"\xff\xd9"
+    _check_jpeg(cut)
+    assert not np.array_equal(jpeg.decode_jpeg(cut), jpeg.decode_jpeg(data))
+
+
+def _dqt_tables(data):
+    """(offset of the entries, Pq, Tq) of every table of every DQT."""
+    out, at = [], 2
+    while data[at + 1] != 0xDA:
+        n = (data[at + 2] << 8) | data[at + 3]
+        if data[at + 1] == 0xDB:
+            p = at + 4
+            while p < at + 2 + n:
+                out.append((p + 1, data[p] >> 4, data[p] & 15))
+                p += 1 + (128 if data[p] >> 4 else 64)
+        at += 2 + n
+    return out
+
+
+def _raise_entry(data, table, k):
+    """The file with entry k (zigzag order) of 8-bit table `table` at 255."""
+    at = next(o for o, _, tq in _dqt_tables(data) if tq == table)
+    return data[:at + k] + b"\xff" + data[at + k + 1:]
+
+
+def _sixteen_bit_dqt(data, scale):
+    """The file with every 8-bit table written as a 16-bit one (Pq = 1),
+    its entries times `scale`."""
+    tables = _dqt_tables(data)
+    out, at = data[:2], 2
+    while data[at + 1] != 0xDA:
+        end = at + 2 + ((data[at + 2] << 8) | data[at + 3])
+        seg = data[at:end]
+        if data[at + 1] == 0xDB:
+            body = b"".join(
+                bytes([0x10 | tq]) + (np.frombuffer(data[o:o + 64], np.uint8)
+                                      .astype(int) * scale).astype(">u2")
+                .tobytes()
+                for o, _, tq in tables if at < o < end)
+            seg = b"\xff\xdb" + (len(body) + 2).to_bytes(2, "big") + body
+        out += seg
+        at = end
+    return out + data[at:]
+
+
+QUANT_CASES = ["luma DC", "luma AC1", "luma AC5", "luma AC63", "chroma DC",
+               "chroma AC1", "16-bit", "16-bit x3", "16-bit x256", "grey DC"]
+
+
+@pytest.mark.parametrize("case", QUANT_CASES)
+@pytest.mark.parametrize("progressive", [False, True])
+def test_unusual_quantization_tables(progressive, case):
+    """Valid files with quantization tables the libraries' encoders do not
+    write, at quality 50, 90 and 100 (4:2:0, or grey): one entry raised to
+    255 after the fact (of the luma or chroma table, the DC or an AC), or
+    every table as a 16-bit DQT (Pq = 1), as it was or times 3 or 256. Each
+    decodes as PIL and cv2 decode it, bit for bit: libjpeg-turbo's x86-64
+    SIMD IDCT, whose 16-bit lanes wrap and saturate where a raised entry
+    takes the dequantized values past 16 bits (the DC cases do, which this
+    test checks); jidctint.c's C arithmetic parts from both there."""
+    widest = 0
+    for q in (50, 90, 100):
+        img = golden_input(_seed(case, q), 37, 29)
+        if case.startswith("grey"):
+            img = np.ascontiguousarray(img[..., 0])
+        data = (pil_progressive(img, q) if progressive
+                else pil_baseline(img, q))
+        if case.startswith("16-bit"):
+            data = _sixteen_bit_dqt(data, int(case.split("x")[1])
+                                    if "x" in case else 1)
+            assert {pq for _, pq, _ in _dqt_tables(data)} == {1}
+        else:
+            k = {"DC": 0, "AC1": 1, "AC5": 5, "AC63": 63}[case.split()[1]]
+            data = _raise_entry(data, int(case.startswith("chroma")), k)
+        _check_jpeg(data)
+        widest = max(widest, *(int(np.abs(c["coef"].astype(np.int64)
+                                          * c["quant"]).max())
+                               for c in jpeg.coefficients(data)))
+    if case.endswith(("DC", "x256")):
+        assert widest > 32767, widest
+
+
+def _sof10(data):
+    at = next(i for i in range(len(data) - 1)
+              if data[i] == 0xFF and data[i + 1] in (0xC0, 0xC2))
+    return data[:at + 1] + b"\xca" + data[at + 2:]
+
+
+@pytest.mark.parametrize("case, match", [
+    ("incomplete", "incomplete progressive JPEG: libjpeg would smooth it"),
+    ("SOF10", r"arithmetic-coded JPEG \(SOF10, progressive\)"),
+    ("truncated", "truncated data"),
+    ("bad scan", "bad progressive scan parameters"),
+])
+def test_progressive_refusals(case, match):
+    """What stays refused is refused by the library and the plain
+    decoder with one message: a file cut after some of its scans (libjpeg
+    would smooth it), SOF10, a file cut inside a scan, and a scan whose
+    parameters libjpeg rejects."""
+    data = pil_progressive(golden_input(3, 37, 29), 90)
+    head, scans = jpeg_scans(data)
+    if case == "incomplete":
+        data = incomplete_progressive(data, 3)
+    elif case == "SOF10":
+        data = _sof10(data)
+    elif case == "truncated":
+        data = data[:len(data) - 200]
+    else:   # an AC scan over two components
+        data = head + scans[0] + b"\xff\xda" + bytes(
+            [0, 10, 2, 1, 0x00, 2, 0x11, 1, 5, 0x20]) + b"\xff\xd9"
+    messages = []
+    for fn in (jpeg.decode_jpeg, jpeg.coefficients, jpeg.coefficients_plain):
+        with pytest.raises(jpeg.JPEGError, match=match) as e:
+            fn(data)
+        messages.append(str(e.value))
+    assert len(set(messages)) == 1, messages
+
+
+# -- PNG: Adam7 and 16-bit ----------------------------------------------------
+
+@pytest.mark.parametrize("color", sorted(DEPTHS))
+@pytest.mark.parametrize("interlace", [0, 1])
+def test_png_every_depth_against_pil_and_cv2(color, interlace):
+    """Every colour type at every bit depth, Adam7 and not, at sizes that
+    leave passes empty (1 x 1, one row, one column) and whole: PIL with
+    `sixteen_bit="pil"`, cv2 with `"cv2"`, and the library to the plain
+    version."""
+    for depth in DEPTHS[color]:
+        for h, w in [(1, 1), (1, 9), (9, 1), (2, 3), (5, 5), (8, 8),
+                     (13, 17), (33, 40)]:
+            data = png_case(color, depth, h, w, interlace,
+                            _seed(color, depth, h, w, interlace))
+            for how, ref in (("pil", _pil(data)), ("cv2", _cv2(data))):
+                got = image_io.decode_png(data, sixteen_bit=how)
+                _same(got, ref)
+                _same(image_io.decode_png_plain(data, sixteen_bit=how), got)
+
+
+def test_sixteen_bit_semantics_differ_on_grey_only():
+    """PIL clamps a 16-bit grey sample to 255; cv2 and PIL keep the high
+    byte elsewhere. The table of `data/image_io.py`, measured."""
+    rng = np.random.default_rng(0)
+    for color in (0, 2, 4, 6):
+        samples = rng.integers(0, 1 << 16, (4, 5, CHANNELS[color]))
+        samples[0, 0] = 33375
+        data = png_file(samples, 16, color)
+        grey = samples[..., :1] if color in (0, 4) else samples[..., :3]
+        high = np.broadcast_to(grey >> 8, (4, 5, 3)).astype(np.uint8)
+        clamp = np.broadcast_to(np.minimum(grey, 255),
+                                (4, 5, 3)).astype(np.uint8)
+        _same(_cv2(data), high)
+        _same(_pil(data), clamp if color == 0 else high)
+        _same(image_io.decode_png(data, sixteen_bit="cv2"), high)
+        _same(image_io.decode_png(data, sixteen_bit="pil"),
+              clamp if color == 0 else high)
+    assert int(_pil(png_file(samples[..., :1], 16, 0))[0, 0, 0]) == 255
+    assert int(_cv2(png_file(samples[..., :1], 16, 0))[0, 0, 0]) == 130
+
+
+def test_sixteen_bit_needs_the_argument(tmp_path):
+    """A 16-bit file read without `sixteen_bit` raises, naming it, in
+    both versions and through `imread_rgb`; an 8-bit file needs none; a
+    wrong value raises ValueError."""
+    data = png_case(2, 16, 5, 4, 1, 0)
+    for fn in (image_io.decode_png, image_io.decode_png_plain):
+        with pytest.raises(image_io.PNGError, match="sixteen_bit='cv2' or "
+                           "'pil'"):
+            fn(data)
+        with pytest.raises(ValueError, match="sixteen_bit must be one of"):
+            fn(data, sixteen_bit="PIL")
+    (tmp_path / "a.png").write_bytes(data)
+    with pytest.raises(image_io.PNGError, match="a.png: a 16-bit PNG"):
+        image_io.imread_rgb(str(tmp_path / "a.png"))
+    _same(image_io.imread_rgb(str(tmp_path / "a.png"), sixteen_bit="pil"),
+          _pil(data))
+    _same(image_io.decode_png(png_case(2, 8, 5, 4, 1, 0)),
+          _pil(png_case(2, 8, 5, 4, 1, 0)))
+
+
+def test_interlaced_refusals():
+    """A truncated interlaced stream and a bad filter inside a pass: one
+    message from both versions, naming the pass."""
+    data = png_case(6, 16, 13, 17, 1, 5)
+    stream = zlib.decompress(_idat(data))
+    raw_len = len(stream)
+    short = _with_idat(data, zlib.compress(stream[:-1]))
+    bad = bytearray(stream)
+    first = (((17 + 7) // 8) * 8 + 1) * ((13 + 7) // 8)   # pass 1's bytes
+    bad[first] = 7                                           # pass 2, row 0
+    cases = [(short, rf"interlaced \(Adam7\) image data holds "
+              rf"{raw_len - 1} bytes, {raw_len} wanted"),
+             (_with_idat(data, zlib.compress(bytes(bad))),
+              "pass 2 row 0: unknown filter type 7")]
+    for blob, match in cases:
+        messages = []
+        for fn in (image_io.decode_png, image_io.decode_png_plain):
+            with pytest.raises(image_io.PNGError, match=match) as e:
+                fn(blob, sixteen_bit="cv2")
+            messages.append(str(e.value))
+        assert messages[0] == messages[1]
+        with pytest.raises(Exception):
+            _pil(blob)
+
+
+def _idat(data):
+    out, pos = b"", 8
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            out += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return out
+
+
+def _with_idat(data, stream):
+    """The PNG `data` with its image data replaced by `stream`."""
+    import struct
+
+    head = data[:33]
+    chunk = (struct.pack(">I", len(stream)) + b"IDAT" + stream
+             + struct.pack(">I", zlib.crc32(b"IDAT" + stream)))
+    return head + chunk + data[-12:]
+
+
+# -- BMP ----------------------------------------------------------------------
+
+def bmp_case(kind, h, w, seed):
+    """A seeded BMP (bmp_file) of one variant: `kind` is
+    "<header>-<bits>[-<how>]" with how one of topdown, bw (a black-and-white
+    1-bit palette), grey (PIL's grey ramp as palette), short (a palette of
+    fewer entries than the bits allow), rle, 555 / 565 / BGRA / RGBA /
+    XBGR (BI_BITFIELDS)."""
+    header, bits, *how = kind.split("-")
+    header, bits, how = int(header), int(bits), (how or [""])[0]
+    rng = np.random.default_rng(seed)
+    if bits <= 8:
+        colors = 5 if how == "short" else 1 << bits
+        palette = rng.integers(0, 256, (colors, 3))
+        if how == "bw":
+            palette = np.array([[0, 0, 0], [255, 255, 255]])
+        if how == "grey":
+            palette = np.repeat(np.arange(colors)[:, None], 3, 1)
+        y, x = np.mgrid[:h, :w]
+        pixels = ((x // 3 + y // 2) % colors + (rng.uniform(size=(h, w))
+                                                < 0.3)) % colors
+        if how == "short":   # indices past the palette read black
+            pixels[0, 0] = (1 << bits) - 1
+        return bmp_file(pixels, bits, header, palette=palette,
+                           rle=how == "rle")
+    rgb = golden_input(seed, h, w)
+    fields = how if how in ("555", "565", "BGRA", "RGBA", "XBGR") else None
+    return bmp_file(rgb, bits, header, topdown=how == "topdown",
+                       fields=fields)
+
+
+BMP_KINDS = ["12-1", "12-4", "12-8", "12-24", "40-1", "40-1-bw", "40-4",
+             "40-4-grey", "40-4-rle", "40-8", "40-8-grey", "40-8-short",
+             "40-8-rle", "40-16", "40-16-565", "40-16-555", "40-24",
+             "40-24-topdown", "40-32", "40-32-BGRA", "40-32-XBGR",
+             "56-32-RGBA",
+             "108-24", "108-16-565", "124-32-BGRA", "124-8", "124-24-topdown"]
+
+
+def _check_bmp(data):
+    """The file decoded as PIL decodes it by both versions, or, where PIL
+    raises, refused by both with one message. Returns whether it
+    decoded."""
+    try:
+        want = _pil(data)
+    except Exception:
+        messages = []
+        for fn in (image_io.decode_bmp, image_io.decode_bmp_plain):
+            with pytest.raises(image_io.BMPError) as e:
+                fn(data)
+            messages.append(str(e.value))
+        assert messages[0] == messages[1]
+        return False
+    got = image_io.decode_bmp(data)
+    _same(got, want)
+    _same(image_io.decode_bmp_plain(data), got)
+    return True
+
+
+@pytest.mark.parametrize("kind", BMP_KINDS)
+def test_bmp_variants_against_pil(kind):
+    """Each variant at five sizes. PIL reads a 4-bit file of its grey ramp
+    a byte a pixel, and refuses it where a row's pixels would run past the
+    row's stored bytes (wider than 4): the port refuses it there too."""
+    decoded = [_check_bmp(bmp_case(kind, h, w, _seed(kind, h, w)))
+               for h, w in [(1, 1), (3, 4), (7, 13), (16, 9), (33, 17)]]
+    assert all(decoded) or (kind == "40-4-grey" and decoded[:2] == [True,
+                                                                    True])
+
+
+def test_bmp_rle_streams_against_pil():
+    """Seeded RLE8 / RLE4 streams of every escape (runs past the row's
+    end, end of line, delta, absolute runs of odd counts, end of bitmap,
+    streams that stop early) decode as PIL's BmpRleDecoder decodes them,
+    or are refused where PIL raises, one message from both versions."""
+    decoded = refused = 0
+    for seed in range(300):
+        rng = np.random.default_rng(seed)
+        h, w = int(rng.integers(1, 9)), int(rng.integers(1, 24))
+        rle4 = bool(seed % 2)
+        body = bytearray()
+        for _ in range(int(rng.integers(1, 40))):
+            k = rng.uniform()
+            if k < 0.45:
+                body += bytes([int(rng.integers(1, 20)),
+                               int(rng.integers(0, 256))])
+            elif k < 0.6:
+                body += b"\0\0"
+            elif k < 0.67:
+                body += bytes([0, 2, *rng.integers(0, 4, 4).tolist()])
+            elif k < 0.69:
+                body += b"\0\1"
+            else:
+                n = int(rng.integers(3, 14))
+                body += bytes([0, n]) + bytes(rng.integers(0, 256, n)
+                                              .astype(np.uint8))
+        data = bmp_file(np.zeros((h, w), int), 4 if rle4 else 8, 40,
+                           palette=rng.integers(0, 256, (16, 3)), rle=True)
+        offset = int.from_bytes(data[10:14], "little")
+        data = data[:offset] + bytes(body)
+        try:
+            want = _pil(data)
+        except Exception:   # PIL raises: so must both versions
+            messages = []
+            for fn in (image_io.decode_bmp, image_io.decode_bmp_plain):
+                with pytest.raises(image_io.BMPError) as e:
+                    fn(data)
+                messages.append(str(e.value))
+            assert messages[0] == messages[1]
+            refused += 1
+            continue
+        _same(image_io.decode_bmp(data), want)
+        _same(image_io.decode_bmp_plain(data), want)
+        decoded += 1
+    assert decoded > 50 and refused > 50, (decoded, refused)
+
+
+# A 10,000,000 x 1 RLE8 BMP of one delta escape of 255 columns and 255
+# rows (PIL's delta reads four bytes and moves by the last two), then end of
+# bitmap, decoded by both versions in a process whose address space may grow
+# by 1 GiB: the delta asks for 2.55 GB of indices.
+RLE_DELTA = """
+import resource, sys
+import numpy as np
+from hifidiff_tpu_torch.data import host, image_io
+from hifidiff_tpu_torch.data.image_files import bmp_file
+w = 10_000_000
+data = bmp_file(np.zeros((1, 1), int), 8, palette=[[7, 8, 9]] * 256, rle=True)
+offset = int.from_bytes(data[10:14], "little")
+data = (data[:18] + w.to_bytes(4, "little") + data[22:offset]
+        + bytes([0, 2, 0, 0, 255, 255, 0, 1]))
+host.library()
+vm = next(int(ln.split()[1]) for ln in open("/proc/self/status")
+          if ln.startswith("VmSize:")) * 1024
+resource.setrlimit(resource.RLIMIT_AS, (vm + (1 << 30), vm + (1 << 30)))
+for fn in (image_io.decode_bmp, image_io.decode_bmp_plain):
+    out = fn(data)
+    assert out.shape == (1, w, 3) and (out == [7, 8, 9]).all(), fn.__name__
+print("ok")
+"""
+
+
+def test_bmp_rle_delta_stops_at_the_image_end():
+    """A delta escape moves by up to 255 columns and 255 rows of the
+    image's width, read from the file: PIL grows its index buffer by all
+    of it, though the decoder stops at the image's end and cuts the buffer
+    there. Both versions stop the growth at the end (the same pixels), so
+    a 10,000,000 x 1 file of about 1 kB decodes within 1 GiB more address
+    space, where the delta alone would ask for 2.55 GB."""
+    res = subprocess.run([sys.executable, "-c", RLE_DELTA], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.split() == ["ok"], res.stderr
+
+
+def test_host_library_returns_no_memory():
+    """An allocation that fails inside the host library comes back as
+    `host.NO_MEMORY` rather than as a C++ exception through ctypes, which
+    would abort the process: an RLE BMP and a filter2d of 2^30 x 2^30,
+    whose buffers (2^60 bytes, 2^60 doubles) are made before any pixel is
+    read or written."""
+    lib = host.library()
+    out = np.zeros(3, np.uint8)
+    pal = np.zeros((1, 3), np.uint8)
+    detail = (ctypes.c_int * 2)()
+    assert lib.hi_bmp_rgb(b"\0\1", 2, 0, 1 << 30, 1 << 30, 0, 0, 8, 2, 1,
+                          0, pal.ctypes.data, 1, 1, out.ctypes.data,
+                          detail) == host.NO_MEMORY
+    img = np.zeros(1, np.float32)
+    kernel = np.ones(1)
+    assert lib.hi_filter2d(img.ctypes.data, img.ctypes.data, 1 << 30,
+                           1 << 30, 1, kernel.ctypes.data, 1,
+                           1) == host.NO_MEMORY
+
+
+@pytest.mark.parametrize("case, match", [
+    ("header", "unsupported BMP header size 20"),
+    ("bits", "unsupported BMP bit depth 2"),
+    ("fields", "unsupported BMP bitfields layout"),
+    ("jpeg", r"unsupported BMP compression 4 \(JPEG inside a BMP\)"),
+    ("truncated", "truncated BMP pixel data"),
+    ("empty", "an empty BMP"),
+])
+def test_bmp_refusals(case, match):
+    data = bytearray(bmp_case("40-24", 6, 7, 1))
+    if case == "header":
+        data[14] = 20
+    elif case == "bits":
+        data[28] = 2
+    elif case == "fields":
+        data = bytearray(bmp_case("40-16-565", 6, 7, 1))
+        data[54:58] = (0xF00).to_bytes(4, "little")
+    elif case == "jpeg":
+        data[30] = 4
+    elif case == "truncated":
+        data = data[:-5]
+    else:
+        data[18:22] = bytes(4)
+    messages = []
+    for fn in (image_io.decode_bmp, image_io.decode_bmp_plain):
+        with pytest.raises(image_io.BMPError, match=match) as e:
+            fn(bytes(data))
+        messages.append(str(e.value))
+    assert messages[0] == messages[1]
+    with pytest.raises(Exception):
+        _pil(bytes(data))
+
+
+# -- by signature -------------------------------------------------------------
+
+def test_imread_rgb_reads_every_format_and_names_the_rest(tmp_path):
+    """`imread_rgb` and `decode_image` read PNG, JPEG and BMP by their
+    signature; a WebP, a GIF or anything else raises `ImageFormatError`
+    (a ValueError, which the datasets' loader and the server's 400 both
+    take), naming the formats the port reads."""
+    img = golden_input(2, 21, 19)
+    files = {"a.png": png_case(2, 16, 21, 19, 1, 3),
+             "b.jpg": pil_progressive(img, 90),
+             "c.bmp": bmp_file(img, 24),
+             "d.dat": bmp_file(img, 24)}     # the name does not matter
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        _same(image_io.imread_rgb(str(tmp_path / name), sixteen_bit="pil"),
+              _pil(data))
+        _same(image_io.decode_image(data, sixteen_bit="pil"), _pil(data))
+    webp = io.BytesIO()
+    try:
+        Image.fromarray(img).save(webp, "WEBP", lossless=True)
+    except (KeyError, OSError):    # a PIL without WebP: the signature alone
+        webp = io.BytesIO(b"RIFF\0\0\0\0WEBPVP8L" + bytes(20))
+    gif = io.BytesIO()
+    Image.fromarray(img).save(gif, "GIF")
+    for name, data, what in (("e.webp", webp.getvalue(), "a WebP file"),
+                             ("f.gif", gif.getvalue(), "a GIF file"),
+                             ("g.png", b"not an image",
+                              "not an image the port knows")):
+        (tmp_path / name).write_bytes(data)
+        with pytest.raises(image_io.ImageFormatError,
+                           match=f"{name}: {what}: the port reads PNG, JPEG "
+                           r"\(baseline, extended and progressive\) and "
+                           "BMP") as e:
+            image_io.imread_rgb(str(tmp_path / name))
+        assert isinstance(e.value, ValueError)
+        assert not isinstance(e.value, (image_io.PNGError, jpeg.JPEGError))
+
+
+def test_phase15_celeba_files_read_as_pil_reads_them():
+    """chip_smoke.py's CelebA-HQ directory (phase 15, read by
+    `pretrain_denoiser --celeba-root` there) holds every format in turn:
+    each of its twelve kinds decodes as PIL decodes it, the library equal
+    to the plain version."""
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    face = (proc.render_face(proc._identity_params(0, 1), 0.1, 64)
+            * 255).astype(np.uint8)
+    progressive = (FIXTURES / "jpeg" / CELEBA_PROGRESSIVE).read_bytes()
+    kinds = set()
+    for j in range(12):
+        data, ext = celeba_file(face, j, progressive)
+        kinds.add((ext, data[24] if ext == ".png" else None,
+                   data[28] if ext == ".png" else data[30]))
+        got = image_io.decode_image(data, sixteen_bit="pil")
+        _same(got, _pil(data))
+        if ext == ".png":
+            _same(image_io.decode_png_plain(data, sixteen_bit="pil"), got)
+        elif ext == ".bmp":
+            _same(image_io.decode_bmp_plain(data), got)
+    assert {(e, d) for e, d, _ in kinds} == {
+        (".png", 8), (".png", 16), (".jpg", None), (".bmp", None)}
+    assert {(d, lace) for e, d, lace in kinds if e == ".png"} == {
+        (8, 0), (8, 1), (16, 0), (16, 1)}
+    assert {c for e, _, c in kinds if e == ".bmp"} == {0, 1}   # RLE8 too
+
+
+# -- golden fixtures ----------------------------------------------------------
+
+def jpeg_fixtures():
+    """{name: bytes} of the progressive JPEG fixtures, written by PIL and
+    cv2 from seeded inputs, and the JPEG refusals added with them."""
+    from hifidiff_tpu_torch.data import procedural as proc
+
+    face = (proc.render_face(proc._identity_params(0, 3), 0.2, 160)
+            * 255).astype(np.uint8)
+    frame = proc.render_face(proc._identity_params(0, 0), 0.3, 640)
+    frame = (np.tile(frame, (2, 3, 1))[:1080, :1920] * 255).astype(np.uint8)
+    g = golden_input
+    out = {
+        "pil_prog_420_q90_37x29.jpg": pil_progressive(g(21, 37, 29), 90),
+        "pil_prog_444_q95_21x33.jpg": pil_progressive(g(22, 21, 33), 95,
+                                                      "444"),
+        "pil_prog_grey_q85_29x45.jpg": pil_progressive(
+            np.ascontiguousarray(g(23, 29, 45)[..., 0]), 85),
+        "cv2_prog_420_q90_rst2_45x37.jpg": cv2_progressive(
+            g(24, 45, 37), 90, "420", 2),
+        "cv2_prog_444_q85_rst1_33x21.jpg": cv2_progressive(
+            g(25, 33, 21), 85, "444", 1),
+        "cv2_prog_grey_q90_rst3_23x41.jpg": cv2_progressive(
+            np.ascontiguousarray(g(26, 23, 41)[..., 2]), 90, restart=3),
+        "pil_prog_face_q95_160x160.jpg": pil_progressive(face, 95),
+        "pil_prog_frame_q95_1920x1080.jpg": pil_progressive(frame, 95),
+    }
+    # quantization tables raised after the fact: the SIMD IDCT's 16-bit
+    # lanes wrap and saturate on them (test_unusual_quantization_tables)
+    out["pil_dc255_420_q90_37x29.jpg"] = _raise_entry(pil_baseline(
+        g(27, 37, 29), 90), 0, 0)
+    out["pil_prog_dqt16x256_420_q90_37x29.jpg"] = _sixteen_bit_dqt(
+        pil_progressive(g(28, 37, 29), 90), 256)
+    out["prog_incomplete_37x29.jpg"] = incomplete_progressive(
+        out["pil_prog_420_q90_37x29.jpg"], 4)
+    out["prog_sof10_37x29.jpg"] = _sof10(out["pil_prog_420_q90_37x29.jpg"])
+    return out
+
+
+JPEG_REFUSE = {"prog_incomplete_37x29.jpg": "incomplete progressive JPEG",
+               "prog_sof10_37x29.jpg": "arithmetic-coded JPEG"}
+
+
+def png_fixtures():
+    """{name: bytes}: Adam7 at every colour type and bit depth, and 16-bit
+    non-interlaced files of colour types 0, 2, 4 and 6, seeded."""
+    out = {}
+    for color, depths in DEPTHS.items():
+        for depth in depths:
+            h, w = 9 + 2 * color + depth % 5, 11 + color + depth % 7
+            out[f"adam7_c{color}_d{depth}_{h}x{w}.png"] = png_case(
+                color, depth, h, w, 1, _seed("adam7", color, depth))
+    for color in (0, 2, 4, 6):
+        out[f"png16_c{color}_15x13.png"] = png_case(
+            color, 16, 15, 13, 0, _seed("png16", color))
+    data = out["adam7_c6_d16_22x19.png"]
+    stream = zlib.decompress(_idat(data))
+    out["adam7_truncated_22x19.png"] = _with_idat(
+        data, zlib.compress(stream[:-40]))
+    return out
+
+
+PNG_REFUSE = {"adam7_truncated_22x19.png": r"interlaced \(Adam7\) image "
+              "data holds"}
+
+
+def bmp_fixtures():
+    """{name: bytes}: every BMP variant the decoder takes, seeded, and a
+    refusal."""
+    out = {}
+    for kind in BMP_KINDS:
+        w = 4 if kind == "40-4-grey" else 11   # PIL's widest for that one
+        out[f"bmp_{kind}_13x{w}.bmp"] = bmp_case(kind, 13, w,
+                                                  _seed("bmp", kind))
+    bad = bytearray(out["bmp_40-16-565_13x11.bmp"])
+    bad[54:58] = (0xF00).to_bytes(4, "little")
+    out["bmp_fields_refused_13x11.bmp"] = bytes(bad)
+    return out
+
+
+BMP_REFUSE = {"bmp_fields_refused_13x11.bmp":
+              "unsupported BMP bitfields layout"}
+
+
+def _digests(files, refuse, semantics):
+    out = {"source": "PIL 12.1.0 and cv2 5.0.0: each file decoded as the "
+                     "named library decodes it, RGB uint8",
+           "decode": {}, "refuse": refuse}
+    for name, data in sorted(files.items()):
+        if name in refuse:
+            continue
+        out["decode"][name] = {how: {"shape": list(rgb.shape),
+                                     "sha256": _sha(rgb)}
+                               for how, rgb in semantics(data).items()}
+    return out
+
+
+def _png_semantics(data):
+    return {"pil": _pil(data), "cv2": _cv2(data)}
+
+
+def _bmp_semantics(data):
+    return {"pil": _pil(data)}
+
+
+def write_fixtures():
+    """Writes the fixtures and the PNG and BMP digests; adds the
+    progressive JPEG files to tests/fixtures/jpeg/digests.json."""
+    for sub, files in (("png", png_fixtures()), ("bmp", bmp_fixtures())):
+        d = FIXTURES / sub
+        d.mkdir(exist_ok=True)
+        for name, data in files.items():
+            (d / name).write_bytes(data)
+        refuse, sem = ((PNG_REFUSE, _png_semantics) if sub == "png"
+                       else (BMP_REFUSE, _bmp_semantics))
+        (d / "digests.json").write_text(json.dumps(
+            _digests(files, refuse, sem), indent=1) + "\n")
+    golden_path = FIXTURES / "jpeg" / "digests.json"
+    golden = json.loads(golden_path.read_text())
+    for name, data in jpeg_fixtures().items():
+        (FIXTURES / "jpeg" / name).write_bytes(data)
+        if name in JPEG_REFUSE:
+            golden["refuse"][name] = JPEG_REFUSE[name]
+        else:
+            rgb = _pil(data)
+            golden["decode"][name] = {"shape": list(rgb.shape),
+                                      "sha256": _sha(rgb)}
+    progressive = "pil_progressive_32x32.jpg"
+    golden["refuse"].pop(progressive, None)
+    rgb = _pil((FIXTURES / "jpeg" / progressive).read_bytes())
+    golden["decode"][progressive] = {"shape": list(rgb.shape),
+                                     "sha256": _sha(rgb)}
+    golden_path.write_text(json.dumps(golden, indent=1) + "\n")
+
+
+@pytest.mark.parametrize("sub", ["png", "bmp"])
+def test_png_and_bmp_fixtures_rebuilt(sub):
+    """The committed PNG and BMP fixtures are `data/image_files.py`'s writers'
+    bytes for their seeds, and digests.json holds PIL's (and, for PNG,
+    cv2's) decodes of them; the port gives the same digests and refuses
+    the refused files; the library and the plain versions agree."""
+    files = png_fixtures() if sub == "png" else bmp_fixtures()
+    d = FIXTURES / sub
+    golden = json.loads((d / "digests.json").read_text())
+    assert sorted(p.name for p in d.iterdir()) == sorted(
+        [*files, "digests.json"])
+    assert sum(p.stat().st_size for p in d.iterdir()) < 100_000
+    for name, data in files.items():
+        assert (d / name).read_bytes() == data, name
+    sem = _png_semantics if sub == "png" else _bmp_semantics
+    assert golden == json.loads(json.dumps(_digests(
+        files, PNG_REFUSE if sub == "png" else BMP_REFUSE, sem)))
+    for name, by_how in golden["decode"].items():
+        data = files[name]
+        for how, want in by_how.items():
+            if sub == "png":
+                got = image_io.decode_png(data, sixteen_bit=how)
+                plain = image_io.decode_png_plain(data, sixteen_bit=how)
+            else:
+                got = image_io.decode_bmp(data)
+                plain = image_io.decode_bmp_plain(data)
+            assert [list(got.shape), _sha(got)] == [want["shape"],
+                                                    want["sha256"]], name
+            _same(plain, got)
+    error = image_io.PNGError if sub == "png" else image_io.BMPError
+    for name, match in golden["refuse"].items():
+        with pytest.raises(error, match=match):
+            image_io.decode_image(files[name], sixteen_bit="cv2")
+        with pytest.raises(Exception):
+            _pil(files[name])
+    kinds = {n.split("_")[1] for n in golden["decode"]}
+    if sub == "png":
+        assert {f"c{c}" for c in DEPTHS} <= kinds | {
+            n.split("_")[1] for n in golden["decode"] if "png16" in n}
+        assert all(f"adam7_c{c}_d{d}_" in " ".join(golden["decode"])
+                   for c in DEPTHS for d in DEPTHS[c])
+
+
+def test_progressive_jpeg_fixtures_rebuilt():
+    """The progressive fixtures of tests/fixtures/jpeg are PIL's and cv2's
+    files for their seeds, in digests.json with PIL's and cv2's decodes
+    (test_torch_jpeg.py's golden test holds every entry), and the
+    library's coefficients of each equal the plain decoder's."""
+    golden = json.loads((FIXTURES / "jpeg" / "digests.json").read_text())
+    files = jpeg_fixtures()
+    for name, data in files.items():
+        assert (FIXTURES / "jpeg" / name).read_bytes() == data, name
+        if name in JPEG_REFUSE:
+            assert golden["refuse"][name] == JPEG_REFUSE[name]
+            continue
+        assert name in golden["decode"], name
+        if "1920x1080" not in name:   # the frame: about 4 s plain
+            lib, plain = jpeg.coefficients(data), jpeg.coefficients_plain(
+                data)
+            for a, b in zip(lib, plain):
+                _same_array(a["coef"], b["coef"])
+    assert "pil_progressive_32x32.jpg" in golden["decode"]
+
+
+if __name__ == "__main__":
+    write_fixtures()
+    sys.exit(0)

@@ -31,7 +31,6 @@ Tolerances:
 """
 
 import hashlib
-import importlib.util
 import io
 import json
 import pathlib
@@ -47,6 +46,7 @@ Image = pytest.importorskip("PIL.Image")
 from hifidiff_tpu.data import degradations as jdeg  # noqa: E402
 from hifidiff_tpu_torch.data import degradations as deg  # noqa: E402
 from hifidiff_tpu_torch.data import host, image_io, jpeg  # noqa: E402
+from hifidiff_tpu_torch.data.image_files import golden_input  # noqa: E402
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -56,17 +56,6 @@ SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "440": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440,
             "420": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
             "411": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411}
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-golden_input = _chip_smoke().golden_input
 
 
 def _face(seed, h, w, amp=40):
@@ -197,8 +186,9 @@ def test_encoder_refusals():
 
 def test_golden_digests_rebuilt_by_cv2_and_pil():
     """digests.json holds what cv2 and PIL decode from the golden files
-    and what cv2 writes for the seeded inputs (`chip_smoke.golden_input`);
-    the port gives the same digests; the refused files are refused."""
+    and what cv2 writes for the seeded inputs
+    (`data/image_files.golden_input`); the port gives the same digests; the
+    refused files are refused."""
     golden = json.loads((FIXTURES / "digests.json").read_text())
     assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 200_000
     for name, want in golden["decode"].items():
@@ -231,11 +221,15 @@ def test_imread_rgb_reads_jpeg(tmp_path):
         np.testing.assert_array_equal(
             image_io.imread_rgb(str(tmp_path / name)), want)
     (tmp_path / "c.jpg").write_bytes(_pil_jpeg(img, progressive=True))
-    with pytest.raises(jpeg.JPEGError, match="c.jpg: progressive"):
-        image_io.imread_rgb(str(tmp_path / "c.jpg"))
     cv2.imwrite(str(tmp_path / "d.bmp"), img)
-    with pytest.raises(image_io.PNGError, match="neither PNG nor JPEG"):
-        image_io.imread_rgb(str(tmp_path / "d.bmp"))
+    for name in ("c.jpg", "d.bmp"):
+        want = np.asarray(Image.open(tmp_path / name).convert("RGB"))
+        np.testing.assert_array_equal(
+            image_io.imread_rgb(str(tmp_path / name)), want)
+    Image.fromarray(img).save(tmp_path / "e.gif")
+    with pytest.raises(image_io.ImageFormatError,
+                       match="e.gif: a GIF file: the port reads PNG, JPEG"):
+        image_io.imread_rgb(str(tmp_path / "e.gif"))
 
 
 def test_host_build_failure_raises_with_the_compiler_output(tmp_path,

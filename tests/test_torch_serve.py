@@ -1,7 +1,8 @@
 """The port's batching server (`hifidiff_tpu_torch/cli/serve.py`) on the CPU,
 tiny stack, 2 DDIM steps, float32: every case of tests/test_serve.py on the
-port's server, PNG bodies decoded without PIL (a body the decoder refuses
-answered 400), the runner against the JAX server's
+port's server, PNG bodies decoded without PIL (Adam7 and 16-bit ones as
+the JAX handler's PIL decodes them, a JPEG sent as image/png too; a body
+the decoder refuses answered 400), the runner against the JAX server's
 split sampler on the same weights and normals (uint8 faces within 1 level),
 and the runner's seeded launches.
 
@@ -171,6 +172,45 @@ def test_png_without_pil_is_served(server, monkeypatch):
     assert status == 200
     np.testing.assert_array_equal(
         face, np.frombuffer(raw, np.uint8).reshape(SIZE, SIZE, 3))
+
+
+@pytest.mark.parametrize("kind", ["adam7 16-bit grey", "adam7 16-bit RGB",
+                                  "progressive JPEG as image/png"])
+def test_new_formats_decoded_as_the_jax_handler(server, monkeypatch, kind):
+    """An Adam7 16-bit grey PNG body, an Adam7 16-bit colour one and a
+    progressive JPEG sent as image/png: with PIL blocked, 200, and the face
+    a raw request of the JAX handler's pixels gets (its PIL
+    `convert("RGB")` and bicubic resize, taken before PIL is blocked; both
+    launches drawn from the same generator). PIL clamps 16-bit grey to 255
+    where cv2 keeps the high byte: the server reads as PIL does."""
+    Image = pytest.importorskip("PIL.Image")
+    from hifidiff_tpu_torch.data.image_files import png_file
+
+    rng = np.random.default_rng(12)
+    ch = 1 if "grey" in kind else 3
+    wide = rng.integers(0, 1 << 16, (SIZE + 7, SIZE - 5, ch))
+    if "JPEG" in kind:
+        buf = io.BytesIO()
+        Image.fromarray((wide >> 8).astype(np.uint8)).save(
+            buf, "JPEG", quality=90, progressive=True)
+        body = buf.getvalue()
+    else:
+        body = png_file(wide, 16, 0 if ch == 1 else 2, interlace=1)
+    pixels = np.asarray(Image.open(io.BytesIO(body)).convert("RGB").resize(
+        (SIZE, SIZE), Image.BICUBIC), np.uint8)
+    base, batcher = server
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    real = batcher.run_fn
+    monkeypatch.setattr(batcher, "run_fn", lambda imgs: real(
+        imgs, generator=seeded_generator(9, 0, "cpu")))
+    status, served = _post(base, body, "image/png")
+    assert status == 200
+    status, raw = _post(base, pixels.tobytes())
+    assert status == 200
+    from hifidiff_tpu_torch.data.image_io import decode_png
+    np.testing.assert_array_equal(
+        decode_png(served), np.frombuffer(raw, np.uint8).reshape(SIZE, SIZE,
+                                                                 3))
 
 
 def test_png_the_decoder_refuses_is_bad_image(server):
