@@ -156,7 +156,8 @@ raises at once):
      filters in turn, and a flat CelebA-HQ directory (968 files, 256 x
      256) in the formats of `celeba_file` in turn (since phase 19: 8-bit
      PNG of colour types 2 and 6, Adam7 PNG, 16-bit RGBA and grey PNG, the
-     160 x 160 progressive JPEG fixture, 24-bit and RLE8 BMP); the
+     160 x 160 progressive JPEG fixture, 24-bit and RLE8 BMP, the 160 x
+     160 lossy and lossless WebP fixtures); the
      decoder's time a file on the host, through
      the host library and plain (160 x 160, 256 x 256 and 640 x 480, the
      filter mix stated); `infer_cr` at its defaults on
@@ -221,23 +222,32 @@ raises at once):
      dataset that does not reach the library fails the run);
   19. (run after 18, on phase 13's `train_cr` directory) the image
      formats the decoders gained (progressive JPEG, Adam7-interlaced and
-     16-bit PNG, BMP) on the card's host, which has neither PIL nor cv2:
-     the files of tests/fixtures/png and tests/fixtures/bmp decoded by the
-     host library and by the plain versions to their golden digests (PIL's
-     and cv2's decodes, with `sixteen_bit` naming the library), the
-     refused ones refused, and the coefficients of every progressive JPEG
-     fixture (phase 16 holds their RGB to tests/fixtures/jpeg) equal to
-     the plain decoder's; the host library against its plain versions on
-     PNG files of every colour type, depth and interlace and BMP files of
-     every layout written here (a mismatch fails the run); the host ms a
-     file, library and plain, of the 160 x 160 and 1920 x 1080
-     progressive fixtures, and of a 160 x 160 Adam7 PNG, 16-bit PNG and
-     BMP; `infer_cr --image` on a progressive JPEG and on a BMP, card vs
-     host CPU to phase 4's limits with 9 warp launches a call. On phase
-     12's server, an Adam7 16-bit RGB PNG body and a 16-bit grey one (the
-     launched batch equal to the port's decode, as PIL reads them, and
-     PIL-bicubic resize; the face equal to the eager call); phase 15's
-     `pretrain_denoiser --celeba-root` reads the mixed CelebA-HQ files;
+     16-bit PNG, BMP, WebP) and the cv2 sites' EXIF orientation on the
+     card's host, which has neither PIL nor cv2: the files of
+     tests/fixtures/png and tests/fixtures/bmp decoded by the host library
+     and by the plain versions to their golden digests (PIL's and cv2's
+     decodes, with `reader` naming the library), the refused ones refused,
+     and the coefficients of every progressive JPEG fixture (phase 16
+     holds their RGB to tests/fixtures/jpeg) equal to the plain decoder's;
+     the files of tests/fixtures/webp (lossy and lossless, extended, the
+     frames of `vp8_frame`) to theirs, the lossless ones by the plain
+     decoder too, the lossy ones' coefficients equal to the plain parse's,
+     the refused ones (animated, truncated, a canvas of another size, a
+     lossless stream cut short) refused; the 24 files of
+     tests/fixtures/orientation (PNG, JPEG and WebP at orientations 1-8)
+     read as cv2.imread and as PIL read them; the host library against its
+     plain versions on PNG files of every colour type, depth and interlace
+     and BMP files of every layout written here (a mismatch fails the
+     run); the host ms a file, library and plain, of the 160 x 160 and
+     1920 x 1080 progressive fixtures, of a 160 x 160 Adam7 PNG, 16-bit
+     PNG and BMP, and of the 160 x 160 and 1024 x 1024 WebP fixtures,
+     lossless and lossy; `infer_cr --image` on a progressive JPEG, a BMP
+     and a lossy WebP, card vs host CPU to phase 4's limits with 9 warp
+     launches a call. On phase 12's server, an Adam7 16-bit RGB PNG body, a
+     16-bit grey one and a lossy WebP (the launched batch equal to the
+     port's decode, as PIL reads them, and PIL-bicubic resize; the face
+     equal to the eager call); phase 15's `pretrain_denoiser
+     --celeba-root` reads the mixed CelebA-HQ files, WebP among them;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -310,6 +320,7 @@ import torch
 import torch.nn.functional as F
 
 from hifidiff_tpu_torch.data.image_files import (CELEBA_PROGRESSIVE,
+                                                 CELEBA_WEBP,
                                                  bmp_file, celeba_file,
                                                  golden_input, png_file,
                                                  png_filtered)
@@ -2128,7 +2139,7 @@ def check_png_request(host, port, cfg, sample, batcher, launched,
         conn.close()
     check_no_eager(label, sample, batcher, before)
     counter, batch = launched[-1]
-    pixels = resize_pil(decode_image(body, sixteen_bit="pil"),
+    pixels = resize_pil(decode_image(body, reader="pil"),
                         (cfg.size, cfg.size), "bicubic")
     served = decode_png(answer) if status == 200 else None
     ref = eager_call(batch, counter)[0]
@@ -2403,9 +2414,9 @@ def check_server(models, dev, smi, stats):
         # pixels with the launch's generator
         check_png_request(host, port, cfg, sample, batcher, launched,
                           eager_call, smi)
-        # -- phase 19 on this server: an Adam7 16-bit colour body and a
-        # 16-bit grey one, read as the JAX handler's PIL reads them
-        for label, body in format_bodies().items():
+        # -- phase 19 on this server: an Adam7 16-bit colour body, a 16-bit
+        # grey one and a lossy WebP, read as the JAX handler's PIL reads them
+        for label, body in {**format_bodies(), **webp_body()}.items():
             check_png_request(host, port, cfg, sample, batcher, launched,
                               eager_call, smi, body, label)
 
@@ -3388,10 +3399,14 @@ def write_png_trees(root):
              for j in range(CELEBA_LOOKS)]
     with open(os.path.join(JPEG_FIXTURES, CELEBA_PROGRESSIVE), "rb") as f:
         progressive = f.read()
+    webps = []
+    for name in CELEBA_WEBP:
+        with open(os.path.join(FIXTURES, "webp", name), "rb") as f:
+            webps.append(f.read())
     for j in range(CELEBA_FACES):
         img = looks[j % CELEBA_LOOKS]
         img = np.roll(img, j // CELEBA_LOOKS, axis=1)   # a file of its own
-        data, ext = celeba_file(img, j, progressive)
+        data, ext = celeba_file(img, j, progressive, webps)
         put(os.path.join(celeba, f"{j:05d}{ext}"), data)
     return mp, celeba, written[0], written[1]
 
@@ -4334,7 +4349,7 @@ def check_format_golden(smi):
     """tests/fixtures/png and tests/fixtures/bmp against their digests.json
     (PIL's and cv2's decodes, written where both exist): every file decoded
     by the host library and by the plain version to the SHA-256 of each
-    library's decode, with `sixteen_bit` set to that library for PNG; each
+    library's decode, with `reader` set to that library for PNG; each
     refused file refused by both with the message the digests name; and
     the coefficients of every progressive JPEG fixture (phase 16 holds
     their RGB to the digests) equal to the plain decoder's, but the 1920 x
@@ -4360,7 +4375,7 @@ def check_format_golden(smi):
                 for fn in ((image_io.decode_png, image_io.decode_png_plain)
                            if sub == "png" else
                            (image_io.decode_bmp, image_io.decode_bmp_plain)):
-                    rgb = (fn(data, sixteen_bit=how) if sub == "png"
+                    rgb = (fn(data, reader=how) if sub == "png"
                            else fn(data))
                     n[f"{sub} decodes"] += 1
                     if [list(rgb.shape), sha256_hex(rgb.tobytes())] != [
@@ -4372,7 +4387,7 @@ def check_format_golden(smi):
                        (image_io.decode_bmp, image_io.decode_bmp_plain)):
                 n[f"{sub} refusals"] += 1
                 try:
-                    fn(read(name), **({"sixteen_bit": "cv2"}
+                    fn(read(name), **({"reader": "cv2"}
                                       if sub == "png" else {}))
                     bad.append(f"{fn.__name__} {name} decoded")
                 except ValueError as e:
@@ -4393,6 +4408,120 @@ def check_format_golden(smi):
         fail(f"phase 19: the decoders disagree with the golden digests or "
              f"their plain versions: {bad}")
     return dict(n, mismatches=len(bad))
+
+
+def check_webp_golden(smi):
+    """tests/fixtures/webp and tests/fixtures/orientation against their
+    digests.json (PIL's and cv2's decodes, written where both exist): every
+    WebP file decoded by the host library to the SHA-256 of both
+    libraries' decode, the lossless ones by the plain version too and the
+    lossy ones with the plain parse's coefficients (`vp8_coefficients`
+    against `vp8_coefficients_plain`); each refused file refused with the
+    message the digests name; every orientation file read with
+    `reader="cv2"` to cv2.imread's digest (flipped and transposed by its
+    EXIF orientation) and with "pil" to PIL's. The 1024 x 1024 files' plain
+    versions run in `time_webp`, which holds them to the library. Returns
+    the counts and the mismatches."""
+    import re
+
+    from hifidiff_tpu_torch.data import image_io, webp
+
+    bad, n = [], collections.Counter()
+    for sub in ("webp", "orientation"):
+        root = os.path.join(FIXTURES, sub)
+        with open(os.path.join(root, "digests.json")) as f:
+            golden = json.load(f)
+        for name, by_how in golden["decode"].items():
+            with open(os.path.join(root, name), "rb") as f:
+                data = f.read()
+            for how, want in by_how.items():
+                rgb = (webp.decode_webp(data) if sub == "webp"
+                       else image_io.decode_image(data, reader=how))
+                n[f"{sub} decodes"] += 1
+                if [list(rgb.shape), sha256_hex(rgb.tobytes())] != [
+                        want["shape"], want["sha256"]]:
+                    bad.append(f"{name} ({how})")
+            if sub == "orientation" or name in WEBP_TIMED:
+                continue
+            if webp.parse(data).lossless:
+                n["webp lossless plain"] += 1
+                if webp.decode_webp_plain(data).tobytes() != rgb.tobytes():
+                    bad.append(f"plain {name}")
+            else:
+                n["webp lossy coefficients"] += 1
+                lib = webp.vp8_coefficients(data)
+                plain = webp.vp8_coefficients_plain(data)
+                if any(a.tobytes() != b.tobytes() for a, b in zip(lib,
+                                                                  plain)):
+                    bad.append(f"coefficients {name}")
+        for name, what in golden.get("refuse", {}).items():
+            with open(os.path.join(root, name), "rb") as f:
+                data = f.read()
+            n[f"{sub} refusals"] += 1
+            try:
+                webp.decode_webp(data)
+                bad.append(f"{name} decoded")
+            except webp.WebPError as e:
+                if not re.search(what, str(e)):
+                    bad.append(f"{name}: {e}")
+    log(f"phase 19: golden digests of tests/fixtures/webp and orientation: "
+        f"{dict(n)}; mismatches: {bad or 'none'} [{smi}]")
+    if bad:
+        fail(f"phase 19: the WebP reader or the EXIF orientation disagrees "
+             f"with the golden digests or the plain versions: {bad}")
+    return dict(n, mismatches=len(bad))
+
+
+# the WebP fixtures `time_webp` times (and holds to their plain versions):
+# the 160 x 160 face and the 1024 x 1024 frame (CelebA-HQ's size)
+WEBP_TIMED = ("lossless_face_160x160.webp", "lossless_frame_1024x1024.webp",
+              "lossy_face_q90_160x160.webp", "lossy_frame_q80_1024x1024.webp")
+
+
+def time_webp(smi):
+    """Host ms a WebP file through the host library and plain, on the
+    fixtures WEBP_TIMED, lossless (the plain version: the whole decode in
+    Python) and lossy (the plain version: the parse up to the
+    coefficients), each plain result held to the library's. Returns
+    {label: {"ms", "plain_ms", "bytes"}}."""
+    from hifidiff_tpu_torch.data import webp
+
+    out = {}
+    for name in WEBP_TIMED:
+        with open(os.path.join(FIXTURES, "webp", name), "rb") as f:
+            data = f.read()
+        n_lib, n_plain = (21, 3) if "160x160" in name else (5, 1)
+        if "lossless" in name:
+            lib, plain = webp.decode_webp, webp.decode_webp_plain
+        else:
+            lib, plain = webp.vp8_coefficients, webp.vp8_coefficients_plain
+        t0 = time.perf_counter()
+        got = plain(data)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not all(a.tobytes() == b.tobytes() for a, b in zip(
+                (lib(data),) if "lossless" in name else lib(data),
+                (got,) if "lossless" in name else got)):
+            fail(f"phase 19: the plain version of {name} differs from the "
+                 "host library")
+        label = name[:-5].replace("_", " ")
+        out[label] = dict(
+            ms=median_ms(lambda: webp.decode_webp(data), n_lib),
+            plain_ms=plain_ms if n_plain == 1 else median_ms(
+                lambda: plain(data), n_plain),
+            bytes=len(data))
+        log(f"phase 19 on the host: WebP {label} ({len(data)} bytes): "
+            f"{out[label]['ms']:.3f} ms a file through the host library, "
+            f"{out[label]['plain_ms']:.2f} ms plain"
+            + ("" if "lossless" in name else " (the parse up to the "
+               "coefficients)") + f" [{smi}]")
+    return out
+
+
+def webp_body():
+    """Phase 19's WebP body for the server: the lossy 160 x 160 face of
+    tests/fixtures/webp."""
+    with open(os.path.join(FIXTURES, "webp", CELEBA_WEBP[0]), "rb") as f:
+        return {"a lossy WebP request (phase 19)": f.read()}
 
 
 def format_sweep():
@@ -4420,9 +4549,9 @@ def format_sweep():
                     data = png_file(samples, depth, color, lace, palette=pal)
                     for how in ("cv2", "pil"):
                         calls += 1
-                        got = image_io.decode_png(data, sixteen_bit=how)
+                        got = image_io.decode_png(data, reader=how)
                         plain = image_io.decode_png_plain(data,
-                                                          sixteen_bit=how)
+                                                          reader=how)
                         if got.tobytes() != plain.tobytes():
                             bad.append(f"png c{color} d{depth} {h}x{w} "
                                        f"lace {lace} {how}")
@@ -4499,7 +4628,7 @@ def time_formats(smi):
                  (bmp_file(face, 24), image_io.decode_bmp,
                   image_io.decode_bmp_plain)}
     for label, (data, lib, plain) in files.items():
-        kw = {"sixteen_bit": "pil"} if lib is image_io.decode_png else {}
+        kw = {"reader": "pil"} if lib is image_io.decode_png else {}
         if lib(data, **kw).tobytes() != plain(data, **kw).tobytes() \
                 or not np.array_equal(lib(data, **kw), face):
             fail(f"phase 19: {label} does not read back bit for bit")
@@ -4518,19 +4647,22 @@ def time_formats(smi):
 
 def check_image_formats(dev, smi, keep, tmp):
     """Phase 19: the image formats the decoders gained (progressive JPEG,
-    Adam7 and 16-bit PNG, BMP), after 18, with phase 13's stage files in
-    `keep` and a directory `tmp`: the golden digests of tests/fixtures
-    (`check_format_golden`), the host library against its plain versions
-    (`format_sweep`), host times (`time_formats`), and `infer_cr --image`
-    on the card and on the host CPU on one progressive JPEG and one BMP
-    (`check_infer_cr`: phase 4's limits, 9 warp launches a call). Phase
-    12's server took its two bodies (`format_bodies`) and phase 15's
-    `pretrain_denoiser --celeba-root` its mixed CelebA-HQ files
-    (`celeba_file`). Returns the numbers."""
+    Adam7 and 16-bit PNG, BMP, WebP) and the EXIF orientation of the cv2
+    sites, after 18, with phase 13's stage files in `keep` and a directory
+    `tmp`: the golden digests of tests/fixtures (`check_format_golden`,
+    `check_webp_golden`), the host library against its plain versions
+    (`format_sweep`), host times (`time_formats`, `time_webp`), and
+    `infer_cr --image` on the card and on the host CPU on one progressive
+    JPEG, one BMP and one lossy WebP (`check_infer_cr`: phase 4's limits, 9
+    warp launches a call). Phase 12's server took its three bodies
+    (`format_bodies`, `webp_body`) and phase 15's `pretrain_denoiser
+    --celeba-root` its mixed CelebA-HQ files (`celeba_file`, WebP among
+    them). Returns the numbers."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     t_phase = time.perf_counter()
-    out = {"golden": check_format_golden(smi)}
+    out = {"golden": check_format_golden(smi),
+           "webp golden": check_webp_golden(smi)}
     t0 = time.perf_counter()
     n, bad = format_sweep()
     out["sweep"] = dict(cases=n, mismatches=bad, s=time.perf_counter() - t0)
@@ -4542,13 +4674,15 @@ def check_image_formats(dev, smi, keep, tmp):
         fail(f"phase 19: {len(bad)} of {n} decodes differ from the plain "
              f"versions, e.g. {bad[:4]}")
     out["ms"] = time_formats(smi)
+    out["webp ms"] = time_webp(smi)
     face = (proc.render_face(proc._identity_params(SEED, 7), 0.25, MP_SIDE)
             * 255).astype(np.uint8)
     bmp = os.path.join(tmp, "face.bmp")
     with open(bmp, "wb") as f:
         f.write(bmp_file(face, 24))
     for label, path in (("progressive JPEG", os.path.join(
-            JPEG_FIXTURES, PROGRESSIVE_FACE)), ("BMP", bmp)):
+            JPEG_FIXTURES, PROGRESSIVE_FACE)), ("BMP", bmp),
+            ("lossy WebP", os.path.join(FIXTURES, "webp", CELEBA_WEBP[0]))):
         out[f"infer_cr {label}"] = check_infer_cr(dev, tmp, keep, smi,
                                                   image=path)
     out["wall_s"] = time.perf_counter() - t_phase

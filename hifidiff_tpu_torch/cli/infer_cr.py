@@ -1,7 +1,7 @@
 """CR single-image inference CLI (counterpart of
 hifidiff_tpu/cli/infer_cr.py, the reference's `infer_cr.py`).
 
-Single-image path (`infer_cr.py:52-56`): read one PNG, JPEG or BMP
+Single-image path (`infer_cr.py:52-56`): read one PNG, JPEG, WebP or BMP
 (`data/image_io`, as PIL reads it), PIL-bicubic down to 32x32 and up to
 `--size` (`data/resize.resize_pil`), run the CR, save the restored face as
 a PNG grid of one.
@@ -72,7 +72,7 @@ def lr_input(path: str, size: int) -> np.ndarray:
     """The LR protocol of the single-image path: the image at `path`,
     PIL-bicubic to 32x32, then to size x size, as (1, size, size, 3)
     float32 in [0, 1]."""
-    img = imread_rgb(path, sixteen_bit="pil")
+    img = imread_rgb(path, reader="pil")
     img = resize_pil(resize_pil(img, (32, 32), "bicubic"), (size, size),
                      "bicubic")
     return (img.astype(np.float32) / 255.0)[None]

@@ -16,8 +16,8 @@ Step n draws its noise from `seeded_generator(seed, n)`.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
 `--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
-files; BMP and WebP files in it are refused).
+tree's train split) and `--celeba-root` (a flat directory of PNG, JPEG,
+WebP and BMP files).
 
     python -m hifidiff_tpu_torch.cli.pretrain_denoiser --procedural 1024 \
         --vae-ckpt checkpoints/vae/temp

@@ -15,7 +15,7 @@ behind a dependency-free HTTP interface with dynamic batching:
     Content-Type: application/octet-stream) or a PNG (image/png, or a body
     with the PNG signature: decoded by `data/image_io.decode_image` as PIL
     decodes it, 16-bit samples and Adam7 too, and, as the JAX server's
-    PIL, a JPEG or BMP body sent as image/png; PIL-bicubic resized to
+    PIL, a JPEG, WebP or BMP body sent as image/png; PIL-bicubic resized to
     `--size` by `data/resize`; a body the decoder refuses gets 400 "bad
     image" with its reason) -> the
     restored face in the same format (the PNG written by
@@ -478,7 +478,7 @@ def make_handler(batcher: _Batcher, cfg: Config):
                                      "application/octet-stream")
             try:
                 if ctype == "image/png" or body[:8] == PNG_SIGNATURE:
-                    img = resize_pil(decode_image(body, sixteen_bit="pil"),
+                    img = resize_pil(decode_image(body, reader="pil"),
                                      (cfg.size, cfg.size), "bicubic")
                     png = True
                 else:

@@ -18,8 +18,8 @@ names (`enc.` / `dec.`) are what `test_refiner --tae-ckpt` and `serve
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
 `--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
-files; BMP and WebP files in it are refused).
+tree's train split) and `--celeba-root` (a flat directory of PNG, JPEG,
+WebP and BMP files).
 
     python -m hifidiff_tpu_torch.cli.train_tae --procedural 64 \
         --vae-ckpt checkpoints/vae/temp

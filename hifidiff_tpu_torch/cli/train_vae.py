@@ -10,8 +10,8 @@ stage's `--vae-ckpt` reads.
 
 It runs on one device, the card unless `--device cpu`, on `--synthetic N` or
 `--procedural N` data, or on the images of `--multipie-root` (a Multi-PIE
-tree's train split) and `--celeba-root` (a flat directory of PNG and JPEG
-files; BMP and WebP files in it are refused).
+tree's train split) and `--celeba-root` (a flat directory of PNG, JPEG,
+WebP and BMP files).
 
     python -m hifidiff_tpu_torch.cli.train_vae --procedural 64 --size 32 \
         --vae-blocks 32,32 --vae-layers 1    # tiny demo fit

@@ -1,6 +1,7 @@
 """Datasets and the prefetching loader (counterpart of hifidiff_tpu/data/):
 the numpy `Dataset` protocol, `Loader`, the procedural face family, and the
-K-Face, Multi-PIE and CelebA-HQ datasets on JPEG and PNG trees."""
+K-Face, Multi-PIE and CelebA-HQ datasets on trees of PNG, JPEG, WebP and
+BMP files."""
 
 from hifidiff_tpu_torch.data.core import (ArrayDataset, ConcatDataset,
                                           Dataset, Loader, Sample)

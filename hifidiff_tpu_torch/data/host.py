@@ -2,9 +2,9 @@
 
 The sources are `hifidiff_tpu_torch/csrc/host/*.cc`: the JPEG codec
 (`jpeg.cc`), the data-path core (`native.cc`, the port's copy of the JAX
-package's `native/src/hifidiff_native.cc`) and the image path (`image.cc`:
+package's `native/src/hifidiff_native.cc`), the image path (`image.cc`:
 the PNG row filters and passes, the BMP layouts and RLE, cv2's and PIL's
-resizes, cv2's filter2D). g++ (no
+resizes, cv2's filter2D) and the WebP decoder (`webp.cc`). g++ (no
 CUDA) compiles each into an object of its own with its own flags, all at
 once, at first use, and links them into one shared library with a plain C
 interface under `hifidiff_tpu_torch/_build/` (listed in .gitignore); it
@@ -15,7 +15,8 @@ links nothing beyond libstdc++.
 computes on the same host. `image.cc` adds `-ffp-contract=off`: with
 `-march=native` g++ would otherwise fuse `a*b + c` into one rounding, and
 the image path's sums, held bit for bit to their numpy versions, would
-differ from numpy's in the last bit.
+differ from numpy's in the last bit. `webp.cc` computes in integers only
+and takes the flag all the same.
 
 The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt; each process builds into files of its own and renames
@@ -40,14 +41,16 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 HOST_SRC = _PKG / "csrc" / "host"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("jpeg.cc", "native.cc", "image.cc")
+SOURCES = ("jpeg.cc", "native.cc", "image.cc", "webp.cc")
 # native/build.sh's flags, for every object and the link
 FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
          "-pthread")
 # what a source adds to them
-EXTRA_FLAGS = {"image.cc": ("-ffp-contract=off",)}
+EXTRA_FLAGS = {"image.cc": ("-ffp-contract=off",),
+               "webp.cc": ("-ffp-contract=off",)}
 
-# what every hi_* function of image.cc returns where an allocation failed
+# what every hi_* function of image.cc and hw_* function of webp.cc
+# returns where an allocation failed
 NO_MEMORY = 99
 
 
@@ -157,5 +160,11 @@ def _load() -> ctypes.CDLL:
     for name in ("hi_png_rgb", "hi_bmp_rgb", "hi_resize_cv2_f32",
                  "hi_resize_cv2_u8_cubic", "hi_resize_pil", "hi_filter2d"):
         getattr(lib, name).restype = i   # 0, a refusal, or NO_MEMORY
+    # the WebP decoder (webp.cc)
+    lib.hw_vp8l_rgb.argtypes = [p, sz, i, i, p, ip]
+    lib.hw_vp8_rgb.argtypes = [p, sz, p, ip]
+    lib.hw_vp8_coefficients.argtypes = [p, sz, p, p, ip]
+    for name in ("hw_vp8l_rgb", "hw_vp8_rgb", "hw_vp8_coefficients"):
+        getattr(lib, name).restype = i
     lib.build_log = log
     return lib

@@ -1,12 +1,15 @@
 """Writers of small image files in every format the port's decoders read:
 PNG at any colour type, bit depth and filter, Adam7-interlaced or not;
 BMP at every header, bit count, bitfields layout and RLE; progressive
-JPEG cut after some of its scans; and the seeded inputs behind the golden
-digests of tests/fixtures. Only the tests and chip_smoke.py use them.
+JPEG cut after some of its scans; lossy WebP frames with the VP8 header
+fields PIL's encoder never sets (`vp8_frame`); and the seeded inputs
+behind the golden digests of tests/fixtures. Only the tests and
+chip_smoke.py use them.
 
 numpy, `struct` and `zlib` only: PIL writes no interlaced PNG, and the
 card's host has neither PIL nor cv2. The format constants (Adam7's passes,
-the BMP bitfields masks) are the decoder's own, from `image_io`.
+the BMP bitfields masks, VP8's probability tables) are the decoders' own,
+from `image_io` and `webp`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import zlib
 import numpy as np
 
 from hifidiff_tpu_torch.data.image_io import ADAM7, BMP_MASKS
+from hifidiff_tpu_torch.data.webp import (_BANDS, _BMODES_PROBA, _CATS,
+                                          _COEFFS_PROBA0,
+                                          _COEFFS_UPDATE_PROBA)
 
 
 def golden_input(seed, h, w):
@@ -235,21 +241,26 @@ def bmp_file(pixels, bits, header=40, topdown=False, palette=None,
             + info + pal + body)
 
 
-# the progressive JPEG of tests/fixtures/jpeg among `celeba_file`'s kinds
+# the progressive JPEG of tests/fixtures/jpeg and the WebP files of
+# tests/fixtures/webp among `celeba_file`'s kinds
 CELEBA_PROGRESSIVE = "pil_prog_face_q95_160x160.jpg"
+CELEBA_WEBP = ("lossy_face_q90_160x160.webp", "lossless_face_160x160.webp")
 
 
-def celeba_file(img, j, progressive):
+def celeba_file(img, j, progressive, webps):
     """The j-th file of a CelebA-HQ directory that mixes every format the
     port reads (chip_smoke.py phase 15's), (bytes, extension), of the uint8
-    RGB face `img`, by j % 12: an 8-bit PNG of colour type 2
+    RGB face `img`, by j % 14: an 8-bit PNG of colour type 2
     (0, 6) or 6 (1, 7) through the five filters; an Adam7 8-bit RGB PNG
     (2, 8); a 16-bit Adam7 RGBA PNG of the samples times 257 (3) or a
     16-bit grey one of the green samples as they are (9); the progressive
     JPEG fixture `progressive` (4, 10); a 24-bit BMP (5) or an RLE8 BMP of
-    the face on a 6 x 6 x 6 palette (11). CelebA-HQ is read as PIL reads
-    it: the grey 16-bit file is the green channel."""
-    k = j % 12
+    the face on a 6 x 6 x 6 palette (11); the lossy (12) or the lossless
+    (13) WebP fixture of `webps`. CelebA-HQ is read as PIL reads it: the
+    grey 16-bit file is the green channel."""
+    k = j % 14
+    if k >= 12:
+        return webps[k - 12], ".webp"
     if k in (0, 6):
         return png_filtered(img, level=1), ".png"
     if k in (1, 7):
@@ -273,3 +284,278 @@ def celeba_file(img, j, progressive):
     palette = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
                        -1).reshape(216, 3)
     return bmp_file(idx, 8, palette=palette, rle=True), ".bmp"
+
+
+# -- VP8 frames PIL's encoder never writes -----------------------------------
+
+class _BoolWriter:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        k = len(self.out) - 1
+        while self.out[k] == 255:
+            self.out[k] = 0
+            k -= 1
+        self.out[k] += 1
+
+    def put(self, bit, prob=128):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v, bits):
+        for k in range(bits - 1, -1, -1):
+            self.put((v >> k) & 1)
+
+    def signed(self, v, bits):
+        self.value(abs(v), bits)
+        self.put(int(v < 0))
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _write_large(w, v, p):
+    """The token of a coefficient magnitude v >= 2 (GetLargeValue's tree)."""
+    if v <= 4:
+        w.put(0, p[3])
+        w.put(int(v > 2), p[4])
+        if v > 2:
+            w.put(int(v == 4), p[5])
+    elif v <= 10:
+        w.put(1, p[3])
+        w.put(0, p[6])
+        w.put(int(v > 6), p[7])
+        if v <= 6:
+            w.put(v - 5, 159)
+        else:
+            w.put((v - 7) >> 1, 165)
+            w.put((v - 7) & 1, 145)
+    else:
+        cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+        w.put(1, p[3])
+        w.put(1, p[6])
+        w.put(cat >> 1, p[8])
+        w.put(cat & 1, p[9 + (cat >> 1)])
+        extra, probs = v - 3 - (8 << cat), _CATS[cat]
+        for k, prob in enumerate(probs):
+            w.put((extra >> (len(probs) - 1 - k)) & 1, prob)
+
+
+def _write_tokens(w, bands, ctx, levels, first):
+    """One block's coefficient levels (zigzag order) as GetCoeffs reads
+    them; returns the index after the last one written (the decoder's
+    `nz`)."""
+    last = max((n for n in range(first, 16) if levels[n]), default=-1)
+    n, p = first, bands[_BANDS[first]][ctx]
+    while n < 16:
+        if n > last:
+            w.put(0, p[0])
+            return n
+        w.put(1, p[0])
+        while not levels[n]:
+            w.put(0, p[1])
+            n += 1
+            p = bands[_BANDS[n]][0]
+        w.put(1, p[1])
+        v = abs(levels[n])
+        w.put(int(v > 1), p[2])
+        if v > 1:
+            _write_large(w, v, p)
+        w.put(int(levels[n] < 0))
+        n += 1
+        p = bands[_BANDS[n]][2 if v > 1 else 1]
+    return 16
+
+
+def vp8_frame(seed, width, height, partitions=1, simple=False, level=24,
+              sharpness=0, lf_deltas=None, segments=False):
+    """A lossy WebP file (simple format) of one VP8 key frame with seeded
+    random modes and coefficients, written with the header fields PIL's
+    encoder never sets: `partitions` token partitions (1, 2, 4 or 8), the
+    simple loop filter, `sharpness` 0-7, the reference and mode level
+    deltas `lf_deltas` (8 ints, or None), four segments with their own
+    quantizers, filter levels and map probabilities; some token
+    probabilities updated, skip flags, and every 16x16, 4x4 and chroma
+    mode. The decoder's tables (`data/webp.py`) give the trees' and
+    tokens' probabilities."""
+    rng = np.random.default_rng(seed)
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    hdr = _BoolWriter()
+    hdr.value(0, 2)   # colour space, clamping type
+    hdr.put(int(segments))
+    seg_proba = rng.integers(1, 256, 3)
+    if segments:
+        hdr.put(1)    # update the map
+        hdr.put(1)    # update the data
+        hdr.put(0)    # deltas, not absolute values
+        for q in rng.integers(-20, 21, 4):
+            hdr.put(1)
+            hdr.signed(int(q), 7)
+        for f in rng.integers(-15, 16, 4):
+            hdr.put(1)
+            hdr.signed(int(f), 6)
+        for p in seg_proba:
+            hdr.put(1)
+            hdr.value(int(p), 8)
+    hdr.put(int(simple))
+    hdr.value(level, 6)
+    hdr.value(sharpness, 3)
+    hdr.put(int(lf_deltas is not None))
+    if lf_deltas is not None:
+        hdr.put(1)
+        for d in lf_deltas:
+            hdr.put(1)
+            hdr.signed(int(d), 6)
+    hdr.value(int(partitions).bit_length() - 1, 2)
+    hdr.value(int(rng.integers(10, 70)), 7)
+    for d in rng.integers(-6, 7, 5):
+        hdr.put(1)
+        hdr.signed(int(d), 4)
+    hdr.put(0)        # refresh_entropy_probs
+    proba = np.frombuffer(_COEFFS_PROBA0, np.uint8).astype(int).reshape(
+        4, 8, 3, 11)
+    update = np.frombuffer(_COEFFS_UPDATE_PROBA, np.uint8).reshape(
+        4, 8, 3, 11)
+    for idx in np.ndindex(4, 8, 3, 11):
+        change = rng.random() < 0.05
+        hdr.put(int(change), int(update[idx]))
+        if change:
+            proba[idx] = int(rng.integers(1, 256))
+            hdr.value(int(proba[idx]), 8)
+    skip_p = int(rng.integers(1, 256))
+    hdr.put(1)
+    hdr.value(skip_p, 8)
+    parts = [_BoolWriter() for _ in range(partitions)]
+    intra_top = [0] * (4 * mb_w)
+    nz_top = [[0] * 9 for _ in range(mb_w)]
+    for mb_y in range(mb_h):
+        intra_left, nz_left = [0] * 4, [0] * 9
+        tok = parts[mb_y % partitions]
+        for mb_x in range(mb_w):
+            top = intra_top[4 * mb_x:4 * mb_x + 4]
+            if segments:
+                s = int(rng.integers(0, 4))
+                hdr.put(s >> 1, int(seg_proba[0]))
+                hdr.put(s & 1, int(seg_proba[1 + (s >> 1)]))
+            skip = int(rng.random() < 0.15)
+            hdr.put(skip, skip_p)
+            i4x4 = int(rng.random() < 0.5)
+            hdr.put(1 - i4x4, 145)
+            if not i4x4:   # DC, VE, HE, TM by their tree
+                ymode = int(rng.integers(0, 4))
+                hdr.put(int(ymode in (1, 3)), 156)
+                hdr.put(int(ymode in (1, 2)), 128 if ymode in (1, 3)
+                        else 163)
+                top, intra_left = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    left = intra_left[y]
+                    for x in range(4):
+                        p = _BMODES_PROBA[(top[x] * 10 + left) * 9:][:9]
+                        mode = int(rng.integers(0, 10))
+                        path = {0: [(0, 0)], 1: [(1, 0), (0, 1)],
+                                2: [(1, 0), (1, 1), (0, 2)],
+                                3: [(1, 0), (1, 1), (1, 2), (0, 3), (0, 4)],
+                                4: [(1, 0), (1, 1), (1, 2), (0, 3), (1, 4),
+                                    (0, 5)],
+                                5: [(1, 0), (1, 1), (1, 2), (0, 3), (1, 4),
+                                    (1, 5)],
+                                6: [(1, 0), (1, 1), (1, 2), (1, 3), (0, 6)],
+                                7: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6),
+                                    (0, 7)],
+                                8: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6),
+                                    (1, 7), (0, 8)],
+                                9: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6),
+                                    (1, 7), (1, 8)]}[mode]
+                        for bit, k in path:
+                            hdr.put(bit, p[k])
+                        top[x] = left = mode
+                    intra_left[y] = left
+            intra_top[4 * mb_x:4 * mb_x + 4] = top
+            uvmode = int(rng.integers(0, 4))   # DC, TM, VE, HE
+            hdr.put(int(uvmode != 0), 142)
+            if uvmode:
+                hdr.put(int(uvmode != 2), 114)
+                if uvmode != 2:
+                    hdr.put(int(uvmode == 1), 183)
+            tnz = nz_top[mb_x]
+            if skip:
+                tnz[:8] = nz_left[:8] = [0] * 8
+                if not i4x4:
+                    tnz[8] = nz_left[8] = 0
+                continue
+
+            def levels(first):
+                out = [0] * 16
+                for n in range(first, 16):
+                    r = rng.random()
+                    if r < 0.12:
+                        out[n] = int(rng.integers(1, 3))
+                    elif r < 0.16:
+                        out[n] = int(rng.integers(3, 70))
+                    elif r < 0.165:
+                        out[n] = int(rng.integers(70, 600))
+                    if rng.random() < 0.5:
+                        out[n] = -out[n]
+                if rng.random() < 0.3:
+                    out = [0] * 16
+                return out
+            if not i4x4:
+                nz = _write_tokens(tok, proba[1], tnz[8] + nz_left[8],
+                                   levels(0), 0)
+                tnz[8] = nz_left[8] = int(nz > 0)
+                first, ac = 1, proba[0]
+            else:
+                first, ac = 0, proba[3]
+            for y in range(4):
+                lnz = nz_left[y]
+                for x in range(4):
+                    nz = _write_tokens(tok, ac, lnz + tnz[x], levels(first),
+                                       first)
+                    lnz = tnz[x] = int(nz > first)
+                nz_left[y] = lnz
+            for ch in (4, 6):
+                for y in range(2):
+                    lnz = nz_left[ch + y]
+                    for x in range(2):
+                        nz = _write_tokens(tok, proba[2], lnz + tnz[ch + x],
+                                           levels(0), 0)
+                        lnz = tnz[ch + x] = int(nz > 0)
+                    nz_left[ch + y] = lnz
+    first_part = hdr.flush()
+    data = [p.flush() for p in parts]
+    tag = (len(first_part) << 5) | 0x10   # key frame, profile 0, shown
+    frame = (struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a"
+             + struct.pack("<HH", width, height) + first_part
+             + b"".join(struct.pack("<I", len(d))[:3] for d in data[:-1])
+             + b"".join(data))
+    chunk = b"VP8 " + struct.pack("<I", len(frame)) + frame \
+        + b"\0" * (len(frame) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk

@@ -1,8 +1,22 @@
 """The port's image decoders for the files the Multi-PIE, CelebA-HQ and
 K-Face datasets, `infer_cr` and the server read: PNG (the inverse of
 `utils/logging.png_bytes` and much more) and BMP here, JPEG in
-`data/jpeg.py`; and `imread_rgb` / `decode_image`, which pick the decoder
-by the file's signature.
+`data/jpeg.py`, WebP in `data/webp.py`; and `imread_rgb` / `decode_image`,
+which pick the decoder by the file's signature and read the file as the
+library a call site names reads it (`reader="cv2"` or `"pil"`).
+
+The two libraries differ on two things, and `reader` settles both:
+
+- 16-bit PNG samples (below);
+- EXIF orientation: `cv2.imread` flips and transposes a PNG, JPEG or WebP
+  file by its EXIF Orientation tag, PIL's `convert("RGB")` does not. With
+  `reader="cv2"` the decoded image takes the same step
+  (`data/orientation.py`, after whichever decoder ran); with "pil" or
+  without a reader it stays as decoded.
+
+The call sites: `multipie.imread_f32`, the IDC set and the pretraining
+Multi-PIE set read as cv2 reads; every other dataset read, `infer_cr` and
+the server's image body read as PIL reads.
 
 PNG: colour types 0 (grey), 2 (RGB), 3 (palette, with a `PLTE` of any
 length up to 256), 4 (grey + alpha) and 6 (RGBA) at bit depths 8 and 16
@@ -16,9 +30,8 @@ the three channels and alpha is dropped, as `cv2.imread(path,
 IMREAD_COLOR)` (flipped to RGB) and PIL's `convert("RGB")` give it.
 
 16-bit samples: cv2 5.0 and PIL 12.1 cut them to 8 bits differently, so
-`decode_png` and `imread_rgb` take `sixteen_bit="cv2"` or `"pil"`, the
-library whose reading the call site follows; a 16-bit file read without
-it raises `PNGError` naming the argument. Measured on seeded files of each
+`decode_png` takes `reader` too; a 16-bit file read without a reader
+raises `PNGError` naming the argument. Measured on seeded files of each
 colour type:
 
     colour type        cv2 (imread, IMREAD_COLOR)   PIL (convert("RGB"))
@@ -29,9 +42,7 @@ colour type:
 
 (PIL opens a 16-bit grey file as mode "I;16" and clamps it to 255 in
 `convert`; it opens the others as "RGB" / "RGBA" from "RGB;16B",
-"LA;16B" and "RGBA;16B", which keep the high byte.) The call sites:
-`multipie.imread_f32` and the pretraining Multi-PIE set follow cv2; every
-other dataset read, `infer_cr` and the server's PNG body follow PIL.
+"LA;16B" and "RGBA;16B", which keep the high byte.)
 
 BMP (`decode_bmp`), as PIL 12.1 decodes it (`BmpImagePlugin.py`): the
 12-byte OS/2 core header and the 40-, 52-, 56-, 64-, 108- (V4) and
@@ -49,7 +60,7 @@ would read (RLE at another bit count, a palette past 256 entries), raise
 Interlaced files cut short, unknown filters, palette indices past PLTE
 raise `PNGError`; so does anything that is not a PNG given to
 `decode_png`. `imread_rgb` and `decode_image` refuse a file of another
-format (WebP, GIF, ...) with `ImageFormatError`, naming the formats the
+format (GIF, TIFF, ...) with `ImageFormatError`, naming the formats the
 port reads; every error here is a ValueError.
 
 `decode_png` walks the chunks, checks their CRCs and inflates the image
@@ -71,7 +82,7 @@ import zlib
 
 import numpy as np
 
-from hifidiff_tpu_torch.data import host
+from hifidiff_tpu_torch.data import host, orientation, webp
 from hifidiff_tpu_torch.data.jpeg import JPEG_SIGNATURE, JPEGError, decode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -179,7 +190,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-SIXTEEN_BIT = ("cv2", "pil")
+READERS = ("cv2", "pil")
 # Adam7's passes: (x0, y0, dx, dy)
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -263,24 +274,28 @@ def _palette_past(top: int, palette: np.ndarray) -> PNGError:
                     "of PLTE")
 
 
-def _sixteen(depth: int, sixteen_bit) -> bool:
+def _check_reader(reader):
+    if reader not in (None, *READERS):
+        raise ValueError(f"reader must be one of {READERS}, got {reader!r}")
+
+
+def _sixteen(depth: int, reader) -> bool:
     """Whether 16-bit grey saturates (PIL) rather than keep its high byte
     (cv2); raises where the file is 16-bit and no library was named."""
-    if sixteen_bit not in (None, *SIXTEEN_BIT):
-        raise ValueError(f"sixteen_bit must be one of {SIXTEEN_BIT}, got "
-                         f"{sixteen_bit!r}")
-    if depth == 16 and sixteen_bit is None:
-        raise PNGError("a 16-bit PNG: pass sixteen_bit='cv2' or 'pil', the "
+    _check_reader(reader)
+    if depth == 16 and reader is None:
+        raise PNGError("a 16-bit PNG: pass reader='cv2' or 'pil', the "
                        "library whose reading of 16-bit samples the call "
                        "site follows (they differ on grey files)")
-    return sixteen_bit == "pil"
+    return reader == "pil"
 
 
-def decode_png(data: bytes, sixteen_bit=None) -> np.ndarray:
-    """A PNG file's bytes as an (H, W, 3) uint8 RGB array; `sixteen_bit`
-    ("cv2" or "pil") names how a 16-bit file is cut to 8 bits."""
+def decode_png(data: bytes, reader=None) -> np.ndarray:
+    """A PNG file's bytes as an (H, W, 3) uint8 RGB array; `reader`
+    ("cv2" or "pil") names how a 16-bit file is cut to 8 bits (the EXIF
+    orientation is `decode_image`'s step)."""
     (width, height, depth, color, interlace), palette, raw = _parse(data)
-    saturate = _sixteen(depth, sixteen_bit) and color == 0
+    saturate = _sixteen(depth, reader) and color == 0
     wanted = _wanted(width, height, depth, color, interlace)
     if len(raw) < wanted:
         raise _short(len(raw), wanted, interlace)
@@ -336,10 +351,10 @@ def _pass_rgb(rows, width, height, depth, color, palette, saturate):
     return pixels[..., :3], -1
 
 
-def decode_png_plain(data: bytes, sixteen_bit=None) -> np.ndarray:
+def decode_png_plain(data: bytes, reader=None) -> np.ndarray:
     """`decode_png` in numpy and Python: its plain version."""
     (width, height, depth, color, interlace), palette, raw = _parse(data)
-    saturate = _sixteen(depth, sixteen_bit) and color == 0
+    saturate = _sixteen(depth, reader) and color == 0
     wanted = _wanted(width, height, depth, color, interlace)
     if len(raw) < wanted:
         raise _short(len(raw), wanted, interlace)
@@ -612,31 +627,45 @@ def decode_bmp_plain(data: bytes) -> np.ndarray:
 
 # -- by signature ------------------------------------------------------------
 
-def decode_image(data: bytes, sixteen_bit=None) -> np.ndarray:
-    """A PNG, JPEG or BMP file's bytes, by their signature, as an (H, W, 3)
-    uint8 RGB array (`sixteen_bit` as `decode_png`'s). Anything else raises
-    `ImageFormatError`, naming what the port reads."""
+def decode_image(data: bytes, reader=None) -> np.ndarray:
+    """A PNG, JPEG, WebP or BMP file's bytes, by their signature, as an
+    (H, W, 3) uint8 RGB array, as `reader` ("cv2" or "pil") reads it: the
+    16-bit rule of `decode_png`, and with "cv2" the EXIF orientation.
+    Anything else raises `ImageFormatError`, naming what the port reads."""
+    _check_reader(reader)
+    data = bytes(data)
     if data[:2] == JPEG_SIGNATURE:
-        return decode_jpeg(data)
-    if data[:8] == PNG_SIGNATURE:
-        return decode_png(data, sixteen_bit)
-    if data[:2] == BMP_SIGNATURE:
+        img, exif = decode_jpeg(data), orientation.jpeg_exif
+    elif data[:8] == PNG_SIGNATURE:
+        img, exif = decode_png(data, reader), orientation.png_exif
+    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        img = webp.decode_webp(data)
+
+        def exif(d):
+            block = webp.parse(d).exif
+            return [] if block is None else [block]
+    elif data[:2] == BMP_SIGNATURE:
         return decode_bmp(data)
-    what = ("a WebP file" if data[:4] == b"RIFF" and data[8:12] == b"WEBP"
-            else "a GIF file" if data[:4] == b"GIF8"
-            else "not an image the port knows")
-    raise ImageFormatError(f"{what}: the port reads PNG, JPEG (baseline, "
-                           "extended and progressive) and BMP")
+    else:
+        what = ("a GIF file" if data[:4] == b"GIF8"
+                else "not an image the port knows")
+        raise ImageFormatError(f"{what}: the port reads PNG, JPEG (baseline, "
+                               "extended and progressive), WebP and BMP")
+    if reader == "cv2":
+        img = orientation.orient(img, orientation.cv2_orientation(exif(data)))
+    return img
 
 
-def imread_rgb(path: str, sixteen_bit=None) -> np.ndarray:
-    """The PNG, JPEG or BMP file at `path` as an (H, W, 3) uint8 RGB array
-    (`sixteen_bit` as `decode_png`'s); raises `PNGError`, `JPEGError`,
-    `BMPError` or `ImageFormatError` (each a ValueError) on what the
-    decoders cannot read, and FileNotFoundError where there is no file."""
+def imread_rgb(path: str, reader=None) -> np.ndarray:
+    """The PNG, JPEG, WebP or BMP file at `path` as an (H, W, 3) uint8 RGB
+    array, as `reader` reads it (`decode_image`); raises `PNGError`,
+    `JPEGError`, `WebPError`, `BMPError` or `ImageFormatError` (each a
+    ValueError) on what the decoders cannot read, and FileNotFoundError
+    where there is no file."""
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_image(data, sixteen_bit)
-    except (PNGError, JPEGError, BMPError, ImageFormatError) as e:
+        return decode_image(data, reader)
+    except (PNGError, JPEGError, webp.WebPError, BMPError,
+            ImageFormatError) as e:
         raise type(e)(f"{path}: {e}") from None

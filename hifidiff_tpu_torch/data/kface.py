@@ -17,7 +17,7 @@ Semantics mirror the reference (`dataset_kface.py`):
     pre-rendered `C<angle>_<0..7>.jpg` files.
 
 The files are read by the port's decoders (`image_io.imread_rgb`, with
-`sixteen_bit="pil"`), which give what PIL's `convert("RGB")` gives; PIL's
+`reader="pil"`), which give what PIL's `convert("RGB")` gives; PIL's
 crop and resizes are `_crop` and `resize.resize_pil`. The JAX module's
 quirks are kept: items follow `os.listdir` order (not sorted) but in the
 IDC classes, which sort, shuffle with `default_rng(seed)` and wrap a 19-id
@@ -132,10 +132,10 @@ class KFaceDataset(Dataset):
         in_img, in_meta, gt_img, gt_meta = self.items[index]
         meta_in = _read_meta(in_meta)
         meta_gt = _read_meta(gt_meta)
-        lr = _lr_protocol(_crop_by_head(imread_rgb(in_img, sixteen_bit="pil"),
+        lr = _lr_protocol(_crop_by_head(imread_rgb(in_img, reader="pil"),
                                         meta_in),
                           self.size)
-        gt = _bicubic(_crop_by_head(imread_rgb(gt_img, sixteen_bit="pil"),
+        gt = _bicubic(_crop_by_head(imread_rgb(gt_img, reader="pil"),
                                     meta_gt), self.size)
         return {
             "lr": lr,
@@ -176,13 +176,13 @@ class KFaceCropDataset(Dataset):
     def __getitem__(self, index: int) -> Sample:
         img, gt, patch_paths = self.items[index]
         out: Sample = {
-            "lr": _lr_protocol(imread_rgb(img, sixteen_bit="pil"), self.size),
-            "gt": _to_float(_bicubic(imread_rgb(gt, sixteen_bit="pil"),
+            "lr": _lr_protocol(imread_rgb(img, reader="pil"), self.size),
+            "gt": _to_float(_bicubic(imread_rgb(gt, reader="pil"),
                                      self.size)),
         }
         if self.include_patches:
             out["patches"] = np.stack([
-                _to_float(imread_rgb(p, sixteen_bit="pil"))
+                _to_float(imread_rgb(p, reader="pil"))
                 for p in patch_paths])
         return out
 
@@ -229,7 +229,7 @@ class KFaceIDCDataset(Dataset):
 
     def _load(self, img_meta, lr: bool) -> np.ndarray:
         img_path, meta_path = img_meta
-        img = _crop_by_head(imread_rgb(img_path, sixteen_bit="pil"),
+        img = _crop_by_head(imread_rgb(img_path, reader="pil"),
                             _read_meta(meta_path))
         if lr:
             return _lr_protocol(img, self.size)
@@ -284,10 +284,10 @@ class KFaceCropIDCDataset(Dataset):
     def __getitem__(self, index: int) -> Sample:
         inp, gt, other = self.items[index]
         return {
-            "lr": _lr_protocol(imread_rgb(inp, sixteen_bit="pil"), self.size),
-            "gt": _to_float(_bicubic(imread_rgb(gt, sixteen_bit="pil"),
+            "lr": _lr_protocol(imread_rgb(inp, reader="pil"), self.size),
+            "gt": _to_float(_bicubic(imread_rgb(gt, reader="pil"),
                                      self.size)),
-            "other": _to_float(_bicubic(imread_rgb(other, sixteen_bit="pil"),
+            "other": _to_float(_bicubic(imread_rgb(other, reader="pil"),
                                         self.size)),
         }
 
@@ -313,7 +313,7 @@ class KFaceHRDataset(Dataset):
 
     def __getitem__(self, index: int) -> Sample:
         img_path, meta_path = self.items[index]
-        img = _crop_by_head(imread_rgb(img_path, sixteen_bit="pil"),
+        img = _crop_by_head(imread_rgb(img_path, reader="pil"),
                             _read_meta(meta_path))
         return {"image": _to_float(_bicubic(img, self.size))}
 
@@ -336,5 +336,5 @@ class KFaceCropHRDataset(Dataset):
         return len(self.items)
 
     def __getitem__(self, index: int) -> Sample:
-        img = imread_rgb(self.items[index], sixteen_bit="pil")
+        img = imread_rgb(self.items[index], reader="pil")
         return {"image": _to_float(_bicubic(img, self.size))}

@@ -8,9 +8,10 @@ comes from; 8-bit quantization of the LR input; optional
 `<light>_patch.png` GT component images.
 
 The images are read by the port's decoders (`image_io.imread_rgb`, PNG,
-JPEG or BMP by the file's signature) straight into RGB, each as the JAX
-package reads it: `sixteen_bit="cv2"` where it calls `cv2.imread`
-(`imread_f32`, the IDC set), `"pil"` where it calls PIL. They stay RGB:
+JPEG, WebP or BMP by the file's signature) straight into RGB, each as the
+JAX package reads it: `reader="cv2"` where it calls `cv2.imread`
+(`imread_f32`, the IDC set: the EXIF orientation applied, 16-bit samples'
+high byte), `"pil"` where it calls PIL. They stay RGB:
 the JAX package reads BGR with cv2 and flips at the end, and every op
 between is channelwise but the blind branch's noise and to-gray, which
 `degradations` lays out as on the BGR image. Its cv2 resizes are
@@ -61,9 +62,9 @@ def _angle_sets(model_type: str):
 
 def imread_f32(path: str) -> np.ndarray:
     """An image file as float32 RGB in [0, 1], read as `cv2.imread` reads
-    it (the JAX package's `_imread_f32`: 16-bit samples keep their high
-    byte)."""
-    return imread_rgb(path, sixteen_bit="cv2").astype(np.float32) / 255.0
+    it (the JAX package's `_imread_f32`): turned by its EXIF orientation,
+    16-bit samples keeping their high byte."""
+    return imread_rgb(path, reader="cv2").astype(np.float32) / 255.0
 
 
 def pil_bicubic_f32(img: np.ndarray, *sizes: int) -> np.ndarray:
@@ -144,7 +145,7 @@ class MultiPIEDataset(Dataset):
             # single patch image -> (1, H, W, C) patch axis for the
             # key-region union mask
             out["patches"] = pil_bicubic_f32(
-                imread_rgb(patch_path, sixteen_bit="pil"), self.size)[None]
+                imread_rgb(patch_path, reader="pil"), self.size)[None]
         return out
 
 
@@ -175,10 +176,10 @@ class MultiPIESingleViewDataset(Dataset):
         inp, gt, patch = self.items[index]
         size = self.size
         return {
-            "lr": pil_bicubic_f32(imread_rgb(inp, sixteen_bit="pil"), 32,
+            "lr": pil_bicubic_f32(imread_rgb(inp, reader="pil"), 32,
                                   size),
-            "gt": pil_bicubic_f32(imread_rgb(gt, sixteen_bit="pil"), size),
-            "patches": pil_bicubic_f32(imread_rgb(patch, sixteen_bit="pil"),
+            "gt": pil_bicubic_f32(imread_rgb(gt, reader="pil"), size),
+            "patches": pil_bicubic_f32(imread_rgb(patch, reader="pil"),
                                        size)[None],
             "angle": self.angle,
         }
@@ -205,7 +206,7 @@ class MultiPIEInferenceDataset(Dataset):
 
     def __getitem__(self, index: int) -> Sample:
         return {"lr": pil_bicubic_f32(imread_rgb(self.items[index],
-                                                 sixteen_bit="pil"), 32,
+                                                 reader="pil"), 32,
                                       self.size),
                 "path": self.items[index]}
 
@@ -249,7 +250,7 @@ class MultiPIEIDCDataset(Dataset):
         size = self.size
 
         def base(p):
-            img = resize_cv2(imread_rgb(p, sixteen_bit="cv2"), (size, size),
+            img = resize_cv2(imread_rgb(p, reader="cv2"), (size, size),
                              "cubic")
             return img.astype(np.float32) / 255.0
 

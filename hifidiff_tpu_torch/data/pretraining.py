@@ -4,11 +4,10 @@ Multi-PIE frontal+moderate crops (cv2-bicubic resize) and flat-directory
 CelebA-HQ (PIL-bicubic resize), both returning float32 [0,1] NHWC RGB under
 key "image".
 
-`CelebAHQDataset` lists the JAX module's `IMG_EXTS`. The port reads PNG,
-JPEG and BMP (`.png`, `.jpg`, `.jpeg`, `.bmp`) as PIL reads them: a
-directory that also holds a `.webp` file is refused at construction,
-naming them (ROADMAP §A); no file is skipped. `MultiPIEHQDataset` reads
-as cv2 reads (`multipie.imread_f32`).
+`CelebAHQDataset` lists the JAX module's `IMG_EXTS` (`.png`, `.jpg`,
+`.jpeg`, `.bmp`, `.webp`) and reads each file as PIL reads it (no EXIF
+orientation). `MultiPIEHQDataset` reads as cv2 reads
+(`multipie.imread_f32`: the EXIF orientation applied).
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ from hifidiff_tpu_torch.data.multipie import (ANGLES_MODERATE,
 from hifidiff_tpu_torch.data.resize import resize_cv2
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-READ_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
 class MultiPIEHQDataset(Dataset):
@@ -55,16 +53,10 @@ class CelebAHQDataset(Dataset):
             if os.path.isfile(os.path.join(root, f))
             and f.lower().endswith(IMG_EXTS)
         ]
-        other = [p for p in self.paths if not p.lower().endswith(READ_EXTS)]
-        if other:
-            raise NotImplementedError(
-                f"CelebAHQDataset({root!r}): {len(other)} WebP files the "
-                f"port does not decode, e.g. {other[:3]}; it reads PNG, "
-                "JPEG and BMP (ROADMAP §A)")
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, index: int) -> Sample:
-        img = imread_rgb(self.paths[index], sixteen_bit="pil")
+        img = imread_rgb(self.paths[index], reader="pil")
         return {"image": pil_bicubic_f32(img, self.size)}

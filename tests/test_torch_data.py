@@ -454,8 +454,9 @@ def test_pretraining_datasets(tree):
 
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".webp", ".bmp", ".JPG"])
 def test_celeba_refuses_what_it_cannot_decode(tmp_path, ext):
-    """JPEG and BMP files are read (every item bit-equal to the JAX
-    class's); a directory that holds a WebP file is refused, naming it."""
+    """JPEG, BMP and WebP files are read (every item bit-equal to the JAX
+    class's); an animated WebP file, which the JAX class reads as its first
+    frame, is refused when its item is read, naming the cause."""
     rng = np.random.default_rng(11)
     _write(str(tmp_path / "a.png"), rng.integers(0, 256, (40, 36, 3),
                                                  np.uint8), "pil")
@@ -463,12 +464,17 @@ def test_celeba_refuses_what_it_cannot_decode(tmp_path, ext):
     if ext.lower() in (".jpg", ".jpeg", ".bmp"):
         Image.fromarray(img).save(tmp_path / f"b{ext}", "JPEG" if ext.lower()
                                   != ".bmp" else "BMP", quality=90)
-        _compare(pretraining.CelebAHQDataset(str(tmp_path), size=32),
-                 jpretraining.CelebAHQDataset(str(tmp_path), size=32))
     else:
         cv2.imwrite(str(tmp_path / f"b{ext}"), img)
-        with pytest.raises(NotImplementedError, match="1 WebP files"):
-            pretraining.CelebAHQDataset(str(tmp_path))
+    _compare(pretraining.CelebAHQDataset(str(tmp_path), size=32),
+             jpretraining.CelebAHQDataset(str(tmp_path), size=32))
+    if ext == ".webp":
+        Image.fromarray(img).save(tmp_path / "c.webp", "WEBP", lossless=True,
+                                  save_all=True,
+                                  append_images=[Image.fromarray(img[::-1])])
+        port = pretraining.CelebAHQDataset(str(tmp_path), size=32)
+        with pytest.raises(ValueError, match="c.webp: animated WebP"):
+            port[2]
 
 
 def test_data_package_exports_as_jax():

@@ -64,6 +64,7 @@ def test_port_imports_with_jax_blocked():
         <= _port_modules()
     assert {f"hifidiff_tpu_torch.{m}" for m in PNG_PATH} <= _port_modules()
     assert {f"hifidiff_tpu_torch.{m}" for m in JPEG_PATH} <= _port_modules()
+    assert {f"hifidiff_tpu_torch.{m}" for m in WEBP_PATH} <= _port_modules()
 
 
 # the PNG data path: the port's own resizes and decoder in place of cv2 and
@@ -73,6 +74,37 @@ PNG_PATH = ("data.resize", "data.image_io", "data.degradations",
 # the JPEG codec slice: the host library's loader, the codec, the native
 # data-path core and the K-Face datasets
 JPEG_PATH = ("data.host", "data.jpeg", "data.native", "data.kface")
+# the WebP reader and the cv2 sites' EXIF orientation
+WEBP_PATH = ("data.webp", "data.orientation", "data.image_files")
+
+WEBP_BLOCKED = """
+import sys
+for name in ("cv2", "PIL", "jax", "hifidiff_tpu"):
+    sys.modules[name] = None
+from hifidiff_tpu_torch.data import image_io, webp
+root = "tests/fixtures/"
+face = open(root + "webp/lossless_face_160x160.webp", "rb").read()
+assert image_io.decode_image(face, reader="pil").shape == (160, 160, 3)
+assert (webp.decode_webp_plain(face) == webp.decode_webp(face)).all()
+turned = open(root + "orientation/exif_o6_7x5.webp", "rb").read()
+assert image_io.decode_image(turned, reader="cv2").shape == (7, 5, 3)
+for name in ("refused_animated_21x19", "refused_truncated_45x37"):
+    try:
+        webp.decode_webp(open(root + "webp/" + name + ".webp", "rb").read())
+        raise SystemExit(name + " decoded")
+    except webp.WebPError as e:
+        print(e)
+"""
+
+
+def test_webp_reader_with_cv2_and_pil_blocked():
+    """The WebP reader and the EXIF orientation run with cv2, PIL, jax and
+    the JAX package blocked, as on the card's host: a fixture decoded by
+    the library and the plain version alike, an orientation-6 file turned,
+    an animated and a truncated file refused by name."""
+    res = _run([sys.executable, "-c", WEBP_BLOCKED], REPO)
+    assert res.returncode == 0, res.stderr
+    assert "animated WebP" in res.stdout and "truncated" in res.stdout
 
 
 def test_port_imports_with_cv2_and_pil_blocked():
@@ -587,9 +619,10 @@ def test_plain_image_versions_named_only_in_their_modules():
 def test_host_library_is_a_cdll_and_image_cc_has_its_flags(monkeypatch,
                                                            tmp_path):
     """The host library loads as `ctypes.CDLL` (each call releases the GIL;
-    `PyDLL` would hold it); `image.cc` compiles with -ffp-contract=off, and
-    `native.cc` and `jpeg.cc` with `native/build.sh`'s flags exactly; no
-    source with -ffast-math or -Ofast."""
+    `PyDLL` would hold it); `image.cc` and `webp.cc` compile with
+    -ffp-contract=off, and `native.cc` and `jpeg.cc` with
+    `native/build.sh`'s flags exactly; no source with -ffast-math or
+    -Ofast."""
     import ctypes
     import shlex
 
@@ -613,11 +646,12 @@ def test_host_library_is_a_cdll_and_image_cc_has_its_flags(monkeypatch,
     with pytest.raises(RuntimeError, match="captured"):
         host._build(tmp_path / "libx.so")
     by_source = {pathlib.Path(c[-1]).name: c for c in commands}
-    assert set(by_source) == {"jpeg.cc", "native.cc", "image.cc"}
+    assert set(by_source) == {"jpeg.cc", "native.cc", "image.cc", "webp.cc"}
     for name, cmd in by_source.items():
         flags = [w for w in cmd[1:] if w.startswith("-") and w not in (
             "-c", "-o")]
-        extra = ["-ffp-contract=off"] if name == "image.cc" else []
+        extra = (["-ffp-contract=off"] if name in ("image.cc", "webp.cc")
+                 else [])
         assert flags == build_sh + extra, name
         assert not {"-ffast-math", "-Ofast"} & set(cmd)
 

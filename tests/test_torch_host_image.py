@@ -328,7 +328,7 @@ def _refusals():
          r"interlaced \(Adam7\) image data holds 96 bytes, 102 wanted"),
         # a 16-bit file read without naming whose 16-bit reading to follow
         ("16-bit", _png(rgb, 8, 2, ihdr=dict(depth=16)),
-         r"a 16-bit PNG: pass sixteen_bit='cv2' or 'pil'"),
+         r"a 16-bit PNG: pass reader='cv2' or 'pil'"),
         ("depth", _png(rgb, 8, 2, ihdr=dict(depth=4)),
          "bit depth 4 with colour type 2 is not a valid PNG"),
         ("compression", _png(rgb, 8, 2, ihdr=dict(comp=1)),

@@ -13,17 +13,24 @@ Tolerances: none. Every decode is bit-equal to its yardstick:
     library's scans leave (`jpeg.coefficients`) equal to the Python
     decoder's (`jpeg.coefficients_plain`), baseline files too;
   * PNG at every colour type and bit depth, Adam7 or not: to PIL with
-    `sixteen_bit="pil"` and to cv2 with `sixteen_bit="cv2"`, and
+    `reader="pil"` and to cv2 with `reader="cv2"`, and
     `decode_png` to `decode_png_plain`;
   * BMP at every variant it takes: to PIL, and `decode_bmp` to
     `decode_bmp_plain`; seeded RLE8 / RLE4 streams, broken ones among them,
     refused where PIL raises, with one message from both versions.
 
+EXIF orientation (`data/orientation.py`): every orientation of a PNG,
+JPEG and WebP file read with `reader="cv2"` equal to `cv2.imread`, with
+"pil" or no reader to PIL's unrotated `convert("RGB")`; the edges cv2
+was measured at (an eXIf chunk after IDAT, values 0 and 9, cut and
+looping IFDs, two APP1 segments, tags whose data lies past the end) and
+200 seeded random EXIF blocks, each against `cv2.imread` itself.
+
 `python tests/test_torch_image_formats.py` writes the PNG and BMP
 fixtures (by `data/image_files.py`'s writers), the progressive JPEG fixtures
-(by PIL and cv2) and the digests of all three directories; the tests
-rebuild the PNG and BMP files byte for byte and every digest with PIL and
-cv2.
+(by PIL and cv2), the orientation fixtures (by PIL) and the digests of all
+four directories; the tests rebuild the PNG, BMP and orientation files byte
+for byte and every digest with PIL and cv2.
 """
 
 import ctypes
@@ -41,10 +48,10 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 Image = pytest.importorskip("PIL.Image")
 
-from hifidiff_tpu_torch.data import host, image_io, jpeg  # noqa: E402
+from hifidiff_tpu_torch.data import host, image_io, jpeg, webp  # noqa: E402
 from hifidiff_tpu_torch.data.image_files import (  # noqa: E402
-    CELEBA_PROGRESSIVE, bmp_file, celeba_file, golden_input,
-    incomplete_progressive, jpeg_scans, png_file)
+    CELEBA_PROGRESSIVE, CELEBA_WEBP, bmp_file, celeba_file, golden_input,
+    incomplete_progressive, jpeg_scans, png_file, png_filtered)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures"
@@ -331,7 +338,7 @@ def test_progressive_refusals(case, match):
 def test_png_every_depth_against_pil_and_cv2(color, interlace):
     """Every colour type at every bit depth, Adam7 and not, at sizes that
     leave passes empty (1 x 1, one row, one column) and whole: PIL with
-    `sixteen_bit="pil"`, cv2 with `"cv2"`, and the library to the plain
+    `reader="pil"`, cv2 with `"cv2"`, and the library to the plain
     version."""
     for depth in DEPTHS[color]:
         for h, w in [(1, 1), (1, 9), (9, 1), (2, 3), (5, 5), (8, 8),
@@ -339,9 +346,9 @@ def test_png_every_depth_against_pil_and_cv2(color, interlace):
             data = png_case(color, depth, h, w, interlace,
                             _seed(color, depth, h, w, interlace))
             for how, ref in (("pil", _pil(data)), ("cv2", _cv2(data))):
-                got = image_io.decode_png(data, sixteen_bit=how)
+                got = image_io.decode_png(data, reader=how)
                 _same(got, ref)
-                _same(image_io.decode_png_plain(data, sixteen_bit=how), got)
+                _same(image_io.decode_png_plain(data, reader=how), got)
 
 
 def test_sixteen_bit_semantics_differ_on_grey_only():
@@ -358,28 +365,28 @@ def test_sixteen_bit_semantics_differ_on_grey_only():
                                 (4, 5, 3)).astype(np.uint8)
         _same(_cv2(data), high)
         _same(_pil(data), clamp if color == 0 else high)
-        _same(image_io.decode_png(data, sixteen_bit="cv2"), high)
-        _same(image_io.decode_png(data, sixteen_bit="pil"),
+        _same(image_io.decode_png(data, reader="cv2"), high)
+        _same(image_io.decode_png(data, reader="pil"),
               clamp if color == 0 else high)
     assert int(_pil(png_file(samples[..., :1], 16, 0))[0, 0, 0]) == 255
     assert int(_cv2(png_file(samples[..., :1], 16, 0))[0, 0, 0]) == 130
 
 
 def test_sixteen_bit_needs_the_argument(tmp_path):
-    """A 16-bit file read without `sixteen_bit` raises, naming it, in
+    """A 16-bit file read without `reader` raises, naming it, in
     both versions and through `imread_rgb`; an 8-bit file needs none; a
     wrong value raises ValueError."""
     data = png_case(2, 16, 5, 4, 1, 0)
     for fn in (image_io.decode_png, image_io.decode_png_plain):
-        with pytest.raises(image_io.PNGError, match="sixteen_bit='cv2' or "
+        with pytest.raises(image_io.PNGError, match="reader='cv2' or "
                            "'pil'"):
             fn(data)
-        with pytest.raises(ValueError, match="sixteen_bit must be one of"):
-            fn(data, sixteen_bit="PIL")
+        with pytest.raises(ValueError, match="reader must be one of"):
+            fn(data, reader="PIL")
     (tmp_path / "a.png").write_bytes(data)
     with pytest.raises(image_io.PNGError, match="a.png: a 16-bit PNG"):
         image_io.imread_rgb(str(tmp_path / "a.png"))
-    _same(image_io.imread_rgb(str(tmp_path / "a.png"), sixteen_bit="pil"),
+    _same(image_io.imread_rgb(str(tmp_path / "a.png"), reader="pil"),
           _pil(data))
     _same(image_io.decode_png(png_case(2, 8, 5, 4, 1, 0)),
           _pil(png_case(2, 8, 5, 4, 1, 0)))
@@ -403,7 +410,7 @@ def test_interlaced_refusals():
         messages = []
         for fn in (image_io.decode_png, image_io.decode_png_plain):
             with pytest.raises(image_io.PNGError, match=match) as e:
-                fn(blob, sixteen_bit="cv2")
+                fn(blob, reader="cv2")
             messages.append(str(e.value))
         assert messages[0] == messages[1]
         with pytest.raises(Exception):
@@ -640,64 +647,79 @@ def test_bmp_refusals(case, match):
 # -- by signature -------------------------------------------------------------
 
 def test_imread_rgb_reads_every_format_and_names_the_rest(tmp_path):
-    """`imread_rgb` and `decode_image` read PNG, JPEG and BMP by their
-    signature; a WebP, a GIF or anything else raises `ImageFormatError`
-    (a ValueError, which the datasets' loader and the server's 400 both
-    take), naming the formats the port reads."""
+    """`imread_rgb` and `decode_image` read PNG, JPEG, WebP and BMP by
+    their signature; a GIF or anything else raises `ImageFormatError` (a
+    ValueError, which the datasets' loader and the server's 400 both take),
+    naming the formats the port reads, and an animated WebP raises
+    `WebPError` (a ValueError too), naming it."""
     img = golden_input(2, 21, 19)
+    still, lossy, animated = io.BytesIO(), io.BytesIO(), io.BytesIO()
+    Image.fromarray(img).save(still, "WEBP", lossless=True)
+    Image.fromarray(img).save(lossy, "WEBP", quality=80)
+    Image.fromarray(img).save(animated, "WEBP", lossless=True, save_all=True,
+                              append_images=[Image.fromarray(img[::-1])])
     files = {"a.png": png_case(2, 16, 21, 19, 1, 3),
              "b.jpg": pil_progressive(img, 90),
              "c.bmp": bmp_file(img, 24),
-             "d.dat": bmp_file(img, 24)}     # the name does not matter
+             "d.dat": bmp_file(img, 24),     # the name does not matter
+             "e.webp": still.getvalue(),
+             "e2.webp": lossy.getvalue()}
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
-        _same(image_io.imread_rgb(str(tmp_path / name), sixteen_bit="pil"),
+        _same(image_io.imread_rgb(str(tmp_path / name), reader="pil"),
               _pil(data))
-        _same(image_io.decode_image(data, sixteen_bit="pil"), _pil(data))
-    webp = io.BytesIO()
-    try:
-        Image.fromarray(img).save(webp, "WEBP", lossless=True)
-    except (KeyError, OSError):    # a PIL without WebP: the signature alone
-        webp = io.BytesIO(b"RIFF\0\0\0\0WEBPVP8L" + bytes(20))
+        _same(image_io.decode_image(data, reader="pil"), _pil(data))
     gif = io.BytesIO()
     Image.fromarray(img).save(gif, "GIF")
-    for name, data, what in (("e.webp", webp.getvalue(), "a WebP file"),
-                             ("f.gif", gif.getvalue(), "a GIF file"),
+    for name, data, what in (("f.gif", gif.getvalue(), "a GIF file"),
                              ("g.png", b"not an image",
                               "not an image the port knows")):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(image_io.ImageFormatError,
                            match=f"{name}: {what}: the port reads PNG, JPEG "
-                           r"\(baseline, extended and progressive\) and "
-                           "BMP") as e:
+                           r"\(baseline, extended and progressive\), WebP "
+                           "and BMP") as e:
             image_io.imread_rgb(str(tmp_path / name))
         assert isinstance(e.value, ValueError)
         assert not isinstance(e.value, (image_io.PNGError, jpeg.JPEGError))
+    (tmp_path / "h.webp").write_bytes(animated.getvalue())
+    with pytest.raises(webp.WebPError, match="h.webp: animated WebP") as e:
+        image_io.imread_rgb(str(tmp_path / "h.webp"))
+    assert isinstance(e.value, ValueError)
 
 
 def test_phase15_celeba_files_read_as_pil_reads_them():
     """chip_smoke.py's CelebA-HQ directory (phase 15, read by
     `pretrain_denoiser --celeba-root` there) holds every format in turn:
-    each of its twelve kinds decodes as PIL decodes it, the library equal
-    to the plain version."""
+    each of its fourteen kinds decodes as PIL decodes it, the library equal
+    to the plain version (the lossy WebP's coefficients to the plain
+    parse's)."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     face = (proc.render_face(proc._identity_params(0, 1), 0.1, 64)
             * 255).astype(np.uint8)
     progressive = (FIXTURES / "jpeg" / CELEBA_PROGRESSIVE).read_bytes()
+    webps = [(FIXTURES / "webp" / n).read_bytes() for n in CELEBA_WEBP]
     kinds = set()
-    for j in range(12):
-        data, ext = celeba_file(face, j, progressive)
+    for j in range(14):
+        data, ext = celeba_file(face, j, progressive, webps)
         kinds.add((ext, data[24] if ext == ".png" else None,
                    data[28] if ext == ".png" else data[30]))
-        got = image_io.decode_image(data, sixteen_bit="pil")
+        got = image_io.decode_image(data, reader="pil")
         _same(got, _pil(data))
         if ext == ".png":
-            _same(image_io.decode_png_plain(data, sixteen_bit="pil"), got)
+            _same(image_io.decode_png_plain(data, reader="pil"), got)
         elif ext == ".bmp":
             _same(image_io.decode_bmp_plain(data), got)
+        elif ext == ".webp" and webp.parse(data).lossless:
+            _same(webp.decode_webp_plain(data), got)
+        elif ext == ".webp":
+            for a, b in zip(webp.vp8_coefficients(data),
+                            webp.vp8_coefficients_plain(data)):
+                _same_array(a, b)
     assert {(e, d) for e, d, _ in kinds} == {
-        (".png", 8), (".png", 16), (".jpg", None), (".bmp", None)}
+        (".png", 8), (".png", 16), (".jpg", None), (".bmp", None),
+        (".webp", None)}
     assert {(d, lace) for e, d, lace in kinds if e == ".png"} == {
         (8, 0), (8, 1), (16, 0), (16, 1)}
     assert {c for e, _, c in kinds if e == ".bmp"} == {0, 1}   # RLE8 too
@@ -809,8 +831,15 @@ def _bmp_semantics(data):
 
 
 def write_fixtures():
-    """Writes the fixtures and the PNG and BMP digests; adds the
-    progressive JPEG files to tests/fixtures/jpeg/digests.json."""
+    """Writes the fixtures and the PNG, BMP and orientation digests; adds
+    the progressive JPEG files to tests/fixtures/jpeg/digests.json."""
+    d = FIXTURES / "orientation"
+    d.mkdir(exist_ok=True)
+    files = orientation_fixtures()
+    for name, data in files.items():
+        (d / name).write_bytes(data)
+    (d / "digests.json").write_text(json.dumps(
+        _orientation_digests(files, d), indent=1) + "\n")
     for sub, files in (("png", png_fixtures()), ("bmp", bmp_fixtures())):
         d = FIXTURES / sub
         d.mkdir(exist_ok=True)
@@ -859,8 +888,8 @@ def test_png_and_bmp_fixtures_rebuilt(sub):
         data = files[name]
         for how, want in by_how.items():
             if sub == "png":
-                got = image_io.decode_png(data, sixteen_bit=how)
-                plain = image_io.decode_png_plain(data, sixteen_bit=how)
+                got = image_io.decode_png(data, reader=how)
+                plain = image_io.decode_png_plain(data, reader=how)
             else:
                 got = image_io.decode_bmp(data)
                 plain = image_io.decode_bmp_plain(data)
@@ -870,7 +899,7 @@ def test_png_and_bmp_fixtures_rebuilt(sub):
     error = image_io.PNGError if sub == "png" else image_io.BMPError
     for name, match in golden["refuse"].items():
         with pytest.raises(error, match=match):
-            image_io.decode_image(files[name], sixteen_bit="cv2")
+            image_io.decode_image(files[name], reader="cv2")
         with pytest.raises(Exception):
             _pil(files[name])
     kinds = {n.split("_")[1] for n in golden["decode"]}
@@ -900,6 +929,268 @@ def test_progressive_jpeg_fixtures_rebuilt():
             for a, b in zip(lib, plain):
                 _same_array(a["coef"], b["coef"])
     assert "pil_progressive_32x32.jpg" in golden["decode"]
+
+
+# -- EXIF orientation ---------------------------------------------------------
+
+def _tiff(orientation, mm=False, kind=3, extra=()):
+    """A TIFF block of an IFD0 holding a Make string and the Orientation
+    tag (of TIFF type `kind`), then the `extra` (tag, type, count, value)
+    entries."""
+    import struct
+
+    e = ">" if mm else "<"
+    value = (struct.pack(e + "HH", orientation, 0) if kind == 3
+             else struct.pack(e + "I", orientation))
+    entries = [struct.pack(e + "HHI", 0x10F, 2, 4) + b"abc\0",
+               struct.pack(e + "HHI", 0x112, kind, 1) + value]
+    entries += [struct.pack(e + "HHII", *x) for x in extra]
+    return ((b"MM" if mm else b"II") + struct.pack(e + "HI", 42, 8)
+            + struct.pack(e + "H", len(entries)) + b"".join(entries)
+            + b"\0\0\0\0")
+
+
+def _png_with(data, before=(), after=()):
+    """A PNG with eXIf chunks of `before` ahead of its IDAT and of `after`
+    behind it."""
+    import struct
+
+    def chunk(body):
+        return (struct.pack(">I", len(body)) + b"eXIf" + body
+                + struct.pack(">I", zlib.crc32(b"eXIf" + body)))
+    idat = data.index(b"IDAT") - 4
+    iend = len(data) - 12
+    return (data[:idat] + b"".join(map(chunk, before)) + data[idat:iend]
+            + b"".join(map(chunk, after)) + data[iend:])
+
+
+def _jpeg_with(data, app1s=(), after_dqt=False):
+    """A JPEG with the APP1 segments `app1s` after SOI (or before its
+    first DQT)."""
+    import struct
+
+    segs = b"".join(b"\xff\xe1" + struct.pack(">H", len(p) + 2) + p
+                    for p in app1s)
+    at = data.index(b"\xff\xdb") if after_dqt else 2
+    return data[:at] + segs + data[at:]
+
+
+def _webp_with(img, blocks=(), flags=0x08, before=False):
+    """A lossless extended WebP with the EXIF chunks `blocks` after (or
+    before) its image chunk."""
+    import struct
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", lossless=True)
+    image = buf.getvalue()[12:]
+    h, w = img.shape[:2]
+    exif = b"".join(b"EXIF" + struct.pack("<I", len(b)) + b
+                    + b"\0" * (len(b) & 1) for b in blocks)
+    body = (b"WEBP" + b"VP8X" + struct.pack("<I", 10)
+            + bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little")
+            + (exif + image if before else image + exif))
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _oriented(fmt, blocks, img=None):
+    """A file of `fmt` ("png", "jpg", "webp") carrying the EXIF blocks."""
+    img = golden_input(81, 5, 7) if img is None else img
+    if fmt == "png":
+        return _png_with(png_filtered(img), blocks)
+    if fmt == "jpg":
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=95)
+        return _jpeg_with(buf.getvalue(), [b"Exif\0\0" + b for b in blocks])
+    return _webp_with(img, blocks)
+
+
+def _imread_both(tmp_path, name, data):
+    """(the port's reading with reader="cv2", cv2.imread's in RGB)."""
+    path = tmp_path / name
+    path.write_bytes(data)
+    want = cv2.imread(str(path))[..., ::-1]
+    return image_io.imread_rgb(str(path), reader="cv2"), want
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpg", "webp"])
+def test_exif_orientation_as_cv2_imread(tmp_path, fmt):
+    """Orientations 0-9 of a 7 x 5 file: `reader="cv2"` gives
+    `cv2.imread` (2-8 flipped and transposed, 5-8 5 wide and 7 high),
+    "pil" and no reader give PIL's unrotated image."""
+    for o in range(10):
+        data = _oriented(fmt, [_tiff(o)])
+        got, want = _imread_both(tmp_path, f"o{o}.{fmt}", data)
+        _same(got, want)
+        assert got.shape[:2] == ((7, 5) if 5 <= o <= 8 else (5, 7))
+        _same(image_io.decode_image(data, reader="cv2"), want)
+        _same(image_io.decode_image(data, reader="pil"), _pil(data))
+        _same(image_io.decode_image(data), _pil(data))
+
+
+def _edge_cases():
+    """{name: file bytes}: where cv2 reads an orientation and where it does
+    not, measured with cv2 5.0."""
+    import struct
+
+    t6, t3 = _tiff(6), _tiff(3)
+    bad_magic = b"II\x2b\0" + t6[4:]
+    no_orient = t6[:8] + b"\1\0" + t6[10:22] + b"\0" * 4
+    img = golden_input(82, 5, 7)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=95)
+    jpg, png = buf.getvalue(), png_filtered(img)
+    out = {
+        "png after IDAT": _png_with(png, after=[t6]),
+        "png two eXIf": _png_with(png, [t6, t3]),
+        "png before and after": _png_with(png, [t6], [t3]),
+        "png invalid, then one": _png_with(png, [bad_magic, t3]),
+        "png short, then one": _png_with(png, [b"II*", t3]),
+        "png without, then one": _png_with(png, [no_orient, t3]),
+        "png MM": _png_with(png, [_tiff(8, mm=True)]),
+        "png LONG": _png_with(png, [_tiff(6, kind=4)]),
+        "png MM LONG": _png_with(png, [_tiff(6, mm=True, kind=4)]),
+        "png loop": _png_with(png, [t6[:-4] + b"\x08\0\0\0"]),
+        "png IFD past the end": _png_with(png, [t6[:4] + b"\xe8\3\0\0"
+                                                + t6[8:]]),
+        "png Exif prefix": _png_with(png, [b"Exif\0\0" + t6]),
+        "jpg two APP1": _jpeg_with(jpg, [b"Exif\0\0" + t6,
+                                         b"Exif\0\0" + t3]),
+        "jpg invalid, then one": _jpeg_with(jpg, [b"Exif\0\0" + bad_magic,
+                                                  b"Exif\0\0" + t3]),
+        "jpg without, then one": _jpeg_with(jpg, [b"Exif\0\0" + no_orient,
+                                                  b"Exif\0\0" + t3]),
+        "jpg XMP, then Exif": _jpeg_with(jpg, [b"http://ns.adobe.com/xap/1.0/"
+                                               b"\0<x/>", b"Exif\0\0" + t6]),
+        "jpg after DQT": _jpeg_with(jpg, [b"Exif\0\0" + t6], after_dqt=True),
+        "jpg Exif and one NUL": _jpeg_with(jpg, [b"Exif\0" + t6]),
+        "jpg IM": _jpeg_with(jpg, [b"Exif\0\0IM" + _tiff(6, mm=True)[2:]]),
+        "jpg II, big-endian magic": _jpeg_with(jpg, [b"Exif\0\0II\0*"
+                                                     + t6[4:]]),
+        "webp two EXIF": _webp_with(img, [t6, t3]),
+        "webp invalid, then one": _webp_with(img, [bad_magic, t3]),
+        "webp no EXIF flag": _webp_with(img, [t6], flags=0),
+        "webp before the image": _webp_with(img, [t6], before=True),
+        "webp Exif prefix": _webp_with(img, [b"Exif\0\0" + t6]),
+    }
+    for n in range(29, 38):      # the IFD cut inside the orientation entry
+        out[f"png cut to {n}"] = _png_with(png, [t6[:n]])
+        out[f"jpg cut to {n}"] = _jpeg_with(jpg, [b"Exif\0\0" + t6[:n]])
+    for tag in (0x10E, 0x10F, 0x11A, 0x13E, 0x13F, 0x211, 0x213, 0x214,
+                0x8769):         # read before the orientation entry
+        for offset in (30, 1000):
+            entry = struct.pack("<HHII", tag, 5 if tag != 0x10F else 2, 7,
+                                offset)
+            out[f"png tag {tag:#x} at {offset}"] = _png_with(
+                png, [t6[:8] + b"\2\0" + entry + t6[22:]])
+    return out
+
+
+def test_exif_orientation_edges_as_cv2_imread(tmp_path):
+    """Each edge case cv2 was measured at, against `cv2.imread`: the first
+    eXIf chunk libpng keeps (after IDAT too), every Exif APP1 in turn, the
+    first WebP EXIF chunk under the VP8X flag, the value's bytes wherever
+    the IFD is cut, tags whose data past the end stops the walk."""
+    rotated = 0
+    for k, (name, data) in enumerate(_edge_cases().items()):
+        ext = name.split()[0]
+        got, want = _imread_both(tmp_path, f"e{k}.{ext}", data)
+        _same(got, want)
+        rotated += got.shape[0] == 7 or not np.array_equal(
+            got, image_io.decode_image(data))
+    assert 20 < rotated < len(_edge_cases()), rotated
+
+
+def test_exif_orientation_random_blocks_as_cv2_imread(tmp_path):
+    """200 seeded EXIF blocks of random entries (cv2's string and rational
+    tags among them, offsets and counts in and past the data, cuts, both
+    byte orders) in PNG and JPEG files: the orientation cv2 applies."""
+    import struct
+
+    rng = np.random.default_rng(86)
+    tags = (0x10E, 0x10F, 0x110, 0x112, 0x11A, 0x11B, 0x128, 0x131, 0x13E,
+            0x13F, 0x211, 0x213, 0x214, 0x8298, 0x8769, 0x100, 0x112)
+    img = golden_input(83, 5, 7)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=95)
+    jpg, png = buf.getvalue(), png_filtered(img)
+    differ = 0
+    for k in range(200):
+        e = ">" if rng.random() < 0.3 else "<"
+        n = int(rng.integers(1, 6))
+        entries = b""
+        for _ in range(n):
+            tag = int(rng.choice(tags))
+            count = int(rng.choice([1, 2, 4, 5, 9, 40]))
+            value = int(rng.integers(0, 120)) if rng.random() < 0.8 else int(
+                rng.integers(1, 9))
+            entries += struct.pack(e + "HHII", tag, int(rng.integers(1, 6)),
+                                   count, value)
+            if tag == 0x112 and rng.random() < 0.7:
+                entries = entries[:-4] + struct.pack(e + "HH", int(
+                    rng.integers(0, 10)), 0)
+        block = ((b"MM" if e == ">" else b"II") + struct.pack(e + "HI", 42, 8)
+                 + struct.pack(e + "H", n + int(rng.integers(0, 2)))
+                 + entries + bytes(int(rng.integers(0, 40))))
+        block = block[:int(rng.integers(len(block) - 20, len(block) + 1))]
+        data = (_png_with(png, [block]) if k % 2
+                else _jpeg_with(jpg, [b"Exif\0\0" + block]))
+        got, want = _imread_both(tmp_path, f"r{k}.{'png' if k % 2 else 'jpg'}",
+                                 data)
+        _same(got, want)
+        differ += not np.array_equal(got, image_io.decode_image(data))
+    assert differ > 20, differ
+
+
+def orientation_fixtures():
+    """{name: bytes}: a 7 x 5 image in PNG, JPEG and WebP at orientations
+    1-8, each written by PIL with its EXIF data."""
+    out = {}
+    img = golden_input(84, 5, 7)
+    for o in range(1, 9):
+        exif = Image.Exif()
+        exif[0x0112] = o
+        for fmt, kw in (("png", {}), ("jpg", dict(quality=95)),
+                        ("webp", dict(lossless=True))):
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, {"jpg": "JPEG"}.get(
+                fmt, fmt.upper()), exif=exif, **kw)
+            out[f"exif_o{o}_7x5.{fmt}"] = buf.getvalue()
+    return out
+
+
+def _orientation_digests(files, directory):
+    out = {"source": "cv2 5.0.0 imread (flipped to RGB) and PIL 12.1.0 "
+                     "convert('RGB') of each file, RGB uint8",
+           "decode": {}}
+    for name, data in sorted(files.items()):
+        (directory / name).write_bytes(data)
+        rgb = {"cv2": cv2.imread(str(directory / name))[..., ::-1],
+               "pil": _pil(data)}
+        out["decode"][name] = {how: {"shape": list(v.shape),
+                                     "sha256": _sha(v)}
+                               for how, v in rgb.items()}
+    return out
+
+
+def test_orientation_fixtures_rebuilt(tmp_path):
+    """The committed orientation fixtures are PIL's bytes, digests.json
+    holds cv2.imread's (oriented) and PIL's (not) readings of them, and
+    the port gives both with its readers."""
+    d = FIXTURES / "orientation"
+    files = orientation_fixtures()
+    assert sorted(p.name for p in d.iterdir()) == sorted(
+        [*files, "digests.json"])
+    for name, data in files.items():
+        assert (d / name).read_bytes() == data, name
+    golden = json.loads((d / "digests.json").read_text())
+    assert golden == json.loads(json.dumps(_orientation_digests(
+        files, tmp_path)))
+    for name, by_how in golden["decode"].items():
+        for how, want in by_how.items():
+            got = image_io.decode_image(files[name], reader=how)
+            assert [list(got.shape), _sha(got)] == [want["shape"],
+                                                    want["sha256"]], name
 
 
 if __name__ == "__main__":

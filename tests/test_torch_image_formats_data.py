@@ -162,8 +162,8 @@ def test_pretraining_datasets(tree, cv2_own):
              jpretraining.CelebAHQDataset(celeba, size=32))
     grey16 = next(p for p in sorted((tree / "celeba").iterdir())
                   if p.read_bytes()[24:26] == b"\x10\x00")
-    pil = image_io.imread_rgb(str(grey16), sixteen_bit="pil")
-    ocv = image_io.imread_rgb(str(grey16), sixteen_bit="cv2")
+    pil = image_io.imread_rgb(str(grey16), reader="pil")
+    ocv = image_io.imread_rgb(str(grey16), reader="cv2")
     np.testing.assert_array_equal(
         pil, np.asarray(Image.open(grey16).convert("RGB")))
     np.testing.assert_array_equal(ocv, cv2.imread(str(grey16))[..., ::-1])
@@ -215,7 +215,8 @@ def cr_files(tmp_path_factory):
 
 
 @pytest.mark.parametrize("kind", ["progressive.jpg", "adam7_16bit.png",
-                                  "grey16.png", "palette.bmp", "rle8.bmp"])
+                                  "grey16.png", "palette.bmp", "rle8.bmp",
+                                  "lossy.webp", "lossless.webp"])
 def test_infer_cr_image_against_jax(tmp_path, monkeypatch, cr_files, kind):
     """`infer_cr --image` on each new format against the JAX CLI (PIL's
     read), the same weights: the LR input bit-equal, the saved grids
@@ -228,6 +229,12 @@ def test_infer_cr_image_against_jax(tmp_path, monkeypatch, cr_files, kind):
     files = dict(zip(["adam7_16bit.png", "grey16.png", "progressive.jpg",
                       "palette.bmp", "rle8.bmp"],
                      [_formats(rng, 47, 53)[k] for k in (1, 2, 6, 8, 9)]))
+    for name, opts in (("lossy.webp", dict(quality=80)),
+                       ("lossless.webp", dict(lossless=True))):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (47, 53, 3), np.uint8)).save(
+            buf, "WEBP", **opts)
+        files[name] = buf.getvalue()
     (tmp_path / kind).write_bytes(files[kind])
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(jinfer, "load_cr", lambda cfg, key: jax_cr)

@@ -175,10 +175,14 @@ def test_png_without_pil_is_served(server, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["adam7 16-bit grey", "adam7 16-bit RGB",
-                                  "progressive JPEG as image/png"])
+                                  "progressive JPEG as image/png",
+                                  "lossy WebP as image/png",
+                                  "lossless WebP as image/png"])
 def test_new_formats_decoded_as_the_jax_handler(server, monkeypatch, kind):
-    """An Adam7 16-bit grey PNG body, an Adam7 16-bit colour one and a
-    progressive JPEG sent as image/png: with PIL blocked, 200, and the face
+    """An Adam7 16-bit grey PNG body, an Adam7 16-bit colour one, a
+    progressive JPEG and a lossy and a lossless WebP (which the port's
+    server answered 400 before it read WebP) sent as image/png: with PIL
+    blocked, 200, and the face
     a raw request of the JAX handler's pixels gets (its PIL
     `convert("RGB")` and bicubic resize, taken before PIL is blocked; both
     launches drawn from the same generator). PIL clamps 16-bit grey to 255
@@ -189,10 +193,12 @@ def test_new_formats_decoded_as_the_jax_handler(server, monkeypatch, kind):
     rng = np.random.default_rng(12)
     ch = 1 if "grey" in kind else 3
     wide = rng.integers(0, 1 << 16, (SIZE + 7, SIZE - 5, ch))
-    if "JPEG" in kind:
+    if "JPEG" in kind or "WebP" in kind:
         buf = io.BytesIO()
-        Image.fromarray((wide >> 8).astype(np.uint8)).save(
-            buf, "JPEG", quality=90, progressive=True)
+        opts = (dict(format="JPEG", quality=90, progressive=True)
+                if "JPEG" in kind else
+                dict(format="WEBP", quality=80, lossless="lossless" in kind))
+        Image.fromarray((wide >> 8).astype(np.uint8)).save(buf, **opts)
         body = buf.getvalue()
     else:
         body = png_file(wide, 16, 0 if ch == 1 else 2, interlace=1)

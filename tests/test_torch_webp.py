@@ -1,0 +1,696 @@
+"""The port's WebP reader (`data/webp.py`, `csrc/host/webp.cc`) on the CPU,
+held to PIL 12.1 and cv2 5.0 (both on libwebp 1.6), to its plain versions
+and to the JAX package.
+
+Tolerances: none. Every decode is bit-equal to PIL's `convert("RGB")` and
+to cv2's `imdecode(..., IMREAD_COLOR)` flipped to RGB (they agree on every
+still image); `decode_webp_plain` (the lossless decode in Python) to the
+library; `vp8_coefficients_plain` (the lossy parse in Python) to the
+library's export; a file either library refuses is refused with a
+`WebPError` naming the cause, the library and the plain versions with one
+message. The JAX datasets as tests/test_torch_data.py holds them: every
+key of every item bit-equal, cv2's IPP off for the classes that resize
+with cv2.
+
+Two differences are deliberate and tested as such: an animated file is
+refused (both libraries read its first frame), and a broken ALPH payload
+does not make the port refuse (it reads the RGB, which never depends on
+alpha).
+
+`python tests/test_torch_webp.py` writes tests/fixtures/webp (PIL's files,
+`data/image_files.vp8_frame`'s frames, the refused files) and its
+digests.json again; `test_webp_fixtures_rebuilt` rebuilds every byte.
+"""
+
+import hashlib
+import io
+import json
+import pathlib
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+cv2 = pytest.importorskip("cv2")
+Image = pytest.importorskip("PIL.Image")
+
+from hifidiff_tpu_torch.data import host, webp  # noqa: E402
+from hifidiff_tpu_torch.data.image_files import (  # noqa: E402
+    bmp_file, golden_input, png_file, vp8_frame)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FIXTURES = REPO / "tests" / "fixtures" / "webp"
+
+
+def _sha(rgb):
+    return hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+
+
+def _pil(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _cv2(data):
+    out = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if out is None else np.ascontiguousarray(out[..., ::-1])
+
+
+def _reads(fn, data):
+    try:
+        return fn(data)
+    except Exception:   # what PIL and cv2 raise on a file they refuse
+        return None
+
+
+def _same(got, want):
+    assert got.dtype == np.uint8 and got.shape == want.shape, (got.shape,
+                                                               want.shape)
+    assert got.tobytes() == want.tobytes(), int(np.abs(
+        got.astype(int) - want.astype(int)).max())
+
+
+def _save(img, **opts):
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "WEBP", **opts)
+    return out.getvalue()
+
+
+def _palette(seed, h, w, colors):
+    """An (h, w, 3) image of exactly `colors` seeded colours, in runs."""
+    rng = np.random.default_rng(seed)
+    pal = rng.integers(0, 256, (colors, 3), np.uint8)
+    idx = rng.integers(0, colors, (h, w))
+    idx[:, 1::2] = idx[:, ::2][:, :idx[:, 1::2].shape[1]]
+    idx.reshape(-1)[:colors] = np.arange(colors)
+    return pal[idx]
+
+
+def _rgba(seed, h, w):
+    rng = np.random.default_rng(seed)
+    alpha = rng.integers(0, 256, (h, w, 1), np.uint8)
+    alpha[: h // 2] = 0                  # transparent pixels for `exact`
+    return np.concatenate([golden_input(seed, h, w), alpha], -1)
+
+
+def _face(size, seed=3):
+    from hifidiff_tpu_torch.data import procedural as proc
+    return (proc.render_face(proc._identity_params(0, seed), 0.2, size)
+            * 255).astype(np.uint8)
+
+
+def _textured(frame, seed):
+    """`frame` with a seeded texture of about 20 levels, smooth over 4
+    pixels: a lossy file of a photograph's size."""
+    rng = np.random.default_rng(seed)
+    tex = cv2.resize(rng.integers(-40, 41, (frame.shape[0] // 4,
+                                            frame.shape[1] // 4, 3)).astype(
+        np.float32), frame.shape[1::-1], interpolation=cv2.INTER_CUBIC)
+    return np.clip(frame + 0.5 * tex, 0, 255).astype(np.uint8)
+
+
+def _patch(data, at, new):
+    return data[:at] + new + data[at + len(new):]
+
+
+def _resize_riff(body):
+    return b"RIFF" + struct.pack("<I", len(body) + 4) + b"WEBP" + body
+
+
+def _cut_lossless(data, keep):
+    """A lossless file whose VP8L payload keeps `keep` bytes, its sizes
+    made consistent: a bitstream that ends early."""
+    payload = data[20:20 + keep]
+    chunk = b"VP8L" + struct.pack("<I", len(payload)) + payload
+    return _resize_riff(chunk + b"\0" * (len(payload) & 1))
+
+
+# -- fixtures -----------------------------------------------------------------
+
+WRITER_FRAMES = {   # name: vp8_frame's keywords
+    "vp8_parts2_simple_sharp3_45x37.webp":
+        dict(seed=1, width=45, height=37, partitions=2, simple=True,
+             sharpness=3, level=30),
+    "vp8_parts4_deltas_segments_48x32.webp":
+        dict(seed=2, width=48, height=32, partitions=4, segments=True,
+             lf_deltas=(5, -3, 2, 0, -8, 4, 0, 1)),
+    "vp8_parts8_sharp7_segments_33x70.webp":
+        dict(seed=3, width=33, height=70, partitions=8, sharpness=7,
+             segments=True, level=50),
+    "vp8_simple_deltas_level63_17x9.webp":
+        dict(seed=4, width=17, height=9, simple=True, level=63,
+             lf_deltas=(-10, 0, 0, 0, 12, 0, 0, 0)),
+}
+
+
+def webp_fixtures():
+    """{name: bytes}: PIL's lossy files (qualities 10-100, methods 0-6, odd
+    sizes, 1 x 1, multiples of 16), lossless files (2, 4, 16, 256 and more
+    colours, with alpha, exact or not), extended files (ALPH, ICCP, EXIF,
+    XMP), the 160 x 160 face and a 1024 x 1024 frame in both (the lossy
+    frame textured), the frames of `vp8_frame`, and the refused files."""
+    g = golden_input
+    face, frame = _face(160), _face(1024, seed=0)
+    out = {
+        "lossy_q10_m0_37x29.webp": _save(g(31, 29, 37), quality=10, method=0),
+        "lossy_q30_m2_16x16.webp": _save(g(32, 16, 16), quality=30, method=2),
+        "lossy_q50_m4_45x37.webp": _save(g(33, 37, 45), quality=50, method=4),
+        "lossy_q75_m6_48x32.webp": _save(g(34, 32, 48), quality=75, method=6),
+        "lossy_q90_m3_23x41.webp": _save(g(35, 41, 23), quality=90, method=3),
+        "lossy_q100_m5_33x21.webp": _save(g(36, 21, 33), quality=100,
+                                          method=5),
+        "lossy_q80_m1_1x1.webp": _save(g(37, 1, 1), quality=80, method=1),
+        "lossy_face_q90_160x160.webp": _save(face, quality=90),
+        "lossy_frame_q80_1024x1024.webp": _save(_textured(frame, 5),
+                                                quality=80),
+        "lossless_2colors_33x21.webp": _save(_palette(41, 21, 33, 2),
+                                             lossless=True),
+        "lossless_4colors_37x29.webp": _save(_palette(42, 29, 37, 4),
+                                             lossless=True),
+        "lossless_16colors_45x37.webp": _save(_palette(43, 37, 45, 16),
+                                              lossless=True),
+        "lossless_256colors_48x40.webp": _save(_palette(44, 40, 48, 256),
+                                               lossless=True),
+        "lossless_rgb_m6_37x29.webp": _save(g(45, 29, 37), lossless=True,
+                                            quality=100, method=6),
+        "lossless_rgb_m0_23x31.webp": _save(g(46, 31, 23), lossless=True,
+                                            quality=0, method=0),
+        "lossless_alpha_exact_29x23.webp": _save(_rgba(47, 23, 29),
+                                                 lossless=True, exact=True),
+        "lossless_alpha_23x31.webp": _save(_rgba(48, 31, 23), lossless=True),
+        "lossless_1x1.webp": _save(g(49, 1, 1), lossless=True),
+        "lossless_face_160x160.webp": _save(face, lossless=True),
+        "lossless_frame_1024x1024.webp": _save(frame, lossless=True),
+        "vp8x_lossy_alph_iccp_exif_xmp_37x29.webp": _save(
+            _rgba(51, 29, 37), quality=80, icc_profile=b"icc " * 9,
+            exif=b"II*\0\x08\0\0\0\0\0\0\0\0\0", xmp=b"<x:xmpmeta/>"),
+        "vp8x_lossless_alpha_exif_29x37.webp": _save(
+            _rgba(52, 37, 29), lossless=True,
+            exif=b"MM\0*\0\0\0\x08\0\0\0\0\0\0"),
+    }
+    for name, kw in WRITER_FRAMES.items():
+        out[name] = vp8_frame(**kw)
+    animated = io.BytesIO()
+    img = g(53, 19, 21)
+    Image.fromarray(img).save(animated, "WEBP", lossless=True, save_all=True,
+                              append_images=[Image.fromarray(img[::-1])])
+    out["refused_animated_21x19.webp"] = animated.getvalue()
+    out["refused_truncated_45x37.webp"] = out["lossy_q50_m4_45x37.webp"][:-40]
+    canvas = out["vp8x_lossy_alph_iccp_exif_xmp_37x29.webp"]
+    out["refused_canvas_37x29.webp"] = _patch(canvas, 24, (37).to_bytes(
+        3, "little"))
+    out["refused_lossless_ends_37x29.webp"] = _cut_lossless(
+        out["lossless_rgb_m6_37x29.webp"], 300)
+    return out
+
+
+REFUSE = {
+    "refused_animated_21x19.webp": "animated WebP",
+    "refused_truncated_45x37.webp": "truncated",
+    "refused_canvas_37x29.webp": "a 37 x 29 image on a VP8X canvas of 38 x 29",
+    "refused_lossless_ends_37x29.webp": "the lossless bitstream ends early",
+}
+
+
+def _digests(files):
+    out = {"source": "PIL 12.1.0 and cv2 5.0.0 (libwebp 1.6.0): each file "
+                     "decoded as the named library decodes it, RGB uint8",
+           "decode": {}, "refuse": REFUSE}
+    for name, data in sorted(files.items()):
+        if name not in REFUSE:
+            out["decode"][name] = {how: {"shape": list(rgb.shape),
+                                         "sha256": _sha(rgb)}
+                                   for how, rgb in (("pil", _pil(data)),
+                                                    ("cv2", _cv2(data)))}
+    return out
+
+
+def write_fixtures():
+    FIXTURES.mkdir(exist_ok=True)
+    files = webp_fixtures()
+    for name, data in files.items():
+        (FIXTURES / name).write_bytes(data)
+    (FIXTURES / "digests.json").write_text(json.dumps(_digests(files),
+                                                      indent=1) + "\n")
+
+
+def test_webp_fixtures_rebuilt():
+    """The committed fixtures are PIL's and `vp8_frame`'s bytes for their
+    seeds, digests.json holds PIL's and cv2's decodes of them (equal), the
+    port gives the same digests, the lossless ones by the plain version
+    too and the lossy ones with the plain version's coefficients, and
+    the refused files are refused, naming the cause."""
+    files = webp_fixtures()
+    assert sorted(p.name for p in FIXTURES.iterdir()) == sorted(
+        [*files, "digests.json"])
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 400_000
+    for name, data in files.items():
+        assert (FIXTURES / name).read_bytes() == data, name
+    golden = json.loads((FIXTURES / "digests.json").read_text())
+    assert golden == json.loads(json.dumps(_digests(files)))
+    for name, by_how in golden["decode"].items():
+        assert by_how["pil"] == by_how["cv2"], name
+        data = files[name]
+        got = webp.decode_webp(data)
+        assert [list(got.shape), _sha(got)] == [by_how["pil"]["shape"],
+                                                by_how["pil"]["sha256"]], name
+        if webp.parse(data).lossless:
+            _same(webp.decode_webp_plain(data), got)
+        else:
+            for a, b in zip(webp.vp8_coefficients(data),
+                            webp.vp8_coefficients_plain(data)):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    for name, match in golden["refuse"].items():
+        with pytest.raises(webp.WebPError, match=match):
+            webp.decode_webp(files[name])
+        if "animated" not in name:   # both read an animation's first frame
+            assert _reads(_pil, files[name]) is None
+            assert _reads(_cv2, files[name]) is None
+
+
+# -- against PIL and cv2 ------------------------------------------------------
+
+@pytest.mark.parametrize("quality,method,size", [
+    (5, 0, (7, 5)), (20, 1, (15, 17)), (40, 2, (32, 32)), (60, 3, (9, 33)),
+    (75, 4, (50, 47)), (85, 5, (16, 80)), (95, 6, (31, 1)),
+    (100, 4, (1, 31))])
+def test_lossy_files(quality, method, size):
+    """Seeded images through PIL's encoder at each quality band and
+    method, odd and whole-macroblock sizes: the RGB of PIL and cv2, the
+    plain parse's coefficients."""
+    img = golden_input(quality, *size)
+    data = _save(img, quality=quality, method=method)
+    got = webp.decode_webp(data)
+    _same(got, _pil(data))
+    _same(got, _cv2(data))
+    info, coeffs = webp.vp8_coefficients(data)
+    plain = webp.vp8_coefficients_plain(data)
+    assert info.tobytes() == plain[0].tobytes()
+    assert coeffs.tobytes() == plain[1].tobytes()
+
+
+@pytest.mark.parametrize("kind", ["2 colours", "3 colours", "4 colours",
+                                  "11 colours", "16 colours", "17 colours",
+                                  "256 colours", "rgb", "rgba exact",
+                                  "rgba", "grey runs", "method 0"])
+def test_lossless_files(kind):
+    """Palettes bundling 8, 4, 2 and 1 pixels a byte, images past a
+    palette, alpha exact or not, long runs (backward references, the
+    colour cache): PIL's and cv2's RGB, equal to the plain version's."""
+    h, w = 27, 35
+    opts = dict(lossless=True)
+    if "colours" in kind:
+        img = _palette(len(kind), h, w, int(kind.split()[0]))
+    elif kind.startswith("rgba"):
+        img = _rgba(7, h, w)
+        opts["exact"] = kind.endswith("exact")
+    elif kind == "grey runs":
+        img = np.repeat(np.repeat(golden_input(8, 7, 9)[..., :1], 4, 0), 4, 1)
+        img = np.repeat(img, 3, -1)[:h, :w]
+    else:
+        img = golden_input(9, h, w)
+        opts.update(quality=0, method=0) if kind == "method 0" else None
+    data = _save(img, **opts)
+    got = webp.decode_webp(data)
+    _same(got, _pil(data))
+    _same(got, _cv2(data))
+    _same(webp.decode_webp_plain(data), got)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(partitions=2), dict(partitions=4, segments=True),
+    dict(partitions=8, simple=True), dict(simple=True, sharpness=5),
+    dict(sharpness=7, level=63), dict(level=0, segments=True),
+    dict(lf_deltas=(20, 0, 0, 0, -20, 0, 0, 0)),
+    dict(lf_deltas=(-63, 1, 2, 3, 63, 1, 2, 3), simple=True, segments=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_vp8_writer_frames(kw):
+    """Frames of what PIL's encoder never writes (token partitions, the
+    simple filter, sharpness, level deltas, segments): PIL's and cv2's RGB,
+    the plain parse's coefficients, the partitions asked for."""
+    data = vp8_frame(len(str(kw)), 45, 37, **kw)
+    got = webp.decode_webp(data)
+    _same(got, _pil(data))
+    _same(got, _cv2(data))
+    info, coeffs = webp.vp8_coefficients(data)
+    plain = webp.vp8_coefficients_plain(data)
+    assert info.tobytes() == plain[0].tobytes()
+    assert coeffs.tobytes() == plain[1].tobytes()
+    assert (coeffs != 0).any()
+    assert 1 << _partition_bits(data) == kw.get("partitions", 1)
+
+
+def test_vp8_writer_draws_every_mode():
+    """A 128 x 112 frame of `vp8_frame` holds every 4x4, 16x16 and chroma
+    mode, skipped macroblocks, the four segments, and reads as PIL's."""
+    data = vp8_frame(9, 128, 112, segments=True)
+    _same(webp.decode_webp(data), _pil(data))
+    info, _ = webp.vp8_coefficients(data)
+    i4 = info[..., 2] == 1
+    assert set(info[i4][:, 4:].reshape(-1).tolist()) == set(range(10))
+    assert set(info[~i4][:, 4].tolist()) == set(range(4))
+    assert set(info[..., 3].reshape(-1).tolist()) == set(range(4))
+    assert set(info[..., 0].reshape(-1).tolist()) == set(range(4))
+    assert info[..., 1].any() and not info[..., 1].all()
+
+
+def _partition_bits(data):
+    """The log2 partition count a frame header of `vp8_frame` names (its
+    first partition parsed up to there by the plain boolean decoder)."""
+    d = data[20:]
+    br = webp._BoolReader(d, 10, (d[0] | d[1] << 8 | d[2] << 16) >> 5)
+    br.value_bits(2)
+    if br.value_bits(1):   # segments: map, data, deltas, 4 + 4 values
+        br.value_bits(3)
+        for bits in (7,) * 4 + (6,) * 4:
+            if br.value_bits(1):
+                br.signed(bits)
+        for _ in range(3):
+            if br.value_bits(1):
+                br.value_bits(8)
+    br.value_bits(10)
+    if br.value_bits(1) and br.value_bits(1):
+        for _ in range(8):
+            if br.value_bits(1):
+                br.signed(6)
+    return br.value_bits(2)
+
+
+def test_the_loop_filter_changes_the_pixels():
+    """The same frame with the filter off, simple and normal: three
+    different images, each PIL's."""
+    images = []
+    for kw in (dict(level=0), dict(simple=True, level=40),
+               dict(level=40, sharpness=2)):
+        data = vp8_frame(5, 40, 40, **kw)
+        images.append(webp.decode_webp(data))
+        _same(images[-1], _pil(data))
+    assert len({im.tobytes() for im in images}) == 3
+
+
+# -- mutants ------------------------------------------------------------------
+
+def _mutant_bases():
+    rng = np.random.default_rng(3)
+    img = golden_input(61, 23, 29)
+    rgba = np.concatenate([img, rng.integers(0, 256, (23, 29, 1),
+                                             np.uint8)], -1)
+    return {"lossless": _save(img, lossless=True),
+            "lossy": _save(img, quality=60),
+            "vp8x": _save(rgba, quality=60, icc_profile=b"icc" * 3,
+                          exif=b"II*\0\x08\0\0\0\0\0\0\0\0\0"),
+            "frame": vp8_frame(6, 29, 23, partitions=2, segments=True)}
+
+
+def _alph_payload(data):
+    at = data.find(b"ALPH")
+    if at < 0:
+        return range(0)
+    return range(at + 8, at + 8 + struct.unpack_from("<I", data, at + 4)[0])
+
+
+def test_one_byte_mutants(monkeypatch):
+    """About 300 seeded one-byte mutants (a random byte, a flipped bit, a
+    cut) of a lossless, a lossy, an extended file with alpha and a
+    partitioned frame: where PIL and cv2 both read one, the port reads
+    their pixels; where either refuses, the port refuses; the library and
+    the plain versions give one message. (The ALPH payload is the
+    deliberate exception: the port reads the RGB.) About 3 s."""
+    rng = np.random.default_rng(2024)
+    counts = {"read": 0, "refused": 0}
+    for name, data in _mutant_bases().items():
+        alph = _alph_payload(data)
+        for _ in range(75):
+            m = bytearray(data)
+            at = int(rng.integers(0, len(data)))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                m[at] = int(rng.integers(0, 256))
+            elif kind == 1:
+                m[at] ^= 1 << int(rng.integers(0, 8))
+            else:
+                m = m[:at]
+            m = bytes(m)
+            p, c = _reads(_pil, m), _reads(_cv2, m)
+            try:
+                got = webp.decode_webp(m)
+            except webp.WebPError as e:
+                assert p is None or c is None, (name, at, str(e))
+                counts["refused"] += 1
+                try:
+                    plain = (webp.decode_webp_plain if name == "lossless"
+                             else webp.vp8_coefficients_plain)
+                    plain(m)
+                except webp.WebPError as e2:
+                    assert str(e2) == str(e)
+                continue
+            if p is None or c is None:
+                assert kind < 2 and at in alph, (name, at)
+                continue
+            _same(got, p)
+            _same(got, c)
+            counts["read"] += 1
+    assert counts["read"] > 100 and counts["refused"] > 60, counts
+
+
+# -- the container ------------------------------------------------------------
+
+def _simple():
+    return _save(golden_input(71, 11, 13), lossless=True)
+
+
+def _vp8x(flags=0x08, chunks=None, canvas=(13, 11), size=10):
+    simple = _simple()
+    image = simple[12:]
+    body = (b"VP8X" + struct.pack("<I", size) + bytes([flags, 0, 0, 0])
+            + (canvas[0] - 1).to_bytes(3, "little")
+            + (canvas[1] - 1).to_bytes(3, "little") + b"\0" * (size - 10)
+            + b"".join(chunks(image) if chunks else [image]))
+    return _resize_riff(body)
+
+
+def _chunk(kind, payload):
+    return kind + struct.pack("<I", len(payload)) + payload \
+        + b"\0" * (len(payload) & 1)
+
+
+CONTAINERS = {   # name: (file, the refusal's words, or None where read)
+    "odd chunk, its pad byte": (lambda: _vp8x(chunks=lambda im: [
+        _chunk(b"ICCP", b"abc"), im, _chunk(b"XMP ", b"<x/>")]), None),
+    "unknown chunks": (lambda: _vp8x(chunks=lambda im: [
+        _chunk(b"ABCD", b"12345"), im, _chunk(b"ZZZZ", b"")]), None),
+    "bytes after the RIFF chunk": (lambda: _simple() + b"trailing", None),
+    "ANIM after the image": (lambda: _vp8x(chunks=lambda im: [
+        im, _chunk(b"ANIM", bytes(6))]), None),
+    "not RIFF/WEBP": (lambda: b"RIFF" + _simple()[4:8] + b"WEBQ"
+                      + _simple()[12:], "no RIFF / WEBP signature"),
+    "under 32 bytes": (lambda: _simple()[:20] + b"\0" * 8,
+                       "cv2 reads none under 32"),
+    "RIFF size past the file": (lambda: _patch(_simple(), 4, struct.pack(
+        "<I", len(_simple()))), "truncated: the RIFF chunk says"),
+    "RIFF size under 12": (lambda: _patch(_simple(), 4, struct.pack("<I", 8)),
+                           "a RIFF size of 8 bytes"),
+    "first chunk unknown": (lambda: _resize_riff(_chunk(b"ICCP", b"ab")
+                                                 + _simple()[12:]),
+                            "the first chunk is b'ICCP'"),
+    "VP8X of 12 bytes": (lambda: _vp8x(size=12), "a VP8X chunk of 12 bytes"),
+    "VP8X flag bit 0": (lambda: _vp8x(flags=0x09), "VP8X flags 0x09"),
+    "VP8X animation flag": (lambda: _vp8x(flags=0x0A), "animated WebP"),
+    "ANIM before the image": (lambda: _vp8x(chunks=lambda im: [
+        _chunk(b"ANIM", bytes(6)), im]), "animated WebP"),
+    "ANMF": (lambda: _vp8x(chunks=lambda im: [im, _chunk(b"ANMF", bytes(16))]),
+             "animated WebP"),
+    "two images": (lambda: _vp8x(chunks=lambda im: [im, _chunk(b"EXIF", b"x"),
+                                                   im]), "a second image"),
+    "canvas size": (lambda: _vp8x(canvas=(13, 12)),
+                    "a 13 x 11 image on a VP8X canvas of 13 x 12"),
+    "stray bytes": (lambda: _vp8x(chunks=lambda im: [im, b"1234"]),
+                    "4 stray bytes"),
+    "chunk past the RIFF": (lambda: _vp8x(chunks=lambda im: [
+        im, b"EXIF" + struct.pack("<I", 99) + b"x"]), "runs past the RIFF"),
+    "ALPH then VP8L": (lambda: _vp8x(flags=0x10, chunks=lambda im: [
+        _chunk(b"ALPH", b"\0"), im]), "an ALPH chunk beside a VP8L image"),
+    "ALPH alone": (lambda: _vp8x(flags=0x10, chunks=lambda im: [
+        _chunk(b"ALPH", b"\0")]), "an ALPH chunk without an image"),
+    "VP8 not a key frame": (lambda: _patch(_save(golden_input(72, 8, 8),
+                                                 quality=50), 20, b"\x01"),
+                            "not a key frame"),
+    "VP8 start code": (lambda: _patch(_save(golden_input(72, 8, 8),
+                                            quality=50), 23, b"\x9c"),
+                       "no VP8 start code"),
+    "VP8L version": (lambda: _patch(_simple(), 24, bytes([_simple()[24]
+                                                          | 0x20])),
+                     "VP8L version 1"),
+}
+
+
+@pytest.mark.parametrize("name", list(CONTAINERS))
+def test_container(name):
+    """Hand-made containers: odd sizes and their pad byte, unknown and
+    trailing chunks read as PIL and cv2 read them; each refusal names its
+    cause, and PIL or cv2 refuses the file too (an animated file aside)."""
+    make, match = CONTAINERS[name]
+    data = make()
+    p, c = _reads(_pil, data), _reads(_cv2, data)
+    if match is None:
+        got = webp.decode_webp(data)
+        _same(got, p)
+        _same(got, c)
+        return
+    with pytest.raises(webp.WebPError, match=match):
+        webp.decode_webp(data)
+    if "animated" not in match:
+        assert p is None or c is None
+
+
+# A lossless header of 2^30 x 2^30 on five one-symbol codes, and a lossy
+# frame header of 16383 x 16383: the decoders' first buffers (2^62 bytes of
+# pixels; 400 MB of planes, in a process whose address space may grow by
+# 128 MiB) fail to allocate before any pixel is read.
+NO_MEMORY = """
+import ctypes, resource, struct
+import numpy as np
+from hifidiff_tpu_torch.data import host
+from hifidiff_tpu_torch.data.image_files import vp8_frame
+lib = host.library()
+detail = (ctypes.c_int * 2)()
+out = np.zeros(3, np.uint8)
+bits = [0, 0, 0] + [1, 0, 0, 0] * 5           # no transform, cache, meta
+stream = bytes(5) + bytes(sum(b << i for i, b in enumerate(bits[k:k + 8]))
+                          for k in range(0, len(bits), 8))
+code = lib.hw_vp8l_rgb(stream, len(stream), 1 << 30, 1 << 30,
+                       out.ctypes.data, detail)
+assert code == host.NO_MEMORY, code
+frame = bytearray(vp8_frame(1, 16, 16)[20:])
+frame[6:10] = struct.pack("<HH", 16383, 16383)
+vm = next(int(ln.split()[1]) for ln in open("/proc/self/status")
+          if ln.startswith("VmSize:")) * 1024
+resource.setrlimit(resource.RLIMIT_AS, (vm + (1 << 27), vm + (1 << 27)))
+code = lib.hw_vp8_rgb(bytes(frame), len(frame), out.ctypes.data, detail)
+assert code == host.NO_MEMORY, code
+print("ok")
+"""
+
+
+def test_host_library_returns_no_memory():
+    """An allocation that fails inside webp.cc comes back as
+    `host.NO_MEMORY` (and `WebPError` naming it), not as a C++ exception
+    through ctypes."""
+    res = subprocess.run([sys.executable, "-c", NO_MEMORY], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.split() == ["ok"], res.stderr
+    assert "out of memory" in str(webp._refusal(host.NO_MEMORY))
+
+
+# -- the JAX package ----------------------------------------------------------
+
+@pytest.fixture
+def cv2_own():
+    """cv2's own resize algorithm for the JAX package's calls (IPP off)."""
+    was = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    yield
+    cv2.ipp.setUseIPP(was)
+
+
+def _compare(port_ds, jax_ds):
+    assert len(port_ds) == len(jax_ds) > 0
+    for i in range(len(jax_ds)):
+        got, want = port_ds[i], jax_ds[i]
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if isinstance(v, str):
+                assert got[k] == v
+                continue
+            assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+            assert got[k].tobytes() == v.tobytes(), (i, k)
+
+
+def _mixed(rng, h, w):
+    """A lossy, a lossless and an extended (alpha, EXIF orientation 6)
+    WebP file, a PNG, a JPEG and a BMP of seeded images."""
+    img = rng.integers(0, 256, (h, w, 3), np.uint8)
+    img = cv2.GaussianBlur(img, (5, 5), 0)
+    rgba = np.concatenate([img, rng.integers(0, 256, (h, w, 1), np.uint8)],
+                          -1)
+    jpg = io.BytesIO()
+    Image.fromarray(img).save(jpg, "JPEG", quality=90)
+    exif = b"II*\0\x08\0\0\0\1\0\x12\x01\3\0\1\0\0\0\6\0\0\0\0\0\0\0"
+    return [_save(img, quality=70), _save(img[::-1], lossless=True),
+            _save(rgba, quality=90, exif=exif), png_file(img, 8, 2),
+            jpg.getvalue(), bmp_file(img, 24)]
+
+
+def test_celeba_mixed_directory_against_jax(tmp_path):
+    """`CelebAHQDataset` on a directory mixing WebP (lossy, lossless, with
+    alpha and an EXIF orientation PIL ignores) with PNG, JPEG and BMP:
+    every item bit-equal to the JAX class's."""
+    from hifidiff_tpu.data import pretraining as jpretraining
+    from hifidiff_tpu_torch.data import pretraining
+
+    rng = np.random.default_rng(16)
+    for j, data in enumerate(_mixed(rng, 50, 44) + _mixed(rng, 37, 61)):
+        ext = {b"RI": ".webp", b"\x89P": ".png", b"\xff\xd8": ".jpg",
+               b"BM": ".bmp"}[data[:2]]
+        (tmp_path / f"{j:05d}{ext}").write_bytes(data)
+    _compare(pretraining.CelebAHQDataset(str(tmp_path), size=32),
+             jpretraining.CelebAHQDataset(str(tmp_path), size=32))
+
+
+def _oriented(rng, h, w, k):
+    """The k-th file of an oriented tree: PNG, JPEG and WebP (lossy and
+    lossless) in turn, each with EXIF orientation k % 8 + 1 (PIL writes
+    the eXIf chunk, the APP1 segment, the EXIF chunk)."""
+    img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8),
+                           (5, 5), 0)
+    exif = Image.Exif()
+    exif[0x0112] = k % 8 + 1
+    fmt, opts = (("PNG", {}), ("JPEG", dict(quality=90)),
+                 ("WEBP", dict(quality=80)),
+                 ("WEBP", dict(lossless=True)))[k % 4]
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, fmt, exif=exif, **opts)
+    return buf.getvalue()
+
+
+def test_multipie_oriented_tree_against_jax(tmp_path, cv2_own):
+    """The Multi-PIE sets on a tree whose `.png` paths hold PNG, JPEG and
+    WebP files at every EXIF orientation (cv2 and PIL read by content):
+    the cv2 sites (`MultiPIEDataset`'s input and GT, the IDC set, Multi-PIE
+    HQ) turn them as `cv2.imread` does, the PIL sites do not, each item
+    bit-equal to the JAX classes'."""
+    from hifidiff_tpu.data import multipie as jmultipie
+    from hifidiff_tpu.data import pretraining as jpretraining
+    from hifidiff_tpu_torch.data import multipie, pretraining
+
+    rng = np.random.default_rng(17)
+    i = 0
+    for pid in ("p1", "p2"):
+        for angle in ("11_0", "12_0", "08_0", "19_0", "05_1", "05_0"):
+            for light in ("00", "01"):
+                path = tmp_path / "train" / pid / angle / f"{light}.png"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_bytes(_oriented(rng, 40, 36, i))
+                i += 1
+    turned = [p for p in tmp_path.rglob("*.png")
+              if cv2.imread(str(p)).shape[:2] == (36, 40)]
+    assert len(turned) >= 8
+    kw = dict(split="train", model_type="uni", size=32, use_blind=False,
+              seed=3)
+    _compare(multipie.MultiPIEDataset(str(tmp_path), **kw),
+             jmultipie.MultiPIEDataset(str(tmp_path), **kw))
+    _compare(multipie.MultiPIEIDCDataset(str(tmp_path), split="train",
+                                         size=32, seed=5),
+             jmultipie.MultiPIEIDCDataset(str(tmp_path), split="train",
+                                          size=32, seed=5))
+    _compare(pretraining.MultiPIEHQDataset(str(tmp_path), size=32),
+             jpretraining.MultiPIEHQDataset(str(tmp_path), size=32))
+    _compare(multipie.MultiPIEInferenceDataset(str(tmp_path), split="train",
+                                               model_type="m2f", size=32),
+             jmultipie.MultiPIEInferenceDataset(str(tmp_path), split="train",
+                                                model_type="m2f", size=32))
+
+
+if __name__ == "__main__":
+    write_fixtures()

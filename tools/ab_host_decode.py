@@ -6,12 +6,17 @@ Writes the inputs once, with this tree's writers: 8-bit RGB PNGs of a
 160 x 160 and a 256 x 256 procedural face and of a 640 x 480 frame, rows
 through the five filters in turn (as chip_smoke.py's `time_decodes` writes
 them), and baseline JPEGs at quality 90 of the 160 x 160 face and of a
-1920 x 1080 frame (this tree's encoder). Then, in rounds (the trees in
-order, then in reverse, twice over), it times each tree's
-`image_io.decode_png` and `jpeg.decode_jpeg` on them, in a fresh process
-of the tree's own (its package, its host library built at first use
-before the timing), as the median ms of repeated calls. Every tree must
-decode every file to the same pixels. Prints each reading and writes
+1920 x 1080 frame (this tree's encoder); and it takes this tree's WebP
+fixtures of the 160 x 160 face and the 1024 x 1024 frame, lossless and
+lossy (tests/fixtures/webp). Then, in rounds (the trees in order, then in
+reverse, twice over), it times each tree's `image_io.decode_png`,
+`jpeg.decode_jpeg`, `webp.decode_webp` and the WebP plain versions
+(`decode_webp_plain`, the whole lossless decode in Python;
+`vp8_coefficients_plain`, the lossy parse up to the coefficients) on them,
+in a fresh process of the tree's own (its package, its host library built
+at first use before the timing), as the median ms of repeated calls; a
+tree without `data/webp.py` reads none (null). Every tree must decode
+every file to the same pixels. Prints each reading and writes
 {tree: {label: [ms a round]}} to OUT_JSON. Only the host CPU is used.
 """
 
@@ -27,27 +32,49 @@ import tempfile
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (file, decoder, calls a reading)
-CASES = (("png_160x160.png", "png", 41), ("png_256x256.png", "png", 21),
-         ("png_640x480.png", "png", 11), ("jpeg_160x160.jpg", "jpeg", 41),
-         ("jpeg_1920x1080.jpg", "jpeg", 7))
+WEBP = ("lossless_face_160x160.webp", "lossless_frame_1024x1024.webp",
+        "lossy_face_q90_160x160.webp", "lossy_frame_q80_1024x1024.webp")
+# (label, file, decoder, calls a reading)
+CASES = (("png_160x160.png", "png_160x160.png", "png", 41),
+         ("png_256x256.png", "png_256x256.png", "png", 21),
+         ("png_640x480.png", "png_640x480.png", "png", 11),
+         ("jpeg_160x160.jpg", "jpeg_160x160.jpg", "jpeg", 41),
+         ("jpeg_1920x1080.jpg", "jpeg_1920x1080.jpg", "jpeg", 7),
+         *((name, name, "webp", 41 if "160" in name else 7)
+           for name in WEBP),
+         *((f"{name} plain", name, "webp_plain", 3 if "160" in name else 1)
+           for name in WEBP))
 
 WORKER = """
 import hashlib, json, statistics, sys, time
 sys.path.insert(0, ".")
 from hifidiff_tpu_torch.data.image_io import decode_png
 from hifidiff_tpu_torch.data.jpeg import decode_jpeg
+fns = {"png": decode_png, "jpeg": decode_jpeg}
+try:
+    from hifidiff_tpu_torch.data import webp
+    fns["webp"] = webp.decode_webp
+    fns["webp_plain"] = lambda d: (
+        webp.decode_webp_plain(d).tobytes() if webp.parse(d).lossless
+        else b"".join(a.tobytes() for a in webp.vp8_coefficients_plain(d)))
+except ImportError:
+    pass
 out = {}
-for name, kind, n in json.loads(sys.argv[2]):
+for label, name, kind, n in json.loads(sys.argv[2]):
+    if kind not in fns:
+        out[label] = None
+        continue
     data = open(sys.argv[1] + "/" + name, "rb").read()
-    fn = decode_png if kind == "png" else decode_jpeg
-    digest = hashlib.sha256(fn(data).tobytes()).hexdigest()
+    fn = fns[kind]
+    got = fn(data)
+    digest = hashlib.sha256(got if isinstance(got, bytes)
+                            else got.tobytes()).hexdigest()
     times = []
     for _ in range(n):
         t0 = time.perf_counter()
         fn(data)
         times.append((time.perf_counter() - t0) * 1e3)
-    out[name] = [statistics.median(times), digest]
+    out[label] = [statistics.median(times), digest]
 print(json.dumps(out))
 """
 
@@ -71,6 +98,10 @@ def write_inputs(root):
              "png_640x480.png": png_filtered(frame),
              "jpeg_160x160.jpg": encode_jpeg(face(160), 90),
              "jpeg_1920x1080.jpg": encode_jpeg(np.ascontiguousarray(big), 90)}
+    for name in WEBP:
+        with open(os.path.join(REPO, "tests", "fixtures", "webp", name),
+                  "rb") as f:
+            files[name] = f.read()
     for name, data in files.items():
         with open(os.path.join(root, name), "wb") as f:
             f.write(data)
@@ -91,22 +122,28 @@ def main(argv):
         write_inputs(root)
         for tree in trees:   # builds each tree's host library, untimed
             reading(tree, root)
-        times = {t: {name: [] for name, _, _ in CASES} for t in trees}
+        times = {t: {label: [] for label, *_ in CASES} for t in trees}
         digests = {}
         for order in (trees, trees[::-1], trees, trees[::-1]):
             for tree in order:
-                for name, (ms, digest) in reading(tree, root).items():
-                    times[tree][name].append(ms)
-                    if digests.setdefault(name, digest) != digest:
-                        raise SystemExit(f"{tree} decodes {name} to other "
+                for label, got in reading(tree, root).items():
+                    if got is None:
+                        times[tree][label] = None
+                        continue
+                    ms, digest = got
+                    times[tree][label].append(ms)
+                    if digests.setdefault(label, digest) != digest:
+                        raise SystemExit(f"{tree} decodes {label} to other "
                                          "pixels than the first tree")
-                    print(f"{os.path.basename(tree)} {name}: {ms:.3f} ms",
+                    print(f"{os.path.basename(tree)} {label}: {ms:.3f} ms",
                           flush=True)
     with open(out_path, "w") as f:
         json.dump(times, f, indent=1)
-    for name, _, _ in CASES:
-        print(name, "median of the rounds:", "  ".join(
-            f"{os.path.basename(t)} {statistics.median(times[t][name]):.3f}"
+    for label, *_ in CASES:
+        print(label, "median of the rounds:", "  ".join(
+            f"{os.path.basename(t)} " + (
+                "-" if times[t][label] is None
+                else f"{statistics.median(times[t][label]):.3f}")
             for t in trees), flush=True)
     return 0
 
