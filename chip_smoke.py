@@ -125,7 +125,15 @@ raises at once):
      adds, the run's peak and its wall seconds; the demo's summary and wall
      seconds. The demo and, from `train_refiner` on, phase 17's two ranks
      share the card with the phase (and 14), whose times are so for the
-     record;
+     record. Beside the phase's first stages, in a process of its own
+     (`--graphs-cli-child`, joined before 17's ranks start), under torch's
+     deterministic mode with cuDNN's deterministic algorithms:
+     `train_refiner --cuda-graphs` at its default widths, two epochs of 12
+     procedural faces at batch 8 (a batch of 8 and a short one of 4 an
+     epoch, each shape captured on its first call and replayed in the
+     second epoch, after a validation pass), against the same run with
+     the step left eager on the same capturable optimizer: every logged
+     loss and metric equal;
   14. (run after 13, on the stage files of its `train_vae`, `train_cr` and
      `train_refiner` runs) the perceptual metrics and the distillation CLIs,
      eager, at their default widths, with TF32, the launch counts set to 0
@@ -199,7 +207,9 @@ raises at once):
      data parallelism over `torch.distributed`, f32 with TF32 off:
      `train_refiner`'s step (batch 32, EMA) and `pretrain_idc`'s (24) at
      full width, two steps each, in a world-1 NCCL group in this process
-     against the same steps without a group, bit for bit; two processes of
+     against the same steps without a group, bit for bit, and the IDC
+     step captured as CUDA graphs (8 rows, its all-reduce in the graph)
+     with and without the group, bit for bit; two processes of
      this script (`--dp-child`) on the card over gloo, 16 + 16 and 12 + 12
      rows, against one process on the concatenated batch to the CPU tests'
      limits (the IDC aligned each step, ROADMAP §C2), the ranks' states
@@ -265,21 +275,43 @@ raises at once):
      the plain versions. Compared: the loss, the gradient of every trainable
      parameter, and the parameters and BatchNorm statistics after two
      further steps. Two controls must fail the same limits: dcoef zeroed in
-     the CR step; dscale and dshift zeroed in the refiner step;
-  9. timed train steps on the card in f32 with TF32 (the steps compute in
+     the CR step; dscale and dshift zeroed in the refiner step. The same
+     three card steps on the capturable optimizer a captured step runs
+     (`optim.adam` / `adamw_cosine(capturable=True)`, the rate a device
+     tensor) against the same host run, to the same limits. Then the
+     captured steps (`train/graphs.py`), under torch's deterministic mode
+     with cuDNN's deterministic algorithms: the refiner step at batch 32
+     and the CR step at batch 8, the first call (the state's step, which
+     warms up and captures) and three replays each against four eager
+     steps of a copy of the state on the same capturable optimizer, batches
+     and draws, every metric and state tensor (parameters, buffers,
+     gradients, optimizer state) equal, the first call's launches twice the
+     module tree's step and none from Python in a replay; a control, the
+     refiner's replay after the rate's write was skipped, must differ;
+  9. (run after 19, the last timing of the run) timed train steps on the
+     card in f32 with TF32 (the steps compute in
      the module's dtype): refiner steps at batch 32 and CR steps at batch 8.
      After a warm-up step, one step with the launch counts set to 0 before
      and read after, in which the shapes reaching every kernel wrapper are
      recorded: the counts are held to the module tree and to the recorded
      calls, and every recorded shape must have been compared and timed in
-     phases 3 and 7. Then the timed steps (images/s as the median and the
-     spread of the steps, peak memory), (at the end of the run) one step
-     under `torch.profiler` for the share of the step in which the card is
-     busy, one more with the host's operators traced, for the device
-     launches (kernels and memsets) of each backward kernel's call
-     (`ln_film_bwd` in the refiner step, at most two; `affine_warp_bwd` in
-     the CR step, at most three), and one step each of the IDC, denoiser,
-     cached-denoiser and VAE steps at full width for a finite loss.
+     phases 3 and 7. Then the step captured as CUDA graphs on a second
+     state (its first call, the warm-up and the capture, launching twice
+     the tree's step), and eager steps and replays timed in turns (images/s
+     as the median and the spread of each, the eager step's peak memory,
+     what the captured state and its graph pool reserve; no launch from
+     Python in a replay), and the host's ms of the capture's state-key
+     check before each replay; (at the end of the run) one eager step under
+     `torch.profiler` for the share of the step in which the card is busy,
+     one more with the host's operators traced, for the device launches
+     (kernels and memsets) of each backward kernel's call (`ln_film_bwd` in
+     the refiner step, at most two; `affine_warp_bwd` in the CR step, at
+     most three), and one replay of the timed capture for its busy share;
+     then the other eight train steps (IDC, denoiser, cached denoiser under
+     `remat`, VAE, progressive distillation, tiny denoiser, tiny CR, tiny
+     autoencoder; two with accumulation and an EMA) at batch 2 and at their
+     default widths and depths, each captured and three replays held to
+     eager steps as in 8, with a finite loss and a parameter that moved.
 
 Whatever runs under `torch.profiler` runs after every timing of the run is
 taken: no timed launch follows a profiler trace in the same process. A map
@@ -307,6 +339,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -470,6 +503,10 @@ NIQE_FACES = 48
 LPIPS_REL = 1e-4
 DISTILL_PROCEDURAL = 64
 TIMED_STEPS = 8
+CAPTURE_STEPS = 3        # replays held to eager steps, per captured step
+KEY_CHECKS = 20          # timed checks of a capture's state key
+OTHER_CAPTURE_BATCH = 2
+TINY_DN_WIDTH = 64       # train_tiny_dn's default --tiny-width
 THETAS_BWD = {k: THETAS[k]
               for k in ("identity", "random", "shear", "out_of_bounds")}
 # Backward kernel vs plain, as the largest difference over the tensor's
@@ -1561,30 +1598,50 @@ def train_inputs(rng, batch, latent=LATENT):
     return {"lr": lr, "gt": gt, "patches": patches}, (*normal, t)
 
 
-def make_train_state(kind, models, device):
+def make_train_state(kind, models, device, capturable=False):
     """(state, step, cr) of the CR or the refiner step on float32 copies of
     `models` (refiner, cr, vae), through the entry points a trainer calls;
-    `cr` is the CR under training, or the refiner step's frozen one."""
+    `cr` is the CR under training, or the refiner step's frozen one.
+    `capturable`: the optimizer a captured step needs (`--cuda-graphs`)."""
     from hifidiff_tpu_torch.train import optim, steps
 
     refiner, cr, vae = (copy.deepcopy(m).float() for m in models)
     if kind == "cr":
-        state = steps.TrainState.create(cr, optim.adam, device=device)
+        state = steps.TrainState.create(cr, train_optim(kind, capturable),
+                                        device=device)
         return state, steps.make_cr_train_step(device=device), cr
     optim.apply_freeze_mask_(refiner, optim.refiner_freeze_mask(refiner))
-
-    def make(params):  # no warm-up: the first steps must move the weights
-        return optim.adamw_cosine(params, warmup_steps=0, total_steps=1000)
-
-    state = steps.TrainState.create(refiner, make, device=device)
+    state = steps.TrainState.create(refiner, train_optim(kind, capturable),
+                                    device=device)
     return state, steps.make_refiner_train_step(cr, vae, device=device), cr
 
 
-def run_train(kind, models, device, inputs, n_steps):
+def train_optim(kind, capturable=False):
+    """`make_optim` of the CR step (Adam) or the refiner step (AdamW without
+    warm-up: the first steps must move the weights)."""
+    from hifidiff_tpu_torch.train import optim
+
+    if kind == "cr":
+        return functools.partial(optim.adam, capturable=capturable)
+    return functools.partial(optim.adamw_cosine, warmup_steps=0,
+                             total_steps=1000, capturable=capturable)
+
+
+def captured_twin(kind, state):
+    """A state on a capturable optimizer over a copy of `state`'s module (on
+    the card, frozen as the step wants it), for the same step."""
+    from hifidiff_tpu_torch.train import steps
+
+    return steps.TrainState.create(copy.deepcopy(state.module),
+                                   train_optim(kind, capturable=True),
+                                   device=state.device)
+
+
+def run_train(kind, models, device, inputs, n_steps, capturable=False):
     """Take `n_steps` steps of the CR or the refiner step on `device` and
     return {loss, grads} of the first step and {params, stats} after the
     last, all on the CPU."""
-    state, step, _ = make_train_state(kind, models, device)
+    state, step, _ = make_train_state(kind, models, device, capturable)
     grads = spy_gradients(state)
     out = {}
     for i, (batch, draws) in enumerate(inputs[:n_steps]):
@@ -1596,7 +1653,7 @@ def run_train(kind, models, device, inputs, n_steps):
                      for n, p in state.module.named_parameters()}
     out["stats"] = {n: b.detach().float().cpu()
                     for n, b in state.batch_stats.items()}
-    out["lr"] = state.optimizer.defaults["lr"]
+    out["lr"] = float(state.optimizer.defaults["lr"])
     return out
 
 
@@ -1645,6 +1702,156 @@ def train_disagreement(name, run, ref, n_steps):
             or far > TRAIN_PARAM_FAR * one \
             or frozen > 0 or not stats <= TRAIN_STATS_REL
     return bad
+
+
+def state_tensors(state):
+    """Everything a train step writes, by name: parameters, buffers,
+    gradients, optimizer state and EMA of `state`."""
+    out = {f"module.{k}": v for k, v in state.module.state_dict().items()}
+    names = {}
+    for n, p in state.module.named_parameters():
+        names[id(p)] = n
+        if p.grad is not None:
+            out[f"grad.{n}"] = p.grad
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                out[f"optim.{names[id(p)]}.{k}"] = v
+    for n, e in (state.ema_params or {}).items():
+        out[f"ema.{n}"] = e
+    return out
+
+
+def differing(got, want):
+    """The names whose tensors are not equal (`torch.equal`). A gradient
+    that a captured step zeroed in place where the eager one dropped it
+    counts as equal where it is zero: a fresh one holds zeros."""
+    bad = [k for k in got.keys() ^ want.keys()
+           if not (k in got and k.startswith("grad.")
+                   and not bool(got[k].any()))]
+    both = [k for k in got if k in want]
+    same = [got[k].shape == want[k].shape for k in both]
+    # one host read for all of them: `torch.equal` reads the host per tensor
+    ne = torch.stack([torch.ne(got[k], want[k]).any() if ok
+                      else torch.ones((), dtype=torch.bool,
+                                      device=got[k].device)
+                      for k, ok in zip(both, same)]).tolist() if both else []
+    return bad + [k for k, differ in zip(both, ne) if differ]
+
+
+def train_batch(gen, batch, dev):
+    """A seeded batch of the CR and refiner steps on the card: LR and target
+    faces, and patch images cut from the target."""
+    data = {k: torch.rand(batch, 3, 128, 128, generator=gen, device=dev)
+            for k in ("lr", "gt")}
+    data["patches"] = data["gt"][:, None] * (torch.rand(
+        batch, 4, 1, 128, 128, generator=gen, device=dev) > 0.9)
+    return data
+
+
+def replay_vs_eager(step, eager, state, batches, teacher=None,
+                    seed=SEED + 20, tamper=None):
+    """Capture `step` on `state` (a copy of `eager`, both on capturable
+    optimizers) for `batches[0]`'s shapes, then per batch one eager step of
+    `eager` and one call of the capture, each drawing from a generator
+    seeded (seed + i) on the card: the first call of each kind (one, two
+    under accumulation) is the state's step that warms up and captures, the
+    others replay. Returns the capture and {capture_s (the capturing
+    calls'), at_capture (their launches, less the eager steps'), launched
+    (launches from Python during the replays), differ (per call, the names
+    of the metrics and state tensors that differ), losses}. `tamper(i,
+    state)` runs before call i (a control)."""
+    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.train import graphs
+
+    dev = state.device
+    lead = () if teacher is None else (teacher,)
+    kernels.reset_launches()
+    cap = graphs.capture_train_step(step, state, batches[0], teacher=teacher)
+    out = dict(capture_s=0.0, at_capture={}, launched=0, differ=[],
+               losses=[])
+    for i, batch in enumerate(batches):
+        def draws():
+            return {"generator": torch.Generator(device=dev).manual_seed(
+                seed + i)} if cap.takes_generator else {}
+
+        _, want = step(eager, *lead, batch, **draws())
+        if tamper is not None:
+            tamper(i, state)
+        before, warm = dict(kernels.LAUNCHES), len(cap.warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, got = cap.run(batch, **draws())
+        torch.cuda.synchronize()
+        new = {k: n - before.get(k, 0) for k, n in kernels.LAUNCHES.items()
+               if n != before.get(k, 0)}
+        if len(cap.warm) > warm:
+            out["capture_s"] += time.perf_counter() - t0
+            for k, n in new.items():
+                out["at_capture"][k] = out["at_capture"].get(k, 0) + n
+        else:
+            out["launched"] += sum(new.values())
+        out["differ"].append(differing(got, want) + differing(
+            state_tensors(state), state_tensors(eager)))
+        out["losses"].append((float(got["loss"]), float(want["loss"])))
+    return cap, out
+
+
+def check_captured_steps(models, dev, smi):
+    """Phase 7's captured steps (after 8, f32 with TF32 off): the refiner
+    step at batch 32 and the CR step at batch 8, full width, captured as
+    CUDA graphs (`train/graphs.py`); the first call (the state's step that
+    warms up and captures) and CAPTURE_STEPS replays, each against an eager
+    step of a copy of the state on the same capturable optimizer, the same
+    batch and the same draws, every metric and state tensor equal; the
+    warm-up's and the capture's launches twice what the module tree gives a
+    step, none from Python in a replay. The control: the refiner's replay
+    after one whose learning-rate write was skipped (the device-tensor rate
+    left unwritten) must differ."""
+    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        eager, step, cr = make_train_state(kind, models, dev,
+                                           capturable=True)
+        state = captured_twin(kind, eager)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        control = kind == "refiner"
+        calls = 1 + CAPTURE_STEPS
+        batches = [train_batch(gen, batch, dev)
+                   for _ in range(calls + control)]
+
+        def skip_write(i, st):
+            if i == calls - 1:    # the write after this replay
+                st.scheduler._write = lambda: None
+
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic(cudnn=True):
+            cap, r = replay_vs_eager(step, eager, state, batches,
+                                     tamper=skip_write if control else None)
+        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        label = f"captured {kind} train step, batch {batch}, f32"
+        want = {k: 2 * n for k, n in expected_train_launches(
+            state.module, cr).items() if n}
+        checked = r["differ"][:calls]
+        log(f"{label}: warmed up and captured in {r['capture_s']:.2f} s "
+            f"(launched {r['at_capture']}, twice the module tree's step: "
+            f"{want}); that call and {CAPTURE_STEPS} replays against eager "
+            f"steps on the capturable optimizer: tensors that differ "
+            f"{[len(d) for d in checked]} (of {len(state_tensors(state))}"
+            f" and the metrics), losses {r['losses'][:calls]}; "
+            f"launches from Python in the replays {r['launched']}; the two "
+            f"states, the capture and the steps peak {peak_gb:.2f} GB over "
+            f"what was resident [{smi}]")
+        if r["at_capture"] != want or r["launched"] or any(checked):
+            fail(f"{label}: a replay is not the eager step, or its launches "
+                 f"are wrong: {[d[:4] for d in checked]}")
+        if control:
+            log(f"control, a replay after the rate's write was skipped: "
+                f"{len(r['differ'][-1])} tensors differ")
+            if not r["differ"][-1]:
+                fail(f"{label}: a replay on a rate left unwritten passes")
+        del eager, state, cap, step, cr, batches
+    torch.cuda.empty_cache()
 
 
 def expected_train_launches(module, cr=None):
@@ -1729,20 +1936,25 @@ def backward_launches(one, node):
 def timed_train(kind, models, dev, batch, stats_out):
     """Warm up; take one step with the launch counts set to 0 before and
     read after, in which the shapes reaching the wrappers are recorded; then
-    time TIMED_STEPS steps (host clock around a synchronised step). Returns
-    (launches, recorded shapes, profile): `profile()` takes one more step
-    under the profiler for the card's idle share, writes the step's entry of
-    `stats_out` and frees the state; it is called once every timing of the
-    run is taken. Peak memory is what the step adds to what was resident."""
+    capture the step as CUDA graphs on a second state (capturable
+    optimizer; its first call, the warm-up and the capture, launches twice
+    the module tree's step) and time TIMED_STEPS eager steps and as many
+    replays in turns (host clock around a synchronised step; no launch from
+    Python in a replay), and the host's check of the capture's state key
+    before a replay. Returns (launches, recorded shapes, profile):
+    `profile()` takes one more eager step under the profiler for the card's
+    idle share, profiles one replay of the timed capture for the same,
+    writes the step's entries of `stats_out` and frees the states; it is
+    called once every timing of the run is taken. The eager peak memory is
+    what its state and a step add to what was resident; the captured
+    step's is what its state, buffers and graph pool reserve."""
     from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.train import graphs
 
     resident = torch.cuda.memory_allocated()
     state, step, cr = make_train_state(kind, models, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    data = {k: torch.rand(batch, 3, 128, 128, generator=gen, device=dev)
-            for k in ("lr", "gt")}
-    data["patches"] = data["gt"][:, None] * (torch.rand(
-        batch, 4, 1, 128, 128, generator=gen, device=dev) > 0.9)
+    data = train_batch(gen, batch, dev)
     kw = {} if kind == "cr" else {"generator": gen}
 
     def one():
@@ -1752,8 +1964,10 @@ def timed_train(kind, models, dev, batch, stats_out):
 
     one()                                      # the warm-up step
     kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     with recording(training=True) as seen:     # counted and recorded at once
         loss = one()
+    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
     launches = dict(kernels.LAUNCHES)
     expected = expected_train_launches(state.module, cr)
     label = f"{kind} train step, batch {batch}, float32"
@@ -1766,22 +1980,64 @@ def timed_train(kind, models, dev, batch, stats_out):
                  f"{sum(seen[kernel].values())}")
     if not math.isfinite(loss):
         fail(f"{label}: loss {loss}")
-    torch.cuda.reset_peak_memory_stats()
-    times = []
+
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    captured = graphs.capture_train_step(step, captured_twin(kind, state),
+                                         data)
+    g_kw = {} if kind == "cr" else {
+        "generator": torch.Generator(device=dev).manual_seed(SEED)}
+
+    def replay():
+        _, m = captured.run(data, **g_kw)
+        torch.cuda.synchronize()
+        return float(m["loss"])
+
+    kernels.reset_launches()
+    replay()                      # the warm-up and the capture
+    graph_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    at_capture = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    want = {k: 2 * n for k, n in expected.items() if n}
+    if at_capture != want:
+        fail(f"{label}: the warm-up and the capture launched {at_capture}, "
+             f"not twice the module tree's step {want}")
+    times, g_times = [], []
+    launched = 0
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         one()
         times.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(times)
-    peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
-    log(f"{label}: {batch / med * 1e3:.2f} images/s median "
-        f"({batch / max(times) * 1e3:.2f}-{batch / min(times) * 1e3:.2f} "
-        f"over {len(times)} steps), {med:.1f} ms per step, peak memory "
-        f"{peak_gb:.2f} GB, loss {loss:.4f}")
-    log(f"  {label} ms per step: {[round(t, 1) for t in times]}")
+        before = sum(kernels.LAUNCHES.values())
+        t0 = time.perf_counter()
+        replay()
+        g_times.append((time.perf_counter() - t0) * 1e3)
+        launched += sum(kernels.LAUNCHES.values()) - before
+    if launched:
+        fail(f"{label}: {launched} launches from Python in the replays")
+    key_ms = []
+    for _ in range(KEY_CHECKS):
+        t0 = time.perf_counter()
+        held = captured.key.holds()
+        key_ms.append((time.perf_counter() - t0) * 1e3)
+        if not held:
+            fail(f"{label}: the capture's state key does not hold")
+    key_ms = statistics.median(key_ms)
+    log(f"{label}: the state key's check before a replay takes {key_ms:.3f} "
+        f"ms of the host (median of {KEY_CHECKS}; "
+        f"{len(captured.key.params)} parameters, "
+        f"{sum(len(d) for d in captured.key.buffers)} buffers)")
+    med, g_med = statistics.median(times), statistics.median(g_times)
+    for what, ts, m, gb in (("eager", times, med, peak_gb),
+                            ("captured", g_times, g_med, graph_gb)):
+        log(f"{label}, {what}: {batch / m * 1e3:.2f} images/s median "
+            f"({batch / max(ts) * 1e3:.2f}-{batch / min(ts) * 1e3:.2f} "
+            f"over {len(ts)} steps, taken in turns), {m:.1f} ms per step, "
+            + ("peak memory" if what == "eager" else "state, buffers and "
+               "graph pool reserve") + f" {gb:.2f} GB, loss {loss:.4f}")
+        log(f"  {label}, {what}, ms per step: {[round(t, 1) for t in ts]}")
 
     def profile():
-        nonlocal state, step
+        nonlocal state, step, captured
         busy, profiled_ms, top = device_busy_ms(one)
         # the backward kernel's node, and the most device launches one of
         # its calls may take
@@ -1794,85 +2050,151 @@ def timed_train(kind, models, dev, batch, stats_out):
         if not per_call or max(per_call) > most:
             fail(f"{label}: a {kernel} call took more than {most} device "
                  f"launches, or none was seen: {per_call}")
-        if busy is not None and busy > med:     # no share can come of that
-            log(f"  {label}: the profiler counts {busy:.1f} ms of device "
-                f"time, more than the median step: left out")
-            busy = None
-        stats_out[label] = dict(
-            ms=med, images_per_s=batch / med * 1e3, peak_gb=peak_gb,
-            device_busy_ms=busy, profiled_step_ms=profiled_ms,
-            device_idle_share=None if busy is None else 1.0 - busy / med)
-        log(f"  {label}: the card's kernels take "
-            + ("not measured" if busy is None
-               else f"{busy:.1f} ms of one profiled step ({profiled_ms:.1f} "
-               f"ms on the host's clock): idle {1.0 - busy / med:.3f} of the "
-               f"median step; most device time: {top}"))
-        state = step = None
+        g_busy, g_profiled, g_top = device_busy_ms(replay)
+        state = step = captured = None
         torch.cuda.empty_cache()
+        for what, b, m, p_ms, t, gb in (
+                ("eager", busy, med, profiled_ms, top, peak_gb),
+                ("captured", g_busy, g_med, g_profiled, g_top, graph_gb)):
+            if b is not None and b > m:     # no share can come of that
+                log(f"  {label}, {what}: the profiler counts {b:.1f} ms of "
+                    f"device time, more than the median step: left out")
+                b = None
+            stats_out[f"{label}, {what}"] = dict(
+                ms=m, images_per_s=batch / m * 1e3, peak_gb=gb,
+                key_check_ms=key_ms if what == "captured" else None,
+                device_busy_ms=b, profiled_step_ms=p_ms,
+                device_idle_share=None if b is None else 1.0 - b / m)
+            log(f"  {label}, {what}: the card's kernels take "
+                + ("not measured" if b is None
+                   else f"{b:.1f} ms of one profiled step ({p_ms:.1f} ms on "
+                   f"the host's clock): idle {1.0 - b / m:.3f} of the median "
+                   f"step; most device time: {t}"))
 
     return launches, seen, profile
 
 
-def other_steps_once(models, dev):
-    """One step each of the IDC, denoiser, cached-denoiser and VAE steps at
-    full width on the card: a finite loss and a parameter that moved."""
+def other_steps_captured(models, dev, smi):
+    """The other eight train steps at OTHER_CAPTURE_BATCH rows, f32, each
+    captured as CUDA graphs, its capturing calls (the warm-ups) and
+    CAPTURE_STEPS replays held to as many eager steps of a copy of the
+    state on the same capturable optimizer and draws, every metric and
+    state tensor equal: the IDC, denoiser, cached-denoiser (with `remat`,
+    the denoiser's blocks under a checkpoint), VAE, progressive-distillation
+    (stratified student steps, a host draw), tiny-denoiser, tiny-CR and
+    tiny-autoencoder steps; the denoiser's and the tiny CR's with
+    accumulation over two mini-steps and an EMA (two graphs). Every module
+    at its default widths and depths, as the CLIs build them: the frozen CR
+    and VAE, the IDC (ResNet-50), `Denoiser()`, the distillation teacher a
+    `FacialRefiner()` with its ResNet-50 IDC, the distilled student a copy
+    of it, the tiny denoiser at `train_tiny_dn`'s `--tiny-width` 64 with
+    the teacher's IDC, and the tiny CR and autoencoder. Each: a finite loss
+    and a parameter that moved."""
     from hifidiff_tpu_torch.models.denoiser import Denoiser
-    from hifidiff_tpu_torch.train import optim, steps
+    from hifidiff_tpu_torch.models.refiner import FacialRefiner
+    from hifidiff_tpu_torch.models.tiny_cr import TinyCR
+    from hifidiff_tpu_torch.train import distill, optim, steps
+    from hifidiff_tpu_torch.vae import tiny
 
-    refiner, cr, vae = (copy.deepcopy(m).float() for m in models)
+    cr, vae = (copy.deepcopy(m).float().to(dev) for m in models[1:])
+    idc = copy.deepcopy(models[0].idc).float()
     vae_trained = copy.deepcopy(vae)   # `vae` is frozen by the steps below
+    b = OTHER_CAPTURE_BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    faces = [torch.rand(8, 3, 128, 128, generator=gen, device=dev)
-             for _ in range(3)]
-    kw = dict(device=dev)
-    torch.manual_seed(SEED)
-    denoiser = Denoiser()
 
-    def adamw(params):
-        return optim.adamw_cosine(params, warmup_steps=0)
+    def faces(*keys):
+        return {k: torch.rand(b, 3, 128, 128, generator=gen, device=dev)
+                for k in keys}
 
-    def cached():
+    def cached(_):
         with torch.no_grad():
-            mean, logvar = vae.to(dev).moments(faces[0] * 2.0 - 1.0)
+            mean, logvar = vae.to(dev).moments(faces("x")["x"] * 2.0 - 1.0)
         return {"mean": mean, "logvar": logvar}
 
-    runs = {
-        "idc": lambda: (steps.TrainState.create(refiner.idc, optim.adam,
-                                                device=dev),
-                        steps.make_idc_train_step(cr, **kw),
-                        ({"lr": faces[0], "gt": faces[1],
-                          "other": faces[2]},), {}),
-        "denoiser": lambda: (steps.TrainState.create(denoiser, adamw,
-                                                     device=dev),
-                             steps.make_denoiser_train_step(vae, **kw),
-                             (faces[0],), {"generator": gen}),
-        "cached denoiser": lambda: (
-            steps.TrainState.create(denoiser, adamw, device=dev),
-            steps.make_denoiser_train_step_cached(**kw), (cached(),),
-            {"generator": gen}),
-        "vae": lambda: (steps.TrainState.create(vae_trained, optim.adam,
-                                                device=dev),
-                        steps.make_vae_train_step(**kw),
-                        ({"image": faces[0][:4]},), {"generator": gen})}
-    for name, make in runs.items():
-        state, step, args, kwargs = make()
+    def adam(params):
+        return optim.adam(params, capturable=True)
+
+    def adamw(params, accumulate=1):
+        return optim.adamw_cosine(params, warmup_steps=0,
+                                  accumulate_steps=accumulate,
+                                  capturable=True)
+
+    def student():
+        tiny_dn = FacialRefiner(width=TINY_DN_WIDTH)
+        tiny_dn.idc.load_state_dict(distilled.idc.state_dict())
+        return tiny_dn
+
+    torch.manual_seed(SEED)
+    with torch.device(dev):    # the distillation steps' teacher
+        distilled = FacialRefiner().eval()
+    # module, optimizer, EMA decay, step, teacher, batch
+    kinds = {
+        "idc": lambda: (idc, adam, 0.0,
+                        steps.make_idc_train_step(cr, device=dev), None,
+                        lambda: faces("lr", "gt", "other")),
+        "denoiser": lambda: (
+            Denoiser(), functools.partial(adamw, accumulate=2), 0.999,
+            steps.make_denoiser_train_step(vae, device=dev), None,
+            lambda: faces("x")["x"]),
+        "cached denoiser (remat)": lambda: (
+            Denoiser(remat=True), adamw, 0.0,
+            steps.make_denoiser_train_step_cached(device=dev), None,
+            lambda: cached(None)),
+        "vae": lambda: (vae_trained, adamw, 0.0, steps.make_vae_train_step(
+            device=dev), None, lambda: faces("image")),
+        "distill": lambda: (
+            copy.deepcopy(distilled).requires_grad_(True), adamw, 0.0,
+            distill.make_distill_train_step(
+                cr, vae, 10, substeps=2, clip_sample=True, stratified=True,
+                device=dev), distilled, lambda: faces("lr", "gt")),
+        "tiny_dn": lambda: (student(), adamw, 0.0,
+                            distill.make_tiny_dn_train_step(
+                                cr, vae, rollout_steps=2, device=dev),
+                            distilled, lambda: faces("lr", "gt")),
+        "tiny_cr": lambda: (TinyCR(), functools.partial(adamw, accumulate=2),
+                            0.999, distill.make_tiny_cr_train_step(
+                                cr, device=dev), None,
+                            lambda: faces("lr", "gt")),
+        "tae": lambda: (torch.nn.ModuleDict({"enc": tiny.TinyEncoder(),
+                                             "dec": tiny.TinyDecoder()}),
+                        adamw, 0.0, distill.make_tae_train_step(
+                            vae, device=dev), None, lambda: faces("image"))}
+    readings = {}
+    for name, make in kinds.items():
+        t0 = time.perf_counter()
+        with torch.device(dev):    # the new modules drawn on the card
+            module, make_optim, ema, step, teacher, batch = make()
+        eager = steps.TrainState.create(copy.deepcopy(module), make_optim,
+                                        ema_decay=ema, device=dev)
+        state = steps.TrainState.create(copy.deepcopy(module), make_optim,
+                                        ema_decay=ema, device=dev)
         before = [p.detach().clone() for p in state.module.parameters()
                   if p.requires_grad]
-        t0 = time.perf_counter()
-        _, metrics = step(state, *args, **kwargs)
-        torch.cuda.synchronize()
-        loss = float(metrics["loss"])
-        moved = max(float((p.detach() - b).abs().max()) for p, b in zip(
+        warm_ups = 1 if state.accumulate_steps == 1 else 2
+        batches = [batch() for _ in range(warm_ups + CAPTURE_STEPS)]
+        with deterministic(cudnn=True):
+            cap, r = replay_vs_eager(step, eager, state, batches,
+                                     teacher=teacher)
+        moved = max(float((p.detach() - q).abs().max()) for p, q in zip(
             (p for p in state.module.parameters() if p.requires_grad),
             before))
-        log(f"{name} train step at full width, float32: loss {loss:.4f}, "
-            f"a parameter "
-            f"moved by {moved:.2e}, {time.perf_counter() - t0:.2f} s "
-            "(first call)")
-        if not (math.isfinite(loss) and moved > 0):
-            fail(f"{name} train step: loss {loss}, largest move {moved}")
-        del state, step, before
-        torch.cuda.empty_cache()
+        loss = r["losses"][-1][0]
+        readings[name] = dict(
+            capture_s=round(r["capture_s"], 2), replays=cap.replays,
+            differ=[len(d) for d in r["differ"]], moved=moved, loss=loss,
+            draws=list(cap.draws), graphs=len(cap.graphs),
+            s=round(time.perf_counter() - t0, 2))
+        if any(r["differ"]) or r["launched"] \
+                or cap.replays != CAPTURE_STEPS \
+                or not (math.isfinite(loss) and moved > 0):
+            fail(f"captured {name} train step: tensors that differ "
+                 f"{[d[:4] for d in r['differ']]}, launches from Python "
+                 f"{r['launched']}, loss {loss}, largest move {moved}")
+        del module, eager, state, cap, step, teacher, before, batches
+    torch.cuda.empty_cache()
+    log(f"the other train steps captured at batch {b}, f32, at their "
+        f"default widths, the warm-ups and {CAPTURE_STEPS} replays each "
+        f"against eager steps [{smi}]: " + json.dumps(readings))
 
 
 def film_ignored(x, w, b, scale, shift, eps):
@@ -2805,6 +3127,110 @@ def join_demo(proc, work, dev, g, stats, smi):
         + json.dumps({k: {"x".join(map(str, m)): n for m, n in v.items()}
                       for k, v in seen.items() if v}))
     check_recorded_shapes(dev, g, stats, seen, phase="convergence_demo")
+
+
+# 12 faces at batch 8: a full batch and a short one (4) an epoch, each
+# shape captured in the first epoch and replayed in the second, after a
+# validation pass (its 4 faces: a quarter of 12, at least 4)
+GRAPHS_CLI = dict(procedural=12, batch_size=8, num_epochs=2,
+                  num_inference_steps=2, seed=SEED)
+GRAPHS_CLI_STEPS = 4
+GRAPHS_CLI_TIMEOUT = 600
+
+
+def graphs_cli_child(work):
+    """`train_refiner --cuda-graphs` at its default widths on GRAPHS_CLI,
+    in a process of its own (this script with `--graphs-cli-child`), under
+    torch's deterministic mode with cuDNN's deterministic algorithms (two
+    eager runs differ without it): once with the step captured, once
+    eagerly on the same capturable optimizer (`graphed` patched to hand the
+    eager step back). Each checkpoint the CLI saves is taken as a digest
+    of the state's bits (`dp_digest`) in place of its file: a refiner
+    checkpoint is some GBs, and the card's machine may write 45 GiB a
+    call. Writes graphs_cli.json in `work`: each run's logged rows (times
+    left out), saved (step, digest) pairs, wall seconds and peak memory."""
+    from hifidiff_tpu_torch.cli import train_refiner
+
+    out = {}
+    for mode in ("graphs", "eager"):
+        saved = []
+
+        class Digests(train_refiner.CheckpointManager):
+            def save(self, step, state, extra=None):
+                saved.append((step, dp_digest(state)))
+
+        argv = cli_argv(**GRAPHS_CLI, name=mode,
+                        log_dir=os.path.join(work, "logs"),
+                        ckpt_dir=os.path.join(work, "ckpt"),
+                        out_dir=os.path.join(work, "img"), cuda_graphs=True)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(deterministic(cudnn=True))
+            stack.enter_context(patched(train_refiner, "CheckpointManager",
+                                        Digests))
+            if mode == "eager":
+                stack.enter_context(patched(train_refiner, "graphed",
+                                            lambda cfg, step: step))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_refiner.main(argv)
+            torch.cuda.synchronize()
+        with open(os.path.join(work, "logs",
+                               f"hifi_refiner.{mode}.jsonl")) as f:
+            rows = [{k: v for k, v in json.loads(line).items()
+                     if "time" not in k} for line in f if line.strip()]
+        out[mode] = dict(rows=rows, saved=saved,
+                         wall_s=time.perf_counter() - t0,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(work, "graphs_cli.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_graphs_cli(work):
+    """`graphs_cli_child` started in `work` beside this process (its output
+    into graphs_cli.log there); returns the process."""
+    with open(os.path.join(work, "graphs_cli.log"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--graphs-cli-child",
+             work], stdout=out, stderr=subprocess.STDOUT)
+
+
+def join_graphs_cli(proc, work, smi):
+    """Waits for `start_graphs_cli`'s process and prints its output. Fails
+    where it failed, where the captured run's logged losses and validation
+    metrics are not the eager run's, or where it did not capture the two
+    batch shapes once each, or where its saved states' digests are not the
+    eager run's."""
+    try:
+        rc = proc.wait(timeout=GRAPHS_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    with open(os.path.join(work, "graphs_cli.log")) as f:
+        text = f.read()
+    log(text.rstrip("\n"))
+    path = os.path.join(work, "graphs_cli.json")
+    if rc != 0 or not os.path.exists(path):
+        fail(f"train_refiner --cuda-graphs: its process ended with rc {rc}")
+        return
+    with open(path) as f:
+        runs = json.load(f)
+    graphs, eager = runs["graphs"], runs["eager"]
+    steps_ = [r for r in graphs["rows"] if "train_loss" in r]
+    log(f"train_refiner --cuda-graphs (batch {GRAPHS_CLI['batch_size']}, "
+        f"{len(steps_)} steps, in a process of its own beside phase 13): "
+        f"rows {graphs['rows']}; the eager run on the capturable optimizer "
+        f"{eager['rows']}; saved states (step, digest) {graphs['saved']} / "
+        f"{eager['saved']}; walls {graphs['wall_s']:.1f} / "
+        f"{eager['wall_s']:.1f} s, peaks {graphs['peak_gb']:.2f} / "
+        f"{eager['peak_gb']:.2f} GB [{smi}]")
+    captures = text.count("--cuda-graphs: capturing the train step")
+    if graphs["rows"] != eager["rows"] or len(steps_) != GRAPHS_CLI_STEPS \
+            or graphs["saved"] != eager["saved"] \
+            or len(graphs["saved"]) != GRAPHS_CLI["num_epochs"] \
+            or captures != 2:
+        fail(f"train_refiner --cuda-graphs: its logged rows or saved states "
+             f"are not the eager run's on the capturable optimizer, or it "
+             f"captured {captures} times, not once for each batch shape")
 
 
 def check_training_clis(dev, g, stats, smi, keep, before_refiner=None):
@@ -4756,6 +5182,7 @@ def check_image_formats(dev, smi, keep, tmp):
 #     serving on the one card.
 DP_BATCH = {"refiner": 32, "idc": 24, "idc64": 24}
 DP_STEPS = 2
+DP_CAPTURE_ROWS = 8
 DP_EMA = 0.9
 # upper limits, but the gradient's cosine: a lower one
 DP_LIMITS = {"refiner": {"loss_rel": 1e-5, "grad_rel": 5e-4,
@@ -5141,6 +5568,32 @@ def dp_run(kind, stack, dev, group=None, rows=slice(None), maps=None,
     return state, out
 
 
+def dp_captured(stack, dev, group=None):
+    """The IDC step (EMA) on the first DP_CAPTURE_ROWS rows of each global
+    batch, captured as CUDA graphs (`train/graphs.py`) through
+    `TrainState.create(..., group=group)` on a capturable optimizer: the
+    gradient all-reduce inside the graph, DP_STEPS calls (the first warms
+    up and captures, the others replay). Returns (losses, digests after
+    each call)."""
+    from hifidiff_tpu_torch.train import graphs, optim, steps
+
+    cr, idc = (copy.deepcopy(m) for m in (stack[1], stack[3]))
+    step = steps.make_idc_train_step(cr, device=dev)
+    state = steps.TrainState.create(
+        idc, functools.partial(optim.adam, capturable=True),
+        ema_decay=DP_EMA, device=dev, group=group)
+    batches = [{k: v[:DP_CAPTURE_ROWS].to(dev)
+                for k, v in dp_batch("idc", i).items()}
+               for i in range(DP_STEPS)]
+    cap = graphs.capture_train_step(step, state, batches[0])
+    losses, digests = [], []
+    for batch in batches:
+        _, m = cap.run(batch)
+        losses.append(float(m["loss"]))
+        digests.append(dp_digest(state))
+    return losses, digests
+
+
 def dp_keep(kept, i, state):
     """`after_step` of the one-process IDC run: keep a copy of its module's
     state after step i."""
@@ -5448,6 +5901,20 @@ def check_data_parallel(dev, g, stats, smi):
                                  + json.dumps(dp_readings(s1, one, s0, none)))
                         del s1, s0, one, none
                         torch.cuda.empty_cache()
+                    # the IDC step captured as CUDA graphs, its gradient
+                    # all-reduce inside the graph
+                    t0 = time.perf_counter()
+                    one, none = (dp_captured(stack, dev, grp)
+                                 for grp in (group, None))
+                    log(f"phase 17 (a) captured IDC step: batch "
+                        f"{DP_CAPTURE_ROWS}, {DP_STEPS} replays in a world-1 "
+                        f"NCCL group vs no group: losses {one[0]} / "
+                        f"{none[0]}, digests {one[1]} / {none[1]}, bit for "
+                        f"bit {one == none} ({time.perf_counter() - t0:.1f} "
+                        f"s) [{smi}]")
+                    if one != none:
+                        fail("phase 17 (a): the captured world-1 NCCL step "
+                             "is not the captured step without a group")
                 log(f"phase 17: operators without a deterministic algorithm: "
                     f"{warned or 'none'}")
                 del stack, frozen_cr
@@ -5872,6 +6339,7 @@ def main() -> int:
         dx, dw, db, dscale, dshift = real(g, x, w, b, scale, eps, need_wb)
         return dx, dw, db, torch.zeros_like(dscale), torch.zeros_like(dshift)
 
+    dev_models = [copy.deepcopy(m).to(dev) for m in cpu_models]
     for kind, module, attr, wrong, what in (
             ("cr", warp_ops, "warp_bwd", no_dcoef, "dcoef zeroed"),
             ("refiner", norm, "ln_film_bwd", no_dfilm,
@@ -5888,6 +6356,16 @@ def main() -> int:
         if train_disagreement(f"{kind} train step, f32 card (kernels) vs "
                               "CPU (plain)", card, host, 3):
             fail(f"{kind} train step: card and CPU runs disagree")
+        # the optimizer a captured step runs (its steps held to the
+        # replays in `check_captured_steps`)
+        capturable = run_train(kind, dev_models, dev, train_in, 3,
+                               capturable=True)
+        if train_disagreement(f"{kind} train step on a capturable "
+                              "optimizer, f32 card (kernels) vs CPU (plain)",
+                              capturable, host, 3):
+            fail(f"{kind} train step on a capturable optimizer: card and "
+                 "CPU runs disagree")
+        del capturable
         with patched(module, attr, wrong):
             control = run_train(kind, cpu_models, dev, train_in, 1)
         if not train_disagreement(f"control, {kind} train step with {what}",
@@ -5897,6 +6375,11 @@ def main() -> int:
         del card, host, control
         torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.0f} s] train steps checked")
+    check_captured_steps(dev_models, dev, smi)
+    del dev_models
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.0f} s] captured train steps "
+        "checked")
     train_models = copy.deepcopy(cpu_models)   # float32, on the CPU
 
     # -- 6. batch 128, bf16, uint8 I/O, 50 steps, three configurations ------
@@ -6019,15 +6502,6 @@ def main() -> int:
     server_launches = check_server(train_models, dev, smi, stats)
     log(f"[{time.perf_counter() - t_start:.0f} s] server checked and loaded")
 
-    # -- 9. timed train steps ------------------------------------------------
-    train_stats, train_profiles = {}, []
-    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
-        launches[f"{kind} train"], shapes[f"{kind} train"], profile = \
-            timed_train(kind, train_models, dev, batch, train_stats)
-        train_profiles.append(profile)
-    log(f"[{time.perf_counter() - t_start:.0f} s] samplers and train steps "
-        "timed")
-
     # -- 17 (a): world-1 NCCL, here, alone on the card ----------------------
     dp = check_data_parallel(dev, g, stats, smi)
     next(dp)
@@ -6040,11 +6514,20 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory() as keep, \
-            tempfile.TemporaryDirectory() as demo_dir:
+            tempfile.TemporaryDirectory() as demo_dir, \
+            tempfile.TemporaryDirectory() as graphs_dir:
         demo = start_demo(demo_dir)
+        graphs_cli = start_graphs_cli(graphs_dir)
+
+        def before_refiner():
+            # the captured CLI run done before phase 17's ranks hold the
+            # card's memory
+            join_graphs_cli(graphs_cli, graphs_dir, smi)
+            next(dp)
+
         try:
             cli_stats = check_training_clis(
-                dev, g, stats, smi, keep, before_refiner=lambda: next(dp))
+                dev, g, stats, smi, keep, before_refiner=before_refiner)
             torch.cuda.empty_cache()
             log(f"training CLIs [{smi}]: " + json.dumps(cli_stats))
             log(f"[{time.perf_counter() - t_start:.0f} s] training CLIs "
@@ -6075,9 +6558,10 @@ def main() -> int:
                 "checked")
         finally:
             dp.close()      # the ranks stopped, where a phase raised
-            if demo.poll() is None:
-                demo.kill()
-                demo.wait()
+            for child in (demo, graphs_cli):
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
 
         # -- 15. the PNG data path, on 13's stage files ----------------------
         with tempfile.TemporaryDirectory() as data:
@@ -6109,6 +6593,15 @@ def main() -> int:
             torch.cuda.empty_cache()
     log(f"image formats [{smi}]: " + json.dumps(format_stats))
     log(f"[{time.perf_counter() - t_start:.0f} s] image formats checked")
+
+    # -- 9. timed train steps, eager and captured, the last timing of the
+    # -- run: each capture is profiled below without being made again -------
+    train_stats, train_profiles = {}, []
+    for kind, batch in (("refiner", REFINER_BATCH), ("cr", CR_BATCH)):
+        launches[f"{kind} train"], shapes[f"{kind} train"], profile = \
+            timed_train(kind, train_models, dev, batch, train_stats)
+        train_profiles.append(profile)
+    log(f"[{time.perf_counter() - t_start:.0f} s] train steps timed")
 
     # -- every timing is taken: now what runs under `torch.profiler`, so that
     # -- no timed launch follows a profiler trace in this process. The
@@ -6168,8 +6661,9 @@ def main() -> int:
     log(f"affine_warp_bwd maps -> launches per CR step: "
         f"{dict(shapes['cr train']['affine_warp_bwd'])}")
     log("train steps [" + smi + "]: " + json.dumps(train_stats))
-    other_steps_once(train_models, dev)
-    log(f"[{time.perf_counter() - t_start:.0f} s] other train steps taken")
+    other_steps_captured(train_models, dev, smi)
+    log(f"[{time.perf_counter() - t_start:.0f} s] other train steps "
+        "captured")
 
     entries = [
         stats.entry(k, path, launches, shapes)
@@ -6221,5 +6715,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--demo-child"]:   # phase 13's convergence demo
         demo_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--graphs-cli-child"]:   # beside phase 13
+        graphs_cli_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

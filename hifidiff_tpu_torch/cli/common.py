@@ -31,7 +31,8 @@ import contextlib
 import copy
 import dataclasses
 import os
-from typing import Dict, Iterator, Optional, Type, TypeVar, Union
+from typing import (Callable, Dict, Iterator, Optional, Type, TypeVar,
+                    Union)
 
 import numpy as np
 import torch
@@ -152,8 +153,41 @@ def data_parallel(cfg, who: str):
 
     up = maybe_initialize(device=cfg.device)
     device = resolve_device(cfg.device, who)
+    if getattr(cfg, "cuda_graphs", False) and device.type != "cuda":
+        raise ValueError(f"{who}: --cuda-graphs captures the train step as "
+                         "CUDA graphs, which needs the card; the run is on "
+                         f"{device}")
     group = torch.distributed.group.WORLD if up else None
     return device, group
+
+
+def graphed(cfg, step: Callable) -> Callable:
+    """The train step a CLI's loop calls: `step` itself, or with
+    `--cuda-graphs` a callable with `step`'s arguments that captures it
+    (`train.graphs.capture_train_step`, after `resume`: the loop's first
+    call, whose step is the capture's warm-up) on the first batch of each
+    shape, an epoch's short last batch getting a capture of its own, and
+    replays it. The distillation steps'
+    teacher (the argument before the batch) is frozen state of the
+    capture. A state that changed under a capture makes the replay raise."""
+    if not cfg.cuda_graphs:
+        return step
+    from hifidiff_tpu_torch.train.graphs import (batch_signature,
+                                                 capture_train_step)
+
+    captures = {}
+
+    def run(state, *args, generator=None, **draws):
+        *teacher, batch = args
+        key = (id(state), batch_signature(batch))
+        if key not in captures:
+            print(f"--cuda-graphs: capturing the train step at step "
+                  f"{state.step} for batches of {key[1]}")
+            captures[key] = capture_train_step(
+                step, state, batch, teacher=teacher[0] if teacher else None)
+        return captures[key].run(batch, generator=generator, **draws)
+
+    return run
 
 
 def shard() -> Dict[str, int]:

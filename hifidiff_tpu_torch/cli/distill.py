@@ -39,7 +39,8 @@ import os
 
 import torch
 
-from hifidiff_tpu_torch.cli.common import (data_parallel, load_refiner_stack,
+from hifidiff_tpu_torch.cli.common import (data_parallel, graphed,
+                                           load_refiner_stack,
                                            multipie_datasets, parse_config,
                                            parse_ints, require_data,
                                            sampler_noise, seeded_generator,
@@ -101,6 +102,7 @@ class Config:
     ckpt_dir: str = "checkpoints/distill"
     use_wandb: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def main(argv=None) -> dict:
@@ -169,12 +171,13 @@ def main(argv=None) -> dict:
         state = TrainState.create(
             student, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                        warmup_steps=cfg.warmup_steps,
-                                       total_steps=cfg.steps_per_round),
+                                       total_steps=cfg.steps_per_round,
+                                       capturable=cfg.cuda_graphs),
             device=device, group=group)
-        step_fn = make_distill_train_step(
+        step_fn = graphed(cfg, make_distill_train_step(
             cr, vae, num_student_steps=student_steps, substeps=substeps,
             clip_sample=True, clip_sample_range=cfg.clip_sample_range,
-            stratified=cfg.stratified, device=device)
+            stratified=cfg.stratified, device=device))
 
         it = iter(loader)
         for i in range(cfg.steps_per_round):

@@ -32,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel, graphed,
                                            hq_datasets, load_vae, parse_config,
                                            parse_ints, require_data, resume,
                                            seeded, seeded_generator, shard,
@@ -91,6 +91,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 @torch.no_grad()
@@ -130,12 +131,15 @@ def main(argv=None) -> None:
     if cfg.cache_latents:
         train_ds = cache_moments(vae, train_ds, cfg.batch_size, device)
         print(f"cached VAE moments for {len(train_ds)} images")
-        train_step = make_denoiser_train_step_cached(device=device)
+        train_step = graphed(cfg, make_denoiser_train_step_cached(
+            device=device))
     else:
         image_step = make_denoiser_train_step(vae, device=device)
 
-        def train_step(state, batch, generator):
-            return image_step(state, batch["image"], generator=generator)
+        def batch_step(state, batch, **draws):
+            return image_step(state, batch["image"], **draws)
+
+        train_step = graphed(cfg, batch_step)
     train_loader = Loader(train_ds, cfg.batch_size, shuffle=True,
                           seed=cfg.seed, **shard())
 
@@ -144,7 +148,8 @@ def main(argv=None) -> None:
         denoiser, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                     warmup_steps=cfg.warmup_steps,
                                     total_steps=total_steps,
-                                    accumulate_steps=cfg.accum_steps),
+                                    accumulate_steps=cfg.accum_steps,
+                                    capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)

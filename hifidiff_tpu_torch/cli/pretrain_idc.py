@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel,
+from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel, graphed,
                                            load_weights, parse_config,
                                            parse_ints, require_data, resume,
                                            seeded, shard, smoke_datasets)
@@ -74,6 +74,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def frozen_cr(cfg, device):
@@ -109,11 +110,12 @@ def main(argv=None) -> None:
     cr = frozen_cr(cfg, device)
     with seeded(cfg.seed):
         idc = IDCEncoder(stage_sizes=parse_ints(cfg.idc_stages))
-    state = TrainState.create(idc, functools.partial(adam, lr=cfg.lr),
+    state = TrainState.create(idc, functools.partial(
+        adam, lr=cfg.lr, capturable=cfg.cuda_graphs),
                               device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_idc_train_step(cr, device=device)
+    train_step = graphed(cfg, make_idc_train_step(cr, device=device))
 
     logger = MetricsLogger(cfg.log_dir, "hifi_idc", cfg.name,
                            use_wandb=cfg.use_wandb)

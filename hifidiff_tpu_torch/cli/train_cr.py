@@ -27,7 +27,7 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel,
+from hifidiff_tpu_torch.cli.common import (build_cr, data_parallel, graphed,
                                            multipie_datasets, parse_config,
                                            read_state_dict, require_data,
                                            resume, seeded, shard,
@@ -79,6 +79,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def main(argv=None) -> None:
@@ -96,7 +97,8 @@ def main(argv=None) -> None:
 
     with seeded(cfg.seed):
         model = build_cr(cfg.width, cfg.size, cfg.enc_depths, cfg.mid_depth)
-    state = TrainState.create(model, functools.partial(adam, lr=cfg.lr),
+    state = TrainState.create(model, functools.partial(
+        adam, lr=cfg.lr, capturable=cfg.cuda_graphs),
                               device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
@@ -111,7 +113,7 @@ def main(argv=None) -> None:
             composite_cr_loss, lambda_pix=cfg.lambda_pix,
             lambda_ssim=cfg.lambda_ssim, lambda_vgg=cfg.lambda_vgg,
             vgg_features_fn=vgg_fn)
-    train_step = make_cr_train_step(loss_fn, device=device)
+    train_step = graphed(cfg, make_cr_train_step(loss_fn, device=device))
     eval_step = make_cr_eval_step(device=device)
 
     def dump(batch, pred, kind, epoch, i):

@@ -37,11 +37,10 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, build_refiner_models,
-                                           data_parallel,
-                                           load_vae, load_weights,
-                                           multipie_datasets, parse_config,
-                                           read_state_dict, require_data,
-                                           resume, sampler_noise,
+                                           data_parallel, graphed, load_vae,
+                                           load_weights, multipie_datasets,
+                                           parse_config, read_state_dict,
+                                           require_data, resume, sampler_noise,
                                            seeded_generator, shard,
                                            smoke_datasets)
 from hifidiff_tpu_torch.data.core import Loader
@@ -103,6 +102,7 @@ class Config:
     stop_after_epoch: int = -1  # >=0: checkpoint + stop after this epoch
     # (resume with the SAME --num-epochs)
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def compose(cfg, refiner) -> dict:
@@ -140,11 +140,13 @@ def main(argv=None) -> None:
         refiner, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                    warmup_steps=cfg.warmup_steps,
                                    total_steps=total_steps,
-                                   accumulate_steps=cfg.accum_steps),
+                                   accumulate_steps=cfg.accum_steps,
+                                   capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_refiner_train_step(cr, vae, device=device)
+    train_step = graphed(cfg, make_refiner_train_step(cr, vae,
+                                                      device=device))
     evaluated = EvalModule(state)
     sampler = build_refiner_sampler_split(
         evaluated.module, cr, vae,

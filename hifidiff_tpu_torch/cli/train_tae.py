@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel, graphed,
                                            hq_datasets, load_vae, parse_config,
                                            parse_ints, require_data, resume,
                                            seeded, seeded_generator, shard,
@@ -87,6 +87,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def _db(mse: float) -> float:
@@ -140,12 +141,13 @@ def main(argv=None) -> None:
     state = TrainState.create(
         pair, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                 warmup_steps=cfg.warmup_steps,
-                                total_steps=total_steps),
+                                total_steps=total_steps,
+                                capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_tae_train_step(vae, gt_weight=cfg.gt_weight,
-                                     device=device)
+    train_step = graphed(cfg, make_tae_train_step(
+        vae, gt_weight=cfg.gt_weight, device=device))
     evaluated = EvalModule(state)
 
     extra_z = None

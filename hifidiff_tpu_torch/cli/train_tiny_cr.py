@@ -33,10 +33,10 @@ import numpy as np
 import torch
 
 from hifidiff_tpu_torch.cli.common import (EvalModule, build_cr, data_parallel,
-                                           load_weights, multipie_datasets,
-                                           parse_config, require_data, resume,
-                                           seeded, shard, smoke_datasets,
-                                           to_nhwc)
+                                           graphed, load_weights,
+                                           multipie_datasets, parse_config,
+                                           require_data, resume, seeded, shard,
+                                           smoke_datasets, to_nhwc)
 from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.data.core import Loader
 from hifidiff_tpu_torch.parallel.mesh import device_prefetch, to_device
@@ -86,6 +86,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def _db(mse: float) -> float:
@@ -115,12 +116,13 @@ def main(argv=None) -> None:
     state = TrainState.create(
         tiny, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                 warmup_steps=cfg.warmup_steps,
-                                total_steps=total_steps),
+                                total_steps=total_steps,
+                                capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_tiny_cr_train_step(cr, gt_weight=cfg.gt_weight,
-                                         device=device)
+    train_step = graphed(cfg, make_tiny_cr_train_step(
+        cr, gt_weight=cfg.gt_weight, device=device))
     evaluated = EvalModule(state)
 
     logger = MetricsLogger(cfg.log_dir, "hifi_tiny_cr", cfg.name,

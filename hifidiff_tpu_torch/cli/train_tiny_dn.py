@@ -37,7 +37,8 @@ import os
 
 import numpy as np
 
-from hifidiff_tpu_torch.cli.common import (data_parallel, load_refiner_stack,
+from hifidiff_tpu_torch.cli.common import (data_parallel, graphed,
+                                           load_refiner_stack,
                                            multipie_datasets, parse_config,
                                            parse_ints, require_data, resume,
                                            seeded, seeded_generator, shard,
@@ -99,6 +100,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 def build_student(cfg, latent: int, teacher: FacialRefiner) -> FacialRefiner:
@@ -133,13 +135,15 @@ def main(argv=None) -> None:
     state = TrainState.create(
         student, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                    warmup_steps=cfg.warmup_steps,
-                                   total_steps=total_steps),
+                                   total_steps=total_steps,
+                                   capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_tiny_dn_train_step(
+    eager_step = make_tiny_dn_train_step(
         cr, vae, rollout_steps=cfg.rollout_steps, fwd_weight=cfg.fwd_weight,
         device=device)
+    train_step = graphed(cfg, eager_step)
 
     logger = MetricsLogger(cfg.log_dir, "hifi_tiny_dn", cfg.name,
                            use_wandb=cfg.use_wandb)
@@ -161,7 +165,7 @@ def main(argv=None) -> None:
         # every batch and epoch
         losses = []
         for batch in val_loader:
-            _, metrics = train_step(
+            _, metrics = eager_step(
                 state, teacher, to_device(batch, device), update=False,
                 generator=seeded_generator(cfg.seed + 1, 0, device))
             losses.append(float(metrics["onpolicy_loss"]))

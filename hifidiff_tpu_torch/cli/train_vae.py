@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel,
+from hifidiff_tpu_torch.cli.common import (EvalModule, data_parallel, graphed,
                                            hq_datasets, parse_config,
                                            parse_ints, require_data, resume,
                                            seeded, seeded_generator, shard,
@@ -73,6 +73,7 @@ class Config:
     use_wandb: bool = False
     resume: bool = False
     device: str = "cuda"        # "cpu" only when asked for
+    cuda_graphs: bool = False   # capture the train step (the card only)
 
 
 @torch.no_grad()
@@ -108,11 +109,13 @@ def main(argv=None) -> None:
         vae, functools.partial(adamw_cosine, base_lr=cfg.lr,
                                warmup_steps=cfg.warmup_steps,
                                total_steps=total_steps,
-                               accumulate_steps=cfg.accum_steps),
+                               accumulate_steps=cfg.accum_steps,
+                               capturable=cfg.cuda_graphs),
         ema_decay=cfg.ema_decay, device=device, group=group)
     ckpt = CheckpointManager(os.path.join(cfg.ckpt_dir, cfg.name))
     start_epoch = resume(cfg, ckpt, state, train_loader)
-    train_step = make_vae_train_step(beta_kl=cfg.beta_kl, device=device)
+    train_step = graphed(cfg, make_vae_train_step(beta_kl=cfg.beta_kl,
+                                                  device=device))
     evaluated = EvalModule(state)
 
     logger = MetricsLogger(cfg.log_dir, "hifi_vae", cfg.name,

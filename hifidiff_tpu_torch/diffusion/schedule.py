@@ -34,13 +34,25 @@ BETAS.flags.writeable = False
 ALPHAS_CUMPROD.flags.writeable = False
 
 
+_ACP_ON = {}
+
+
+def _alphas_cumprod(device: torch.device) -> torch.Tensor:
+    """The float32 table on `device`, copied there once: a step captured as
+    a CUDA graph cannot copy from the host."""
+    table = _ACP_ON.get(device)
+    if table is None:
+        table = _ACP_ON[device] = torch.from_numpy(
+            ALPHAS_CUMPROD.astype(np.float32)).to(device)
+    return table
+
+
 def add_noise(x0, noise, t):
     """The forward process `x_t = sqrt(abar_t) * x0 + sqrt(1 - abar_t) * eps`
     for integer timesteps t (B,); x0 and noise (B, ...) torch tensors. The
     table is rounded to float32 before the square roots, as the JAX package
     holds it."""
-    acp = torch.from_numpy(ALPHAS_CUMPROD.astype(np.float32)).to(x0.device)[
-        t.to(x0.device).long()]
+    acp = _alphas_cumprod(x0.device)[t.to(x0.device).long()]
     shape = (-1,) + (1,) * (x0.dim() - 1)
     return torch.sqrt(acp).reshape(shape) * x0 \
         + torch.sqrt(1.0 - acp).reshape(shape) * noise

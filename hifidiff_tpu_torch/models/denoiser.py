@@ -129,8 +129,11 @@ class _UNetCore(nn.Module):
 
         def run(blk, x):
             if remat:
+                # the blocks draw nothing, so no RNG state is kept: that
+                # read would stop a CUDA-graph capture of the step
                 return checkpoint(blk, x, t, next(films), fuse_small_naf,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             return blk(x, t, next(films), fuse_small_naf)
 
         return run

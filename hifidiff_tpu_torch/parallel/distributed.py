@@ -132,8 +132,10 @@ def global_means(metrics: Dict[str, Union[float, torch.Tensor]], rows: int,
     dev = comm_device(group)
     means = torch.stack([torch.as_tensor(metrics[k]).detach().to(
         dev, torch.float64).reshape(()) for k in names])
-    buf = torch.cat([means * rows, torch.tensor(
-        [rows, rows * rows], dtype=torch.float64, device=dev)])
+    # the row counts filled on the device, not copied from the host, so
+    # that a CUDA graph can capture the call
+    buf = torch.cat([means * rows, means.new_full((1,), rows),
+                     means.new_full((1,), rows * rows)])
     all_reduce_sum(buf, group)
     if equal_rows:
         count, squares = float(buf[-2]), float(buf[-1])

@@ -47,8 +47,8 @@ from hifidiff_tpu_torch.parallel.distributed import global_means
 from hifidiff_tpu_torch.train.losses import mse_loss
 from hifidiff_tpu_torch.train.steps import (Device, Metrics, TrainState,
                                             _check_state, _finish, _frozen,
-                                            _normal, _rows, _timesteps,
-                                            _to_range)
+                                            _normal, _random_input, _rows,
+                                            _timesteps, _to_range)
 from hifidiff_tpu_torch.vae.model import SD_VAE_SCALING
 
 
@@ -130,24 +130,27 @@ def _conditioning(cr_model, vae, batch, hf_posterior_noise,
 
 def _student_steps(given, batch: int, n: int, stratified: bool,
                    generator, device, group) -> torch.Tensor:
+    def draw(gen):
+        if stratified:
+            # as the JAX package draws it: a permutation of arange(b) % n
+            # over the global batch b, so with b < n the steps >= b are
+            # never drawn (ROADMAP §C)
+            def rows(shape):
+                perm = torch.randperm(shape[0], generator=gen,
+                                      device=gen.device).cpu()
+                return (torch.arange(shape[0]) % n)[perm]
+        else:
+            def rows(shape):
+                return torch.randint(0, n, shape, generator=gen,
+                                     device=gen.device)
+        return _rows(rows, (batch,), group).to(device)
+
     if given is not None:
-        return given.to(device).long()
+        return _random_input("student_steps", draw, given.to(device).long())
     if generator is None:
         raise ValueError("pass the student steps or a torch.Generator to "
                          "draw them from")
-    if stratified:
-        # as the JAX package draws it: a permutation of arange(b) % n over
-        # the global batch b, so with b < n the steps >= b are never drawn
-        # (ROADMAP §C)
-        def draw(shape):
-            perm = torch.randperm(shape[0], generator=generator,
-                                  device=generator.device).cpu()
-            return (torch.arange(shape[0]) % n)[perm]
-    else:
-        def draw(shape):
-            return torch.randint(0, n, shape, generator=generator,
-                                 device=generator.device)
-    return _rows(draw, (batch,), group).to(device)
+    return _random_input("student_steps", draw, draw(generator))
 
 
 def make_distill_train_step(cr_model: nn.Module, vae: nn.Module,
@@ -252,7 +255,8 @@ def make_tiny_dn_train_step(cr_model: nn.Module, vae: nn.Module,
         b, nd = hf_latent.shape[0], hf_latent.dim()
         x = _normal(latents_noise, hf_latent.shape, generator, device,
                     "latents_noise", state.group)
-        t_fwd = _timesteps(fwd_timesteps, b, generator, device, state.group)
+        t_fwd = _timesteps(fwd_timesteps, b, generator, device, state.group,
+                           "fwd_timesteps")
         eps = _normal(noise, hf_latent.shape, generator, device, "noise",
                       state.group)
         with torch.no_grad():

@@ -13,6 +13,12 @@ hifidiff_tpu/train/optim.py, which builds them with optax).
   * Gradient accumulation (`optax.MultiSteps`): `Optim.accumulate_steps`
     mini-steps are averaged into one update; `train.steps.TrainState` does
     the counting.
+  * A step captured as CUDA graphs (`train.graphs`) needs `capturable=True`
+    optimizers, which keep their step counts on the card (torch refuses
+    them on the CPU). The cosine schedule's rate is then a device tensor,
+    the param groups' "lr", which `CosineRate` writes from the host after
+    each update: a graph reads it where it lies. The rates are LambdaLR's,
+    `base_lr * cosine_factor(k, ...)` rounded to float32.
   * The refiner's partial freeze (`refiner_freeze_mask`): the whole IDC and
     the denoiser's intro conv and encoder stages; the down-convs stay
     trainable, as in the reference. A frozen parameter gets
@@ -23,7 +29,7 @@ hifidiff_tpu/train/optim.py, which builds them with optax).
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, NamedTuple, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -32,7 +38,7 @@ from torch.optim.lr_scheduler import LambdaLR
 
 class Optim(NamedTuple):
     optimizer: torch.optim.Optimizer
-    scheduler: Optional[LambdaLR] = None
+    scheduler: Optional[Union[LambdaLR, "CosineRate"]] = None
     accumulate_steps: int = 1
 
 
@@ -52,18 +58,87 @@ def cosine_with_warmup(optimizer: torch.optim.Optimizer, warmup_steps: int,
                     lambda s: cosine_factor(s, warmup_steps, total_steps))
 
 
-def adam(params: Iterable[nn.Parameter], lr: float = 5e-4) -> Optim:
+class CosineRate:
+    """`cosine_with_warmup` for a capturable optimizer whose param groups'
+    "lr" are float32 device tensors: at construction and at every `step()`
+    the host writes `base_lr * cosine_factor(last_epoch, ...)` into them
+    (a `fill_` on the card's stream, no host read). Its state dict loads
+    into a `LambdaLR` and the other way round (`last_epoch` and the base
+    rates are what both keep)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 base_lrs: List[float], warmup_steps: int, total_steps: int):
+        self.optimizer = optimizer
+        self.warmup_steps, self.total_steps = warmup_steps, total_steps
+        self.base_lrs = [float(b) for b in base_lrs]
+        self.last_epoch = 0
+        self._write()
+
+    def get_last_lr(self) -> List[float]:
+        factor = cosine_factor(self.last_epoch, self.warmup_steps,
+                               self.total_steps)
+        return [base * factor for base in self.base_lrs]
+
+    def _write(self) -> None:
+        for group, rate in zip(self.optimizer.param_groups,
+                               self.get_last_lr()):
+            group["lr"].fill_(rate)
+
+    def step(self) -> None:
+        self.last_epoch += 1
+        self._write()
+
+    def state_dict(self) -> Dict:
+        return {"last_epoch": self.last_epoch, "base_lrs": self.base_lrs,
+                "_step_count": self.last_epoch + 1,
+                "_last_lr": self.get_last_lr(),
+                "lr_lambdas": [None] * len(self.base_lrs)}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.last_epoch = sd["last_epoch"]
+        self.base_lrs = [float(b) for b in sd["base_lrs"]]
+        self._write()
+
+
+def _on_card(params: list, who: str) -> None:
+    if any(p.device.type != "cuda" for p in params):
+        raise ValueError(f"{who}(capturable=True): a capturable optimizer "
+                         "keeps its state on the card, and the parameters "
+                         f"are on {params[0].device}")
+
+
+def adam(params: Iterable[nn.Parameter], lr: float = 5e-4,
+         capturable: bool = False) -> Optim:
+    """Adam at a constant rate; `capturable` for a step captured as CUDA
+    graphs (the parameters on the card)."""
+    params = list(params)
+    if capturable:
+        _on_card(params, "adam")
     return Optim(torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
-                                  eps=1e-8))
+                                  eps=1e-8, capturable=capturable))
 
 
 def adamw_cosine(params: Iterable[nn.Parameter], base_lr: float = 1e-4,
                  warmup_steps: int = 500, total_steps: int = 100_000,
                  weight_decay: float = 0.01,
-                 accumulate_steps: int = 1) -> Optim:
-    opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
-    return Optim(opt, cosine_with_warmup(opt, warmup_steps, total_steps),
+                 accumulate_steps: int = 1,
+                 capturable: bool = False) -> Optim:
+    """AdamW on the cosine schedule; `capturable` for a step captured as
+    CUDA graphs: the rate a float32 tensor on the parameters' card, written
+    by `CosineRate`."""
+    params = list(params)
+    if not capturable:
+        opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=weight_decay)
+        return Optim(opt, cosine_with_warmup(opt, warmup_steps, total_steps),
+                     accumulate_steps)
+    _on_card(params, "adamw_cosine")
+    rate = torch.tensor(base_lr, dtype=torch.float32,
+                        device=params[0].device)
+    opt = torch.optim.AdamW(params, lr=rate, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=True)
+    opt.param_groups[0]["lr"] = rate     # the tensor itself, not a copy
+    return Optim(opt, CosineRate(opt, [base_lr], warmup_steps, total_steps),
                  accumulate_steps)
 
 

@@ -45,7 +45,8 @@ logged metrics are the global means.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+import contextvars
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -66,6 +67,23 @@ from hifidiff_tpu_torch.vae.model import SD_VAE_SCALING
 Device = Union[None, str, torch.device]
 Metrics = Dict[str, torch.Tensor]
 
+# while `train.graphs` warms a step up: the list that each random input of
+# the step is appended to, as (name, draw, value), in the order the step
+# draws
+DRAWS: contextvars.ContextVar[Optional[List]] = contextvars.ContextVar(
+    "DRAWS", default=None)
+
+
+def _random_input(what: str, draw: Callable[[torch.Generator], torch.Tensor],
+                  value: torch.Tensor) -> torch.Tensor:
+    """`value`, the step's random input `what`; tells a capture what the
+    step draws: `draw(generator)` makes the input as the step makes it
+    where it is not given."""
+    seen = DRAWS.get()
+    if seen is not None:
+        seen.append((what, draw, value))
+    return value
+
 
 class TrainState:
     """The module under training with its optimizer, schedule, step count and
@@ -83,6 +101,9 @@ class TrainState:
         self.mini_step = 0
         self.ema_decay = float(ema_decay)
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        # set by `train.graphs` while it runs a captured step's body: whether
+        # this call applies the update (see `apply_gradients`)
+        self.graph_applies: Optional[bool] = None
         if ema_decay:
             self.ema_params = {n: p.detach().clone()
                                for n, p in module.named_parameters()}
@@ -131,9 +152,27 @@ class TrainState:
         """One (mini-)step on the gradients that `backward()` left in the
         parameters' `.grad`: every `accumulate_steps`-th call applies the
         mean of the accumulated gradients and advances the schedule; the EMA
-        follows the parameters after every call."""
+        follows the parameters after every call.
+
+        Inside a captured step's body (`graph_applies` set) only the device
+        work runs: the update where `graph_applies` says so, the gradients
+        zeroed in place (a graph keeps them at fixed addresses) rather than
+        dropped; the counters and the schedule are the host's, which
+        `train.graphs` advances around each replay."""
+        if self.graph_applies is not None:
+            self._update(self.graph_applies, set_to_none=False)
+            return
         self.mini_step += 1
-        if self.mini_step == self.accumulate_steps:
+        applies = self.mini_step == self.accumulate_steps
+        self._update(applies, set_to_none=True)
+        if applies:
+            if self.scheduler is not None:
+                self.scheduler.step()
+            self.mini_step = 0
+        self.step += 1
+
+    def _update(self, applies: bool, set_to_none: bool) -> None:
+        if applies:
             if self.group is not None:
                 all_reduce_gradients(trainable_parameters(self.module),
                                      self.group)
@@ -142,16 +181,12 @@ class TrainState:
                     if p.grad is not None:
                         p.grad.div_(self.accumulate_steps)
             self.optimizer.step()
-            if self.scheduler is not None:
-                self.scheduler.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.mini_step = 0
+            self.optimizer.zero_grad(set_to_none=set_to_none)
         if self.ema_params is not None:
             for n, p in self.module.named_parameters():
                 if p.requires_grad:
                     self.ema_params[n].lerp_(p.to(self.ema_params[n].dtype),
                                              1.0 - self.ema_decay)
-        self.step += 1
 
     def state_dict(self) -> Dict:
         return {"module": self.module.state_dict(),
@@ -165,7 +200,9 @@ class TrainState:
 
     def load_state_dict(self, sd: Dict) -> None:
         self.module.load_state_dict(sd["module"])
+        groups = [dict(g) for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(sd["optimizer"])
+        keep_capturable(self.optimizer, groups)
         if self.scheduler is not None:
             self.scheduler.load_state_dict(sd["scheduler"])
         self.step, self.mini_step = sd["step"], sd["mini_step"]
@@ -176,6 +213,30 @@ class TrainState:
         self.ema_decay = sd["ema_decay"]
         self.ema_params = None if sd["ema_params"] is None else {
             n: e.to(self.device) for n, e in sd["ema_params"].items()}
+
+
+def keep_capturable(optimizer: torch.optim.Optimizer, before) -> None:
+    """After `optimizer.load_state_dict`, which takes the saved groups'
+    settings: give each group back its own `capturable` flag and rate
+    (`before`: the groups as they were), so that a state saved by an eager
+    run loads into a captured one and the other way round. A device-tensor
+    rate keeps its address (a captured step reads it there) and takes the
+    saved value; a capturable optimizer's step counts go to its
+    parameters' device, where it reads them."""
+    for group, old in zip(optimizer.param_groups, before):
+        group["capturable"] = old.get("capturable", False)
+        rate = old["lr"]
+        if isinstance(rate, torch.Tensor):
+            rate.fill_(float(group["lr"]))
+            group["lr"] = rate
+        else:
+            group["lr"] = float(group["lr"])
+        if not group["capturable"]:
+            continue
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if isinstance(st.get("step"), torch.Tensor):
+                st["step"] = st["step"].to(p.device, torch.float32)
 
 
 def _frozen(module: nn.Module, device: torch.device) -> nn.Module:
@@ -198,30 +259,42 @@ def _rows(draw: Callable, shape, group) -> torch.Tensor:
 def _normal(given: Optional[torch.Tensor], shape,
             generator: Optional[torch.Generator], device: torch.device,
             what: str, group=None) -> torch.Tensor:
+    def draw(gen):
+        return _rows(lambda s: torch.randn(s, generator=gen,
+                                           device=gen.device),
+                     shape, group).to(device)
+
     if given is not None:
         if tuple(given.shape) != tuple(shape):
             raise ValueError(f"{what} must be {tuple(shape)}, got "
                              f"{tuple(given.shape)}")
-        return given.to(device)
+        return _random_input(what, draw, given.to(device))
     if generator is None:
         raise ValueError(f"pass {what} or a torch.Generator to draw it from")
-    return _rows(lambda s: torch.randn(s, generator=generator,
-                                       device=generator.device),
-                 shape, group).to(device)
+    return _random_input(what, draw, draw(generator))
 
 
 def _timesteps(given: Optional[torch.Tensor], batch: int,
                generator: Optional[torch.Generator],
-               device: torch.device, group=None) -> torch.Tensor:
+               device: torch.device, group=None,
+               what: str = "timesteps") -> torch.Tensor:
+    def draw(gen):
+        return _rows(lambda s: torch.randint(0, NUM_TRAIN_TIMESTEPS, s,
+                                             generator=gen,
+                                             device=gen.device),
+                     (batch,), group).to(device)
+
     if given is not None:
-        return given.to(device).long()
+        return _random_input(what, draw, given.to(device).long())
     if generator is None:
         raise ValueError("pass the timesteps or a torch.Generator to draw "
                          "them from")
-    return _rows(lambda s: torch.randint(0, NUM_TRAIN_TIMESTEPS, s,
-                                         generator=generator,
-                                         device=generator.device),
-                 (batch,), group).to(device)
+    return _random_input(what, draw, draw(generator))
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
 
 
 def _to_range(images: torch.Tensor) -> torch.Tensor:
@@ -235,9 +308,11 @@ def _finish(state: TrainState, loss: torch.Tensor, rows: int,
     process (raising where the processes hold unequal batches), then the
     optimizer step."""
     loss.backward()
+    # a capture cannot read the host; it checks the rows once, in its
+    # warm-up, and the shapes are fixed
     metrics = global_means(
         {"loss": loss.detach(), **{k: v.detach() for k, v in more.items()}},
-        rows, state.group, equal_rows=True)
+        rows, state.group, equal_rows=not _capturing())
     state.apply_gradients()
     return state, metrics
 

@@ -70,6 +70,21 @@ STUDENT = dict(REF, width=8)
 LAT = (B, 4, LATENT, LATENT)
 
 
+@pytest.fixture(autouse=True)
+def seeded_init():
+    """The modules' initial weights (which `jax_weights` perturbs from a
+    seed of its own) drawn from one seed in every test, as
+    tests/test_torch_train.py draws them: without it they came from
+    whatever the tests before left in torch's global generator, and the
+    steps' comparisons ran on other weights in every order of the run.
+    At some other seeds the two refiner steps' comparisons fail at the
+    HCA's one-channel BatchNorm: there the JAX float32 gradient of its
+    weight is the one far from a float64 step, and its running mean follows
+    the +-lr steps Adam takes on the rounding noise of the bias in front of
+    it (`tools/distill_init_probe.py`)."""
+    torch.manual_seed(0)
+
+
 # -- tables and DDIM algebra ---------------------------------------------------
 
 @pytest.mark.parametrize("n, k", [(25, 2), (10, 5), (5, 2), (50, 1)])
@@ -453,19 +468,21 @@ PROJECTS = {"train_tae": "hifi_tae", "train_tiny_cr": "hifi_tiny_cr",
 def test_config_fields_match_jax(name):
     """Every field of the JAX Config with its default, and the same parsed
     flags; the JAX `platform` switch (a jax.config update) is replaced by
-    `device`, the card by default."""
+    `device`, the card by default; `cuda_graphs` (off by default) is the
+    port's own."""
     port, ref = (m.Config for m in PAIRS[name])
     p = {f.name: f.default for f in dataclasses.fields(port)}
     j = {f.name: f.default for f in dataclasses.fields(ref)}
-    assert set(j) - {"platform"} == set(p) - {"device"}
+    port_only = {"device", "cuda_graphs"}
+    assert set(j) - {"platform"} == set(p) - port_only
     for k in set(j) - {"platform"}:
         assert p[k] == j[k], k
-    assert p["device"] == "cuda"
+    assert p["device"] == "cuda" and p["cuda_graphs"] is False
     flags = cli_flags(**{k: v for k, v in j.items() if k != "platform"})
     from hifidiff_tpu.cli import common as jcommon
     got = dataclasses.asdict(common.parse_config(port, flags))
     want = dataclasses.asdict(jcommon.parse_config(ref, flags))
-    assert {k: v for k, v in got.items() if k != "device"} == \
+    assert {k: v for k, v in got.items() if k not in port_only} == \
         {k: v for k, v in want.items() if k != "platform"}
 
 

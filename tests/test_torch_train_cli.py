@@ -75,20 +75,41 @@ def _defaults(cls):
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_config_fields_match_jax(name):
     """Every field of the JAX Config, with its default, plus `device` (the
-    card by default); the demo's `platform` (a jax.config switch) is
-    replaced by `device`."""
+    card by default) and, in the training CLIs, `cuda_graphs` (off by
+    default); the demo's `platform` (a jax.config switch) is replaced by
+    `device`."""
     port, ref = (m.Config for m in PAIRS[name])
     p, j = _defaults(port), _defaults(ref)
     replaced = {"platform"} if name == "convergence_demo" else set()
-    assert set(j) - replaced == set(p) - {"device"}
+    port_only = {"device"} | ({"cuda_graphs"} if name in PROJECTS else set())
+    assert set(j) - replaced == set(p) - port_only
     for k in set(j) - replaced:
         assert p[k] == j[k], k
-    assert p["device"] == "cuda"
+    assert p["device"] == "cuda" and p.get("cuda_graphs", False) is False
     flags = cli_flags(**{k: v for k, v in j.items() if k not in replaced})
     assert {k: v for k, v in dataclasses.asdict(common.parse_config(
-        port, flags)).items() if k != "device"} == {
+        port, flags)).items() if k not in port_only} == {
         k: v for k, v in dataclasses.asdict(jcommon.parse_config(
             ref, flags)).items() if k not in replaced}
+
+
+TRAINING_CLIS = ("train_vae", "train_cr", "pretrain_idc", "pretrain_denoiser",
+                 "train_refiner", "train_tae", "train_tiny_cr",
+                 "train_tiny_dn", "distill")
+
+
+@pytest.mark.parametrize("name", TRAINING_CLIS)
+def test_cuda_graphs_refused_on_the_cpu(name):
+    """`--cuda-graphs` captures the train step on the card: a two-step run
+    on the CPU raises by name before it builds anything."""
+    import importlib
+
+    cli = importlib.import_module(f"hifidiff_tpu_torch.cli.{name}")
+    argv = cli_flags(**DATA) + ["--cuda-graphs", "true"]
+    assert common.parse_config(cli.Config, argv).cuda_graphs is True
+    with pytest.raises(ValueError, match="--cuda-graphs captures the train "
+                       "step as CUDA graphs, which needs the card"):
+        cli.main(argv)
 
 
 # -- remat ----------------------------------------------------------------------
