@@ -258,6 +258,19 @@ raises at once):
      port's decode, as PIL reads them, and PIL-bicubic resize; the face
      equal to the eager call); phase 15's `pretrain_denoiser
      --celeba-root` reads the mixed CelebA-HQ files, WebP among them;
+  20. (in the demo's process, after the demo, on its stage files, beside
+     phases 13, 14 and 17: its wall seconds are for the record) the
+     quality scripts of hifidiff_tpu_torch/scripts/, f32 with TF32 off:
+     (a) `cache_quality` at its defaults on the card; (b) its exact and
+     interval-2 rows again on the host CPU on the same weights and draws,
+     to phase 4's limits on the final latents and the faces and within
+     QUALITY_PSNR_TOL in their PSNRs, the card's interval-2 row against
+     the host's exact one a control that must fail; (c) the other six
+     scripts at cut lengths, chained through a work directory
+     (`QUALITY_SCRIPTS`). Every figure finite, every record's keys those
+     of the committed default run's record; each script's rows, wall
+     seconds and launches printed; the launches held with the demo's to
+     the recorded calls at the join;
   7. (run after 3) the two backward kernels, `ln_film_bwd` and
      `affine_warp_bwd`, against their plain PyTorch versions on the card at
      every shape of the training paths: the five refiner shapes at batch 32
@@ -328,7 +341,8 @@ for every path that launched the kernel, the train steps included; under
 "phase14_launches_per_step" and "phase16_launches_per_step" a step's
 launches in each of phase 14's and phase 16's training stages that
 launched it, under "phase17_launches_per_step_a_rank" a step's launches on
-one of phase 17's two ranks); the last line is
+one of phase 17's two ranks, under "phase20_launches_by_script" each
+quality script's launches in phase 20); the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -3043,12 +3057,184 @@ def check_recorded_shapes(dev, g, stats, seen, phase="phase 13"):
     torch.cuda.empty_cache()
 
 
+# Phase 20 (the module's docstring). (b): the host's rows to phase 4's
+# limits, their PSNRs to QUALITY_PSNR_TOL (the latents' 1e-5 moves a PSNR by
+# far less). (c): each script's record file and its cuts: the tiny
+# autoencoder, tiny CR and tiny denoiser trained one epoch, two distillation
+# rounds of 10 steps (both of turbo's students, so that every record has a
+# default run's keys), the hard-family IDC at 64 faces, one epoch of
+# pretrain_idc (train_cr two: at one its checkpoint interval is 0) and its
+# check off. Every record's keys are held to the committed default run's
+# record of that name at the repo root.
+QUALITY_PSNR_TOL = 0.05
+QUALITY_SCRIPTS = {
+    "cache_quality": ("CACHE_QUALITY_TORCH.json", []),
+    "tae_quality": ("TAE_QUALITY_TORCH.json", ["--tae-epochs", "1"]),
+    "tiny_cr_quality": ("TINY_CR_QUALITY_TORCH.json", ["--epochs", "1"]),
+    "tiny_dn_quality": ("TINY_DN_QUALITY_TORCH.json", [
+        "--epochs", "1", "--tiny-cr-ckpt",
+        "runs/torch_tiny_cr_quality/ckpt/convdemo"]),
+    "distill_quality": ("DISTILL_QUALITY_TORCH.json",
+                        ["--steps-per-round", "10"]),
+    "turbo_quality": ("TURBO_QUALITY_TORCH.json", []),
+    "idc_hard_demo": ("IDC_HARD_TORCH.json", [
+        "--n", "64", "--epochs-cr", "2", "--epochs-idc", "1",
+        "--check", "0"])}
+
+
+def record_keys(rec):
+    """The key structure of a record, "run" left out."""
+    if isinstance(rec, dict):
+        return {k: record_keys(v) for k, v in rec.items() if k != "run"}
+    if isinstance(rec, list):
+        return [record_keys(v) for v in rec]
+    return None
+
+
+def record_figures(rec):
+    """Every float of a record ("run" left out)."""
+    if isinstance(rec, dict):
+        return [f for k, v in rec.items() if k != "run"
+                for f in record_figures(v)]
+    if isinstance(rec, list):
+        return [f for v in rec for f in record_figures(v)]
+    return [rec] if isinstance(rec, float) else []
+
+
+def quality_scripts(work, ckpt_root, device="cuda"):
+    """Phase 20 (a) and (c), in `work`, on the demo's stage files under
+    `ckpt_root`, on `device` (the CPU only to rehearse the phase). Returns
+    ({"failures", "scripts": {name: {"wall_s", "launches", "record"}}},
+    what cache_quality's `evaluate` kept, for (b))."""
+    import importlib
+
+    from hifidiff_tpu_torch.ops import kernels
+    from hifidiff_tpu_torch.scripts import cache_quality
+
+    out, cache_runs = {"failures": [], "scripts": {}, "host": {}}, {}
+
+    def kept(cfg, dev, real=cache_quality.evaluate):
+        result, runs = real(cfg, dev)
+        cache_runs.update(runs)
+        return result, runs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    here = os.getcwd()
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)     # the scripts' run directories are relative
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, (record, cuts) in QUALITY_SCRIPTS.items():
+            module = importlib.import_module(
+                f"hifidiff_tpu_torch.scripts.{name}")
+            argv = ["--out", os.path.join(work, record), "--device", device]
+            if name != "idc_hard_demo":
+                argv += ["--ckpt-root", ckpt_root]
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            with patched(cache_quality, "evaluate", kept):
+                rec = module.main(argv + cuts)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: n - before.get(k, 0)
+                        for k, n in kernels.LAUNCHES.items()
+                        if n != before.get(k, 0)}
+            out["scripts"][name] = {"wall_s": wall, "launches": launches,
+                                    "record": rec}
+            log(f"phase 20: {name}: {wall:.1f} s wall, launches "
+                f"{launches}; record " + json.dumps(
+                    {k: v for k, v in rec.items() if k != "run"}))
+            figures = record_figures(rec)
+            if not figures or not all(map(math.isfinite, figures)):
+                out["failures"].append(f"{name}: figures {figures}")
+            committed = os.path.join(repo, record)
+            if not os.path.exists(committed):
+                out["failures"].append(f"{name}: no committed {record}")
+                continue
+            with open(committed) as f:
+                want = record_keys(json.load(f))
+            if record_keys(rec) != want:
+                out["failures"].append(
+                    f"{name}: the record's keys {record_keys(rec)} are not "
+                    f"the default run's {want}")
+    finally:
+        os.chdir(here)
+    return out, cache_runs
+
+
+def host_rows(runs, ckpt_root, failures):
+    """Phase 20 (b): cache_quality's exact and interval-2 rows on the host
+    CPU against the card's (`runs`, what its `evaluate` kept), outside the
+    recording of the card's calls."""
+    from hifidiff_tpu_torch.scripts import cache_quality
+    from hifidiff_tpu_torch.scripts.common import drift_psnr, gt_metrics
+
+    cfg = cache_quality.parse_config(cache_quality.Config, [])
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    stack = cache_quality.build_stack(dataclasses.replace(
+        cfg, ckpt_root=ckpt_root), "cpu")
+    noise = {k: v.cpu() for k, v in runs["noise"].items()}
+    lr, gt = runs["batch"]["lr"], runs["batch"]["gt"]
+    host = {"exact": cache_quality.sample(stack, cfg, lr, noise, "cpu"),
+            "intervals/2": cache_quality.sample(stack, cfg, lr, noise, "cpu",
+                                                cache_interval=2)}
+    seconds = time.perf_counter() - t0
+
+    def apart(name, card, ref):
+        scale = max(1.0, float(np.abs(ref[0]).max()))
+        lat = float(np.abs(card[0] - ref[0]).max()) / scale
+        levels = int(np.abs(np.round(card[1] * 255.0)
+                            - np.round(ref[1] * 255.0)).max())
+        far = not (np.isfinite(card[0]).all() and lat <= LATENT_REL_TOL
+                   and levels <= FACE_LEVEL_TOL)
+        log(f"phase 20 (b): {name}: final latents rel {lat:.3e} (limit "
+            f"{LATENT_REL_TOL:.0e}), faces {levels} levels (limit "
+            f"{FACE_LEVEL_TOL})")
+        return far, lat, levels
+
+    res = {"host_s": seconds}
+    for row in ("exact", "intervals/2"):
+        far, lat, levels = apart(f"{row}, card vs host", runs[row],
+                                 host[row])
+        card_m = gt_metrics(runs[row][1], gt)
+        host_m = gt_metrics(host[row][1], gt)
+        d_psnr = abs(card_m[0] - host_m[0])
+        res[row] = {"latent_rel": lat, "face_levels": levels,
+                    "gt_psnr_card": card_m[0], "gt_psnr_host": host_m[0],
+                    "gt_ssim_card": card_m[1], "gt_ssim_host": host_m[1]}
+        if row != "exact":
+            dc = drift_psnr(runs[row][1], runs["exact"][1])
+            dh = drift_psnr(host[row][1], host["exact"][1])
+            res[row].update(drift_card=dc, drift_host=dh)
+            d_psnr = max(d_psnr, abs(dc - dh))
+        log(f"phase 20 (b): {row}: gt PSNR card {card_m[0]:.4f} / host "
+            f"{host_m[0]:.4f} dB"
+            + (f", drift card {res[row]['drift_card']:.4f} / host "
+               f"{res[row]['drift_host']:.4f} dB" if row != "exact" else "")
+            + f" (limit {QUALITY_PSNR_TOL} dB)")
+        if far or d_psnr > QUALITY_PSNR_TOL:
+            failures.append(f"cache_quality {row}: card and host CPU "
+                            "disagree")
+    control, _, _ = apart("control, the card's interval-2 row vs the host's "
+                          "exact row", runs["intervals/2"], host["exact"])
+    if not control:
+        failures.append("the cache_quality check passes the interval-2 row "
+                        "for the exact one")
+    log(f"phase 20 (b): the host's two rows {seconds:.1f} s")
+    return res
+
+
 def demo_child(work):
     """Phase 13's `cli/convergence_demo.py` in a process of its own (this
     script with `--demo-child`), on the card at its defaults, `--check`
-    included, in `work`, the maps that reach the kernels recorded. Writes
-    demo.json there: the check of `check_summary` that failed (or None),
-    the wall seconds, the summary, the launches and the maps."""
+    included, in `work`, the maps that reach the kernels recorded; then
+    phase 20 on its stage files. Writes demo.json there: the check of
+    `check_summary` that failed (or None), the wall seconds, the summary,
+    the launches and the maps (the demo's and phase 20's), and phase 20's
+    results."""
     from hifidiff_tpu_torch.cli import convergence_demo
     from hifidiff_tpu_torch.data import procedural
     from hifidiff_tpu_torch.ops import kernels
@@ -3066,14 +3252,39 @@ def demo_child(work):
                 "--device", "cuda"])
         except AssertionError as e:
             failed = str(e)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        demo_launches = dict(kernels.LAUNCHES)
+        t20 = time.perf_counter()
+        ckpt_root = os.path.join(work, "demo", "ckpt")
+        try:
+            quality, cache_runs = quality_scripts(
+                os.path.join(work, "quality"), ckpt_root)
+        except Exception as e:   # reported at the join
+            quality = {"failures": [f"raised {type(e).__name__}: {e}"],
+                       "scripts": {}, "host": {}}
+            cache_runs = {}
+        torch.cuda.synchronize()
+    if cache_runs:
+        try:
+            quality["host"] = host_rows(cache_runs, ckpt_root,
+                                        quality["failures"])
+        except Exception as e:
+            quality["failures"].append(
+                f"(b) raised {type(e).__name__}: {e}")
+    del cache_runs
+    quality["wall_s"] = time.perf_counter() - t20
+    for entry in quality["scripts"].values():
+        entry["record"] = {k: v for k, v in entry["record"].items()
+                           if k != "run"}
     with open(os.path.join(work, "demo", "convergence.json")) as f:
         summary = json.load(f)
     with open(os.path.join(work, "demo.json"), "w") as f:
         json.dump({"failed": failed, "wall_s": wall, "summary": summary,
                    "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                   "demo_launches": demo_launches,
                    "launches": dict(kernels.LAUNCHES),
+                   "phase20": quality,
                    "maps": {k: [[list(m), n] for m, n in c.items()]
                             for k, c in seen.items() if c}}, f)
 
@@ -3089,9 +3300,10 @@ def start_demo(work):
 
 def join_demo(proc, work, dev, g, stats, smi):
     """Waits for `start_demo`'s process and prints its output. Fails where
-    the process failed, a check of `check_summary` failed, or its launches
-    are not its recorded calls; holds the maps that reached the kernels to
-    the plain versions."""
+    the process failed, a check of `check_summary` or of phase 20 failed,
+    or its launches (the demo's and phase 20's) are not its recorded calls;
+    holds the maps that reached the kernels to the plain versions. Returns
+    phase 20's launches by script."""
     try:
         rc = proc.wait(timeout=DEMO_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3102,7 +3314,7 @@ def join_demo(proc, work, dev, g, stats, smi):
     path = os.path.join(work, "demo.json")
     if rc != 0 or not os.path.exists(path):
         fail(f"convergence_demo: its process ended with rc {rc}")
-        return
+        return {}
     with open(path) as f:
         demo = json.load(f)
     failed = demo["failed"]
@@ -3115,6 +3327,19 @@ def join_demo(proc, work, dev, g, stats, smi):
     log("convergence summary: " + json.dumps(demo["summary"]))
     if failed is not None:
         fail(f"convergence_demo: {failed}")
+    quality = demo["phase20"]
+    log(f"phase 20: the quality scripts {quality['wall_s']:.1f} s wall "
+        "after the demo in its process (the demo's launches "
+        f"{demo['demo_launches']}) [{smi}]: " + json.dumps(
+            {name: {"wall_s": round(q["wall_s"], 1),
+                    "launches": q["launches"]}
+             for name, q in quality["scripts"].items()}))
+    log("phase 20 (b) [" + smi + "]: " + json.dumps(quality["host"]))
+    for what in quality["failures"]:
+        fail(f"phase 20: {what}")
+    if len(quality["scripts"]) != len(QUALITY_SCRIPTS):
+        fail(f"phase 20: {len(quality['scripts'])} of "
+             f"{len(QUALITY_SCRIPTS)} scripts ran")
     seen = {k: collections.Counter() for k in KERNELS}
     for kernel, items in demo["maps"].items():
         for shape, n in items:
@@ -3127,6 +3352,7 @@ def join_demo(proc, work, dev, g, stats, smi):
         + json.dumps({k: {"x".join(map(str, m)): n for m, n in v.items()}
                       for k, v in seen.items() if v}))
     check_recorded_shapes(dev, g, stats, seen, phase="convergence_demo")
+    return {name: q["launches"] for name, q in quality["scripts"].items()}
 
 
 # 12 faces at batch 8: a full batch and a short one (4) an epoch, each
@@ -6553,7 +6779,8 @@ def main() -> int:
                 f"checked ({dp_stats.get('seconds', float('nan')):.0f} s "
                 "here, the ranks "
                 f"{dp_stats.get('ranks_s', float('nan')):.0f} s)")
-            join_demo(demo, demo_dir, dev, g, stats, smi)
+            phase20_launches = join_demo(demo, demo_dir, dev, g, stats,
+                                         smi)
             log(f"[{time.perf_counter() - t_start:.0f} s] convergence demo "
                 "checked")
         finally:
@@ -6691,6 +6918,12 @@ def main() -> int:
                         if n.get(entry["name"])}
             if by_stage:
                 entry["phase16_launches_per_step"] = by_stage
+            # phase 20: each quality script's launches
+            by_script = {name: n[entry["name"]]
+                         for name, n in phase20_launches.items()
+                         if n.get(entry["name"])}
+            if by_script:
+                entry["phase20_launches_by_script"] = by_script
             # phase 17: a step's launches on one of the two ranks
             by_stage = {stage: n[entry["name"]]
                         for stage, n in phase17_launches.items()

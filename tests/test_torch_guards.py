@@ -65,6 +65,8 @@ def test_port_imports_with_jax_blocked():
     assert {f"hifidiff_tpu_torch.{m}" for m in PNG_PATH} <= _port_modules()
     assert {f"hifidiff_tpu_torch.{m}" for m in JPEG_PATH} <= _port_modules()
     assert {f"hifidiff_tpu_torch.{m}" for m in WEBP_PATH} <= _port_modules()
+    assert {f"hifidiff_tpu_torch.scripts.{m}" for m in QUALITY_SCRIPTS} \
+        | {"hifidiff_tpu_torch.scripts.common"} <= _port_modules()
 
 
 # the PNG data path: the port's own resizes and decoder in place of cv2 and
@@ -95,6 +97,29 @@ for name in ("refused_animated_21x19", "refused_truncated_45x37"):
     except webp.WebPError as e:
         print(e)
 """
+
+
+# the quality scripts (hifidiff_tpu_torch/scripts/)
+QUALITY_SCRIPTS = ("cache_quality", "tae_quality", "tiny_cr_quality",
+                   "tiny_dn_quality", "distill_quality", "turbo_quality",
+                   "idc_hard_demo")
+
+
+@pytest.mark.parametrize("name", QUALITY_SCRIPTS)
+def test_quality_scripts_default_device_is_the_card(monkeypatch, tmp_path,
+                                                    name):
+    """Without `--device` each quality script targets the card and raises
+    without one, before it trains, samples or writes anything."""
+    import importlib
+
+    module = importlib.import_module(f"hifidiff_tpu_torch.scripts.{name}")
+    assert module.Config().device == "cuda"
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "record.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--out", str(out)])
+    assert not any(tmp_path.iterdir())
 
 
 def test_webp_reader_with_cv2_and_pil_blocked():
