@@ -165,7 +165,9 @@ raises at once):
      256) in the formats of `celeba_file` in turn (since phase 19: 8-bit
      PNG of colour types 2 and 6, Adam7 PNG, 16-bit RGBA and grey PNG, the
      160 x 160 progressive JPEG fixture, 24-bit and RLE8 BMP, the 160 x
-     160 lossy and lossless WebP fixtures); the
+     160 lossy, lossless and animated WebP fixtures and the CMYK JPEG
+     fixture), two of the Multi-PIE files replaced by the CMYK JPEG and
+     the lossless animated WebP fixtures (read by cv2's rule); the
      decoder's time a file on the host, through
      the host library and plain (160 x 160, 256 x 256 and 640 x 480, the
      filter mix stated); `infer_cr` at its defaults on
@@ -232,8 +234,12 @@ raises at once):
      dataset that does not reach the library fails the run);
   19. (run after 18, on phase 13's `train_cr` directory) the image
      formats the decoders gained (progressive JPEG, Adam7-interlaced and
-     16-bit PNG, BMP, WebP) and the cv2 sites' EXIF orientation on the
-     card's host, which has neither PIL nor cv2: the files of
+     16-bit PNG, BMP, WebP, animated WebP, CMYK, YCCK and RGB-coded JPEG)
+     and the cv2 sites' EXIF orientation on the card's host, which has
+     neither PIL nor cv2: the four-component JPEG fixtures decoded by each
+     reader to their digests (PIL's and cv2's, which differ), their
+     coefficients equal to the plain decoder's and their RGB to the plain
+     colour steps on the library's components; the files of
      tests/fixtures/png and tests/fixtures/bmp decoded by the host library
      and by the plain versions to their golden digests (PIL's and cv2's
      decodes, with `reader` naming the library), the refused ones refused,
@@ -242,22 +248,29 @@ raises at once):
      the files of tests/fixtures/webp (lossy and lossless, extended, the
      frames of `vp8_frame`) to theirs, the lossless ones by the plain
      decoder too, the lossy ones' coefficients equal to the plain parse's,
-     the refused ones (animated, truncated, a canvas of another size, a
-     lossless stream cut short) refused; the 24 files of
+     each ALPH chunk's alpha (the library's and the plain version's) to
+     PIL's, the animations' first frames to theirs, the refused ones
+     (truncated, a canvas of another size, a lossless stream cut short, an
+     alpha stream cut short, a frame past its canvas) refused; the 24
+     files of
      tests/fixtures/orientation (PNG, JPEG and WebP at orientations 1-8)
      read as cv2.imread and as PIL read them; the host library against its
      plain versions on PNG files of every colour type, depth and interlace
-     and BMP files of every layout written here (a mismatch fails the
-     run); the host ms a file, library and plain, of the 160 x 160 and
-     1920 x 1080 progressive fixtures, of a 160 x 160 Adam7 PNG, 16-bit
-     PNG and BMP, and of the 160 x 160 and 1024 x 1024 WebP fixtures,
-     lossless and lossy; `infer_cr --image` on a progressive JPEG, a BMP
-     and a lossy WebP, card vs host CPU to phase 4's limits with 9 warp
-     launches a call. On phase 12's server, an Adam7 16-bit RGB PNG body, a
-     16-bit grey one and a lossy WebP (the launched batch equal to the
-     port's decode, as PIL reads them, and PIL-bicubic resize; the face
-     equal to the eager call); phase 15's `pretrain_denoiser
-     --celeba-root` reads the mixed CelebA-HQ files, WebP among them;
+     and BMP files of every layout written here, the two JPEG colour steps
+     on all 65,536 (C, K) pairs and the alpha unfilters on raw ALPH
+     payloads (a mismatch fails the run); the host ms a file, library and
+     plain, of the 160 x 160 and 1920 x 1080 progressive fixtures, of a
+     160 x 160 Adam7 PNG, 16-bit PNG and BMP, of the 160 x 160 CMYK
+     fixture, and of the 160 x 160 and 1024 x 1024 WebP fixtures, lossless
+     and lossy, and the 160 x 160 animations; `infer_cr --image` on a
+     progressive JPEG, a BMP, a lossy WebP, an animated WebP and a CMYK
+     JPEG, card vs host CPU to phase 4's limits with 9 warp launches a
+     call. On phase 12's server, an Adam7 16-bit RGB PNG body, a 16-bit
+     grey one, a lossy WebP, an animated WebP and a CMYK JPEG (the
+     launched batch equal to the port's decode, as PIL reads them, and
+     PIL-bicubic resize; the face equal to the eager call); phase 15's
+     `pretrain_denoiser --celeba-root` reads the mixed CelebA-HQ files,
+     WebP, animated WebP and CMYK JPEG among them;
   20. (in the demo's process, after the demo, on its stage files, beside
      phases 13, 14 and 17: its wall seconds are for the record) the
      quality scripts of hifidiff_tpu_torch/scripts/, f32 with TF32 off:
@@ -366,7 +379,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hifidiff_tpu_torch.data.image_files import (CELEBA_PROGRESSIVE,
+from hifidiff_tpu_torch.data.image_files import (CELEBA_CMYK,
+                                                 CELEBA_PROGRESSIVE,
                                                  CELEBA_WEBP,
                                                  bmp_file, celeba_file,
                                                  golden_input, png_file,
@@ -2751,8 +2765,10 @@ def check_server(models, dev, smi, stats):
         check_png_request(host, port, cfg, sample, batcher, launched,
                           eager_call, smi)
         # -- phase 19 on this server: an Adam7 16-bit colour body, a 16-bit
-        # grey one and a lossy WebP, read as the JAX handler's PIL reads them
-        for label, body in {**format_bodies(), **webp_body()}.items():
+        # grey one, a lossy WebP, an animated WebP and a CMYK JPEG, read as
+        # the JAX handler's PIL reads them
+        for label, body in {**format_bodies(), **webp_body(),
+                            **animated_and_cmyk_bodies()}.items():
             check_png_request(host, port, cfg, sample, batcher, launched,
                               eager_call, smi, body, label)
 
@@ -4013,7 +4029,10 @@ def write_png_trees(root):
     faces written by `png_filtered` (rows through the five filters in
     turn, colour type 2), and a flat CelebA-HQ directory of CELEBA_FACES
     CELEBA_SIDE^2 ones in the formats of `celeba_file` in turn (since
-    phase 19). Returns (Multi-PIE root, CelebA root, files, bytes)."""
+    phase 19); the first pid's 00 files at the first two angles of
+    `train/` are the CMYK JPEG and the lossless animated WebP fixtures of
+    tests/fixtures (MP_SIDE^2 faces, read by content whatever the name).
+    Returns (Multi-PIE root, CelebA root, files, bytes)."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     mp, celeba = os.path.join(root, "multipie"), os.path.join(root, "celeba")
@@ -4030,6 +4049,14 @@ def write_png_trees(root):
     def u8(face):
         return (np.clip(face, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
 
+    def fixture(sub, name):
+        with open(os.path.join(FIXTURES, sub, name), "rb") as f:
+            return f.read()
+
+    cmyk = fixture("jpeg", CELEBA_CMYK)
+    replaced = {("train", 0, MP_ANGLES[0]): cmyk,
+                ("train", 0, MP_ANGLES[1]): fixture(
+                    "webp", "anim_lossless_face_160x160.webp")}
     for split, first in (("train", 0), ("test", MP_PIDS)):
         for p in range(MP_PIDS):
             idp = proc._identity_params(SEED, first + p)
@@ -4038,7 +4065,9 @@ def write_png_trees(root):
                 face = proc.render_face(idp, pose, MP_SIDE)
                 for light, gain in (("00", 1.0), ("01", 0.8)):
                     d = os.path.join(mp, split, f"{p:03d}", angle)
-                    put(os.path.join(d, f"{light}.png"), u8(face * gain))
+                    put(os.path.join(d, f"{light}.png"),
+                        replaced.get((split, p, angle), u8(face * gain))
+                        if light == "00" else u8(face * gain))
                     if angle == "05_1":
                         patch = np.zeros_like(face)
                         for t, le, b, r in proc.component_boxes(idp,
@@ -4058,7 +4087,7 @@ def write_png_trees(root):
     for j in range(CELEBA_FACES):
         img = looks[j % CELEBA_LOOKS]
         img = np.roll(img, j // CELEBA_LOOKS, axis=1)   # a file of its own
-        data, ext = celeba_file(img, j, progressive, webps)
+        data, ext = celeba_file(img, j, progressive, webps, cmyk)
         put(os.path.join(celeba, f"{j:05d}{ext}"), data)
     return mp, celeba, written[0], written[1]
 
@@ -4342,10 +4371,12 @@ def sha256_hex(data):
 
 def check_golden(smi):
     """The port's codec against tests/fixtures/jpeg/digests.json: every
-    golden file decoded to the SHA-256 of cv2's and PIL's RGB, the refused
-    files refused naming what they are, a golden file cut short refused as
-    truncated, and every seeded input encoded to the SHA-256 of
-    cv2.imencode's bytes. Returns the counts checked."""
+    golden file decoded to the SHA-256 of cv2's and PIL's RGB, each
+    four-component one by each reader to that library's, the refused
+    files refused naming what they are (the four-component ones without
+    a reader), a golden file cut short refused as truncated, and every
+    seeded input encoded to the SHA-256 of cv2.imencode's bytes. Returns
+    the counts checked."""
     from hifidiff_tpu_torch.data.jpeg import JPEGError, decode_jpeg, \
         encode_jpeg
 
@@ -4362,7 +4393,15 @@ def check_golden(smi):
         if list(rgb.shape) != want["shape"] \
                 or sha256_hex(rgb.tobytes()) != want["sha256"]:
             bad.append(f"decode {name}")
+    for name, by_how in golden["decode_by_reader"].items():
+        for how, want in by_how.items():
+            rgb = decode_jpeg(read(name), how)
+            if list(rgb.shape) != want["shape"] \
+                    or sha256_hex(rgb.tobytes()) != want["sha256"]:
+                bad.append(f"decode {name} ({how})")
     refusals = dict(golden["refuse"])
+    refusals.update({name: "pass reader='cv2' or 'pil'"
+                     for name in golden["decode_by_reader"]})
     first = next(iter(golden["decode"]))
     cases = [(name, read(name), what) for name, what in refusals.items()]
     cases.append((f"{first} cut short", read(first)[:-40], "truncated"))
@@ -4379,9 +4418,11 @@ def check_golden(smi):
         if sha256_hex(data) != e["sha256"]:
             bad.append(f"encode seed {e['seed']} {e['height']}x"
                        f"{e['width']} q {e['quality']}")
-    n = dict(decoded=len(golden["decode"]), refused=len(cases),
-             encoded=len(golden["encode"]))
+    n = dict(decoded=len(golden["decode"]),
+             by_reader=2 * len(golden["decode_by_reader"]),
+             refused=len(cases), encoded=len(golden["encode"]))
     log(f"phase 16: golden JPEG digests: {n['decoded']} files decoded, "
+        f"{n['by_reader']} four-component decodes by reader, "
         f"{n['refused']} refused, {n['encoded']} seeded inputs encoded; "
         f"mismatches: {bad or 'none'} [{smi}]")
     if bad:
@@ -5002,14 +5043,16 @@ def check_format_golden(smi):
     (PIL's and cv2's decodes, written where both exist): every file decoded
     by the host library and by the plain version to the SHA-256 of each
     library's decode, with `reader` set to that library for PNG; each
-    refused file refused by both with the message the digests name; and
-    the coefficients of every progressive JPEG fixture (phase 16 holds
-    their RGB to the digests) equal to the plain decoder's, but the 1920 x
-    1080 frame's, which `time_formats` checks as it times it. Returns the
-    counts and the mismatches."""
+    refused file refused by both with the message the digests name; the
+    coefficients of every progressive JPEG fixture (phase 16 holds their
+    RGB to the digests) equal to the plain decoder's, but the 1920 x 1080
+    frame's, which `time_formats` checks as it times it; and of every
+    four-component JPEG fixture, whose RGB by each reader equals the plain
+    colour steps (YCCK -> CMYK, CMYK -> RGB) on the library's components.
+    Returns the counts and the mismatches."""
     import re
 
-    from hifidiff_tpu_torch.data import image_io
+    from hifidiff_tpu_torch.data import image_io, jpeg
 
     bad, n = [], collections.Counter()
     for sub in ("png", "bmp"):
@@ -5046,14 +5089,29 @@ def check_format_golden(smi):
                     if not re.search(what, str(e)):
                         bad.append(f"{fn.__name__} {name}: {e}")
     with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
-        progressive = [k for k in json.load(f)["decode"]
-                       if "prog" in k and k != PROGRESSIVE_FRAME]
+        golden = json.load(f)
+    progressive = [k for k in golden["decode"]
+                   if "prog" in k and k != PROGRESSIVE_FRAME]
     for name in progressive:
         with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
             data = f.read()
         n["progressive coefficients"] += 1
         if not same_coefficients(data):
             bad.append(f"coefficients {name}")
+    for name in golden["decode_by_reader"]:
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        n["four-component coefficients"] += 1
+        if not same_coefficients(data):
+            bad.append(f"coefficients {name}")
+        px, space = jpeg.components(data)
+        if space == "ycck":
+            px = jpeg.ycck_to_cmyk_plain(px)
+        for how in jpeg.READERS:
+            n["four-component plain colour steps"] += 1
+            if jpeg.cmyk_to_rgb_plain(px, how).tobytes() != \
+                    jpeg.decode_jpeg(data, how).tobytes():
+                bad.append(f"colour steps {name} ({how})")
     log(f"phase 19: golden digests of tests/fixtures/png and bmp: "
         f"{dict(n)}; mismatches: {bad or 'none'} [{smi}]")
     if bad:
@@ -5068,7 +5126,8 @@ def check_webp_golden(smi):
     WebP file decoded by the host library to the SHA-256 of both
     libraries' decode, the lossless ones by the plain version too and the
     lossy ones with the plain parse's coefficients (`vp8_coefficients`
-    against `vp8_coefficients_plain`); each refused file refused with the
+    against `vp8_coefficients_plain`), each ALPH chunk's alpha by the
+    library and the plain version to PIL's; each refused file refused with the
     message the digests name; every orientation file read with
     `reader="cv2"` to cv2.imread's digest (flipped and transposed by its
     EXIF orientation) and with "pil" to PIL's. The 1024 x 1024 files' plain
@@ -5093,9 +5152,22 @@ def check_webp_golden(smi):
                 if [list(rgb.shape), sha256_hex(rgb.tobytes())] != [
                         want["shape"], want["sha256"]]:
                     bad.append(f"{name} ({how})")
-            if sub == "orientation" or name in WEBP_TIMED:
+            if sub == "orientation":
                 continue
-            if webp.parse(data).lossless:
+            f = webp.parse(data)
+            if f.alpha is not None:
+                want = golden["alpha"][name]
+                payload = data[f.alpha[0]:sum(f.alpha)]
+                a = webp.decode_alpha(payload, f.width, f.height)
+                n["webp alpha"] += 1
+                if [list(a.shape), sha256_hex(a.tobytes())] != [
+                        want["shape"], want["sha256"]] or a.tobytes() != \
+                        webp.decode_alpha_plain(payload, f.width,
+                                                f.height).tobytes():
+                    bad.append(f"alpha {name}")
+            if name in WEBP_TIMED:
+                continue
+            if f.lossless:
                 n["webp lossless plain"] += 1
                 if webp.decode_webp_plain(data).tobytes() != rgb.tobytes():
                     bad.append(f"plain {name}")
@@ -5125,17 +5197,20 @@ def check_webp_golden(smi):
 
 
 # the WebP fixtures `time_webp` times (and holds to their plain versions):
-# the 160 x 160 face and the 1024 x 1024 frame (CelebA-HQ's size)
+# the 160 x 160 face and the 1024 x 1024 frame (CelebA-HQ's size), and the
+# 160 x 160 animations
 WEBP_TIMED = ("lossless_face_160x160.webp", "lossless_frame_1024x1024.webp",
-              "lossy_face_q90_160x160.webp", "lossy_frame_q80_1024x1024.webp")
+              "lossy_face_q90_160x160.webp", "lossy_frame_q80_1024x1024.webp",
+              "anim_lossless_face_160x160.webp", CELEBA_WEBP[2])
 
 
 def time_webp(smi):
     """Host ms a WebP file through the host library and plain, on the
     fixtures WEBP_TIMED, lossless (the plain version: the whole decode in
     Python) and lossy (the plain version: the parse up to the
-    coefficients), each plain result held to the library's. Returns
-    {label: {"ms", "plain_ms", "bytes"}}."""
+    coefficients, and the ALPH chunk's alpha where there is one), each
+    plain result held to the library's. Returns {label: {"ms", "plain_ms",
+    "bytes"[, "alpha_plain_ms"]}}."""
     from hifidiff_tpu_torch.data import webp
 
     out = {}
@@ -5161,11 +5236,23 @@ def time_webp(smi):
             plain_ms=plain_ms if n_plain == 1 else median_ms(
                 lambda: plain(data), n_plain),
             bytes=len(data))
+        f = webp.parse(data)
+        if f.alpha is not None:
+            payload = data[f.alpha[0]:sum(f.alpha)]
+            t0 = time.perf_counter()
+            alpha = webp.decode_alpha_plain(payload, f.width, f.height)
+            out[label]["alpha_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            if alpha.tobytes() != webp.decode_alpha(payload, f.width,
+                                                    f.height).tobytes():
+                fail(f"phase 19: the plain alpha of {name} differs from "
+                     "the host library's")
         log(f"phase 19 on the host: WebP {label} ({len(data)} bytes): "
             f"{out[label]['ms']:.3f} ms a file through the host library, "
             f"{out[label]['plain_ms']:.2f} ms plain"
             + ("" if "lossless" in name else " (the parse up to the "
-               "coefficients)") + f" [{smi}]")
+               "coefficients)")
+            + (f", {out[label]['alpha_plain_ms']:.2f} ms its alpha plain"
+               if "alpha_plain_ms" in out[label] else "") + f" [{smi}]")
     return out
 
 
@@ -5176,13 +5263,27 @@ def webp_body():
         return {"a lossy WebP request (phase 19)": f.read()}
 
 
+def animated_and_cmyk_bodies():
+    """Two more bodies for the server: the 160 x 160 lossy animation with
+    alpha of tests/fixtures/webp and the 160 x 160 CMYK JPEG of
+    tests/fixtures/jpeg (read by PIL's CMYK -> RGB, as the JAX handler's
+    PIL reads it)."""
+    with open(os.path.join(FIXTURES, "webp", CELEBA_WEBP[2]), "rb") as f:
+        animated = f.read()
+    with open(os.path.join(JPEG_FIXTURES, CELEBA_CMYK), "rb") as f:
+        cmyk = f.read()
+    return {"an animated WebP request (phase 19)": animated,
+            "a CMYK JPEG request (phase 19)": cmyk}
+
+
 def format_sweep():
     """The host library against its plain versions on the new paths, over
     files written here: PNG of every colour type and bit depth, Adam7 and
     not, at sizes that leave passes empty and at 64 x 48, with both 16-bit
     readings; BMP of every layout (palettes of 1, 4 and 8 bits, PIL's grey
     ramps, 16-bit 5-5-5 / 5-6-5, 24 and 32 bits, bitfields, RLE8 and RLE4,
-    top-down) at three sizes. Returns (calls, mismatches)."""
+    top-down) at three sizes; then `colour_and_alpha_sweep`. Returns
+    (calls, mismatches)."""
     from hifidiff_tpu_torch.data import image_io
 
     rng = np.random.default_rng(SEED)
@@ -5238,6 +5339,46 @@ def format_sweep():
             if decoded(image_io.decode_bmp, data) != decoded(
                     image_io.decode_bmp_plain, data):
                 bad.append(f"bmp {bits} grey {grey} {kw} {h}x{w}")
+    return colour_and_alpha_sweep(rng, calls, bad)
+
+
+def colour_and_alpha_sweep(rng, calls, bad):
+    """`format_sweep`'s part for the four-component JPEG colour steps and
+    the WebP alpha, `calls` and `bad` carried on: YCCK -> CMYK and both
+    readers' CMYK -> RGB on all 65,536 (C, K) pairs (M and Y, and Y, Cb,
+    Cr, other values in step), library against plain; raw ALPH payloads
+    of seeded alpha at four sizes through each of the four filters, the
+    library's and the plain version's alpha against the alpha written."""
+    from hifidiff_tpu_torch.data import jpeg, webp
+
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    px = np.stack([c, (c + 85) % 256, (c + 170) % 256, k], -1).astype(
+        np.uint8)
+    steps = [("ycck", jpeg.ycck_to_cmyk(px), jpeg.ycck_to_cmyk_plain(px))]
+    steps += [(how, jpeg.cmyk_to_rgb(px, how), jpeg.cmyk_to_rgb_plain(
+        px, how)) for how in jpeg.READERS]
+    for label, lib, plain in steps:
+        calls += 1
+        if lib.tobytes() != plain.tobytes():
+            bad.append(f"jpeg colour step {label}")
+    for h, w in ((1, 1), (1, 9), (7, 5), (23, 29)):
+        alpha = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        a = alpha.astype(np.int64)
+        for method in range(4):
+            pred = np.zeros_like(a)     # the filter's prediction
+            if method:
+                pred[0, 1:] = a[0, :-1]
+                pred[1:, 0] = a[:-1, 0]
+                pred[1:, 1:] = (a[1:, :-1], a[:-1, 1:], np.clip(
+                    a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255))[
+                        method - 1]
+            payload = bytes([method << 2]) + ((a - pred) & 0xFF).astype(
+                np.uint8).tobytes()
+            calls += 1
+            if webp.decode_alpha(payload, w, h).tobytes() != alpha.tobytes() \
+                    or webp.decode_alpha_plain(payload, w,
+                                               h).tobytes() != alpha.tobytes():
+                bad.append(f"alpha filter {method} {h}x{w}")
     return calls, bad
 
 
@@ -5245,7 +5386,9 @@ def time_formats(smi):
     """Host ms a file of the new formats, through the host library and
     plain: the progressive JPEG fixtures (160 x 160 and 1920 x 1080; the
     library's whole decode, its entropy decoding alone
-    (`jpeg.coefficients`) and the plain entropy decoding), and a 160 x 160
+    (`jpeg.coefficients`) and the plain entropy decoding), the 160 x 160
+    CMYK fixture by each reader (plain: the entropy decoding and both
+    readers' colour steps on the library's components), and a 160 x 160
     procedural face as an Adam7 8-bit RGB PNG, a 16-bit RGB PNG (Adam7)
     and a 24-bit BMP. Returns {label: {"ms", "plain_ms"[, "entropy_ms"]}}."""
     from hifidiff_tpu_torch.data import image_io, jpeg
@@ -5279,6 +5422,21 @@ def time_formats(smi):
              f"24-bit BMP {MP_SIDE}x{MP_SIDE}":
                  (bmp_file(face, 24), image_io.decode_bmp,
                   image_io.decode_bmp_plain)}
+    with open(os.path.join(JPEG_FIXTURES, CELEBA_CMYK), "rb") as f:
+        cmyk = f.read()
+    t0 = time.perf_counter()
+    plain = jpeg.coefficients_plain(cmyk)
+    colour = {how: jpeg.cmyk_to_rgb_plain(jpeg.components(cmyk)[0], how)
+              for how in jpeg.READERS}
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not same_coefficients(cmyk, plain) or any(
+            colour[how].tobytes() != jpeg.decode_jpeg(cmyk, how).tobytes()
+            for how in jpeg.READERS):
+        fail(f"phase 19: {CELEBA_CMYK} differs from its plain version")
+    for how in jpeg.READERS:
+        out[f"CMYK JPEG 160x160, reader {how}"] = dict(
+            ms=median_ms(lambda: jpeg.decode_jpeg(cmyk, how), 21),
+            plain_ms=plain_ms)
     for label, (data, lib, plain) in files.items():
         kw = {"reader": "pil"} if lib is image_io.decode_png else {}
         if lib(data, **kw).tobytes() != plain(data, **kw).tobytes() \
@@ -5299,17 +5457,19 @@ def time_formats(smi):
 
 def check_image_formats(dev, smi, keep, tmp):
     """Phase 19: the image formats the decoders gained (progressive JPEG,
-    Adam7 and 16-bit PNG, BMP, WebP) and the EXIF orientation of the cv2
+    Adam7 and 16-bit PNG, BMP, WebP, animated WebP, CMYK, YCCK and
+    RGB-coded JPEG) and the EXIF orientation of the cv2
     sites, after 18, with phase 13's stage files in `keep` and a directory
     `tmp`: the golden digests of tests/fixtures (`check_format_golden`,
     `check_webp_golden`), the host library against its plain versions
     (`format_sweep`), host times (`time_formats`, `time_webp`), and
     `infer_cr --image` on the card and on the host CPU on one progressive
-    JPEG, one BMP and one lossy WebP (`check_infer_cr`: phase 4's limits, 9
-    warp launches a call). Phase 12's server took its three bodies
-    (`format_bodies`, `webp_body`) and phase 15's `pretrain_denoiser
-    --celeba-root` its mixed CelebA-HQ files (`celeba_file`, WebP among
-    them). Returns the numbers."""
+    JPEG, one BMP, one lossy WebP, one animated WebP and one CMYK JPEG
+    (`check_infer_cr`: phase 4's limits, 9 warp launches a call). Phase
+    12's server took its five bodies (`format_bodies`, `webp_body`,
+    `animated_and_cmyk_bodies`) and phase 15's `pretrain_denoiser
+    --celeba-root` its mixed CelebA-HQ files (`celeba_file`, WebP,
+    animated WebP and CMYK JPEG among them). Returns the numbers."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     t_phase = time.perf_counter()
@@ -5334,7 +5494,10 @@ def check_image_formats(dev, smi, keep, tmp):
         f.write(bmp_file(face, 24))
     for label, path in (("progressive JPEG", os.path.join(
             JPEG_FIXTURES, PROGRESSIVE_FACE)), ("BMP", bmp),
-            ("lossy WebP", os.path.join(FIXTURES, "webp", CELEBA_WEBP[0]))):
+            ("lossy WebP", os.path.join(FIXTURES, "webp", CELEBA_WEBP[0])),
+            ("animated WebP", os.path.join(FIXTURES, "webp",
+                                           CELEBA_WEBP[2])),
+            ("CMYK JPEG", os.path.join(JPEG_FIXTURES, CELEBA_CMYK))):
         out[f"infer_cr {label}"] = check_infer_cr(dev, tmp, keep, smi,
                                                   image=path)
     out["wall_s"] = time.perf_counter() - t_phase

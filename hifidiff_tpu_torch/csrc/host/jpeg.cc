@@ -22,10 +22,19 @@
 //     rounding biases and clamped edges (box replication where libjpeg
 //     takes it: h2v1 / h2v2 on a plane of at most two columns, and every
 //     other whole ratio); never the merged upsampler;
-//   * fixed-point YCbCr -> RGB; grey repeated over three channels.
-//   Lossless, hierarchical and arithmetic-coded files, 12-bit samples, CMYK
-//   / YCCK / RGB-coded components and truncated data raise, naming what
-//   they are.
+//   * the colour space of jdapimin.c's default_decompress_parms: three
+//     components are YCbCr, or RGB where an Adobe marker says transform 0
+//     (without a JFIF marker) or, with neither marker, the component ids
+//     are 'R', 'G', 'B'; four are CMYK, or YCCK where an Adobe marker says
+//     transform 2 (or any but 0);
+//   * fixed-point YCbCr -> RGB; RGB copied; grey repeated over three
+//     channels; YCCK -> CMYK (jdcolor.c's ycck_cmyk_convert, the same
+//     tables); CMYK -> RGB as the reader named converts libjpeg's CMYK:
+//     Pillow's "CMYK;I" raw mode then cmyk2rgb (libImaging/Convert.c), or
+//     OpenCV's icvCvt_CMYK2BGR_8u_C4C3R (imgcodecs/src/utils.cpp). A
+//     four-component file decoded without a reader raises.
+//   Lossless, hierarchical and arithmetic-coded files, 12-bit samples and
+//   truncated data raise, naming what they are.
 //
 // Encoder (cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) as
 // libjpeg-turbo runs it: jcparam.c, jccolor.c, jcsample.c, jcprepct.c,
@@ -51,6 +60,11 @@ namespace {
 struct Error : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
+
+// the colour spaces of a frame (data/jpeg.py's SPACES), and the readers
+// whose CMYK -> RGB a four-component file takes (data/jpeg.py's READERS)
+enum { kGrey, kYcbcr, kRgb, kCmyk, kYcck };
+enum { kNoReader, kPil, kCv2 };
 
 const int kNatural[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -219,6 +233,7 @@ struct Decoder {
   int width = 0, height = 0;
   bool frame = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
+  int space = 0;  // kGrey ... kYcck: the colour space parse() settles
   int restart_interval = 0;
   int qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
@@ -326,9 +341,7 @@ struct Decoder {
     if (height == 0) throw Error("a zero or DNL-defined height is not "
                                  "supported");
     if (width == 0) throw Error("corrupt data: zero width");
-    if (nc == 4)
-      throw Error("CMYK / YCCK (four-component) JPEG is not supported");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Error(std::to_string(nc) + "-component JPEG is not supported");
     comps.resize(nc);
     for (auto& c : comps) {
@@ -684,19 +697,19 @@ struct Decoder {
       throw Error("incomplete progressive JPEG: libjpeg would smooth it "
                   "(the first AC coefficients are not all refined to bit "
                   "0)");
-    if (comps.size() == 3) {
-      if (!saw_jfif && saw_adobe && adobe_transform != 1)
-        throw Error(adobe_transform == 0
-                        ? "RGB-coded JPEG (Adobe transform 0) is not "
-                          "supported"
-                        : "Adobe transform " +
-                              std::to_string(adobe_transform) +
-                              " is not supported");
-      if (!saw_jfif && !saw_adobe && comps[0].id == 'R' &&
-          comps[1].id == 'G' && comps[2].id == 'B')
-        throw Error("RGB-coded JPEG (component ids R, G, B) is not "
-                    "supported");
-    }
+    space = colour_space();
+  }
+
+  // default_decompress_parms (libjpeg-turbo's jdapimin.c)
+  int colour_space() const {
+    if (comps.size() == 1) return kGrey;
+    if (comps.size() == 4)
+      return saw_adobe && adobe_transform != 0 ? kYcck : kCmyk;
+    if (saw_jfif) return kYcbcr;
+    if (saw_adobe) return adobe_transform == 0 ? kRgb : kYcbcr;
+    return comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B'
+               ? kRgb
+               : kYcbcr;
   }
 };
 
@@ -914,33 +927,82 @@ inline uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-std::vector<uint8_t> decode(const uint8_t* data, size_t n, int* h, int* w) {
+// jdcolor.c's ycck_cmyk_convert: the YCbCr -> RGB of the first three
+// components, each inverted and clamped; K as it is.
+void ycck_cmyk(const uint8_t* in, size_t np, uint8_t* out) {
+  for (size_t i = 0; i < np; ++i, in += 4, out += 4) {
+    const int y = in[0], cb = in[1], cr = in[2];
+    out[0] = clamp255(255 - (y + kYcc.cr_r[cr]));
+    out[1] =
+        clamp255(255 - (y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+    out[2] = clamp255(255 - (y + kYcc.cb_b[cb]));
+    out[3] = in[3];
+  }
+}
+
+// libjpeg's CMYK as each reader turns it into RGB. PIL: the "CMYK;I" raw
+// mode inverts every sample, then cmyk2rgb gives nk - nk * c / 255 with
+// nk = 255 - k (MULDIV255's rounding); OpenCV: k - (255 - c) * k >> 8.
+void cmyk_rgb(const uint8_t* in, size_t np, int reader, uint8_t* out) {
+  for (size_t i = 0; i < np; ++i, in += 4, out += 3) {
+    const int k = in[3];
+    for (int c = 0; c < 3; ++c) {
+      if (reader == kPil) {
+        const int t = (255 - in[c]) * k + 128;
+        out[c] = clamp255(k - (((t >> 8) + t) >> 8));
+      } else {
+        out[c] = (uint8_t)(k - (((255 - in[c]) * k) >> 8));
+      }
+    }
+  }
+}
+
+// The decoded components, upsampled to the image's size and interleaved
+// (h, w, number of components), before any colour conversion.
+std::vector<uint8_t> components(Decoder& d) {
+  const int W = d.width, H = d.height;
+  const size_t np = (size_t)W * H, nc = d.comps.size();
+  std::vector<uint8_t> out(np * nc);
+  for (size_t k = 0; k < nc; ++k) {
+    const Component& c = d.comps[k];
+    const std::vector<uint8_t> p = component_plane(c);
+    const std::vector<uint8_t> up =
+        upsample(c, p.data(), W, H, d.max_h, d.max_v);
+    for (size_t i = 0; i < np; ++i) out[i * nc + k] = up[i];
+  }
+  return out;
+}
+
+std::vector<uint8_t> decode(const uint8_t* data, size_t n, int reader,
+                            int* h, int* w) {
   Decoder d(data, n);
   d.parse();
-  const int W = d.width, H = d.height;
-  std::vector<std::vector<uint8_t>> planes;
-  for (auto& c : d.comps) {
-    const std::vector<uint8_t> p = component_plane(c);
-    planes.push_back(upsample(c, p.data(), W, H, d.max_h, d.max_v));
-  }
-  std::vector<uint8_t> rgb((size_t)W * H * 3);
-  const size_t np = (size_t)W * H;
-  if (planes.size() == 1) {
+  if ((d.space == kCmyk || d.space == kYcck) && reader == kNoReader)
+    throw Error(std::string("a ") + (d.space == kCmyk ? "CMYK" : "YCCK") +
+                " JPEG: pass reader='cv2' or 'pil', the two libraries "
+                "turn CMYK into RGB differently");
+  std::vector<uint8_t> px = components(d);
+  const size_t np = (size_t)d.width * d.height;
+  std::vector<uint8_t> rgb(np * 3);
+  if (d.space == kGrey) {
     for (size_t i = 0; i < np; ++i)
-      rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = planes[0][i];
-  } else {
-    const uint8_t *Y = planes[0].data(), *Cb = planes[1].data(),
-                  *Cr = planes[2].data();
+      rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = px[i];
+  } else if (d.space == kRgb) {
+    rgb.swap(px);
+  } else if (d.space == kYcbcr) {
     for (size_t i = 0; i < np; ++i) {
-      const int y = Y[i], cb = Cb[i], cr = Cr[i];
+      const int y = px[3 * i], cb = px[3 * i + 1], cr = px[3 * i + 2];
       rgb[3 * i] = clamp255(y + kYcc.cr_r[cr]);
       rgb[3 * i + 1] =
           clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
       rgb[3 * i + 2] = clamp255(y + kYcc.cb_b[cb]);
     }
+  } else {
+    if (d.space == kYcck) ycck_cmyk(px.data(), np, px.data());
+    cmyk_rgb(px.data(), np, reader, rgb.data());
   }
-  *h = H;
-  *w = W;
+  *h = d.height;
+  *w = d.width;
   return rgb;
 }
 
@@ -1450,11 +1512,31 @@ uint8_t* to_malloc(const std::vector<uint8_t>& v) {
 extern "C" {
 
 // Decode `n` bytes to a malloc'd (h, w, 3) RGB buffer (free it with
-// hj_free); NULL on failure with the reason in `err`.
-uint8_t* hj_decode(const uint8_t* data, size_t n, int* h, int* w, char* err,
-                   int errlen) {
+// hj_free), a four-component file as `reader` (kPil or kCv2) converts it;
+// NULL on failure with the reason in `err`.
+uint8_t* hj_decode(const uint8_t* data, size_t n, int reader, int* h, int* w,
+                   char* err, int errlen) {
   try {
-    return to_malloc(decode(data, n, h, w));
+    return to_malloc(decode(data, n, reader, h, w));
+  } catch (const std::exception& e) {
+    set_error(e.what(), err, errlen);
+    return nullptr;
+  }
+}
+
+// The upsampled components before colour conversion (see `components`) as
+// a malloc'd (h, w, nc) buffer, with the frame's colour space (kGrey ...
+// kYcck) in `space`; NULL on failure with the reason in `err`.
+uint8_t* hj_components(const uint8_t* data, size_t n, int* h, int* w,
+                       int* nc, int* space, char* err, int errlen) {
+  try {
+    Decoder d(data, n);
+    d.parse();
+    *h = d.height;
+    *w = d.width;
+    *nc = (int)d.comps.size();
+    *space = d.space;
+    return to_malloc(components(d));
   } catch (const std::exception& e) {
     set_error(e.what(), err, errlen);
     return nullptr;
@@ -1487,6 +1569,15 @@ uint8_t* hj_encode(const uint8_t* img, int h, int w, int quality,
     set_error(e.what(), err, errlen);
     return nullptr;
   }
+}
+
+// The two colour steps alone, on `np` pixels: YCCK -> CMYK (4 bytes a
+// pixel in and out) and CMYK -> RGB by `reader` (4 in, 3 out).
+void hj_ycck_cmyk(const uint8_t* in, size_t np, uint8_t* out) {
+  ycck_cmyk(in, np, out);
+}
+void hj_cmyk_rgb(const uint8_t* in, size_t np, int reader, uint8_t* out) {
+  cmyk_rgb(in, np, reader, out);
 }
 
 void hj_free(void* p) { std::free(p); }

@@ -5,14 +5,14 @@
 // bitstream's first bytes, then makes one call here; ctypes releases the
 // GIL for it. Host code with a plain C interface, integers only.
 //
-// VP8L (hw_vp8l_rgb): the transforms (predictor with modes 0-13, and 14-15
+// VP8L: the transforms (predictor with modes 0-13, and 14-15
 // read as mode 0 as libwebp reads them; cross-colour; subtract-green;
 // colour-indexing with pixel bundling), canonical Huffman codes (simple and
 // normal, the code-length code, one-symbol codes that read no bits), meta
 // Huffman codes, LZ77 with the 120-entry distance map, the colour cache.
 // A stream that reads past its last bit is refused.
 //
-// VP8 (hw_vp8_rgb, hw_vp8_coefficients): libwebp's boolean decoder (56-bit
+// VP8 (and hw_vp8_coefficients): libwebp's boolean decoder (56-bit
 // window, the same end-of-data rule), the frame header, segments, the
 // quantizers, the token probabilities, intra modes, coefficient tokens,
 // the WHT and the IDCT (libwebp's choice per block: its SSE2 IDCT, which
@@ -22,6 +22,21 @@
 // neighbours, the simple and normal loop filters in macroblock raster order
 // on the whole reconstructed frame, then libwebp's fancy upsampler and its
 // 14-bit fixed-point YUV -> RGB.
+//
+// ALPH (hw_alpha; alpha_dec.c): the header byte (compression, filter,
+// pre-processing, reserved bits, refused as ALPHInit refuses them); raw
+// data or a headerless VP8L stream of the frame's size whose green channel
+// is the alpha (decoded as DecodeAlphaData decodes it where libwebp takes
+// that path: a stream whose only transform is colour indexing, no colour
+// cache and one-symbol red, blue and alpha codes may end within its last
+// symbol); the horizontal, vertical and gradient unfilters of
+// dsp/filters.c. No dequantize smoothing: neither WebPDecode nor
+// WebPAnimDecoder asks for alpha dithering. The alpha never changes the
+// RGB; a stream libwebp refuses makes the frame's decode fail.
+//
+// The first frame (hw_webp_rgb; anim_decode.c): drawn at its offset on a
+// zero canvas, the key frame's pixels as they are (libwebp blends no key
+// frame, whatever its blend bit), alpha dropped.
 //
 // The constant tables are libwebp's (RFC 6386's, with libwebp's order of the
 // 4x4 intra modes: DC TM VE HE RD VR LD VL HD HU).
@@ -60,6 +75,10 @@ enum {
   kPartitions = 14,
   kModesEnd = 15,
   kTokensEnd = 16,
+  kAlpha = 20,        // + a lossless code: the same refusal in the ALPH data
+  kAlphaEmpty = 26,
+  kAlphaHeader = 27,
+  kAlphaRaw = 28,
 };
 
 // ----------------------------------------------------------------- VP8L
@@ -230,13 +249,17 @@ struct Group {
 
 struct Codes {
   int bits = 0, xsize = 0, cache_bits = 0;
+  // whether every group libwebp builds has one-symbol red, blue and alpha
+  // codes (Is8bOptimizable's test, past the colour cache's)
+  bool single_rba = true;
   std::vector<uint32_t> image;  // the group of each tile
   std::vector<Group> groups;
   std::vector<int> slot;        // group -> index in groups, -1 unused
 };
 
 void decode_stream(LosslessBits& br, int xsize, int ysize, bool level0,
-                   std::vector<uint32_t>& out, struct Transforms* t);
+                   std::vector<uint32_t>& out, struct Transforms* t,
+                   bool alpha = false);
 
 void read_codes(LosslessBits& br, int xsize, int ysize, bool level0,
                 Codes& c) {
@@ -265,10 +288,16 @@ void read_codes(LosslessBits& br, int xsize, int ysize, bool level0,
   std::vector<int> lengths;
   const int alphabet[5] = {
       256 + 24 + (c.cache_bits ? 1 << c.cache_bits : 0), 256, 256, 256, 40};
+  // libwebp keeps the unused groups too unless there are more than 1000,
+  // or more than pixels, when it maps the used ones to a dense range
+  const bool all_kept = num_groups <= 1000 &&
+                        int64_t(num_groups) <= int64_t(xsize) * ysize;
   for (int g = 0; g < num_groups; ++g) {
     Group& dst = c.slot[g] >= 0 ? c.groups[c.slot[g]] : scratch;
     for (int j = 0; j < 5; ++j)
       read_huffman_code(br, alphabet[j], dst.h[j], lengths);
+    if (c.slot[g] >= 0 || all_kept)
+      for (int j = 1; j < 4; ++j) c.single_rba &= dst.h[j].single >= 0;
   }
 }
 
@@ -299,9 +328,12 @@ int copy_value(int symbol, LosslessBits& br) {  // a length or a distance
   return offset + int(br.read(extra)) + 1;
 }
 
-// The entropy-coded image: literals, backward references, cache hits.
+// The entropy-coded image: literals, backward references, cache hits. With
+// `lenient` (DecodeAlphaData's reading) the end of the stream is looked at
+// only after each symbol or copy, and a stream that ends within the last
+// one is read.
 void decode_pixels(LosslessBits& br, const Codes& c, int w, int h,
-                   std::vector<uint32_t>& px) {
+                   std::vector<uint32_t>& px, bool lenient) {
   const size_t n = size_t(w) * size_t(h);
   px.assign(n, 0);
   std::vector<uint32_t> cache(c.cache_bits ? size_t(1) << c.cache_bits : 0);
@@ -312,16 +344,16 @@ void decode_pixels(LosslessBits& br, const Codes& c, int w, int h,
     for (; cached < upto; ++cached)
       cache[(0x1e35a7bdu * px[cached]) >> shift] = px[cached];
   };
-  while (i < n) {
+  while (i < n && !(lenient && br.ended())) {
     const Group& g = c.groups[c.slot[c.image.empty() ? 0 : c.image[
         size_t(y >> c.bits) * c.xsize + (x >> c.bits)]]];
     const int code = read_symbol(g.h[0], br);
-    if (br.ended()) break;
+    if (br.ended() && !lenient) break;
     if (code < 256) {
       const int red = read_symbol(g.h[1], br);
       const int blue = read_symbol(g.h[2], br);
       const int alpha = read_symbol(g.h[3], br);
-      if (br.ended()) break;
+      if (br.ended() && !lenient) break;
       px[i++] = uint32_t(alpha) << 24 | uint32_t(red) << 16 |
                 uint32_t(code) << 8 | uint32_t(blue);
       if (++x == w) x = 0, ++y;
@@ -329,7 +361,7 @@ void decode_pixels(LosslessBits& br, const Codes& c, int w, int h,
       const int length = copy_value(code - 256, br);
       const int dist_symbol = read_symbol(g.h[4], br);
       const int dist = plane_distance(w, copy_value(dist_symbol, br));
-      if (br.ended()) break;
+      if (br.ended() && !lenient) break;
       if (i < size_t(dist) || n - i < size_t(length)) refuse(kBadCopy);
       for (int k = 0; k < length; ++k, ++i) px[i] = px[i - dist];
       x += length;
@@ -341,7 +373,7 @@ void decode_pixels(LosslessBits& br, const Codes& c, int w, int h,
     }
     if (c.cache_bits && x == 0) insert(i);
   }
-  if (br.ended()) refuse(kLosslessEnds);
+  if (br.ended() && (i < n || !lenient)) refuse(kLosslessEnds);
 }
 
 struct Transform {
@@ -352,8 +384,10 @@ struct Transforms {
   std::vector<Transform> list;
 };
 
+// `alpha`: the level-0 stream of an ALPH chunk, read as libwebp reads one
+// (decode_pixels' `lenient` where DecodeAlphaData would run).
 void decode_stream(LosslessBits& br, int xsize, int ysize, bool level0,
-                   std::vector<uint32_t>& out, Transforms* t) {
+                   std::vector<uint32_t>& out, Transforms* t, bool alpha) {
   int txsize = xsize;
   if (level0) {
     unsigned seen = 0;
@@ -391,7 +425,9 @@ void decode_stream(LosslessBits& br, int xsize, int ysize, bool level0,
     if (c.cache_bits < 1 || c.cache_bits > 11) refuse(kCacheBits, c.cache_bits);
   }
   read_codes(br, txsize, ysize, level0, c);
-  decode_pixels(br, c, txsize, ysize, out);
+  const bool lenient = alpha && t->list.size() == 1 &&
+                       t->list[0].type == 3 && !c.cache_bits && c.single_rba;
+  decode_pixels(br, c, txsize, ysize, out, lenient);
 }
 
 inline uint32_t add_pixels(uint32_t a, uint32_t b) {
@@ -506,6 +542,59 @@ void decode_lossless(const uint8_t* data, size_t len, int w, int h,
   Transforms t;
   decode_stream(br, w, h, true, px, &t);
   for (size_t k = t.list.size(); k-- > 0;) inverse_transform(t.list[k], h, px);
+}
+
+// ----------------------------------------------------------------- ALPH
+
+// dsp/filters.c's unfilters, row by row from the previous output row (none
+// above the first: it takes the horizontal one from 0).
+void unfilter_row(int filter, const uint8_t* prev, const uint8_t* in,
+                  uint8_t* out, int w) {
+  if (filter == 0) {
+    std::memcpy(out, in, size_t(w));
+  } else if (filter == 1 || prev == nullptr) {
+    uint8_t pred = prev == nullptr ? 0 : prev[0];
+    for (int i = 0; i < w; ++i) out[i] = pred = uint8_t(pred + in[i]);
+  } else if (filter == 2) {
+    for (int i = 0; i < w; ++i) out[i] = uint8_t(prev[i] + in[i]);
+  } else {
+    uint8_t top_left = prev[0], left = prev[0];
+    for (int i = 0; i < w; ++i) {
+      const int g = left + prev[i] - top_left;
+      left = uint8_t(in[i] + (g < 0 ? 0 : g > 255 ? 255 : g));
+      top_left = prev[i];
+      out[i] = left;
+    }
+  }
+}
+
+// An ALPH chunk's payload as w x h alpha.
+void decode_alpha(const uint8_t* data, size_t len, int w, int h,
+                  uint8_t* out) {
+  if (len <= 1) refuse(kAlphaEmpty, int(len));
+  const int method = data[0] & 3, filter = (data[0] >> 2) & 3;
+  if (method > 1 || (data[0] >> 4) > 1) refuse(kAlphaHeader, data[0]);
+  const size_t n = size_t(w) * h;
+  std::vector<uint8_t> rows(n);
+  if (method == 0) {
+    if (len - 1 < n) refuse(kAlphaRaw, int(len - 1), int(n));
+    std::memcpy(rows.data(), data + 1, n);
+  } else {
+    std::vector<uint32_t> px;
+    try {
+      LosslessBits br(data + 1, len - 1);
+      Transforms t;
+      decode_stream(br, w, h, true, px, &t, true);
+      for (size_t k = t.list.size(); k-- > 0;)
+        inverse_transform(t.list[k], h, px);
+    } catch (const Refusal& r) {
+      refuse(kAlpha + r.code, r.a, r.b);
+    }
+    for (size_t i = 0; i < n; ++i) rows[i] = uint8_t(px[i] >> 8);
+  }
+  for (int y = 0; y < h; ++y)
+    unfilter_row(filter, y ? out + size_t(y - 1) * w : nullptr,
+                 rows.data() + size_t(y) * w, out + size_t(y) * w, w);
 }
 
 // ------------------------------------------------------------------ VP8
@@ -1829,40 +1918,6 @@ extern "C" {
 // Every hw_* entry point returns kNoMemory where an allocation failed, and
 // writes a refusal's numbers into detail[0..1].
 
-// The lossless bitstream in data[0, len) (the chunk's payload and its pad
-// byte, as libwebp's demuxer hands it over) as width x height RGB.
-int hw_vp8l_rgb(const uint8_t* data, size_t len, int width, int height,
-                uint8_t* out, int* detail) try {
-  std::vector<uint32_t> px;
-  decode_lossless(data, len, width, height, px);
-  const size_t n = size_t(width) * height;
-  for (size_t i = 0; i < n; ++i) {
-    out[3 * i] = uint8_t(px[i] >> 16);
-    out[3 * i + 1] = uint8_t(px[i] >> 8);
-    out[3 * i + 2] = uint8_t(px[i]);
-  }
-  return 0;
-} catch (const Refusal& r) {
-  detail[0] = r.a;
-  detail[1] = r.b;
-  return r.code;
-} catch (...) {
-  return kNoMemory;
-}
-
-// The lossy frame in data[0, size) (frame tag on) as RGB of its own size.
-int hw_vp8_rgb(const uint8_t* data, size_t size, uint8_t* out,
-               int* detail) try {
-  decode_lossy(data, size, out);
-  return 0;
-} catch (const Refusal& r) {
-  detail[0] = r.a;
-  detail[1] = r.b;
-  return r.code;
-} catch (...) {
-  return kNoMemory;
-}
-
 // What the lossy decode parses, per macroblock in raster order: info (20
 // bytes: segment, skip flag, i4x4, chroma mode, 16 luma modes) and coeffs
 // (25 blocks of 16: the Y2 block, 16 Y blocks with the WHT's DCs, 4 U, 4 V;
@@ -1885,6 +1940,57 @@ int hw_vp8_coefficients(const uint8_t* data, size_t size, uint8_t* info,
       std::memcpy(coeffs + 400 * k + 16, mb.coeffs, sizeof(mb.coeffs));
     }
   });
+  return 0;
+} catch (const Refusal& r) {
+  detail[0] = r.a;
+  detail[1] = r.b;
+  return r.code;
+} catch (...) {
+  return kNoMemory;
+}
+
+// An ALPH chunk's payload (data[0, len)) as width x height alpha.
+int hw_alpha(const uint8_t* data, size_t len, int width, int height,
+             uint8_t* out, int* detail) try {
+  decode_alpha(data, len, width, height, out);
+  return 0;
+} catch (const Refusal& r) {
+  detail[0] = r.a;
+  detail[1] = r.b;
+  return r.code;
+} catch (...) {
+  return kNoMemory;
+}
+
+// A WebP file's image: the bitstream in image[0, len) (lossless or lossy,
+// width x height; the chunk's payload and its pad byte, as libwebp's
+// demuxer hands it over) and its ALPH payload (alpha, NULL where none:
+// decoded, never drawn), drawn at (x, y) on a zero canvas_w x canvas_h RGB
+// canvas.
+int hw_webp_rgb(const uint8_t* image, size_t len, int lossless, int width,
+                int height, const uint8_t* alpha, size_t alpha_len,
+                int canvas_w, int canvas_h, int x, int y, uint8_t* out,
+                int* detail) try {
+  std::vector<uint8_t> rgb(size_t(width) * height * 3);
+  if (lossless) {
+    std::vector<uint32_t> px;
+    decode_lossless(image, len, width, height, px);
+    for (size_t i = 0; i < px.size(); ++i) {
+      rgb[3 * i] = uint8_t(px[i] >> 16);
+      rgb[3 * i + 1] = uint8_t(px[i] >> 8);
+      rgb[3 * i + 2] = uint8_t(px[i]);
+    }
+  } else {
+    decode_lossy(image, len, rgb.data());
+  }
+  if (alpha != nullptr) {
+    std::vector<uint8_t> a(size_t(width) * height);
+    decode_alpha(alpha, alpha_len, width, height, a.data());
+  }
+  std::memset(out, 0, size_t(canvas_w) * canvas_h * 3);
+  for (int r = 0; r < height; ++r)
+    std::memcpy(out + (size_t(y + r) * canvas_w + x) * 3,
+                rgb.data() + size_t(r) * width * 3, size_t(width) * 3);
   return 0;
 } catch (const Refusal& r) {
   detail[0] = r.a;

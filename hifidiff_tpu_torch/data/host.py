@@ -130,8 +130,13 @@ def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     ip, szp, cp = (ctypes.POINTER(i), ctypes.POINTER(sz), ctypes.c_char_p)
-    lib.hj_decode.argtypes = [p, sz, ip, ip, cp, i]
+    lib.hj_decode.argtypes = [p, sz, i, ip, ip, cp, i]
     lib.hj_decode.restype = p
+    lib.hj_components.argtypes = [p, sz, ip, ip, ip, ip, cp, i]
+    lib.hj_components.restype = p
+    lib.hj_ycck_cmyk.argtypes = [p, sz, p]
+    lib.hj_cmyk_rgb.argtypes = [p, sz, i, p]
+    lib.hj_ycck_cmyk.restype = lib.hj_cmyk_rgb.restype = None
     lib.hj_encode.argtypes = [p, i, i, i, szp, cp, i]
     lib.hj_encode.restype = p
     lib.hj_coefficients.argtypes = [p, sz, szp, cp, i]
@@ -161,10 +166,10 @@ def _load() -> ctypes.CDLL:
                  "hi_resize_cv2_u8_cubic", "hi_resize_pil", "hi_filter2d"):
         getattr(lib, name).restype = i   # 0, a refusal, or NO_MEMORY
     # the WebP decoder (webp.cc)
-    lib.hw_vp8l_rgb.argtypes = [p, sz, i, i, p, ip]
-    lib.hw_vp8_rgb.argtypes = [p, sz, p, ip]
+    lib.hw_webp_rgb.argtypes = [p, sz, i, i, i, p, sz, i, i, i, i, p, ip]
+    lib.hw_alpha.argtypes = [p, sz, i, i, p, ip]
     lib.hw_vp8_coefficients.argtypes = [p, sz, p, p, ip]
-    for name in ("hw_vp8l_rgb", "hw_vp8_rgb", "hw_vp8_coefficients"):
+    for name in ("hw_webp_rgb", "hw_alpha", "hw_vp8_coefficients"):
         getattr(lib, name).restype = i
     lib.build_log = log
     return lib

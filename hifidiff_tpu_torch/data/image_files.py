@@ -1,10 +1,12 @@
 """Writers of small image files in every format the port's decoders read:
 PNG at any colour type, bit depth and filter, Adam7-interlaced or not;
 BMP at every header, bit count, bitfields layout and RLE; progressive
-JPEG cut after some of its scans; lossy WebP frames with the VP8 header
-fields PIL's encoder never sets (`vp8_frame`); and the seeded inputs
-behind the golden digests of tests/fixtures. Only the tests and
-chip_smoke.py use them.
+JPEG cut after some of its scans, and JPEG files re-labelled by their
+Adobe marker (YCCK, which PIL never writes, and CMYK without the marker);
+lossy WebP frames with the VP8 header fields PIL's encoder never sets
+(`vp8_frame`), and animations of hand-placed frames (`animated_webp`);
+and the seeded inputs behind the golden digests of tests/fixtures. Only
+the tests and chip_smoke.py use them.
 
 numpy, `struct` and `zlib` only: PIL writes no interlaced PNG, and the
 card's host has neither PIL nor cv2. The format constants (Adam7's passes,
@@ -65,6 +67,34 @@ def incomplete_progressive(data, keep=2):
     file libjpeg smooths, which the port refuses."""
     head, scans = jpeg_scans(data)
     return head + b"".join(scans[:keep]) + b"\xff\xd9"
+
+
+def _adobe_segment(data):
+    """(start, end) of a JPEG file's first Adobe APP14 segment."""
+    at = 2
+    while data[at + 1] != 0xDA:
+        end = at + 2 + ((data[at + 2] << 8) | data[at + 3])
+        if data[at + 1] == 0xEE and data[at + 4:at + 9] == b"Adobe":
+            return at, end
+        at = end
+    raise ValueError("no Adobe APP14 segment before the first scan")
+
+
+def jpeg_adobe_transform(data, transform):
+    """A JPEG file with its Adobe marker's transform byte set to
+    `transform`: libjpeg reads four components under transform 2 as YCCK
+    (and turns them into CMYK), three under 0 as RGB. PIL writes no YCCK
+    file; its CMYK files re-labelled are valid YCCK ones."""
+    at, _ = _adobe_segment(data)
+    return data[:at + 15] + bytes([transform]) + data[at + 16:]
+
+
+def jpeg_without_adobe(data):
+    """A JPEG file without its Adobe APP14 segment: libjpeg then reads
+    four components as CMYK, and three with ids 'R', 'G', 'B' (and no
+    JFIF marker) as RGB."""
+    at, end = _adobe_segment(data)
+    return data[:at] + data[end:]
 
 
 def png_filtered(img, filters=(0, 1, 2, 3, 4), idat_size=8192, level=6):
@@ -241,24 +271,29 @@ def bmp_file(pixels, bits, header=40, topdown=False, palette=None,
             + info + pal + body)
 
 
-# the progressive JPEG of tests/fixtures/jpeg and the WebP files of
-# tests/fixtures/webp among `celeba_file`'s kinds
+# the progressive and CMYK JPEG of tests/fixtures/jpeg and the WebP files
+# of tests/fixtures/webp among `celeba_file`'s kinds
 CELEBA_PROGRESSIVE = "pil_prog_face_q95_160x160.jpg"
-CELEBA_WEBP = ("lossy_face_q90_160x160.webp", "lossless_face_160x160.webp")
+CELEBA_CMYK = "pil_cmyk_face_q90_160x160.jpg"
+CELEBA_WEBP = ("lossy_face_q90_160x160.webp", "lossless_face_160x160.webp",
+               "anim_lossy_alpha_face_160x160.webp")
 
 
-def celeba_file(img, j, progressive, webps):
+def celeba_file(img, j, progressive, webps, cmyk):
     """The j-th file of a CelebA-HQ directory that mixes every format the
     port reads (chip_smoke.py phase 15's), (bytes, extension), of the uint8
-    RGB face `img`, by j % 14: an 8-bit PNG of colour type 2
+    RGB face `img`, by j % 16: an 8-bit PNG of colour type 2
     (0, 6) or 6 (1, 7) through the five filters; an Adam7 8-bit RGB PNG
     (2, 8); a 16-bit Adam7 RGBA PNG of the samples times 257 (3) or a
     16-bit grey one of the green samples as they are (9); the progressive
     JPEG fixture `progressive` (4, 10); a 24-bit BMP (5) or an RLE8 BMP of
-    the face on a 6 x 6 x 6 palette (11); the lossy (12) or the lossless
-    (13) WebP fixture of `webps`. CelebA-HQ is read as PIL reads it: the
-    grey 16-bit file is the green channel."""
-    k = j % 14
+    the face on a 6 x 6 x 6 palette (11); the lossy (12), the lossless (13)
+    or the animated (14) WebP fixture of `webps`; the CMYK JPEG fixture
+    `cmyk` (15). CelebA-HQ is read as PIL reads it: the grey 16-bit file
+    is the green channel, the CMYK file by PIL's CMYK -> RGB."""
+    k = j % 16
+    if k == 15:
+        return cmyk, ".jpg"
     if k >= 12:
         return webps[k - 12], ".webp"
     if k in (0, 6):
@@ -559,3 +594,52 @@ def vp8_frame(seed, width, height, partitions=1, simple=False, level=24,
     chunk = b"VP8 " + struct.pack("<I", len(frame)) + frame \
         + b"\0" * (len(frame) & 1)
     return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+# -- animated WebP of hand-placed frames --------------------------------------
+
+def _riff_chunk(kind, payload):
+    return kind + struct.pack("<I", len(payload)) + payload \
+        + b"\0" * (len(payload) & 1)
+
+
+def webp_frame_chunks(still):
+    """The image chunks of a still WebP file (an ALPH chunk and a VP8
+    chunk, or a VP8 or VP8L chunk): what an ANMF chunk holds."""
+    if still[12:16] != b"VP8X":
+        return still[12:]
+    at, out = 30, b""
+    while at < len(still):
+        size = struct.unpack_from("<I", still, at + 4)[0]
+        end = at + 8 + size + (size & 1)
+        if still[at:at + 4] in (b"ALPH", b"VP8 ", b"VP8L"):
+            out += still[at:end]
+        at = end
+    return out
+
+
+def animated_webp(width, height, frames, background=0, loop=0, flags=0x12):
+    """An animated WebP file of a `width` x `height` canvas (VP8X flags
+    `flags`: animation and alpha), an ANIM chunk (`background`, an ARGB
+    int, and `loop`) and one ANMF chunk a frame: (x, y, duration, bits,
+    chunks), `x` and `y` even, `bits` the ANMF byte (2: do not blend, 1:
+    dispose to the background), `chunks` a frame's image chunks
+    (`webp_frame_chunks`), whose size the ANMF header repeats."""
+    body = _riff_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                       + (width - 1).to_bytes(3, "little")
+                       + (height - 1).to_bytes(3, "little"))
+    body += _riff_chunk(b"ANIM", struct.pack("<IH", background, loop))
+    for x, y, duration, bits, chunks in frames:
+        at = chunks.find(b"VP8")
+        kind, head = chunks[at:at + 4], chunks[at + 8:at + 18]
+        if kind == b"VP8L":
+            v = int.from_bytes(head[1:5], "little")
+            w, h = (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+        else:
+            w, h = (struct.unpack_from("<H", head, k)[0] & 0x3FFF
+                    for k in (6, 8))
+        body += _riff_chunk(b"ANMF", b"".join(
+            v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1,
+                                              duration))
+            + bytes([bits]) + chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body

@@ -5,9 +5,12 @@ K-Face datasets, `infer_cr` and the server read: PNG (the inverse of
 which pick the decoder by the file's signature and read the file as the
 library a call site names reads it (`reader="cv2"` or `"pil"`).
 
-The two libraries differ on two things, and `reader` settles both:
+The two libraries differ on three things, and `reader` settles them:
 
 - 16-bit PNG samples (below);
+- CMYK and YCCK JPEG: each turns libjpeg's CMYK into RGB by its own rule
+  (`data/jpeg.py`), up to 2 levels apart, and a four-component file read
+  without a reader raises `JPEGError`, naming both;
 - EXIF orientation: `cv2.imread` flips and transposes a PNG, JPEG or WebP
   file by its EXIF Orientation tag, PIL's `convert("RGB")` does not. With
   `reader="cv2"` the decoded image takes the same step
@@ -630,12 +633,13 @@ def decode_bmp_plain(data: bytes) -> np.ndarray:
 def decode_image(data: bytes, reader=None) -> np.ndarray:
     """A PNG, JPEG, WebP or BMP file's bytes, by their signature, as an
     (H, W, 3) uint8 RGB array, as `reader` ("cv2" or "pil") reads it: the
-    16-bit rule of `decode_png`, and with "cv2" the EXIF orientation.
+    16-bit rule of `decode_png`, the CMYK rule of `decode_jpeg`, and with
+    "cv2" the EXIF orientation.
     Anything else raises `ImageFormatError`, naming what the port reads."""
     _check_reader(reader)
     data = bytes(data)
     if data[:2] == JPEG_SIGNATURE:
-        img, exif = decode_jpeg(data), orientation.jpeg_exif
+        img, exif = decode_jpeg(data, reader), orientation.jpeg_exif
     elif data[:8] == PNG_SIGNATURE:
         img, exif = decode_png(data, reader), orientation.png_exif
     elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
@@ -647,7 +651,8 @@ def decode_image(data: bytes, reader=None) -> np.ndarray:
     elif data[:2] == BMP_SIGNATURE:
         return decode_bmp(data)
     else:
-        what = ("a GIF file" if data[:4] == b"GIF8"
+        what = ("a GIF file" if data[:4] == b"GIF8" else "a TIFF file"
+                if data[:4] in (b"II*\0", b"MM\0*")
                 else "not an image the port knows")
         raise ImageFormatError(f"{what}: the port reads PNG, JPEG (baseline, "
                                "extended and progressive), WebP and BMP")

@@ -4,16 +4,37 @@ host library built from `csrc/host/jpeg.cc` (`data/host.py`).
 `decode_jpeg` gives what libjpeg-turbo gives at its defaults, bit for bit,
 as RGB: what PIL's `Image.open(f).convert("RGB")` and cv2's
 `imdecode(buf, IMREAD_COLOR)` (flipped to RGB) read. Baseline,
-extended-sequential and progressive 8-bit Huffman files, every sampling up
-to 2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0) and whole ratios past it, grey
-(repeated over three channels), restart intervals and any size. EXIF
-orientation is ignored, as `Image.open` ignores it. A progressive file
-whose scans leave some of a component's first nine AC coefficients short
-of bit 0 is refused: libjpeg smooths such coefficients
-(`do_block_smoothing`) and its output is not theirs. Lossless,
-hierarchical and arithmetic-coded files (SOF10, the arithmetic-coded
-progressive, among them), 12-bit samples, CMYK / YCCK / RGB-coded
-components and truncated data raise `JPEGError` naming what they are.
+extended-sequential and progressive 8-bit Huffman files of one, three or
+four components, every sampling up to 2x2 (4:4:4, 4:2:2, 4:4:0, 4:2:0)
+and whole ratios past it, grey (repeated over three channels), restart
+intervals and any size. EXIF orientation is ignored, as `Image.open`
+ignores it. A progressive file whose scans leave some of a component's
+first nine AC coefficients short of bit 0 is refused: libjpeg smooths such
+coefficients (`do_block_smoothing`) and its output is not theirs.
+Lossless, hierarchical and arithmetic-coded files (SOF10, the
+arithmetic-coded progressive, among them), 12-bit samples and truncated
+data raise `JPEGError` naming what they are.
+
+The colour space is libjpeg-turbo's default (`jdapimin.c`): three
+components are YCbCr, or RGB (copied) where an Adobe APP14 marker says
+transform 0 and no JFIF marker is there, or where neither marker is there
+and the component ids are 'R', 'G', 'B' (PIL's `keep_rgb=True` writes the
+first; both libraries read such a file alike); four components are CMYK,
+or YCCK where an Adobe marker names another transform than 0, and libjpeg
+turns YCCK into CMYK (`ycck_cmyk_convert`). The two libraries turn
+libjpeg's CMYK into RGB differently (up to 2 levels apart), so a
+four-component file needs `reader`, as a 16-bit PNG does: "pil" inverts
+each sample (the "CMYK;I" raw mode, whatever the markers say) and then
+takes `cmyk2rgb` of Pillow's Convert.c, nk - nk * c / 255 (rounded as
+MULDIV255) with nk = 255 - k; "cv2" takes `icvCvt_CMYK2BGR_8u_C4C3R`,
+k - ((255 - c) * k >> 8), on libjpeg's samples. Both rules were measured
+on all 65,536 (C, K) pairs (tests/test_torch_jpeg.py). Without a reader a
+four-component file raises, naming both.
+
+`components` gives the upsampled components before any colour step, with
+the colour space's name; `ycck_to_cmyk` and `cmyk_to_rgb` are the two
+colour steps of the library alone, and `ycck_to_cmyk_plain` and
+`cmyk_to_rgb_plain` their numpy versions.
 
 `coefficients` gives the quantized DCT coefficients the decoder's scans
 leave, with each component's latched quantization table, and
@@ -38,6 +59,8 @@ import numpy as np
 from hifidiff_tpu_torch.data import host
 
 JPEG_SIGNATURE = b"\xff\xd8"
+READERS = ("pil", "cv2")   # the libraries whose CMYK -> RGB decode_jpeg takes
+SPACES = ("grey", "ycbcr", "rgb", "cmyk", "ycck")   # jpeg.cc's order
 
 
 class JPEGError(ValueError):
@@ -52,18 +75,107 @@ def _take(lib, ptr: int, nbytes: int) -> bytes:
         lib.hj_free(ptr)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A JPEG file's bytes as an (H, W, 3) uint8 RGB array."""
+def _reader(reader) -> int:
+    if reader not in (None, *READERS):
+        raise ValueError(f"reader must be one of {READERS}, got {reader!r}")
+    return 0 if reader is None else 1 + READERS.index(reader)
+
+
+def decode_jpeg(data: bytes, reader=None) -> np.ndarray:
+    """A JPEG file's bytes as an (H, W, 3) uint8 RGB array; a CMYK or YCCK
+    file as `reader` ("pil" or "cv2") turns it into RGB, and without one
+    it raises."""
+    code = _reader(reader)
     lib = host.library()
     data = bytes(data)
     h, w = ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(256)
-    ptr = lib.hj_decode(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                        err, len(err))
+    ptr = lib.hj_decode(data, len(data), code, ctypes.byref(h),
+                        ctypes.byref(w), err, len(err))
     if not ptr:
         raise JPEGError(err.value.decode())
     raw = _take(lib, ptr, h.value * w.value * 3)
     return np.frombuffer(raw, np.uint8).reshape(h.value, w.value, 3).copy()
+
+
+def components(data: bytes):
+    """(the upsampled components as (H, W, n) uint8, the colour space's
+    name in SPACES): what the library decodes before any colour step."""
+    lib = host.library()
+    data = bytes(data)
+    h, w, nc, space = (ctypes.c_int() for _ in range(4))
+    err = ctypes.create_string_buffer(256)
+    ptr = lib.hj_components(data, len(data), ctypes.byref(h),
+                            ctypes.byref(w), ctypes.byref(nc),
+                            ctypes.byref(space), err, len(err))
+    if not ptr:
+        raise JPEGError(err.value.decode())
+    raw = _take(lib, ptr, h.value * w.value * nc.value)
+    px = np.frombuffer(raw, np.uint8).reshape(h.value, w.value, nc.value)
+    return px.copy(), SPACES[space.value]
+
+
+def _pixels(px: np.ndarray, channels: int) -> np.ndarray:
+    px = np.ascontiguousarray(px, np.uint8)
+    if px.shape[-1:] != (channels,):
+        raise ValueError(f"{channels} channels a pixel, got {px.shape}")
+    return px
+
+
+def ycck_to_cmyk(px: np.ndarray) -> np.ndarray:
+    """The library's YCCK -> CMYK on (..., 4) uint8 pixels."""
+    px = _pixels(px, 4)
+    out = np.empty_like(px)
+    host.library().hj_ycck_cmyk(px.ctypes.data, px.size // 4,
+                                out.ctypes.data)
+    return out
+
+
+def cmyk_to_rgb(px: np.ndarray, reader: str) -> np.ndarray:
+    """The library's CMYK -> RGB on (..., 4) uint8 pixels, as `reader`
+    converts libjpeg's CMYK."""
+    code = _reader(reader)
+    if not code:
+        raise ValueError(f"cmyk_to_rgb needs a reader, one of {READERS}")
+    px = _pixels(px, 4)
+    out = np.empty(px.shape[:-1] + (3,), np.uint8)
+    host.library().hj_cmyk_rgb(px.ctypes.data, px.size // 4, code,
+                               out.ctypes.data)
+    return out
+
+
+def _ycc_tables():
+    """jdcolor.c's build_ycc_rgb_table: Cr -> R, Cb -> B, and the two
+    16-bit fixed-point terms of G (ONE_HALF in Cb's)."""
+    x = np.arange(256, dtype=np.int64) - 128
+    fix = [int(v * 65536 + 0.5) for v in (1.40200, 1.77200, 0.71414, 0.34414)]
+    return ((fix[0] * x + 32768) >> 16, (fix[1] * x + 32768) >> 16,
+            -fix[2] * x, -fix[3] * x + 32768)
+
+
+def ycck_to_cmyk_plain(px: np.ndarray) -> np.ndarray:
+    """`ycck_to_cmyk` in numpy: its plain version."""
+    px = _pixels(px, 4).astype(np.int64)
+    cr_r, cb_b, cr_g, cb_g = _ycc_tables()
+    y, cb, cr = px[..., 0], px[..., 1], px[..., 2]
+    rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16),
+                    y + cb_b[cb]], -1)
+    return np.concatenate([np.clip(255 - rgb, 0, 255), px[..., 3:]],
+                          -1).astype(np.uint8)
+
+
+def cmyk_to_rgb_plain(px: np.ndarray, reader: str) -> np.ndarray:
+    """`cmyk_to_rgb` in numpy: its plain version."""
+    if not _reader(reader):
+        raise ValueError(f"cmyk_to_rgb_plain needs a reader, one of {READERS}")
+    px = _pixels(px, 4).astype(np.int64)
+    c, k = px[..., :3], px[..., 3:]
+    if reader == "pil":
+        t = (255 - c) * k + 128
+        out = k - (((t >> 8) + t) >> 8)
+    else:
+        out = k - (((255 - c) * k) >> 8)
+    return out.astype(np.uint8)
 
 
 def encode_jpeg(img: np.ndarray, quality: int) -> bytes:
@@ -205,8 +317,7 @@ def coefficients_plain(data: bytes):
     data = bytes(data)
     if len(data) < 2 or data[:2] != b"\xff\xd8":
         raise JPEGError("not a JPEG file (no SOI marker)")
-    st = dict(pos=2, frame=False, progressive=False, restart=0, scans=0,
-              jfif=False, adobe=None)
+    st = dict(pos=2, frame=False, progressive=False, restart=0, scans=0)
     qt, dc_luts, ac_luts, comps = {}, {}, {}, []
 
     def u8():
@@ -257,10 +368,7 @@ def coefficients_plain(data: bytes):
             raise JPEGError("a zero or DNL-defined height is not supported")
         if width == 0:
             raise JPEGError("corrupt data: zero width")
-        if nc == 4:
-            raise JPEGError("CMYK / YCCK (four-component) JPEG is not "
-                            "supported")
-        if nc not in (1, 3):
+        if nc not in (1, 3, 4):
             raise JPEGError(f"{nc}-component JPEG is not supported")
         for _ in range(nc):
             cid, hv, tq = u8(), u8(), u8()
@@ -518,11 +626,7 @@ def coefficients_plain(data: bytes):
         elif 0xD0 <= m <= 0xD7:
             pass
         else:
-            body = segment()
-            if m == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\0":
-                st["jfif"] = True
-            if m == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
-                st["adobe"] = body[11]
+            segment()
     _check_frame(st, comps)
     return [dict(h=c["h"], v=c["v"], quant=np.array(c["quant"], np.int32),
                  coef=np.array(c["coef"], np.int16).reshape(c["bh"], c["bw"],
@@ -545,14 +649,3 @@ def _check_frame(st, comps):
         raise JPEGError("incomplete progressive JPEG: libjpeg would smooth "
                         "it (the first AC coefficients are not all refined "
                         "to bit 0)")
-    if len(comps) == 3:
-        adobe = st["adobe"]
-        if not st["jfif"] and adobe is not None and adobe != 1:
-            raise JPEGError(
-                "RGB-coded JPEG (Adobe transform 0) is not supported"
-                if adobe == 0 else f"Adobe transform {adobe} is not "
-                "supported")
-        if not st["jfif"] and adobe is None and [
-                c["id"] for c in comps] == [ord("R"), ord("G"), ord("B")]:
-            raise JPEGError("RGB-coded JPEG (component ids R, G, B) is not "
-                            "supported")

@@ -3,26 +3,42 @@ from `csrc/host/webp.cc` (`data/host.py`), and its plain versions.
 
 `decode_webp` gives what libwebp 1.6 gives, bit for bit, as RGB: what
 PIL's `Image.open(f).convert("RGB")` (its WebPAnimDecoder) and cv2's
-`imdecode(buf, IMREAD_COLOR)` (its WebPDecode, flipped to RGB) read, which
-agree on every still image. Lossless (VP8L) and lossy (VP8) files, simple
-or extended (VP8X) with ICCP, EXIF, XMP, ALPH and unknown chunks, odd
-chunk sizes with their pad byte, any size up to 16383 x 16383. The alpha
-channel is dropped, as both libraries' RGB drops it.
+`imdecode(buf, IMREAD_COLOR)` (its WebPDecode, flipped to RGB; its
+WebPAnimDecoder for a file with the VP8X animation flag) read, which agree
+on every still image and every animation's first frame. Lossless (VP8L)
+and lossy (VP8) files, simple or extended (VP8X) with ICCP, EXIF, XMP,
+ALPH and unknown chunks, odd chunk sizes with their pad byte, any size up
+to 16383 x 16383. The alpha channel is dropped, as both libraries' RGB
+drops it.
+
+Animated files (ANIM and ANMF chunks, the VP8X animation flag): the
+first frame, as WebPAnimDecoder composes it, measured against both
+libraries: drawn at its ANMF offset on a zero canvas of the VP8X size,
+its pixels as they are (libwebp blends no key frame, whatever the frame's
+blend bit says; the ANIM background is never drawn). Every frame is
+checked as libwebp's demuxer checks it (ParseAnimationFrame, StoreFrame,
+IsValidExtendedFormat: an ANIM chunk before the frames, each frame's
+chunks inside its ANMF chunk, its ALPH chunk before its image, the image
+on the canvas), so a broken later frame refuses the file, though only
+the first frame is decoded.
+
+The ALPH chunk (alpha_dec.c) is decoded wherever a library decodes it,
+since its RGB never depends on it but a stream libwebp refuses makes
+the decode fail: an animation frame's, and a still image's ALPH chunk
+before the image (cv2's WebPDecode decodes it whatever the VP8X alpha
+flag says). Raw or lossless-compressed, the four filters, the
+pre-processing bit (no dithering: neither library asks for it).
 
 The container is checked as both libraries check it, and a file either
 refuses is refused (`WebPError`, a ValueError naming the cause): PIL's
 demuxer (a RIFF size past the file; a first chunk other than VP8, VP8L,
 VP8X; chunks past the RIFF size; 1-7 stray bytes inside it; a second
 image; VP8X flags past the defined ones; an image whose size is not the
-VP8X canvas) and libwebp's WebPDecode, which cv2 calls (files under 32
-bytes, which cv2 does not read; a VP8X chunk of other than 10 bytes; a
-frame header that is not a shown key frame with the VP8 start code).
-Animated files (the VP8X animation flag, ANIM before the image, any ANMF)
-are refused as "animated WebP". Two differences are deliberate: the ALPH
-chunk's framing is read and its data is not decoded (the RGB never
-depends on it; where libwebp would refuse a broken alpha stream, the port
-reads the RGB), and animated files are refused where both libraries read
-their first frame.
+VP8X canvas; an image after an ANIM chunk or outside the ANMF chunks of
+an animated file; an ANMF before ANIM) and libwebp's WebPDecode, which cv2
+calls (files under 32 bytes, which cv2 does not read; a VP8X chunk of
+other than 10 bytes; a frame header that is not a shown key frame with
+the VP8 start code).
 
 The bitstreams are decoded from the image chunk's payload and pad byte,
 as the demuxer hands them to the decoder: a bitstream that needs bytes
@@ -36,9 +52,10 @@ macroblock's segment, skip flag, modes and dequantized coefficients) and
 `vp8_coefficients_plain` parses the same in Python, from the boolean
 decoder on. The lossy pixel path after them (prediction, IDCT, loop
 filter, upsampling, YUV -> RGB) has no plain version: it is held to PIL
-and cv2, and to golden digests where neither exists. Only tests and
-chip_smoke.py call the plain versions; no path of the port falls back to
-them.
+and cv2, and to golden digests where neither exists. `decode_alpha` is
+the library's ALPH decode alone and `decode_alpha_plain` its plain
+version. Only tests and chip_smoke.py call the plain versions; no path of
+the port falls back to them.
 """
 
 from __future__ import annotations
@@ -54,7 +71,7 @@ from hifidiff_tpu_torch.data import host
 _MAX_CHUNK = 0xFFFFFFFF - 8 - 1   # libwebp's MAX_CHUNK_PAYLOAD
 _MAX_AREA = 1 << 32               # libwebp's MAX_IMAGE_AREA
 _KNOWN_FLAGS = 0x3E               # ALPHA | ANIMATION | EXIF | ICCP | XMP
-_ANIMATION, _EXIF = 0x02, 0x08
+_ANIMATION, _EXIF, _ALPHA_FLAG = 0x02, 0x08, 0x10
 _CV2_MIN_SIZE = 32                # cv2's WEBP_HEADER_SIZE
 
 
@@ -75,7 +92,12 @@ _MESSAGES = {
     14: "the token partitions' sizes are past the frame",
     15: "the first partition ends early, at macroblock row {0}",
     16: "a token partition ends early, at macroblock ({0}, {1})",
+    26: "an ALPH chunk of {0} bytes: no alpha data",
+    27: "an ALPH header byte of {0:#04x}: a compression, pre-processing or "
+        "reserved value libwebp refuses",
+    28: "raw alpha data of {0} bytes for {1} pixels",
 }
+_ALPH_CODES = 20   # + a lossless code: that refusal in an ALPH stream
 
 
 class _Refused(Exception):
@@ -85,6 +107,9 @@ class _Refused(Exception):
 def _refusal(code: int, detail=(0, 0)) -> WebPError:
     if code == host.NO_MEMORY:
         return WebPError("out of memory decoding the WebP file")
+    if _ALPH_CODES < code < _ALPH_CODES + 6:
+        return WebPError("the ALPH chunk's stream: " + _MESSAGES[
+            code - _ALPH_CODES].format(*detail))
     if code not in _MESSAGES:
         return WebPError(f"webp.cc returned {code}")
     return WebPError(_MESSAGES[code].format(*detail))
@@ -93,8 +118,11 @@ def _refusal(code: int, detail=(0, 0)) -> WebPError:
 class Frame(NamedTuple):
     """What the container holds: the image chunk's kind ("VP8 " or
     "VP8L"), the offset of its payload, the bytes the decoder reads (the
-    payload and pad byte), the file's length, the image's size, and the
-    EXIF chunk cv2 reads (None without one)."""
+    payload and pad byte), the file's length, the image's size, the EXIF
+    chunk cv2 reads (None without one), the (offset, size) of the ALPH
+    payload the decoder reads (None without one), and, for an animation's
+    first frame, the (width, height) of the canvas it is drawn on and its
+    place there (None and (0, 0) for a still image)."""
     kind: bytes
     offset: int
     length: int
@@ -102,6 +130,10 @@ class Frame(NamedTuple):
     width: int
     height: int
     exif: bytes | None
+    alpha: tuple[int, int] | None = None
+    canvas: tuple[int, int] | None = None
+    x: int = 0
+    y: int = 0
 
     @property
     def lossless(self) -> bool:
@@ -301,17 +333,18 @@ def _next(pos: int, end: int) -> bool:
 
 def _store_frame(data: bytes, pos: int, end: int):
     """libwebp demux's StoreFrame from `pos`: an ALPH chunk and the image
-    chunk after it. Returns ((kind, offset, size, padded) or None, whether
-    an ALPH chunk followed the image, the position after them)."""
-    image, alpha, alpha_after = None, False, False
+    chunk after it. Returns ((kind, offset, size, padded) or None, the
+    (offset, size) of the ALPH payload or None, whether it followed the
+    image, the position after them)."""
+    image, alpha, alpha_after = None, None, False
     while True:
         kind, size, padded = _chunk(data, pos, end)
         if kind == b"ALPH":
-            if alpha:
+            if alpha is not None:
                 break
-            alpha, alpha_after = True, image is not None
+            alpha, alpha_after = (pos + 8, size), image is not None
         elif kind in (b"VP8 ", b"VP8L"):
-            if kind == b"VP8L" and alpha:
+            if kind == b"VP8L" and alpha is not None:
                 raise WebPError("an ALPH chunk beside a VP8L image")
             if image is not None:
                 break
@@ -322,7 +355,29 @@ def _store_frame(data: bytes, pos: int, end: int):
         pos += 8 + padded
         if not _next(pos, end):
             break
-    return image, alpha_after, pos
+    return image, alpha, alpha_after, pos
+
+
+def _anmf(data: bytes, pos: int, end: int, size: int, padded: int):
+    """libwebp demux's ParseAnimationFrame of the ANMF chunk at `pos`:
+    ((x, y), `_store_frame`'s image, ALPH and order) and the position
+    after them, where the top-level walk goes on (inside the ANMF chunk
+    where unknown chunks follow the frame's)."""
+    if padded < 16:
+        raise WebPError(f"an ANMF chunk of {size} bytes")
+    at = pos + 8
+    x, y = 2 * _u24(data, at), 2 * _u24(data, at + 3)
+    w, h = 1 + _u24(data, at + 6), 1 + _u24(data, at + 9)
+    if w * h >= _MAX_AREA:
+        raise WebPError(f"an ANMF frame of {w} x {h}")
+    start = at + 16
+    if end - start < 8:
+        raise WebPError("an ANMF chunk at the end of the file holds no "
+                        "frame")
+    image, alpha, alpha_after, after = _store_frame(data, start, end)
+    if after - start > padded - 16:
+        raise WebPError("a frame's chunks run past its ANMF chunk")
+    return (x, y), image, alpha, alpha_after, after
 
 
 def parse(data: bytes) -> Frame:
@@ -343,9 +398,9 @@ def parse(data: bytes) -> Frame:
                         f"file holds {n - 8}")
     end = riff + 8
     first = data[12:16]
-    flags, canvas, exif = 0, None, None
-    if first in (b"VP8 ", b"VP8L"):
-        image, _, _ = _store_frame(data, 12, end)
+    flags, canvas, exif, alpha = 0, None, None, None
+    if first in (b"VP8 ", b"VP8L"):   # an ALPH chunk after it is not read
+        image = _store_frame(data, 12, end)[0]
     elif first == b"VP8X":
         size = _u32(data, 16)
         if size != 10:
@@ -357,31 +412,42 @@ def parse(data: bytes) -> Frame:
         canvas = 1 + _u24(data, 24), 1 + _u24(data, 27)
         if canvas[0] * canvas[1] >= _MAX_AREA:
             raise WebPError(f"a VP8X canvas of {canvas[0]} x {canvas[1]}")
-        if flags & _ANIMATION:
-            raise WebPError("animated WebP (the VP8X animation flag): the "
-                            "port reads still images")
-        image, anim, pos = None, False, 30
+        animated = bool(flags & _ANIMATION)
+        image, anim, frames, pos = None, False, [], 30
         while True:
             kind, size, padded = _chunk(data, pos, end)
             if kind == b"VP8X":
                 raise WebPError("a second VP8X chunk")
             if kind in (b"ALPH", b"VP8 ", b"VP8L"):
+                if animated:
+                    raise WebPError("an image chunk outside the ANMF chunks "
+                                    "of an animated file")
                 if anim:
-                    raise WebPError("animated WebP (an ANIM chunk before the "
-                                    "image): the port reads still images")
+                    raise WebPError("an image chunk after an ANIM chunk")
                 if image is not None:
                     raise WebPError("a second image in a still WebP file")
-                image, alpha_after, pos = _store_frame(data, pos, end)
+                image, alpha, alpha_after, pos = _store_frame(data, pos, end)
                 if image is None:
                     raise WebPError("an ALPH chunk without an image after it")
-                if alpha_after and flags & 0x10:
-                    raise WebPError("an ALPH chunk after the image")
+                if alpha_after:
+                    if flags & _ALPHA_FLAG:
+                        raise WebPError("an ALPH chunk after the image")
+                    alpha = None   # neither library reads it
                 if pos == end:
                     break
                 continue
             if kind == b"ANMF":
-                raise WebPError("animated WebP (an ANMF chunk): the port "
-                                "reads still images")
+                if not anim:
+                    raise WebPError("an ANMF chunk before the ANIM chunk")
+                place, fimage, falpha, after, pos = _anmf(data, pos, end,
+                                                          size, padded)
+                if animated and (fimage or falpha):
+                    if frames and frames[-1][1] is None:
+                        raise WebPError("a frame without an image chunk")
+                    frames.append((place, fimage, falpha, after))
+                if not _next(pos, end):
+                    break
+                continue
             if kind == b"ANIM":
                 if padded < 6:
                     raise WebPError(f"an ANIM chunk of {size} bytes")
@@ -394,6 +460,8 @@ def parse(data: bytes) -> Frame:
         if flags & ~_KNOWN_FLAGS:
             raise WebPError(f"VP8X flags {flags:#04x}: bits the demuxer "
                             "refuses")
+        if animated:
+            return _first_frame(data, frames, canvas, exif)
         if image is None:
             raise WebPError("no image chunk")
     else:
@@ -404,22 +472,58 @@ def parse(data: bytes) -> Frame:
     if canvas is not None and canvas != (w, h):
         raise WebPError(f"a {w} x {h} image on a VP8X canvas of {canvas[0]} "
                         f"x {canvas[1]}")
-    return Frame(kind, offset, padded, n, w, h, exif)
+    return Frame(kind, offset, padded, n, w, h, exif, alpha)
+
+
+def _first_frame(data: bytes, frames: list, canvas, exif) -> Frame:
+    """The demuxer's checks of an animation's frames (IsValidExtendedFormat:
+    each has an image, its ALPH chunk before it, and lies on the canvas),
+    then its first frame, the one PIL and cv2 read."""
+    if not frames:
+        raise WebPError("an animated file without frames")
+    for (x, y), image, _, alpha_after in frames:
+        if image is None:
+            raise WebPError("a frame without an image chunk")
+        if alpha_after:
+            raise WebPError("an ALPH chunk after its frame's image")
+        kind, offset, size, padded = image
+        w, h = _image_size(kind, data[offset:offset + padded], size)
+        if x + w > canvas[0] or y + h > canvas[1]:
+            raise WebPError(f"a {w} x {h} frame at ({x}, {y}) past the "
+                            f"{canvas[0]} x {canvas[1]} canvas")
+    (x, y), (kind, offset, size, padded), alpha, _ = frames[0]
+    w, h = _image_size(kind, data[offset:offset + padded], size)
+    return Frame(kind, offset, padded, len(data), w, h, exif, alpha, canvas,
+                 x, y)
 
 
 def decode_webp(data: bytes) -> np.ndarray:
-    """A WebP file's bytes as an (H, W, 3) uint8 RGB array."""
+    """A WebP file's bytes as an (H, W, 3) uint8 RGB array: a still image,
+    or an animation's first frame on its canvas."""
     data = bytes(data)
     f = parse(data)
-    out = np.empty((f.height, f.width, 3), np.uint8)
+    cw, ch = f.canvas or (f.width, f.height)
+    out = np.empty((ch, cw, 3), np.uint8)
     detail = (ctypes.c_int * 2)()
-    lib = host.library()
     body = data[f.offset:f.offset + f.length]
-    if f.lossless:
-        code = lib.hw_vp8l_rgb(body, f.length, f.width, f.height,
-                               out.ctypes.data, detail)
-    else:
-        code = lib.hw_vp8_rgb(body, f.length, out.ctypes.data, detail)
+    alpha = None if f.alpha is None else data[f.alpha[0]:sum(f.alpha)]
+    code = host.library().hw_webp_rgb(
+        body, f.length, f.lossless, f.width, f.height, alpha,
+        0 if alpha is None else len(alpha), cw, ch, f.x, f.y,
+        out.ctypes.data, detail)
+    if code:
+        raise _refusal(code, detail)
+    return out
+
+
+def decode_alpha(payload: bytes, width: int, height: int) -> np.ndarray:
+    """An ALPH chunk's payload as the library decodes it: (height, width)
+    uint8 alpha."""
+    payload = bytes(payload)
+    out = np.empty((height, width), np.uint8)
+    detail = (ctypes.c_int * 2)()
+    code = host.library().hw_alpha(payload, len(payload), width, height,
+                                   out.ctypes.data, detail)
     if code:
         raise _refusal(code, detail)
     return out
@@ -573,9 +677,13 @@ def _copy_value(symbol: int, br: _Bits) -> int:
     return ((2 + (symbol & 1)) << extra) + br.read(extra) + 1
 
 
-def _stream(br: _Bits, w: int, h: int, level0: bool, transforms: list):
+def _stream(br: _Bits, w: int, h: int, level0: bool, transforms: list,
+            alpha: bool = False):
     """One entropy-coded image (the transforms first at level 0) as a list
-    of w * h ARGB ints."""
+    of w * h ARGB ints. `alpha`: an ALPH chunk's stream, whose end libwebp
+    looks at only after each symbol or copy (DecodeAlphaData) where its
+    only transform is colour indexing, it has no colour cache and every
+    group it keeps has one-symbol red, blue and alpha codes."""
     if level0:
         seen = 0
         while br.read(1):
@@ -614,21 +722,26 @@ def _stream(br: _Bits, w: int, h: int, level0: bool, transforms: list):
     sizes = (256 + 24 + (1 << cache_bits if cache_bits else 0), 256, 256,
              256, 40)
     codes = [[_read_code(br, n) for n in sizes] for _ in range(groups)]
+    kept = (range(groups) if groups <= 1000 and groups <= w * h
+            else sorted(set(meta)))
+    lenient = alpha and [t["type"] for t in transforms] == [3] \
+        and not cache_bits and all(codes[g][k].single is not None
+                                   for g in kept for k in (1, 2, 3))
     cache = [0] * (1 << cache_bits)
     px = [0] * (w * h)
     i = cached = x = y = 0
     total = w * h
-    while i < total:
+    while i < total and not (lenient and br.ended()):
         g = codes[0 if meta is None else
                   meta[(y >> meta_bits) * mw + (x >> meta_bits)]]
         code = g[0].read(br)
-        if br.ended():
+        if br.ended() and not lenient:
             break
         if code < 256:
-            red, blue, alpha = (g[1].read(br), g[2].read(br), g[3].read(br))
-            if br.ended():
+            red, blue, a = (g[1].read(br), g[2].read(br), g[3].read(br))
+            if br.ended() and not lenient:
                 break
-            px[i] = alpha << 24 | red << 16 | code << 8 | blue
+            px[i] = a << 24 | red << 16 | code << 8 | blue
             i += 1
             x += 1
         elif code < 280:
@@ -639,7 +752,7 @@ def _stream(br: _Bits, w: int, h: int, level0: bool, transforms: list):
             else:
                 plane = _CODE_TO_PLANE[dcode - 1]
                 dist = max(1, (plane >> 4) * w + 8 - (plane & 15))
-            if br.ended():
+            if br.ended() and not lenient:
                 break
             if i < dist or total - i < length:
                 raise _Refused(5)
@@ -663,7 +776,7 @@ def _stream(br: _Bits, w: int, h: int, level0: bool, transforms: list):
                     cache[((0x1E35A7BD * px[k]) & 0xFFFFFFFF)
                           >> (32 - cache_bits)] = px[k]
                 cached = i
-    if br.ended():
+    if br.ended() and (i < total or not lenient):
         raise _Refused(1)
     return px
 
@@ -772,27 +885,89 @@ def _inverse(t: dict, h: int, px: np.ndarray) -> np.ndarray:
     return t["data"][idx]
 
 
+def _lossless_stream(data: bytes, w: int, h: int, alpha: bool = False):
+    """A level-0 lossless stream in `data` (bits from 0) as (h, w) ARGB
+    uint32, its transforms inverted."""
+    transforms = []
+    px = _stream(_Bits(data, len(data)), w, h, True, transforms, alpha)
+    px = np.array(px, np.uint32).reshape(h, -1)
+    for t in reversed(transforms):
+        px = _inverse(t, h, px)
+    return px
+
+
 def decode_webp_plain(data: bytes) -> np.ndarray:
-    """`decode_webp` of a lossless file in Python and numpy: its plain
-    version. A lossy file raises WebPError (its plain version stops at
-    `vp8_coefficients_plain`)."""
+    """`decode_webp` of a lossless file (still, or an animation whose first
+    frame is lossless) in Python and numpy: its plain version. A lossy file
+    raises WebPError (its plain version stops at `vp8_coefficients_plain`
+    and `decode_alpha_plain`)."""
     data = bytes(data)
     f = parse(data)
     if not f.lossless:
         raise WebPError("a lossy (VP8) file: decode_webp_plain decodes "
                         "lossless ones")
-    br = _Bits(data[f.offset:], f.length)
-    br.pos = 40   # signature, size, alpha hint, version: parse's
-    transforms = []
-    try:
-        px = _stream(br, f.width, f.height, True, transforms)
+    try:   # past the signature, size, alpha hint and version: parse's
+        px = _lossless_stream(data[f.offset + 5:f.offset + f.length],
+                             f.width, f.height)
     except _Refused as e:
         raise _refusal(e.args[0], (*e.args[1:], 0, 0)) from None
-    px = np.array(px, np.uint32).reshape(f.height, -1)
-    for t in reversed(transforms):
-        px = _inverse(t, f.height, px)
-    rgb = np.stack([(px >> 16) & 0xFF, (px >> 8) & 0xFF, px & 0xFF], -1)
-    return rgb.astype(np.uint8)
+    cw, ch = f.canvas or (f.width, f.height)
+    out = np.zeros((ch, cw, 3), np.uint8)
+    out[f.y:f.y + f.height, f.x:f.x + f.width] = np.stack(
+        [(px >> 16) & 0xFF, (px >> 8) & 0xFF, px & 0xFF], -1)
+    return out
+
+
+def _unfilter_alpha(rows: np.ndarray, method: int) -> np.ndarray:
+    """dsp/filters.c's alpha unfilters on (h, w) uint8 rows: 0 none, 1
+    horizontal, 2 vertical, 3 gradient, each row from the output row above
+    it (the first row horizontally from 0)."""
+    rows = np.asarray(rows, np.uint8)
+    if method == 0:
+        return rows.copy()
+    out = np.zeros(rows.shape, np.uint8)
+    prev = None
+    for y, row in enumerate(rows.astype(np.int64)):
+        if method == 1 or prev is None:
+            start = 0 if prev is None else int(prev[0])
+            out[y] = (start + np.cumsum(row)) & 0xFF
+        elif method == 2:
+            out[y] = (prev.astype(np.int64) + row) & 0xFF
+        else:
+            left = top_left = int(prev[0])
+            for i, top in enumerate(prev.tolist()):
+                pred = min(255, max(0, left + top - top_left))
+                left = (int(row[i]) + pred) & 0xFF
+                top_left = top
+                out[y, i] = left
+        prev = out[y]
+    return out
+
+
+def decode_alpha_plain(payload: bytes, width: int, height: int
+                       ) -> np.ndarray:
+    """`decode_alpha` in Python and numpy: its plain version."""
+    payload = bytes(payload)
+    try:
+        if len(payload) <= 1:
+            raise _Refused(26, len(payload))
+        head = payload[0]
+        if head & 3 > 1 or head >> 4 > 1:
+            raise _Refused(27, head)
+        n = width * height
+        if head & 3 == 0:
+            if len(payload) - 1 < n:
+                raise _Refused(28, len(payload) - 1, n)
+            rows = np.frombuffer(payload, np.uint8, n, 1)
+        else:
+            try:
+                px = _lossless_stream(payload[1:], width, height, True)
+            except _Refused as e:
+                raise _Refused(_ALPH_CODES + e.args[0], *e.args[1:]) from None
+            rows = ((px >> 8) & 0xFF).astype(np.uint8)
+    except _Refused as e:
+        raise _refusal(e.args[0], (*e.args[1:], 0, 0)) from None
+    return _unfilter_alpha(rows.reshape(height, width), (head >> 2) & 3)
 
 
 # -- the lossy parse in Python -----------------------------------------------

@@ -455,8 +455,10 @@ def test_pretraining_datasets(tree):
 @pytest.mark.parametrize("ext", [".jpg", ".jpeg", ".webp", ".bmp", ".JPG"])
 def test_celeba_refuses_what_it_cannot_decode(tmp_path, ext):
     """JPEG, BMP and WebP files are read (every item bit-equal to the JAX
-    class's); an animated WebP file, which the JAX class reads as its first
-    frame, is refused when its item is read, naming the cause."""
+    class's), an animated WebP file beside them as its first frame, as the
+    JAX class reads it; a GIF file under the name, which the JAX class
+    reads too, is refused when its item is read, naming the cause (GIF is
+    not read yet)."""
     rng = np.random.default_rng(11)
     _write(str(tmp_path / "a.png"), rng.integers(0, 256, (40, 36, 3),
                                                  np.uint8), "pil")
@@ -472,9 +474,12 @@ def test_celeba_refuses_what_it_cannot_decode(tmp_path, ext):
         Image.fromarray(img).save(tmp_path / "c.webp", "WEBP", lossless=True,
                                   save_all=True,
                                   append_images=[Image.fromarray(img[::-1])])
+        _compare(pretraining.CelebAHQDataset(str(tmp_path), size=32),
+                 jpretraining.CelebAHQDataset(str(tmp_path), size=32))
+        Image.fromarray(img).save(tmp_path / "d.webp", "GIF")
         port = pretraining.CelebAHQDataset(str(tmp_path), size=32)
-        with pytest.raises(ValueError, match="c.webp: animated WebP"):
-            port[2]
+        with pytest.raises(ValueError, match="d.webp: a GIF file"):
+            port[3]
 
 
 def test_data_package_exports_as_jax():

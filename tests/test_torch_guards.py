@@ -90,7 +90,26 @@ assert image_io.decode_image(face, reader="pil").shape == (160, 160, 3)
 assert (webp.decode_webp_plain(face) == webp.decode_webp(face)).all()
 turned = open(root + "orientation/exif_o6_7x5.webp", "rb").read()
 assert image_io.decode_image(turned, reader="cv2").shape == (7, 5, 3)
-for name in ("refused_animated_21x19", "refused_truncated_45x37"):
+import hashlib, json
+golden = json.load(open(root + "webp/digests.json"))["decode"]
+for name in ("anim_lossless_21x19.webp", "anim_lossy_alpha_face_160x160.webp"):
+    data = open(root + "webp/" + name, "rb").read()
+    rgb = webp.decode_webp(data)
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == golden[name]["pil"][
+        "sha256"], name
+    print("animated", name, "read as PIL and cv2 read it")
+assert (webp.decode_webp_plain(data := open(
+    root + "webp/anim_lossless_21x19.webp", "rb").read())
+    == webp.decode_webp(data)).all()
+cmyk = open(root + "jpeg/pil_cmyk_16x16.jpg", "rb").read()
+by_reader = json.load(open(root + "jpeg/digests.json"))["decode_by_reader"]
+for how in ("pil", "cv2"):
+    rgb = image_io.decode_image(cmyk, reader=how)
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == by_reader[
+        "pil_cmyk_16x16.jpg"][how]["sha256"], how
+print("CMYK read by both readers")
+for name in ("refused_anim_frame_past_canvas_34x36",
+             "refused_truncated_45x37"):
     try:
         webp.decode_webp(open(root + "webp/" + name + ".webp", "rb").read())
         raise SystemExit(name + " decoded")
@@ -123,13 +142,19 @@ def test_quality_scripts_default_device_is_the_card(monkeypatch, tmp_path,
 
 
 def test_webp_reader_with_cv2_and_pil_blocked():
-    """The WebP reader and the EXIF orientation run with cv2, PIL, jax and
-    the JAX package blocked, as on the card's host: a fixture decoded by
-    the library and the plain version alike, an orientation-6 file turned,
-    an animated and a truncated file refused by name."""
+    """The WebP reader, the EXIF orientation and the CMYK JPEG readings
+    run with cv2, PIL, jax and the JAX package blocked, as on the card's
+    host: a fixture decoded by the library and the plain version alike,
+    an orientation-6 file turned, two animations read to their digests
+    (the lossless one by the plain version too), a CMYK file by each
+    reader to its digest, a frame past its canvas and a truncated file
+    refused by name."""
     res = _run([sys.executable, "-c", WEBP_BLOCKED], REPO)
     assert res.returncode == 0, res.stderr
-    assert "animated WebP" in res.stdout and "truncated" in res.stdout
+    assert res.stdout.count("read as PIL and cv2 read it") == 2
+    assert "CMYK read by both readers" in res.stdout
+    assert "past the 34 x 36 canvas" in res.stdout \
+        and "truncated" in res.stdout
 
 
 def test_port_imports_with_cv2_and_pil_blocked():
@@ -380,9 +405,10 @@ FIXTURES = REPO / "tests" / "fixtures" / "jpeg"
 def test_jpeg_decoder_refusals(name, cut, match):
     """No unsupported JPEG is decoded approximately: an incomplete
     progressive file (the progressive fixture, which decodes whole, cut
-    after its first two scans: libjpeg would smooth it), a CMYK file and a
-    file cut `cut` bytes short (tests/fixtures/jpeg) are each refused,
-    naming what they are."""
+    after its first two scans: libjpeg would smooth it), a CMYK file read
+    without naming the reader whose CMYK -> RGB it takes, and a file cut
+    `cut` bytes short (tests/fixtures/jpeg) are each refused, naming what
+    they are."""
     from hifidiff_tpu_torch.data.image_files import incomplete_progressive
     from hifidiff_tpu_torch.data.jpeg import JPEGError, decode_jpeg
 
@@ -619,14 +645,14 @@ def test_clis_under_torchrun_target_the_ranks_card(mode, want):
 # -- the host image library (csrc/host/image.cc) ------------------------------
 
 PLAIN_HOMES = ("data/resize.py", "data/image_io.py", "data/degradations.py",
-               "data/jpeg.py")
+               "data/jpeg.py", "data/webp.py")
 
 
 def test_plain_image_versions_named_only_in_their_modules():
     """The host image path's plain versions (every `*_plain` function that
-    `data/resize.py`, `data/image_io.py`, `data/degradations.py` and
-    `data/jpeg.py` define) are named by no other module of the port: only
-    tests and chip_smoke.py call them."""
+    `data/resize.py`, `data/image_io.py`, `data/degradations.py`,
+    `data/jpeg.py` and `data/webp.py` define) are named by no other module
+    of the port: only tests and chip_smoke.py call them."""
     import re
 
     root = REPO / "hifidiff_tpu_torch"
@@ -634,7 +660,9 @@ def test_plain_image_versions_named_only_in_their_modules():
         r"^def (\w+_plain)\(", (root / home).read_text(), re.M)}
     assert plain == {"resize_cv2_plain", "resize_pil_plain",
                      "decode_png_plain", "decode_bmp_plain", "filter2d_plain",
-                     "coefficients_plain"}
+                     "coefficients_plain", "ycck_to_cmyk_plain",
+                     "cmyk_to_rgb_plain", "decode_webp_plain",
+                     "vp8_coefficients_plain", "decode_alpha_plain"}
     naming = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
                     if any(re.search(rf"\b{n}\b", p.read_text())
                            for n in plain))

@@ -50,8 +50,10 @@ Image = pytest.importorskip("PIL.Image")
 
 from hifidiff_tpu_torch.data import host, image_io, jpeg, webp  # noqa: E402
 from hifidiff_tpu_torch.data.image_files import (  # noqa: E402
-    CELEBA_PROGRESSIVE, CELEBA_WEBP, bmp_file, celeba_file, golden_input,
-    incomplete_progressive, jpeg_scans, png_file, png_filtered)
+    CELEBA_CMYK, CELEBA_PROGRESSIVE, CELEBA_WEBP, bmp_file, celeba_file,
+    golden_input,
+    incomplete_progressive, jpeg_adobe_transform, jpeg_scans,
+    jpeg_without_adobe, png_file, png_filtered)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures"
@@ -109,6 +111,33 @@ def pil_baseline(img, quality):
     """PIL's baseline JPEG (4:2:0) of an RGB uint8 image."""
     out = io.BytesIO()
     Image.fromarray(img).save(out, "JPEG", quality=quality)
+    return out.getvalue()
+
+
+def cmyk_of(img):
+    """An RGB uint8 image as CMYK: C, M, Y = 255 - R, G, B, less 60% of
+    their common part, which K takes."""
+    cmy = 255 - img.astype(np.int64)
+    k = cmy.min(-1, keepdims=True) * 3 // 5
+    return np.concatenate([cmy - k, k], -1).astype(np.uint8)
+
+
+def pil_cmyk(img, quality, sampling="444", progressive=False):
+    """PIL's CMYK JPEG of an RGB uint8 image (`cmyk_of`): Adobe transform 0,
+    its samples inverted as Photoshop writes them; PIL's subsampling
+    applies to the first three components, K stays at 1x1."""
+    out = io.BytesIO()
+    Image.fromarray(cmyk_of(img), "CMYK").save(
+        out, "JPEG", quality=quality, subsampling=SAMPLING[sampling],
+        progressive=progressive)
+    return out.getvalue()
+
+
+def pil_rgb_coded(img, quality):
+    """PIL's RGB-coded JPEG (`keep_rgb=True`: Adobe transform 0, component
+    ids 'R', 'G', 'B', no JFIF marker) of an RGB uint8 image."""
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "JPEG", quality=quality, keep_rgb=True)
     return out.getvalue()
 
 
@@ -650,8 +679,10 @@ def test_imread_rgb_reads_every_format_and_names_the_rest(tmp_path):
     """`imread_rgb` and `decode_image` read PNG, JPEG, WebP and BMP by
     their signature; a GIF or anything else raises `ImageFormatError` (a
     ValueError, which the datasets' loader and the server's 400 both take),
-    naming the formats the port reads, and an animated WebP raises
-    `WebPError` (a ValueError too), naming it."""
+    naming the formats the port reads (a TIFF file named as one). An animated WebP reads as its first
+    frame and a CMYK JPEG as the reader named reads it; the CMYK file
+    without a reader raises `JPEGError` and a truncated animation
+    `WebPError` (each a ValueError too), naming the cause."""
     img = golden_input(2, 21, 19)
     still, lossy, animated = io.BytesIO(), io.BytesIO(), io.BytesIO()
     Image.fromarray(img).save(still, "WEBP", lossless=True)
@@ -669,9 +700,11 @@ def test_imread_rgb_reads_every_format_and_names_the_rest(tmp_path):
         _same(image_io.imread_rgb(str(tmp_path / name), reader="pil"),
               _pil(data))
         _same(image_io.decode_image(data, reader="pil"), _pil(data))
-    gif = io.BytesIO()
+    gif, tiff = io.BytesIO(), io.BytesIO()
     Image.fromarray(img).save(gif, "GIF")
+    Image.fromarray(img).save(tiff, "TIFF")
     for name, data, what in (("f.gif", gif.getvalue(), "a GIF file"),
+                             ("f2.tif", tiff.getvalue(), "a TIFF file"),
                              ("g.png", b"not an image",
                               "not an image the port knows")):
         (tmp_path / name).write_bytes(data)
@@ -682,27 +715,38 @@ def test_imread_rgb_reads_every_format_and_names_the_rest(tmp_path):
             image_io.imread_rgb(str(tmp_path / name))
         assert isinstance(e.value, ValueError)
         assert not isinstance(e.value, (image_io.PNGError, jpeg.JPEGError))
-    (tmp_path / "h.webp").write_bytes(animated.getvalue())
-    with pytest.raises(webp.WebPError, match="h.webp: animated WebP") as e:
-        image_io.imread_rgb(str(tmp_path / "h.webp"))
-    assert isinstance(e.value, ValueError)
+    cmyk = pil_cmyk(img, 90)
+    for name, data in (("h.webp", animated.getvalue()), ("i.jpg", cmyk)):
+        (tmp_path / name).write_bytes(data)
+        for how, ref in (("pil", _pil), ("cv2", _cv2)):
+            _same(image_io.imread_rgb(str(tmp_path / name), reader=how),
+                  ref(data))
+    assert not np.array_equal(_pil(cmyk), _cv2(cmyk))
+    (tmp_path / "j.webp").write_bytes(animated.getvalue()[:-9])
+    for name, error, what in (
+            ("i.jpg", jpeg.JPEGError, "a CMYK JPEG: pass reader='cv2' or "
+             "'pil'"), ("j.webp", webp.WebPError, "truncated")):
+        with pytest.raises(error, match=f"{name}: {what}") as e:
+            image_io.imread_rgb(str(tmp_path / name))
+        assert isinstance(e.value, ValueError)
 
 
 def test_phase15_celeba_files_read_as_pil_reads_them():
     """chip_smoke.py's CelebA-HQ directory (phase 15, read by
     `pretrain_denoiser --celeba-root` there) holds every format in turn:
-    each of its fourteen kinds decodes as PIL decodes it, the library equal
+    each of its sixteen kinds decodes as PIL decodes it, the library equal
     to the plain version (the lossy WebP's coefficients to the plain
-    parse's)."""
+    parse's, the CMYK JPEG's colour steps to the plain ones)."""
     from hifidiff_tpu_torch.data import procedural as proc
 
     face = (proc.render_face(proc._identity_params(0, 1), 0.1, 64)
             * 255).astype(np.uint8)
     progressive = (FIXTURES / "jpeg" / CELEBA_PROGRESSIVE).read_bytes()
     webps = [(FIXTURES / "webp" / n).read_bytes() for n in CELEBA_WEBP]
+    cmyk = (FIXTURES / "jpeg" / CELEBA_CMYK).read_bytes()
     kinds = set()
-    for j in range(14):
-        data, ext = celeba_file(face, j, progressive, webps)
+    for j in range(16):
+        data, ext = celeba_file(face, j, progressive, webps, cmyk)
         kinds.add((ext, data[24] if ext == ".png" else None,
                    data[28] if ext == ".png" else data[30]))
         got = image_io.decode_image(data, reader="pil")
@@ -717,6 +761,10 @@ def test_phase15_celeba_files_read_as_pil_reads_them():
             for a, b in zip(webp.vp8_coefficients(data),
                             webp.vp8_coefficients_plain(data)):
                 _same_array(a, b)
+        elif data == cmyk:
+            _same(jpeg.cmyk_to_rgb_plain(jpeg.components(data)[0], "pil"),
+                  got)
+    assert webp.parse(webps[2]).canvas is not None
     assert {(e, d) for e, d, _ in kinds} == {
         (".png", 8), (".png", 16), (".jpg", None), (".bmp", None),
         (".webp", None)}
@@ -761,7 +809,39 @@ def jpeg_fixtures():
     out["prog_incomplete_37x29.jpg"] = incomplete_progressive(
         out["pil_prog_420_q90_37x29.jpg"], 4)
     out["prog_sof10_37x29.jpg"] = _sof10(out["pil_prog_420_q90_37x29.jpg"])
+    out.update(four_component_fixtures(face))
     return out
+
+
+def four_component_fixtures(face):
+    """{name: bytes}: PIL's CMYK files at 4:4:4, 4:2:0 and 4:2:2, a
+    progressive one and the 160 x 160 face; one without its Adobe marker
+    (CMYK all the same); YCCK files (`jpeg_adobe_transform` of PIL's, at
+    4:4:4 and progressive 4:2:0); PIL's RGB-coded file and one without its
+    Adobe marker (read as RGB by its component ids)."""
+    g = golden_input
+    out = {"pil_cmyk_444_q90_37x29.jpg": pil_cmyk(g(29, 37, 29), 90),
+           "pil_cmyk_420_q90_37x29.jpg": pil_cmyk(g(30, 37, 29), 90, "420"),
+           "pil_cmyk_422_q85_29x37.jpg": pil_cmyk(g(31, 29, 37), 85, "422"),
+           "pil_cmyk_prog_420_q90_37x29.jpg": pil_cmyk(g(32, 37, 29), 90,
+                                                       "420", True),
+           "pil_cmyk_face_q90_160x160.jpg": pil_cmyk(face, 90, "420"),
+           "pil_rgb_keep_q90_37x29.jpg": pil_rgb_coded(g(33, 37, 29), 90)}
+    out["cmyk_no_adobe_420_q90_37x29.jpg"] = jpeg_without_adobe(
+        out["pil_cmyk_420_q90_37x29.jpg"])
+    out["ycck_444_q90_37x29.jpg"] = jpeg_adobe_transform(
+        out["pil_cmyk_444_q90_37x29.jpg"], 2)
+    out["ycck_prog_420_q90_37x29.jpg"] = jpeg_adobe_transform(
+        out["pil_cmyk_prog_420_q90_37x29.jpg"], 2)
+    out["rgb_ids_no_adobe_q90_37x29.jpg"] = jpeg_without_adobe(
+        out["pil_rgb_keep_q90_37x29.jpg"])
+    return out
+
+
+def four_components(data):
+    """Whether a JPEG file's frame has four components (CMYK or YCCK),
+    whose RGB depends on the reader."""
+    return jpeg.components(data)[1] in ("cmyk", "ycck")
 
 
 JPEG_REFUSE = {"prog_incomplete_37x29.jpg": "incomplete progressive JPEG",
@@ -851,10 +931,22 @@ def write_fixtures():
             _digests(files, refuse, sem), indent=1) + "\n")
     golden_path = FIXTURES / "jpeg" / "digests.json"
     golden = json.loads(golden_path.read_text())
-    for name, data in jpeg_fixtures().items():
+    golden["source"] = ("cv2 5.0.0 and Pillow 12.1.0, both on libjpeg-turbo "
+                        "3.1.2; 'decode_by_reader': the four-component "
+                        "files, whose RGB each library makes in its own way")
+    by_reader = golden.setdefault("decode_by_reader", {})
+    cmyk = "pil_cmyk_16x16.jpg"
+    golden["refuse"].pop(cmyk, None)
+    files = {cmyk: (FIXTURES / "jpeg" / cmyk).read_bytes(), **jpeg_fixtures()}
+    for name, data in files.items():
         (FIXTURES / "jpeg" / name).write_bytes(data)
         if name in JPEG_REFUSE:
             golden["refuse"][name] = JPEG_REFUSE[name]
+        elif four_components(data):
+            by_reader[name] = {how: {"shape": list(rgb.shape),
+                                     "sha256": _sha(rgb)}
+                               for how, rgb in (("pil", _pil(data)),
+                                                ("cv2", _cv2(data)))}
         else:
             rgb = _pil(data)
             golden["decode"][name] = {"shape": list(rgb.shape),
@@ -911,8 +1003,10 @@ def test_png_and_bmp_fixtures_rebuilt(sub):
 
 
 def test_progressive_jpeg_fixtures_rebuilt():
-    """The progressive fixtures of tests/fixtures/jpeg are PIL's and cv2's
-    files for their seeds, in digests.json with PIL's and cv2's decodes
+    """The progressive, four-component and RGB-coded fixtures of
+    tests/fixtures/jpeg are PIL's and cv2's files for their seeds (and
+    `data/image_files.py`'s re-labellings of them), in digests.json with
+    PIL's and cv2's decodes, per reader for the four-component ones
     (test_torch_jpeg.py's golden test holds every entry), and the
     library's coefficients of each equal the plain decoder's."""
     golden = json.loads((FIXTURES / "jpeg" / "digests.json").read_text())
@@ -922,7 +1016,8 @@ def test_progressive_jpeg_fixtures_rebuilt():
         if name in JPEG_REFUSE:
             assert golden["refuse"][name] == JPEG_REFUSE[name]
             continue
-        assert name in golden["decode"], name
+        assert name in (golden["decode_by_reader"] if four_components(data)
+                        else golden["decode"]), name
         if "1920x1080" not in name:   # the frame: about 4 s plain
             lib, plain = jpeg.coefficients(data), jpeg.coefficients_plain(
                 data)

@@ -216,7 +216,8 @@ def cr_files(tmp_path_factory):
 
 @pytest.mark.parametrize("kind", ["progressive.jpg", "adam7_16bit.png",
                                   "grey16.png", "palette.bmp", "rle8.bmp",
-                                  "lossy.webp", "lossless.webp"])
+                                  "lossy.webp", "lossless.webp", "cmyk.jpg",
+                                  "animated.webp"])
 def test_infer_cr_image_against_jax(tmp_path, monkeypatch, cr_files, kind):
     """`infer_cr --image` on each new format against the JAX CLI (PIL's
     read), the same weights: the LR input bit-equal, the saved grids
@@ -230,10 +231,17 @@ def test_infer_cr_image_against_jax(tmp_path, monkeypatch, cr_files, kind):
                       "palette.bmp", "rle8.bmp"],
                      [_formats(rng, 47, 53)[k] for k in (1, 2, 6, 8, 9)]))
     for name, opts in (("lossy.webp", dict(quality=80)),
-                       ("lossless.webp", dict(lossless=True))):
+                       ("lossless.webp", dict(lossless=True)),
+                       ("animated.webp", dict(quality=80, save_all=True)),
+                       ("cmyk.jpg", dict(quality=90))):
         buf = io.BytesIO()
-        Image.fromarray(rng.integers(0, 256, (47, 53, 3), np.uint8)).save(
-            buf, "WEBP", **opts)
+        img = Image.fromarray(rng.integers(0, 256, (47, 53, 3), np.uint8))
+        if name == "cmyk.jpg":
+            img.convert("CMYK").save(buf, "JPEG", **opts)
+        else:
+            if name == "animated.webp":
+                opts["append_images"] = [img.transpose(0)]
+            img.save(buf, "WEBP", **opts)
         files[name] = buf.getvalue()
     (tmp_path / kind).write_bytes(files[kind])
     monkeypatch.chdir(tmp_path)

@@ -9,7 +9,12 @@ Tolerances:
   * `decode_jpeg` against `cv2.imdecode` (flipped to RGB) and PIL's
     `convert("RGB")`: bit-equal, on files both write (4:4:4, 4:2:2, 4:4:0,
     4:2:0, 4:1:1, grey, restart intervals, optimized Huffman tables, odd
-    sizes, quality 75-100);
+    sizes, quality 75-100), and on RGB-coded files;
+  * CMYK and YCCK files (PIL's, and re-labelled by their Adobe marker):
+    `decode_jpeg(data, "pil")` bit-equal to PIL and `decode_jpeg(data,
+    "cv2")` to cv2, which differ by up to 2 levels; the two CMYK -> RGB
+    rules measured on all 65,536 (C, K) pairs; `ycck_to_cmyk` and
+    `cmyk_to_rgb` equal to their numpy versions;
   * `encode_jpeg` against `cv2.imencode`'s bytes: equal, at quality
     80-100 and odd sizes;
   * `jpeg_roundtrip` against the JAX package's on the same generator: the
@@ -167,13 +172,186 @@ BASE = _cv2_jpeg(_face(3, 24, 24), 90)
     (_forge(BASE, _sof_offset(BASE) + 1, 0xC3), "lossless"),
     (_forge(BASE, _sof_offset(BASE) + 1, 0xC5), "hierarchical"),
     (_forge(BASE, _sof_offset(BASE) + 4, 12), "12-bit"),
-    (_adobe_rgb(BASE), "RGB-coded"),
+    (_forge(BASE, _sof_offset(BASE) + 1, 0xCA), "SOF10"),
     (BASE[:-2], "truncated"),
     (b"\x89PNG\r\n\x1a\n", "not a JPEG"),
 ])
 def test_decoder_refusals(data, match):
     with pytest.raises(jpeg.JPEGError, match=match):
         jpeg.decode_jpeg(data)
+
+
+def _pil_cmyk(img, **kw):
+    """PIL's CMYK JPEG of a (h, w, 4) uint8 image (stored inverted, Adobe
+    transform 0)."""
+    out = io.BytesIO()
+    Image.fromarray(img, "CMYK").save(out, "JPEG", **kw)
+    return out.getvalue()
+
+
+def _pil_reads(data):
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _cv2_reads(data):
+    out = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if out is None else np.ascontiguousarray(out[..., ::-1])
+
+
+def _check_four_components(data, space):
+    """The file read as each library reads it, through the library and
+    through the plain colour steps on its components; its coefficients
+    equal to the plain decoder's; refused without a reader."""
+    px, got_space = jpeg.components(data)
+    assert got_space == space
+    cmyk = jpeg.ycck_to_cmyk_plain(px) if space == "ycck" else px
+    for how, ref in (("pil", _pil_reads(data)), ("cv2", _cv2_reads(data))):
+        got = jpeg.decode_jpeg(data, how)
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(jpeg.cmyk_to_rgb_plain(cmyk, how), got)
+    for a, b in zip(jpeg.coefficients(data), jpeg.coefficients_plain(data)):
+        assert a["coef"].tobytes() == b["coef"].tobytes()
+    with pytest.raises(jpeg.JPEGError, match=f"a {space.upper()} JPEG: pass "
+                       "reader='cv2' or 'pil'"):
+        jpeg.decode_jpeg(data)
+    return px
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_cmyk_and_ycck_files(subsampling, progressive):
+    """PIL's CMYK files (its subsampling on the first three components)
+    at odd sizes and qualities 75 and 95, with restart intervals, each also
+    without its Adobe marker (CMYK) and re-labelled as YCCK (transform 2,
+    and 1, which libjpeg reads as YCCK too): each library's RGB bit for
+    bit by its reader."""
+    from hifidiff_tpu_torch.data.image_files import (jpeg_adobe_transform,
+                                                     jpeg_without_adobe)
+
+    for i, (h, w) in enumerate(SIZES):
+        img = np.concatenate([_face(i, h, w), _face(i + 7, h, w)[..., :1]],
+                             -1)
+        img[..., 3] = img[..., 3] // (1 + i)
+        kw = dict(quality=(75, 95)[i % 2], subsampling=subsampling,
+                  progressive=progressive)
+        if i % 2 and not progressive:
+            kw["restart_marker_blocks"] = 1 + i
+        data = _pil_cmyk(img, **kw)
+        _check_four_components(data, "cmyk")
+        _check_four_components(jpeg_without_adobe(data), "cmyk")
+        for transform in (2, 1):
+            _check_four_components(jpeg_adobe_transform(data, transform),
+                                   "ycck")
+
+
+def test_cmyk_to_rgb_rules_over_every_pair():
+    """The two rules on all 65,536 (C, K) pairs (M and Y other values in
+    step): PIL's through `Image.fromarray(..., "CMYK").convert("RGB")` of
+    the inverted samples (its "CMYK;I" raw mode), cv2's through
+    `cv2.imdecode` of a 2048 x 2048 CMYK file of flat 8 x 8 blocks at
+    quality 100, whose samples decode exactly; the library's and the plain
+    versions' equal on them; they differ by up to 2 levels."""
+    c, k = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    cmyk = np.stack([c, (c + 85) % 256, (c + 170) % 256, k], -1).astype(
+        np.uint8)
+    pil = np.asarray(Image.fromarray(255 - cmyk, "CMYK").convert("RGB"))
+    np.testing.assert_array_equal(jpeg.cmyk_to_rgb_plain(cmyk, "pil"), pil)
+    data = _pil_cmyk(np.repeat(np.repeat(255 - cmyk, 8, 0), 8, 1),
+                     quality=100, subsampling=0)
+    px, space = jpeg.components(data)
+    assert space == "cmyk" and px[::8, ::8].tobytes() == cmyk.tobytes()
+    cv = _cv2_reads(data)[::8, ::8]
+    np.testing.assert_array_equal(jpeg.cmyk_to_rgb_plain(cmyk, "cv2"), cv)
+    for how, want in (("pil", pil), ("cv2", cv)):
+        np.testing.assert_array_equal(jpeg.cmyk_to_rgb(cmyk, how), want)
+    assert int(np.abs(pil.astype(int) - cv).max()) == 2
+    with pytest.raises(ValueError, match="needs a reader"):
+        jpeg.cmyk_to_rgb(cmyk, None)
+
+
+def test_ycck_to_cmyk_host_and_plain():
+    """`ycck_to_cmyk` (jdcolor.c's ycck_cmyk_convert) against its numpy
+    version on every (Cb, Cr) pair at 16 levels of Y and K, the clamps at
+    both ends among them."""
+    cb, cr = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    px = np.concatenate([
+        np.stack([np.full_like(cb, y), cb, cr, np.full_like(cb, 255 - y)],
+                 -1) for y in range(0, 256, 17)]).astype(np.uint8)
+    got = jpeg.ycck_to_cmyk(px)
+    np.testing.assert_array_equal(jpeg.ycck_to_cmyk_plain(px), got)
+    assert got[..., 3].tobytes() == px[..., 3].tobytes()
+    assert got[..., :3].min() == 0 and got[..., :3].max() == 255
+
+
+@pytest.mark.parametrize("case", ["keep_rgb", "ids without markers",
+                                  "Adobe 0 over YCbCr"])
+def test_rgb_coded_files(case):
+    """Three-component files libjpeg reads as RGB, which PIL and cv2 read
+    alike: PIL's `keep_rgb=True` files (4:4:4: PIL subsamples no RGB), the same
+    without their Adobe marker (ids 'R', 'G', 'B'), and a YCbCr file whose
+    JFIF marker became an Adobe one of transform 0; the other transforms
+    (1, 2, 7) read as YCbCr. No reader needed."""
+    from hifidiff_tpu_torch.data.image_files import (jpeg_adobe_transform,
+                                                     jpeg_without_adobe)
+
+    for i, (h, w) in enumerate(SIZES):
+        img = _face(i + 20, h, w)
+        if case == "Adobe 0 over YCbCr":
+            data = _adobe_rgb(_cv2_jpeg(img, 90, ("444", "420")[i % 2]))
+        else:
+            data = _pil_jpeg(img, quality=(75, 90)[i % 2], keep_rgb=True)
+            if case != "keep_rgb":
+                data = jpeg_without_adobe(data)
+        assert jpeg.components(data)[1] == "rgb"
+        _check_decode(data)
+        if case != "ids without markers":
+            for transform in (1, 2, 7):
+                other = jpeg_adobe_transform(data, transform)
+                assert jpeg.components(other)[1] == "ycbcr"
+                _check_decode(other)
+
+
+def test_one_byte_mutants_of_a_cmyk_file():
+    """300 seeded one-byte mutants of PIL's 4:2:0 CMYK file: where PIL and
+    cv2 both read one, the port reads each library's pixels by its reader
+    or refuses it, naming corrupt or truncated data (libjpeg reads those
+    with a warning); where either refuses, the port refuses. About 1 s."""
+    img = np.concatenate([_face(5, 29, 37), _face(6, 29, 37)[..., :1]], -1)
+    data = _pil_cmyk(img, quality=90, subsampling=2)
+    rng = np.random.default_rng(40)
+    counts = {"read": 0, "refused": 0, "refused, read by both": 0}
+    for _ in range(300):
+        m = bytearray(data)
+        at = int(rng.integers(2, len(data)))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            m[at] = int(rng.integers(0, 256))
+        elif kind == 1:
+            m[at] ^= 1 << int(rng.integers(0, 8))
+        else:
+            m = m[:at]
+        m = bytes(m)
+        refs = {}
+        for how, fn in (("pil", _pil_reads), ("cv2", _cv2_reads)):
+            try:
+                refs[how] = fn(m)
+            except Exception:   # what PIL raises on a file it refuses
+                refs[how] = None
+        try:
+            got = {how: jpeg.decode_jpeg(m, how) for how in refs}
+        except jpeg.JPEGError as e:
+            if any(r is None for r in refs.values()):
+                counts["refused"] += 1
+            else:
+                assert "corrupt" in str(e) or "truncated" in str(e) \
+                    or "a second" in str(e), str(e)
+                counts["refused, read by both"] += 1
+            continue
+        for how, ref in refs.items():
+            assert ref is not None, (at, kind, how)
+            np.testing.assert_array_equal(got[how], ref)
+        counts["read"] += 1
+    assert counts["read"] > 50 and counts["refused"] > 5, counts
 
 
 def test_encoder_refusals():
@@ -197,6 +375,20 @@ def test_golden_digests_rebuilt_by_cv2_and_pil():
             assert list(rgb.shape) == want["shape"]
             assert hashlib.sha256(np.ascontiguousarray(
                 rgb).tobytes()).hexdigest() == want["sha256"], name
+    for name, by_how in golden["decode_by_reader"].items():
+        data = (FIXTURES / name).read_bytes()
+        refs = {"pil": _pil_reads(data), "cv2": _cv2_reads(data)}
+        for how, want in by_how.items():
+            for rgb in (refs[how], jpeg.decode_jpeg(data, how)):
+                assert [list(rgb.shape), hashlib.sha256(rgb.tobytes(
+                    )).hexdigest()] == [want["shape"], want["sha256"]], name
+        assert by_how["pil"] != by_how["cv2"], name
+        with pytest.raises(jpeg.JPEGError, match="pass reader='cv2' or "
+                           "'pil'"):
+            jpeg.decode_jpeg(data)
+    assert {"pil_cmyk_16x16.jpg", "ycck_444_q90_37x29.jpg",
+            "cmyk_no_adobe_420_q90_37x29.jpg"} <= set(
+        golden["decode_by_reader"])
     for name, what in golden["refuse"].items():
         with pytest.raises(jpeg.JPEGError, match=what):
             jpeg.decode_jpeg((FIXTURES / name).read_bytes())

@@ -177,12 +177,15 @@ def test_png_without_pil_is_served(server, monkeypatch):
 @pytest.mark.parametrize("kind", ["adam7 16-bit grey", "adam7 16-bit RGB",
                                   "progressive JPEG as image/png",
                                   "lossy WebP as image/png",
-                                  "lossless WebP as image/png"])
+                                  "lossless WebP as image/png",
+                                  "CMYK JPEG as image/png",
+                                  "animated WebP as image/png"])
 def test_new_formats_decoded_as_the_jax_handler(server, monkeypatch, kind):
     """An Adam7 16-bit grey PNG body, an Adam7 16-bit colour one, a
-    progressive JPEG and a lossy and a lossless WebP (which the port's
-    server answered 400 before it read WebP) sent as image/png: with PIL
-    blocked, 200, and the face
+    progressive JPEG, a lossy and a lossless WebP (which the port's
+    server answered 400 before it read WebP), a CMYK JPEG and an animated
+    WebP (400 before it read those) sent as image/png: with PIL blocked,
+    200, and the face
     a raw request of the JAX handler's pixels gets (its PIL
     `convert("RGB")` and bicubic resize, taken before PIL is blocked; both
     launches drawn from the same generator). PIL clamps 16-bit grey to 255
@@ -195,10 +198,18 @@ def test_new_formats_decoded_as_the_jax_handler(server, monkeypatch, kind):
     wide = rng.integers(0, 1 << 16, (SIZE + 7, SIZE - 5, ch))
     if "JPEG" in kind or "WebP" in kind:
         buf = io.BytesIO()
-        opts = (dict(format="JPEG", quality=90, progressive=True)
+        opts = (dict(format="JPEG", quality=90, progressive="CMYK" not in kind)
                 if "JPEG" in kind else
                 dict(format="WEBP", quality=80, lossless="lossless" in kind))
-        Image.fromarray((wide >> 8).astype(np.uint8)).save(buf, **opts)
+        img = (wide >> 8).astype(np.uint8)
+        if "CMYK" in kind:
+            img = Image.fromarray(np.concatenate([img, img[..., 1:2]], -1),
+                                  "CMYK")
+        else:
+            img = Image.fromarray(img)
+        if "animated" in kind:
+            opts.update(save_all=True, append_images=[img.rotate(90)])
+        img.save(buf, **opts)
         body = buf.getvalue()
     else:
         body = png_file(wide, 16, 0 if ch == 1 else 2, interlace=1)

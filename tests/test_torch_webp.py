@@ -4,18 +4,23 @@ and to the JAX package.
 
 Tolerances: none. Every decode is bit-equal to PIL's `convert("RGB")` and
 to cv2's `imdecode(..., IMREAD_COLOR)` flipped to RGB (they agree on every
-still image); `decode_webp_plain` (the lossless decode in Python) to the
-library; `vp8_coefficients_plain` (the lossy parse in Python) to the
-library's export; a file either library refuses is refused with a
-`WebPError` naming the cause, the library and the plain versions with one
-message. The JAX datasets as tests/test_torch_data.py holds them: every
-key of every item bit-equal, cv2's IPP off for the classes that resize
-with cv2.
+still image and on every animation's first frame); `decode_webp_plain`
+(the lossless decode in Python) to the library; `vp8_coefficients_plain`
+(the lossy parse in Python) to the library's export; `decode_alpha` (an
+ALPH chunk's alpha) to PIL's alpha and to `decode_alpha_plain`; a file
+either library refuses is refused with a `WebPError` naming the cause,
+the library and the plain versions with one message. The JAX datasets as
+tests/test_torch_data.py holds them: every key of every item bit-equal,
+cv2's IPP off for the classes that resize with cv2.
 
-Two differences are deliberate and tested as such: an animated file is
-refused (both libraries read its first frame), and a broken ALPH payload
-does not make the port refuse (it reads the RGB, which never depends on
-alpha).
+Animations, as both libraries' WebPAnimDecoder reads them (measured
+here): the first frame drawn at its offset on a zero canvas, its pixels as
+they are whatever its blend bit (libwebp blends no key frame; a blend onto
+the zero canvas would move every opaque level down by one), the ANIM
+background never drawn, the alpha dropped; every later frame checked by
+the demuxer and never decoded. A broken ALPH chunk makes both refuse a
+still image or a frame (cv2's WebPDecode decodes the alpha of any ALPH
+chunk before the image, PIL's demuxer where the VP8X alpha flag is set).
 
 `python tests/test_torch_webp.py` writes tests/fixtures/webp (PIL's files,
 `data/image_files.vp8_frame`'s frames, the refused files) and its
@@ -38,7 +43,8 @@ Image = pytest.importorskip("PIL.Image")
 
 from hifidiff_tpu_torch.data import host, webp  # noqa: E402
 from hifidiff_tpu_torch.data.image_files import (  # noqa: E402
-    bmp_file, golden_input, png_file, vp8_frame)
+    animated_webp, bmp_file, golden_input, png_file, vp8_frame,
+    webp_frame_chunks)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures" / "webp"
@@ -112,6 +118,53 @@ def _textured(frame, seed):
 
 def _patch(data, at, new):
     return data[:at] + new + data[at + len(new):]
+
+
+def _alpha_face(face):
+    """The face with a soft round alpha: 0 in the corners, 255 inside it,
+    every level between at its edge."""
+    h, w = face.shape[:2]
+    y, x = np.mgrid[:h, :w]
+    r = np.hypot(y - h / 2 + 0.5, x - w / 2 + 0.5) / (min(h, w) / 2)
+    alpha = np.clip((1.0 - r) * 8 * 255, 0, 255).astype(np.uint8)
+    return np.concatenate([face, alpha[..., None]], -1)
+
+
+def _animation(frames, **opts):
+    """PIL's animated WebP of the (h, w, 3 or 4) uint8 `frames`."""
+    out = io.BytesIO()
+    first, *rest = (Image.fromarray(f) for f in frames)
+    first.save(out, "WEBP", save_all=True, append_images=rest, **opts)
+    return out.getvalue()
+
+
+def _alph(data):
+    """(offset, size) of the payload of a file's ALPH chunk."""
+    at = data.index(b"ALPH")
+    return at + 8, struct.unpack_from("<I", data, at + 4)[0]
+
+
+def _with_alph(data, payload):
+    """A still WebP file with its ALPH payload replaced by `payload`."""
+    at, size = _alph(data)
+    return _resize_riff(data[12:at - 8] + _chunk(b"ALPH", payload)
+                        + data[at + size + (size & 1):])
+
+
+def _filtered(alpha, method):
+    """The inverse of dsp/filters.c's alpha unfilter `method` (1
+    horizontal, 2 vertical, 3 gradient): the deltas an encoder writes."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    else:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 0xFF).astype(np.uint8)
 
 
 def _resize_riff(body):
@@ -191,38 +244,100 @@ def webp_fixtures():
     }
     for name, kw in WRITER_FRAMES.items():
         out[name] = vp8_frame(**kw)
-    animated = io.BytesIO()
     img = g(53, 19, 21)
-    Image.fromarray(img).save(animated, "WEBP", lossless=True, save_all=True,
-                              append_images=[Image.fromarray(img[::-1])])
-    out["refused_animated_21x19.webp"] = animated.getvalue()
+    out["anim_lossless_21x19.webp"] = _animation([img, img[::-1]],
+                                                 lossless=True)
+    out.update(_animated_and_alpha_fixtures(face))
     out["refused_truncated_45x37.webp"] = out["lossy_q50_m4_45x37.webp"][:-40]
     canvas = out["vp8x_lossy_alph_iccp_exif_xmp_37x29.webp"]
     out["refused_canvas_37x29.webp"] = _patch(canvas, 24, (37).to_bytes(
         3, "little"))
     out["refused_lossless_ends_37x29.webp"] = _cut_lossless(
         out["lossless_rgb_m6_37x29.webp"], 300)
+    alph = out["vp8x_alph_vertical_29x23.webp"]
+    at, size = _alph(alph)
+    out["refused_alph_stream_ends_29x23.webp"] = _with_alph(
+        alph, alph[at:at + size - 40])
+    out["refused_anim_frame_past_canvas_34x36.webp"] = animated_webp(
+        34, 36, [(6, 10, 50, 0, webp_frame_chunks(
+            _save(g(58, 23, 29), lossless=True)))])
     return out
 
 
+def _animated_and_alpha_fixtures(face):
+    """PIL's animations (lossless, and lossy with a soft alpha, of the 160
+    x 160 face); animations of hand-placed frames (`animated_webp`): a
+    lossy frame with partial alpha at an offset that is odd in the ANMF's
+    halved units, blend bit clear, then a lossless frame; a lossless frame
+    with alpha (RGB kept under alpha 0) that asks for no blending and
+    disposal, on a canvas whose ANIM background is not black; and still
+    files whose ALPH chunk is raw with the gradient filter, raw with the
+    horizontal filter and the pre-processing bit, and compressed with the
+    vertical filter."""
+    g = golden_input
+    alpha_face = _alpha_face(face)
+    lossy = _save(_rgba(57, 23, 29), quality=70)
+    alpha = np.asarray(Image.open(io.BytesIO(lossy)))[..., 3]
+    at, size = _alph(lossy)
+    return {
+        "anim_lossless_face_160x160.webp": _animation(
+            [face, np.roll(face, 9, 1)], lossless=True),
+        "anim_lossy_alpha_face_160x160.webp": _animation(
+            [alpha_face, alpha_face[:, ::-1]], quality=80),
+        "anmf_lossy_alph_blend_40x36.webp": animated_webp(40, 36, [
+            (6, 10, 50, 0, webp_frame_chunks(_save(_rgba(54, 23, 29),
+                                                   quality=70))),
+            (2, 2, 50, 2, webp_frame_chunks(_save(g(55, 23, 29),
+                                                  lossless=True)))],
+            background=0xFF102030),
+        "anmf_lossless_alpha_noblend_dispose_40x36.webp": animated_webp(
+            40, 36, [(10, 2, 80, 3, webp_frame_chunks(_save(
+                _rgba(56, 29, 23), lossless=True, exact=True)))],
+            background=0x80FFFFFF, loop=3),
+        "vp8x_alph_raw_gradient_29x23.webp": _with_alph(
+            lossy, b"\x0c" + _filtered(alpha, 3).tobytes()),
+        "vp8x_alph_raw_horizontal_pre_29x23.webp": _with_alph(
+            lossy, b"\x14" + _filtered(alpha, 1).tobytes()),
+        "vp8x_alph_vertical_29x23.webp": _with_alph(
+            lossy, bytes([lossy[at] & 0xF3 | 0x08]) + lossy[at + 1:at + size]),
+    }
+
+
 REFUSE = {
-    "refused_animated_21x19.webp": "animated WebP",
+    "refused_alph_stream_ends_29x23.webp":
+        "the ALPH chunk's stream: the lossless bitstream ends early",
+    "refused_anim_frame_past_canvas_34x36.webp":
+        r"a 29 x 23 frame at \(6, 10\) past the 34 x 36 canvas",
     "refused_truncated_45x37.webp": "truncated",
     "refused_canvas_37x29.webp": "a 37 x 29 image on a VP8X canvas of 38 x 29",
     "refused_lossless_ends_37x29.webp": "the lossless bitstream ends early",
 }
 
 
+def _pil_alpha(data):
+    """PIL's alpha of the frame a file's ALPH chunk belongs to (its
+    canvas's alpha where the first frame lies)."""
+    f = webp.parse(data)
+    rgba = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    return rgba[f.y:f.y + f.height, f.x:f.x + f.width, 3]
+
+
 def _digests(files):
     out = {"source": "PIL 12.1.0 and cv2 5.0.0 (libwebp 1.6.0): each file "
-                     "decoded as the named library decodes it, RGB uint8",
-           "decode": {}, "refuse": REFUSE}
+                     "decoded as the named library decodes it, RGB uint8; "
+                     "'alpha': PIL's alpha of the frame whose ALPH chunk "
+                     "the decoder reads",
+           "decode": {}, "alpha": {}, "refuse": REFUSE}
     for name, data in sorted(files.items()):
-        if name not in REFUSE:
-            out["decode"][name] = {how: {"shape": list(rgb.shape),
-                                         "sha256": _sha(rgb)}
-                                   for how, rgb in (("pil", _pil(data)),
-                                                    ("cv2", _cv2(data)))}
+        if name in REFUSE:
+            continue
+        out["decode"][name] = {how: {"shape": list(rgb.shape),
+                                     "sha256": _sha(rgb)}
+                               for how, rgb in (("pil", _pil(data)),
+                                                ("cv2", _cv2(data)))}
+        if webp.parse(data).alpha is not None:
+            a = _pil_alpha(data)
+            out["alpha"][name] = {"shape": list(a.shape), "sha256": _sha(a)}
     return out
 
 
@@ -255,18 +370,29 @@ def test_webp_fixtures_rebuilt():
         got = webp.decode_webp(data)
         assert [list(got.shape), _sha(got)] == [by_how["pil"]["shape"],
                                                 by_how["pil"]["sha256"]], name
-        if webp.parse(data).lossless:
+        f = webp.parse(data)
+        if f.lossless:
             _same(webp.decode_webp_plain(data), got)
         else:
             for a, b in zip(webp.vp8_coefficients(data),
                             webp.vp8_coefficients_plain(data)):
                 assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        if f.alpha is not None:
+            payload = data[f.alpha[0]:sum(f.alpha)]
+            a = webp.decode_alpha(payload, f.width, f.height)
+            _same(webp.decode_alpha_plain(payload, f.width, f.height), a)
+            assert [list(a.shape), _sha(a)] == [
+                golden["alpha"][name]["shape"],
+                golden["alpha"][name]["sha256"]], name
+    assert sorted(golden["alpha"]) == sorted(
+        n for n in golden["decode"] if webp.parse(files[n]).alpha)
+    animated = [n for n in golden["decode"] if webp.parse(files[n]).canvas]
+    assert len(animated) == 5
     for name, match in golden["refuse"].items():
         with pytest.raises(webp.WebPError, match=match):
             webp.decode_webp(files[name])
-        if "animated" not in name:   # both read an animation's first frame
-            assert _reads(_pil, files[name]) is None
-            assert _reads(_cv2, files[name]) is None
+        assert _reads(_pil, files[name]) is None
+        assert _reads(_cv2, files[name]) is None
 
 
 # -- against PIL and cv2 ------------------------------------------------------
@@ -403,24 +529,16 @@ def _mutant_bases():
             "frame": vp8_frame(6, 29, 23, partitions=2, segments=True)}
 
 
-def _alph_payload(data):
-    at = data.find(b"ALPH")
-    if at < 0:
-        return range(0)
-    return range(at + 8, at + 8 + struct.unpack_from("<I", data, at + 4)[0])
-
-
 def test_one_byte_mutants(monkeypatch):
     """About 300 seeded one-byte mutants (a random byte, a flipped bit, a
     cut) of a lossless, a lossy, an extended file with alpha and a
     partitioned frame: where PIL and cv2 both read one, the port reads
-    their pixels; where either refuses, the port refuses; the library and
-    the plain versions give one message. (The ALPH payload is the
-    deliberate exception: the port reads the RGB.) About 3 s."""
+    their pixels; where either refuses, the port refuses (a mutant of the
+    ALPH payload too); the library and the plain versions give one
+    message. About 3 s."""
     rng = np.random.default_rng(2024)
     counts = {"read": 0, "refused": 0}
     for name, data in _mutant_bases().items():
-        alph = _alph_payload(data)
         for _ in range(75):
             m = bytearray(data)
             at = int(rng.integers(0, len(data)))
@@ -445,13 +563,144 @@ def test_one_byte_mutants(monkeypatch):
                 except webp.WebPError as e2:
                     assert str(e2) == str(e)
                 continue
-            if p is None or c is None:
-                assert kind < 2 and at in alph, (name, at)
-                continue
+            assert p is not None and c is not None, (name, at, kind)
             _same(got, p)
             _same(got, c)
             counts["read"] += 1
     assert counts["read"] > 100 and counts["refused"] > 60, counts
+
+
+@pytest.mark.parametrize("name", ["anmf_lossy_alph_blend_40x36.webp",
+                                  "anim_lossless_21x19.webp"])
+def test_one_byte_mutants_of_an_animation(name):
+    """150 seeded one-byte mutants of an animation of hand-placed frames
+    (a lossy frame with alpha at an offset, then a lossless one) and of
+    PIL's lossless animation: read as both libraries read them, refused
+    where either refuses (a broken later frame too), the lossless
+    animation's refusals and reads through the plain version alike. About
+    2 s."""
+    data = (FIXTURES / name).read_bytes()
+    rng = np.random.default_rng(20)
+    counts = {"read": 0, "refused": 0}
+    for _ in range(150):
+        m = bytearray(data)
+        at = int(rng.integers(0, len(data)))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            m[at] = int(rng.integers(0, 256))
+        elif kind == 1:
+            m[at] ^= 1 << int(rng.integers(0, 8))
+        else:
+            m = m[:at]
+        m = bytes(m)
+        p, c = _reads(_pil, m), _reads(_cv2, m)
+        lossless = "lossless" in name
+        try:
+            got = webp.decode_webp(m)
+        except webp.WebPError as e:
+            assert p is None or c is None, (at, kind, str(e))
+            counts["refused"] += 1
+            if lossless:
+                with pytest.raises(webp.WebPError) as e2:
+                    webp.decode_webp_plain(m)
+                assert str(e2.value) == str(e)
+            continue
+        assert p is not None and c is not None, (at, kind)
+        _same(got, p)
+        _same(got, c)
+        if lossless:
+            _same(webp.decode_webp_plain(m), got)
+        counts["read"] += 1
+    assert counts["read"] > 40 and counts["refused"] > 40, counts
+
+
+def test_alpha_unfilters_and_the_lossless_alpha_stream():
+    """`decode_alpha` against `decode_alpha_plain` and PIL's alpha: raw
+    payloads through each of the four filters at widths 1-31 (the
+    gradient's clipping at both ends), PIL's compressed payloads under
+    each filter's bits, and the header bytes and sizes libwebp refuses,
+    one message from both."""
+    rng = np.random.default_rng(21)
+    for h, w in ((1, 1), (3, 1), (1, 7), (9, 31), (17, 5)):
+        alpha = rng.integers(0, 256, (h, w), np.uint8)
+        alpha[:, ::3] = rng.choice([0, 255], (h, len(range(0, w, 3))))
+        for method in range(4):
+            payload = bytes([method << 2]) + (
+                alpha if method == 0 else _filtered(alpha, method)).tobytes()
+            got = webp.decode_alpha(payload, w, h)
+            _same(got, alpha)
+            _same(webp.decode_alpha_plain(payload, w, h), got)
+    lossy = _save(_rgba(22, 19, 27), quality=60)
+    at, size = _alph(lossy)
+    for method in range(4):
+        payload = bytes([lossy[at] & 0xF3 | method << 2]) \
+            + lossy[at + 1:at + size]
+        data = _with_alph(lossy, payload)
+        got = webp.decode_alpha(payload, 27, 19)
+        _same(got, np.asarray(Image.open(io.BytesIO(data)))[..., 3])
+        _same(webp.decode_alpha_plain(payload, 27, 19), got)
+        _same(webp.decode_webp(data), _pil(data))
+    for payload, match in ((b"\x00", "an ALPH chunk of 1 bytes"),
+                           (b"\x02" + bytes(9), "header byte of 0x02"),
+                           (b"\x20" + bytes(9), "header byte of 0x20"),
+                           (b"\x40" + bytes(9), "header byte of 0x40"),
+                           (b"\x00" + bytes(9), "raw alpha data of 9 bytes "
+                            "for 513 pixels")):
+        for fn in (webp.decode_alpha, webp.decode_alpha_plain):
+            with pytest.raises(webp.WebPError, match=match):
+                fn(payload, 27, 19)
+        data = _with_alph(lossy, payload)
+        assert _reads(_pil, data) is None and _reads(_cv2, data) is None
+
+
+def test_alpha_stream_ending_within_its_last_symbol():
+    """Compressed ALPH payloads of PIL's (2-200 alpha levels, each alpha
+    filter), cut by 0-11 bytes and with bytes near their end replaced: each
+    file read or refused as PIL and cv2 read it. Among them are streams
+    whose last symbol runs past their end, which libwebp reads where it
+    takes DecodeAlphaData (colour indexing alone, no colour cache,
+    one-symbol red, blue and alpha codes) and refuses elsewhere: the
+    plain version with and without that rule disagrees on some of them,
+    so they are in the sweep. About 2 s."""
+    rng = np.random.default_rng(0)
+    counts = {"read": 0, "refused": 0, "the rule decides": 0}
+    h, w = 19, 27
+    for trial in range(12):
+        levels = (2, 3, 5, 16, 200)[trial % 5]
+        alpha = rng.integers(0, 256, levels)[rng.integers(0, levels, (h, w))]
+        rgba = np.concatenate([golden_input(trial, h, w),
+                               alpha[..., None].astype(np.uint8)], -1)
+        still = _save(rgba, quality=60,
+                      alpha_filter=("none", "fast", "best")[trial % 3])
+        at, size = _alph(still)
+        payload = still[at:at + size]
+        cases = [payload[:size - cut] for cut in range(12)]
+        for _ in range(40):
+            m = bytearray(payload)
+            m[size - 1 - int(rng.integers(0, 8))] = int(rng.integers(0, 256))
+            cases.append(bytes(m))
+        for case in cases:
+            data = _with_alph(still, case)
+            p, c = _reads(_pil, data), _reads(_cv2, data)
+            try:
+                got = webp.decode_webp(data)
+            except webp.WebPError:
+                assert p is None or c is None
+                counts["refused"] += 1
+            else:
+                _same(got, p)
+                _same(got, c)
+                counts["read"] += 1
+            ends = []
+            for rule in (False, True):
+                try:
+                    webp._lossless_stream(case[1:], w, h, rule)
+                    ends.append("read")
+                except webp._Refused as e:
+                    ends.append(e.args[0])
+            counts["the rule decides"] += ends[0] != ends[1]
+    assert counts["read"] > 300 and counts["refused"] > 50, counts
+    assert counts["the rule decides"] > 5, counts
 
 
 # -- the container ------------------------------------------------------------
@@ -496,11 +745,16 @@ CONTAINERS = {   # name: (file, the refusal's words, or None where read)
                             "the first chunk is b'ICCP'"),
     "VP8X of 12 bytes": (lambda: _vp8x(size=12), "a VP8X chunk of 12 bytes"),
     "VP8X flag bit 0": (lambda: _vp8x(flags=0x09), "VP8X flags 0x09"),
-    "VP8X animation flag": (lambda: _vp8x(flags=0x0A), "animated WebP"),
+    "VP8X animation flag": (lambda: _vp8x(flags=0x0A), "an image chunk "
+                            "outside the ANMF chunks of an animated file"),
     "ANIM before the image": (lambda: _vp8x(chunks=lambda im: [
-        _chunk(b"ANIM", bytes(6)), im]), "animated WebP"),
+        _chunk(b"ANIM", bytes(6)), im]), "an image chunk after an ANIM "
+        "chunk"),
     "ANMF": (lambda: _vp8x(chunks=lambda im: [im, _chunk(b"ANMF", bytes(16))]),
-             "animated WebP"),
+             "an ANMF chunk before the ANIM chunk"),
+    "ANIM, then an ANMF of no frame": (lambda: _vp8x(chunks=lambda im: [
+        im, _chunk(b"ANIM", bytes(6)), _chunk(b"ANMF", bytes(16)),
+        _chunk(b"ZZZZ", b"")]), None),
     "two images": (lambda: _vp8x(chunks=lambda im: [im, _chunk(b"EXIF", b"x"),
                                                    im]), "a second image"),
     "canvas size": (lambda: _vp8x(canvas=(13, 12)),
@@ -529,7 +783,9 @@ CONTAINERS = {   # name: (file, the refusal's words, or None where read)
 def test_container(name):
     """Hand-made containers: odd sizes and their pad byte, unknown and
     trailing chunks read as PIL and cv2 read them; each refusal names its
-    cause, and PIL or cv2 refuses the file too (an animated file aside)."""
+    cause, and PIL or cv2 refuses the file too (the three chunks of an
+    animation in a still file among them: PIL's demuxer refuses an image
+    after ANIM or in an animated file, and an ANMF before ANIM)."""
     make, match = CONTAINERS[name]
     data = make()
     p, c = _reads(_pil, data), _reads(_cv2, data)
@@ -540,14 +796,13 @@ def test_container(name):
         return
     with pytest.raises(webp.WebPError, match=match):
         webp.decode_webp(data)
-    if "animated" not in match:
-        assert p is None or c is None
+    assert p is None or c is None
 
 
 # A lossless header of 2^30 x 2^30 on five one-symbol codes, and a lossy
-# frame header of 16383 x 16383: the decoders' first buffers (2^62 bytes of
-# pixels; 400 MB of planes, in a process whose address space may grow by
-# 128 MiB) fail to allocate before any pixel is read.
+# frame header of 16383 x 16383: the first buffer of hw_webp_rgb (the
+# frame's RGB, 3 * 2^60 bytes; 805 MB, in a process whose address space may
+# grow by 128 MiB) fails to allocate before any pixel is read.
 NO_MEMORY = """
 import ctypes, resource, struct
 import numpy as np
@@ -559,15 +814,16 @@ out = np.zeros(3, np.uint8)
 bits = [0, 0, 0] + [1, 0, 0, 0] * 5           # no transform, cache, meta
 stream = bytes(5) + bytes(sum(b << i for i, b in enumerate(bits[k:k + 8]))
                           for k in range(0, len(bits), 8))
-code = lib.hw_vp8l_rgb(stream, len(stream), 1 << 30, 1 << 30,
-                       out.ctypes.data, detail)
+code = lib.hw_webp_rgb(stream, len(stream), 1, 1 << 30, 1 << 30, None, 0,
+                       1, 1, 0, 0, out.ctypes.data, detail)
 assert code == host.NO_MEMORY, code
 frame = bytearray(vp8_frame(1, 16, 16)[20:])
 frame[6:10] = struct.pack("<HH", 16383, 16383)
 vm = next(int(ln.split()[1]) for ln in open("/proc/self/status")
           if ln.startswith("VmSize:")) * 1024
 resource.setrlimit(resource.RLIMIT_AS, (vm + (1 << 27), vm + (1 << 27)))
-code = lib.hw_vp8_rgb(bytes(frame), len(frame), out.ctypes.data, detail)
+code = lib.hw_webp_rgb(bytes(frame), len(frame), 0, 16383, 16383, None, 0,
+                       1, 1, 0, 0, out.ctypes.data, detail)
 assert code == host.NO_MEMORY, code
 print("ok")
 """
@@ -607,9 +863,19 @@ def _compare(port_ds, jax_ds):
             assert got[k].tobytes() == v.tobytes(), (i, k)
 
 
+def _cmyk_jpeg(img, **opts):
+    """PIL's CMYK JPEG of an RGB image (K from the darkest of C, M, Y)."""
+    cmy = 255 - img
+    cmyk = np.concatenate([cmy, cmy.min(-1, keepdims=True) // 2], -1)
+    out = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(out, "JPEG", quality=90, **opts)
+    return out.getvalue()
+
+
 def _mixed(rng, h, w):
     """A lossy, a lossless and an extended (alpha, EXIF orientation 6)
-    WebP file, a PNG, a JPEG and a BMP of seeded images."""
+    WebP file, a PNG, a JPEG and a BMP of seeded images, and a lossy
+    animation with alpha and a CMYK JPEG."""
     img = rng.integers(0, 256, (h, w, 3), np.uint8)
     img = cv2.GaussianBlur(img, (5, 5), 0)
     rgba = np.concatenate([img, rng.integers(0, 256, (h, w, 1), np.uint8)],
@@ -619,13 +885,14 @@ def _mixed(rng, h, w):
     exif = b"II*\0\x08\0\0\0\1\0\x12\x01\3\0\1\0\0\0\6\0\0\0\0\0\0\0"
     return [_save(img, quality=70), _save(img[::-1], lossless=True),
             _save(rgba, quality=90, exif=exif), png_file(img, 8, 2),
-            jpg.getvalue(), bmp_file(img, 24)]
+            jpg.getvalue(), bmp_file(img, 24),
+            _animation([rgba, rgba[::-1]], quality=75), _cmyk_jpeg(img)]
 
 
 def test_celeba_mixed_directory_against_jax(tmp_path):
     """`CelebAHQDataset` on a directory mixing WebP (lossy, lossless, with
-    alpha and an EXIF orientation PIL ignores) with PNG, JPEG and BMP:
-    every item bit-equal to the JAX class's."""
+    alpha and an EXIF orientation PIL ignores, animated) with PNG, JPEG
+    (CMYK too) and BMP: every item bit-equal to the JAX class's."""
     from hifidiff_tpu.data import pretraining as jpretraining
     from hifidiff_tpu_torch.data import pretraining
 
@@ -639,27 +906,35 @@ def test_celeba_mixed_directory_against_jax(tmp_path):
 
 
 def _oriented(rng, h, w, k):
-    """The k-th file of an oriented tree: PNG, JPEG and WebP (lossy and
-    lossless) in turn, each with EXIF orientation k % 8 + 1 (PIL writes
-    the eXIf chunk, the APP1 segment, the EXIF chunk)."""
+    """The k-th file of an oriented tree: PNG, JPEG, WebP (lossy and
+    lossless), a CMYK JPEG and a lossless WebP animation in turn, each
+    with EXIF orientation k % 8 + 1 (PIL writes the eXIf chunk, the APP1
+    segment, the EXIF chunk)."""
     img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8),
                            (5, 5), 0)
     exif = Image.Exif()
     exif[0x0112] = k % 8 + 1
+    if k % 6 == 4:
+        return _cmyk_jpeg(img, exif=exif)
     fmt, opts = (("PNG", {}), ("JPEG", dict(quality=90)),
                  ("WEBP", dict(quality=80)),
-                 ("WEBP", dict(lossless=True)))[k % 4]
+                 ("WEBP", dict(lossless=True)),
+                 None,
+                 ("WEBP", dict(lossless=True, save_all=True,
+                               append_images=[Image.fromarray(img[::-1])])))[
+        k % 6]
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, fmt, exif=exif, **opts)
     return buf.getvalue()
 
 
 def test_multipie_oriented_tree_against_jax(tmp_path, cv2_own):
-    """The Multi-PIE sets on a tree whose `.png` paths hold PNG, JPEG and
-    WebP files at every EXIF orientation (cv2 and PIL read by content):
-    the cv2 sites (`MultiPIEDataset`'s input and GT, the IDC set, Multi-PIE
-    HQ) turn them as `cv2.imread` does, the PIL sites do not, each item
-    bit-equal to the JAX classes'."""
+    """The Multi-PIE sets on a tree whose `.png` paths hold PNG, JPEG (CMYK
+    too) and WebP files (animations too) at every EXIF orientation (cv2
+    and PIL read by content): the cv2 sites (`MultiPIEDataset`'s input and
+    GT, the IDC set, Multi-PIE HQ) turn them as `cv2.imread` does and read
+    CMYK by cv2's rule, the PIL sites do not turn them and read CMYK by
+    PIL's, each item bit-equal to the JAX classes'."""
     from hifidiff_tpu.data import multipie as jmultipie
     from hifidiff_tpu.data import pretraining as jpretraining
     from hifidiff_tpu_torch.data import multipie, pretraining
